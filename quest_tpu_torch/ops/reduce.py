@@ -1,0 +1,47 @@
+"""Scalar reductions over planar states.
+
+The reference protects its norm accumulations with Kahan summation
+(statevec_calcTotalProb, QuEST_cpu_distributed.c:62-119) because low
+precision drifts over 2^N terms. As in ``quest_tpu/ops/reduce.py``: f64
+states accumulate in f64; f32 states sum by the adjacent-pair cascade,
+whose rounding error grows O(log N) instead of O(N).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _pairwise_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rowwise pairwise (cascade) summation over the LAST axis of a 2-D
+    tensor, pairing adjacent elements (2i, 2i+1)."""
+    m = x.shape[-1]
+    while m > 1 and m % 2 == 0:
+        x = x.reshape(x.shape[0], -1, 2).sum(dim=-1)
+        m //= 2
+    return x.sum(dim=-1)
+
+
+def csum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Compensated rowwise reduction of a 2-D tensor over its last axis:
+    f64 accumulation for f64 input, the adjacent-pair cascade for f32."""
+    if x.dtype == torch.float64:
+        return x.sum(dim=-1)
+    return _pairwise_sum_rows(x)
+
+
+def _csum(x: torch.Tensor) -> torch.Tensor:
+    return csum_rows(x.reshape(1, -1))[0]
+
+
+def total_prob_statevec(amps: torch.Tensor) -> torch.Tensor:
+    """sum |amp|^2 (statevec_calcTotalProb, Kahan in the reference)."""
+    return _csum(amps[0] * amps[0] + amps[1] * amps[1])
+
+
+def prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
+                    outcome: int) -> torch.Tensor:
+    """P(measuring ``outcome`` on ``target``) of a state-vector
+    (statevec_findProbabilityOfZeroLocal, ``QuEST_cpu.c:3385``)."""
+    sub = amps.reshape(2, 1 << (n - 1 - target), 2, 1 << target)[:, :, outcome, :]
+    return _csum(sub[0] * sub[0] + sub[1] * sub[1])

@@ -1,0 +1,40 @@
+"""The port stands alone: importing it (or the on-card smoke script) pulls
+in neither JAX nor quest_tpu, and its entry point never picks the CPU by
+itself."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import quest_tpu_torch as tq
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke"])
+def test_import_pulls_in_no_jax(module):
+    code = (f"import sys, json, {module}, quest_tpu_torch.fusion, "
+            "quest_tpu_torch.interop, quest_tpu_torch.ops.fused_gates; "
+            "print(json.dumps(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_env_raises_without_cuda_unless_cpu_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default env is valid here")
+    with pytest.raises(tq.QuESTError, match='device="cpu"'):
+        tq.createQuESTEnv()
+    with pytest.raises(tq.QuESTError, match='device="cpu"'):
+        tq.createQuESTEnv(device="cuda:0")
+    env = tq.createQuESTEnv(device="cpu")
+    assert env.device == torch.device("cpu")
+    assert tq.createQureg(3, env).amps.device.type == "cpu"
