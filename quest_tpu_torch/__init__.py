@@ -12,20 +12,18 @@ This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 from .calculations import (calcProbOfOutcome, calcTotalProb, getAmp,
                            getImagAmp, getRealAmp)
 from .circuits import Circuit, random_layers
-from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
-                          getQuESTSeeds, seedQuEST, seedQuESTDefault,
-                          syncQuESTEnv)
+from .environment import (QuESTEnv, createQuESTEnv, seedQuEST,
+                          seedQuESTDefault)
 from .gates import (controlledNot, controlledPhaseFlip, hadamard,
                     multiRotateZ, multiStateControlledUnitary, pauliX,
                     rotateX, rotateZ, swapGate, tGate, unitary)
 from .registers import Qureg, createQureg, destroyQureg, get_np
 from .state_init import (initBlankState, initClassicalState, initDebugState,
                          initPlusState, initZeroState)
-from .validation import QuESTError, set_input_error_handler
+from .validation import QuESTError
 
 __all__ = [
-    "QuESTEnv", "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv",
-    "seedQuEST", "seedQuESTDefault", "getQuESTSeeds",
+    "QuESTEnv", "createQuESTEnv", "seedQuEST", "seedQuESTDefault",
     "Qureg", "createQureg", "destroyQureg", "get_np",
     "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
     "initDebugState",
@@ -33,5 +31,5 @@ __all__ = [
     "controlledPhaseFlip", "unitary", "multiRotateZ", "swapGate",
     "multiStateControlledUnitary", "pauliX",
     "calcTotalProb", "calcProbOfOutcome", "getAmp", "getRealAmp", "getImagAmp",
-    "Circuit", "random_layers", "QuESTError", "set_input_error_handler",
+    "Circuit", "random_layers", "QuESTError",
 ]

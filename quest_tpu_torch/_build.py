@@ -96,13 +96,33 @@ def build_log(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+#: the C signatures of each library's exported functions
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "fused_gates": {
+        # (src, dst, n, tile_bits, ops, num_ops, coeffs, load_k, load_hi,
+        #  store_k, store_hi, has_lane_u, stream) -> cudaError_t
+        "quest_fused_run_f32": ([_VP, _VP, _CI, _CI, _VP, _CI, _VP, _CI, _CI,
+                                 _CI, _CI, _CI, _VP], _CI),
+        "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _VP, _CI, _VP, _CI, _CI,
+                                 _CI, _CI, _CI, _VP], _CI),
+        "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+}
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed, with argtypes
+    and restype set on every exported function."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     build_all([name])
     with _lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (args, res) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
+            _loaded[name] = lib
         return _loaded[name]

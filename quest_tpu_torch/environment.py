@@ -28,14 +28,6 @@ class QuESTEnv:
     seeds: list[int] = field(default_factory=list)
     rng: np.random.RandomState | None = None
 
-    @property
-    def num_ranks(self) -> int:
-        return 1
-
-    @property
-    def rank(self) -> int:
-        return 0
-
 
 def createQuESTEnv(device: str | torch.device | None = None) -> QuESTEnv:
     """Create the environment (createQuESTEnv, QuEST.h:2196) on ``device``
@@ -54,16 +46,6 @@ def createQuESTEnv(device: str | torch.device | None = None) -> QuESTEnv:
     return env
 
 
-def destroyQuESTEnv(env: QuESTEnv) -> None:
-    """No-op (no MPI_Finalize needed); kept for API parity."""
-
-
-def syncQuESTEnv(env: QuESTEnv) -> None:
-    """Block until the work queued on the env's device is done."""
-    if env.device.type == "cuda":
-        torch.cuda.synchronize(env.device)
-
-
 def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
     """Seed the measurement RNG from a user key array (numpy's MT19937
     init_by_array, as the reference, QuEST_common.c:209-217)."""
@@ -75,8 +57,3 @@ def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
 def seedQuESTDefault(env: QuESTEnv) -> None:
     """Default seeding from time + pid (QuEST_common.c:195-207)."""
     seedQuEST(env, [int(time.time()) & 0xFFFFFFFF, os.getpid() & 0xFFFFFFFF])
-
-
-def getQuESTSeeds(env: QuESTEnv) -> list[int]:
-    """The seeds the env's RNG was last seeded with (QuEST.h:126)."""
-    return list(env.seeds)

@@ -798,24 +798,6 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
             raise ValueError(f"no engine route for op {op[0]!r}")
 
 
-def _apply_run_via_engine(qureg, run: PallasRun) -> None:
-    """A PallasRun replayed through the engine, its folded swaps as explicit
-    relabeling passes (the plain replay of a plan)."""
-    from .ops.fused_gates import swap_bit_blocks
-
-    nsv = qureg.num_qubits_in_state_vec
-    tb = run.tile_bits
-    if run.load_swap_k:
-        qureg.put(swap_bit_blocks(qureg.amps, n=nsv, lo1=tb - run.load_swap_k,
-                                  lo2=tb if run.load_swap_hi is None else run.load_swap_hi,
-                                  k=run.load_swap_k))
-    _apply_ops_via_engine(qureg, run.ops)
-    if run.store_swap_k:
-        qureg.put(swap_bit_blocks(qureg.amps, n=nsv, lo1=tb - run.store_swap_k,
-                                  lo2=tb if run.store_swap_hi is None else run.store_swap_hi,
-                                  k=run.store_swap_k))
-
-
 def as_tape(p: FusePlan) -> list:
     """Lower a FusePlan back to Circuit tape entries (fn, args, kwargs)."""
     from . import gates as G

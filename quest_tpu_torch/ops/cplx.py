@@ -1,9 +1,10 @@
-"""Planar complex arithmetic.
+"""Planar complex conversion.
 
 The state is stored planar, one real tensor of shape (2, ...) holding
 (real, imag): the same SoA layout as the reference's ComplexArray
 (QuEST.h:94-98) and as ``quest_tpu``, so the two packages' states compare
-plane for plane. Complex algebra is spelled out over the two planes.
+plane for plane. Complex values cross only at the API boundary (gate
+matrices in, amplitudes out).
 """
 
 from __future__ import annotations
@@ -24,12 +25,3 @@ def to_complex(x: torch.Tensor) -> np.ndarray:
     h = x.detach().cpu().numpy()
     return h[0] + 1j * h[1]
 
-
-def cmul(ar, ai, br, bi):
-    """(ar + i ai)(br + i bi) -> (re, im)."""
-    return ar * br - ai * bi, ar * bi + ai * br
-
-
-def abs2(x: torch.Tensor) -> torch.Tensor:
-    """|x|^2 plane-wise: x is (2, ...)."""
-    return x[0] * x[0] + x[1] * x[1]

@@ -32,7 +32,6 @@ reads, and the card checks the kernel against the plain version.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
@@ -49,12 +48,10 @@ _LANES = 1 << LANE_BITS
 _DEF_SUBLANES = 1 << 12
 
 #: the Hopper tile: the largest one whose two planes fit 64 KiB of shared
-#: memory, which leaves room for two thread blocks per SM
+#: memory, which leaves room for two thread blocks per SM. It is also the
+#: largest tile the kernel takes: its dense ops keep 16 (f32) or 8 (f64)
+#: outputs per thread of 512.
 HOPPER_TILE_BITS = {torch.float32: 13, torch.float64: 12}
-
-#: the largest tile each kernel instantiation takes: its dense ops keep 16
-#: (f32) or 8 (f64) outputs per thread of 512
-MAX_TILE_BITS = HOPPER_TILE_BITS
 
 #: width (in qubits) of each sublane fold zone, as in the JAX package
 _ZONE_SPAN = 5
@@ -131,23 +128,17 @@ def op_dense_targets(op) -> tuple:
         if complex(m[0][1]) == 0 and complex(m[1][0]) == 0:
             return ()
         return (op[1],)
-    if op[0] in ("swap", "kraus1"):
+    if op[0] == "swap":
         return (op[1], op[2])
-    if op[0] == "kraus2":
-        return tuple(op[1:5])
-    if op[0] == "krausn":
-        return (*op[1], *op[2])
     return ()  # parity / diagw / lane_u / window
 
 
 def _op_support(op):
     if op[0] == "matrix":
         return {op[1], *op[2]}
-    if op[0] in ("swap", "kraus1"):
-        return {op[1], op[2], *(op[3] if op[0] == "swap" else ())}
-    if op[0] == "kraus2":
-        return {op[1], op[2], op[3], op[4]}
-    if op[0] in ("diagw", "parity", "krausn"):
+    if op[0] == "swap":
+        return {op[1], op[2], *op[3]}
+    if op[0] in ("diagw", "parity"):
         return {*op[1], *op[2]}
     return set(range(LANE_BITS))  # lane_u acts on the lane zone
 
@@ -212,8 +203,6 @@ def _fold_zone_ops(ops, tile_bits: int) -> tuple:
     accum = {z: [] for z in zones}
 
     def zone_of(op):
-        if op[0] in ("kraus1", "kraus2", "krausn"):
-            return None  # non-unitary: must never enter a zone's dense fold
         s = _op_support(op)
         for z in zones:
             if all(z[0] <= q < z[1] for q in s):
@@ -379,10 +368,10 @@ def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps) -> None:
         raise ValueError(f"state must be planar (2, 2^{n}), got {tuple(amps.shape)}")
     if amps.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"state must be float32 or float64, got {amps.dtype}")
-    if not LANE_BITS <= tile_bits <= min(n, MAX_TILE_BITS[amps.dtype]):
+    if not LANE_BITS <= tile_bits <= min(n, HOPPER_TILE_BITS[amps.dtype]):
         raise ValueError(
             f"tile_bits={tile_bits} outside [{LANE_BITS}, "
-            f"min(n={n}, {MAX_TILE_BITS[amps.dtype]})] for {amps.dtype}")
+            f"min(n={n}, {HOPPER_TILE_BITS[amps.dtype]})] for {amps.dtype}")
     for o in ops:
         bad = [q for q in op_dense_targets(o) if q >= tile_bits]
         if bad:
@@ -451,9 +440,6 @@ def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh) -> None:
     lib = _build.library("fused_gates")
     fn = (lib.quest_fused_run_f32 if src.dtype == torch.float32
           else lib.quest_fused_run_f64)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp]
-    fn.restype = ci
     table, coeffs = prepared.device_tables(src.device, src.dtype)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -461,8 +447,6 @@ def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh) -> None:
                  table.data_ptr(), int(table.shape[0]), coeffs.data_ptr(),
                  lk, lh, sk, sh, int(prepared.has_lane_u), stream)
     if err != 0:
-        lib.quest_cuda_error_string.restype = ctypes.c_char_p
-        lib.quest_cuda_error_string.argtypes = [ci]
         msg = lib.quest_cuda_error_string(err).decode()
         raise RuntimeError(f"fused-run kernel launch failed: {msg} ({err})")
     fused_run.launches += 1

@@ -35,12 +35,6 @@ def real_dtype(precision: int | None = None) -> torch.dtype:
     return _PRECISIONS[code][0]
 
 
-def real_eps(precision: int | None = None) -> float:
-    """Validation tolerance, as REAL_EPS in QuEST_precision.h:48,63."""
-    code = default_precision() if precision is None else precision
-    return _PRECISIONS[code][1]
-
-
 def precision_for_dtype(dtype) -> int:
     return 1 if as_torch_dtype(dtype) == torch.float32 else 2
 

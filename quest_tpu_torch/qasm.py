@@ -81,17 +81,8 @@ class QASMLogger:
     def stop(self):
         self.recording = False
 
-    def clear(self):
-        self._write_header()
-
     def printed(self) -> str:
         return "\n".join(self._lines) + "\n"
-
-    def write_to_file(self, filename: str):
-        with open(filename, "w") as f:
-            f.write(self.printed())
-
-    # -- low-level line assembly (addGateToQASM, QuEST_qasm.c:133-173) ------
 
     def _num(self, p) -> str:
         return self._fmt % float(p)
@@ -114,12 +105,6 @@ class QASMLogger:
         if self.recording:
             self._add_gate(gate, (), target, (param,))
 
-    def record_compact_unitary(self, alpha, beta, target: int):
-        if not self.recording:
-            return
-        rz2, ry, rz1 = zyz_angles_from_complex_pair(alpha, beta)
-        self._add_gate("unitary", (), target, (rz2, ry, rz1))
-
     def record_unitary(self, u, target: int):
         if not self.recording:
             return
@@ -131,56 +116,14 @@ class QASMLogger:
         if self.recording:
             self._add_gate(gate, (control,), target)
 
-    def record_controlled_param_gate(self, gate: str, control: int,
-                                     target: int, param: float):
-        if not self.recording:
-            return
-        self._add_gate(gate, (control,), target, (param,))
-        # correct the global phase of controlled phase shifts
-        # (qasm_recordControlledParamGate, QuEST_qasm.c:244-259)
-        if gate == "phaseShift":
-            self.record_comment("Restoring the discarded global phase of the "
-                                "previous controlled phase gate")
-            self._add_gate("rotateZ", (), target, (param / 2.0,))
-
-    def record_controlled_compact_unitary(self, alpha, beta,
-                                          control: int, target: int):
-        if not self.recording:
-            return
-        rz2, ry, rz1 = zyz_angles_from_complex_pair(alpha, beta)
-        self._add_gate("unitary", (control,), target, (rz2, ry, rz1))
-
-    def record_controlled_unitary(self, u, control: int, target: int):
-        """Additionally performs Rz on target to restore the global phase lost
-        from u in QASM U(a,b,c) (qasm_recordControlledUnitary)."""
-        if not self.recording:
-            return
-        self.record_multi_controlled_unitary(u, (control,), target,
-                                             _kind="controlled")
-
-    def record_multi_controlled_gate(self, gate: str, controls, target: int):
-        if self.recording:
-            self._add_gate(gate, tuple(controls), target)
-
-    def record_multi_controlled_param_gate(self, gate: str, controls,
-                                           target: int, param: float):
-        if not self.recording:
-            return
-        self._add_gate(gate, tuple(controls), target, (param,))
-        if gate == "phaseShift":
-            self.record_comment("Restoring the discarded global phase of the "
-                                "previous multicontrolled phase gate")
-            self._add_gate("rotateZ", (), target, (param / 2.0,))
-
-    def record_multi_controlled_unitary(self, u, controls, target: int,
-                                        _kind: str = "multicontrolled"):
+    def record_multi_controlled_unitary(self, u, controls, target: int):
         if not self.recording:
             return
         alpha, beta, global_phase = complex_pair_and_phase_from_unitary(u)
         rz2, ry, rz1 = zyz_angles_from_complex_pair(alpha, beta)
         self._add_gate("unitary", tuple(controls), target, (rz2, ry, rz1))
         self.record_comment("Restoring the discarded global phase of the "
-                            f"previous {_kind} unitary")
+                            "previous multicontrolled unitary")
         self._add_gate("rotateZ", (), target, (global_phase,))
 
     def record_multi_state_controlled_unitary(self, u, controls, states,
@@ -200,22 +143,6 @@ class QASMLogger:
         for c, s in zip(controls, states):
             if s == 0:
                 self._add_gate("sigmaX", (), c)
-
-    def record_multi_controlled_multi_qubit_not(self, controls, targets):
-        """(qasm_recordMultiControlledMultiQubitNot, QuEST_qasm.c:378-388)."""
-        if not self.recording:
-            return
-        name = ("multiControlledMultiQubitNot" if controls
-                else "multiQubitNot")
-        self.record_comment(
-            f"The following {len(targets)} gates resulted from a single "
-            f"{name}() call")
-        for t in targets:
-            self._add_gate("sigmaX", tuple(controls), t)
-
-    def record_measurement(self, target: int):
-        if self.recording:
-            self._lines.append(f"measure q[{target}] -> c[{target}];")
 
     # -- init records (QuEST_qasm.c:438-480) --------------------------------
 

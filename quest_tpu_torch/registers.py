@@ -46,14 +46,6 @@ class Qureg:
         return 1 << self.num_qubits_in_state_vec
 
     @property
-    def numQubitsRepresented(self) -> int:
-        return self.num_qubits_represented
-
-    @property
-    def numAmpsTotal(self) -> int:
-        return self.num_amps_total
-
-    @property
     def dtype(self) -> torch.dtype:
         """Real dtype of the planar amplitude planes (float32/float64)."""
         return self.amps.dtype

@@ -11,13 +11,9 @@ __all__ = ["initBlankState", "initZeroState", "initPlusState",
            "initClassicalState", "initDebugState"]
 
 
-def _device(qureg: Qureg):
-    return qureg.amps.device
-
-
 def initBlankState(qureg: Qureg) -> None:
     """All-zero amplitudes (unnormalised) (QuEST.h:1619)."""
-    qureg.put(I.init_blank(qureg.num_amps_total, qureg.dtype, _device(qureg)))
+    qureg.put(I.init_blank(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_comment(
             "Here, the register was initialised to an unphysical all-zero-amplitudes 'state'.")
@@ -25,14 +21,14 @@ def initBlankState(qureg: Qureg) -> None:
 
 def initZeroState(qureg: Qureg) -> None:
     """Set the register to |0...0> (QuEST.h:194)."""
-    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, _device(qureg), 0))
+    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device, 0))
     if qureg.qasm_log:
         qureg.qasm_log.record_init_zero()
 
 
 def initPlusState(qureg: Qureg) -> None:
     """Set the register to |+>^n, every amplitude equal (QuEST.h:195)."""
-    qureg.put(I.init_plus(qureg.num_amps_total, qureg.dtype, _device(qureg)))
+    qureg.put(I.init_plus(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_init_plus()
 
@@ -40,7 +36,7 @@ def initPlusState(qureg: Qureg) -> None:
 def initClassicalState(qureg: Qureg, state_index: int) -> None:
     """Set the register to computational basis state |stateInd> (QuEST.h:196)."""
     V.validate_state_index(qureg, state_index, "initClassicalState")
-    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, _device(qureg),
+    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device,
                                state_index))
     if qureg.qasm_log:
         qureg.qasm_log.record_init_classical(state_index)
@@ -48,6 +44,6 @@ def initClassicalState(qureg: Qureg, state_index: int) -> None:
 
 def initDebugState(qureg: Qureg) -> None:
     """amp_i = (2i + (2i+1) i)/10: the deterministic test fixture (QuEST.h:1721)."""
-    qureg.put(I.init_debug(qureg.num_amps_total, qureg.dtype, _device(qureg)))
+    qureg.put(I.init_debug(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_comment("initDebugState")

@@ -49,18 +49,6 @@ def counter_total(name: str) -> float:
                    if k == name or k.startswith(name + "{"))
 
 
-def counters(name: str) -> dict:
-    """{label-suffix: value} for every series of ``name`` ('' unlabeled)."""
-    out = {}
-    with _lock:
-        for k, v in _counters.items():
-            if k == name:
-                out[""] = v
-            elif k.startswith(name + "{"):
-                out[k[len(name):]] = v
-    return out
-
-
 def reset() -> None:
     with _lock:
         _counters.clear()

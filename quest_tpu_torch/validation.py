@@ -2,20 +2,20 @@
 
 A copy of the matching functions of ``quest_tpu/validation.py`` (itself the
 counterpart of the reference's ``QuEST_validation.c``), with the messages
-verbatim so that ``pytest.raises(match=...)`` cases carry over. Failures
-go through the overridable hook ``invalid_quest_input_error``, which by
-default raises :class:`QuESTError`.
+verbatim so that ``pytest.raises(match=...)`` cases carry over. A failure
+raises :class:`QuESTError` (the JAX package's default hook); the
+overridable hook waits for the rest of the API.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Sequence
 
 import numpy as np
 
 
 class QuESTError(Exception):
-    """Raised (by the default hook) when API input validation fails."""
+    """Raised when API input validation fails."""
 
     def __init__(self, message: str, func: str = ""):
         self.message = message
@@ -23,23 +23,7 @@ class QuESTError(Exception):
         super().__init__(message if not func else f"{func}: {message}")
 
 
-def _default_handler(err_msg: str, err_func: str) -> None:
-    raise QuESTError(err_msg, err_func)
-
-
-#: the overridable hook, mirroring invalidQuESTInputError (QuEST.h:6160-6188)
-invalid_quest_input_error: Callable[[str, str], None] = _default_handler
-
-
-def set_input_error_handler(handler: Callable[[str, str], None] | None) -> None:
-    """Override the validation failure hook (None restores the default)."""
-    global invalid_quest_input_error
-    invalid_quest_input_error = handler if handler is not None else _default_handler
-
-
 def _fail(msg: str, func: str) -> None:
-    invalid_quest_input_error(msg, func)
-    # a hook that returns must not let invalid input through
     raise QuESTError(msg, func)
 
 
@@ -174,7 +158,7 @@ def validate_num_amps_fit_type(num_qubits: int, is_density: bool, func: str) -> 
 
 
 def validate_qureg_allocation(alloc_fn, func: str):
-    """Run ``alloc_fn``, translating allocator failure into the hook
+    """Run ``alloc_fn``, turning an allocator failure into a QuESTError
     (validateQuregAllocation, QuEST_cpu.c:1318)."""
     import torch
 

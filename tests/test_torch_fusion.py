@@ -15,6 +15,7 @@ from quest_tpu.ops import pallas_gates as PG
 import quest_tpu_torch as tq
 from quest_tpu_torch import fusion as F
 from quest_tpu_torch.interop import circuit_from_tape, ops_from_reference
+from quest_tpu_torch.ops import fused_gates as FG
 from quest_tpu_torch.ops import init as ops_init
 
 
@@ -40,6 +41,21 @@ def assert_plans_equal(ref, got):
             np.testing.assert_allclose(b.diag, a.diag, rtol=0, atol=1e-14)
         else:  # a barrier entry
             assert b[0].__name__ == a[0].__name__ and b[1:] == a[1:]
+
+
+def _apply_run_via_engine(qureg, run):
+    """A PallasRun replayed op by op through the per-gate engine, its
+    folded swaps as explicit relabeling passes: the plain replay of a plan."""
+    nsv, tb = qureg.num_qubits_in_state_vec, run.tile_bits
+
+    def swap(k, hi):
+        if k:
+            qureg.put(FG.swap_bit_blocks(qureg.amps, n=nsv, lo1=tb - k,
+                                         lo2=tb if hi is None else hi, k=k))
+
+    swap(run.load_swap_k, run.load_swap_hi)
+    F._apply_ops_via_engine(qureg, run.ops)
+    swap(run.store_swap_k, run.store_swap_hi)
 
 
 def _both(n, depth, seed):
@@ -132,7 +148,7 @@ def test_plan_replays_to_unfused_state(n):
         f(q_kernel, *a, **kw)
     assert all(isinstance(item, F.PallasRun) for item in p.items)
     for item in p.items:
-        F._apply_run_via_engine(q_engine, item)
+        _apply_run_via_engine(q_engine, item)
     tc.run(q_ref)
     ref = q_ref.amps.numpy()
     for q in (q_kernel, q_engine):
