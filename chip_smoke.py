@@ -30,6 +30,7 @@ Lines starting with ``#`` carry the detail; the line before the last is
 
 from __future__ import annotations
 
+import importlib.metadata
 import json
 import subprocess
 import sys
@@ -144,7 +145,12 @@ def main() -> int:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"# card: {card}")
-    print(f"# torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
+    try:
+        triton = importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        triton = "not installed"
+    print(f"# torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
+          f"triton {triton} (not used by the port)")
     print(f"# nvcc: {nvcc.splitlines()[-1]}")
     t0 = time.perf_counter()
     built = _build.build_all()
