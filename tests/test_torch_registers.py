@@ -39,7 +39,7 @@ def test_create_qureg_matches_reference(envs):
     _same(jqr, tqr)
     assert tqr.num_amps_total == 1 << N and tqr.device.type == "cpu"
     assert tqr.dtype == torch.float64 and tqr.eps == 1e-13
-    f32 = tq.createQureg(N, envs[1], precision_code=1)
+    f32 = tq.createQureg(N, envs[1], 1)  # precision code 1: f32
     assert f32.dtype == torch.float32 and f32.eps == 1e-5
 
 
