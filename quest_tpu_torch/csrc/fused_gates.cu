@@ -33,10 +33,10 @@
 // between one load and one store of each tile. A lane_u op is 128 complex
 // multiply-adds per amplitude (about 6.9e10 flop at 26 qubits), about
 // 1 ms at the 67 TFLOP/s FP32 rate: passes that carry one are bound by
-// operations. Here it is plain FMA from shared memory, its 128x128 matrix
-// read through the L1/L2 caches (128 KiB in f32, 256 KiB in f64: more
-// than the shared memory left beside the tile); tensor-core MMA is later
-// work.
+// operations. Here it is plain FMA chains from shared memory, its 128x128
+// matrix (128 KiB in f32, 256 KiB in f64: too big to sit beside the tile)
+// streamed through a 32 KiB shared-memory panel, so two blocks still fit
+// an SM; tensor-core MMA is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (quest_tpu_torch/_build.py does this at first use)
