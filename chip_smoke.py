@@ -37,7 +37,7 @@ import sys
 import time
 
 N_MAIN, DEPTH_MAIN, N_KERNEL = 26, 8, 20
-#: H100 SXM data-sheet rates (the on-chip-measurement table): HBM bytes/s
+#: H100 SXM data-sheet rates: HBM bytes/s
 #: and FP32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
