@@ -10,9 +10,11 @@ no result, without them. Phases, in order:
    per source, started together) and print the toolchain and the card;
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
-   and grid-bit controls, parity, swap, diagw, lane_u, window) and every
-   folded swap form (load, store, both, asymmetric); limits 1e-5 (f32) and
-   1e-12 (f64) max abs error on a normalised state;
+   and grid-bit controls, parity, swap, diagw, lane_u, window, and the
+   channel ops kraus1, kraus2, krausn with signed terms, unsorted targets
+   and non-trace-preserving operators) and every folded swap form (load,
+   store, both, asymmetric; each kraus kind with and without one); limits
+   1e-5 (f32) and 1e-12 (f64) max abs error on a normalised state;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
    depth 8, f32) planned by ``Circuit.fused(max_qubits=5, pallas=True)``
    at the Hopper tile; each of its runs through the kernel against the
@@ -22,7 +24,20 @@ no result, without them. Phases, in order:
    total probability must be within 1e-4 of 1 and the amplitudes within
    2e-4 of a plain per-gate replay; then gates/sec;
 4. yardsticks: a full-state ``copy_`` and ``torch.matmul`` of one lane_u
-   product, which the port never calls.
+   product, which the port never calls;
+5. density path, f32 then f64: the bench's channel circuits ("r3", 10
+   entries, and "r4", 11 with a 3-target Kraus map) on a 14-qubit density
+   register (28 flattened qubits) from ``initPlusState``, planned by
+   ``Circuit.fused(max_qubits=4, pallas=True)`` at the Hopper tile; each
+   run's pass through the kernel against the plain version (and timed),
+   then the circuit through ``Circuit.run`` with the counts reset just
+   before it: launches must equal the runs executed,
+   ``engine_fallback_total`` must read 0, and every fusion barrier is
+   printed with the route its channel took (``channel_route_total``); the
+   trace must be within 1e-4 (f32) or 1e-10 (f64) of 1 and the amplitudes
+   within 2e-4 (f32) or 1e-10 (f64) of a per-gate replay of the unfused
+   tape with every channel on the per-term engine; then channel-ops/sec,
+   the barrier channel's own time, and a full-state ``copy_``.
 
 Lines starting with ``#`` carry the detail; the line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -36,11 +51,12 @@ import subprocess
 import sys
 import time
 
-N_MAIN, DEPTH_MAIN, N_KERNEL = 26, 8, 20
-#: H100 SXM data-sheet rates: HBM bytes/s
-#: and FP32 FLOP/s outside the tensor cores
+N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY = 26, 8, 20, 14
+#: H100 SXM data-sheet rates: HBM bytes/s,
+#: and FP32 and FP64 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 
 
 def _require(cond: bool, what: str) -> None:
@@ -75,14 +91,18 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float]:
     """(bytes, flops) one pass of ``prepared`` needs on an n-qubit state:
     each amplitude of both planes read once and written once; flops per
     control-satisfied amplitude: 2x2 matrix 16, diagonal 6, swap 0,
-    lane_u 1024 (128 complex multiply-adds), window 8 * 2^span."""
-    from quest_tpu_torch.ops.fused_gates import _op_is_diag
+    lane_u 1024 (128 complex multiply-adds), window 8 * 2^span, a kraus op
+    on t row qubits 8 * 4^t (its superoperator's 4^t complex
+    multiply-adds)."""
+    from quest_tpu_torch.ops.fused_gates import _KRAUS, _op_is_diag, kraus_parts
 
     N = 1 << n
     flops = 0.0
     for op in prepared.ops:
         kind = op[0]
-        if kind == "lane_u":
+        if kind in _KRAUS:
+            flops += 8.0 * 4 ** len(kraus_parts(op)[0]) * N
+        elif kind == "lane_u":
             flops += 1024.0 * N
         elif kind == "window":
             flops += 8.0 * (1 << op[2]) * N
@@ -104,6 +124,21 @@ def _kernel_cases(n: int, tb: int, rng):
         q, _ = np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))
         return HM(q)
 
+    def rk(d, scale):  # a Kraus operator; a non-CPTP set unless scaled so
+        return HM(scale * (rng.randn(d, d) + 1j * rng.randn(d, d)))
+
+    # kraus ops: rows below, columns at the top of the tile, or relocated
+    # there by folded swaps from above it (as the planner's frames do)
+    signed = tuple((s, rk(2, 0.5)) for s in (1.0, -1.0, 1.0))
+    kraus = (("kraus1", 2, tb - 1, signed),
+             ("kraus2", 1, 0, tb - 1, tb - 2, tuple((1.0, rk(4, 0.4)) for _ in range(3))),
+             ("krausn", (4, 0, 2), (tb - 1, tb - 3, tb - 2),
+              ((1.0, rk(8, 0.3)), (-1.0, rk(8, 0.2)))))
+    kraus_swapped = (("kraus1", 5, tb - 1, signed),
+                     ("kraus2", 3, 4, tb - 2, tb - 1, ((1.0, rk(4, 0.5)),)),
+                     ("krausn", (5, 1, 3), (tb - 2, tb - 1, tb - 3),
+                      ((1.0, rk(8, 0.3)), (1.0, rk(8, 0.3)))))
+
     g = n - 1  # a grid bit
     matrix = (("matrix", 0, (), (), ru()),                  # lane target
               ("matrix", 9, (), (), ru()),                  # sublane target
@@ -118,13 +153,216 @@ def _kernel_cases(n: int, tb: int, rng):
     window = tuple(("matrix", 7 + q % 5, (), (), ru()) for q in range(25))
     mixed = matrix + parity + swap + diagw + lane[:9] + window[:10]
     none = (0, None, 0, None)
-    return [("matrix", matrix, none), ("parity", parity, none),
-            ("swap", swap, none), ("diagw", diagw, none),
-            ("lane_u", lane, none), ("window", window, none),
+    cases = [("matrix", matrix, none), ("parity", parity, none),
+             ("swap", swap, none), ("diagw", diagw, none),
+             ("lane_u", lane, none), ("window", window, none)]
+    for op, sw in zip(kraus, kraus_swapped):
+        k = len(op[1]) if op[0] == "krausn" else int(op[0][-1])
+        cases.append((op[0], (op,), none))
+        cases.append((f"{op[0]}+swap", (sw,), (k, n - k, k, n - k)))
+    return cases + [
             ("load_swap", mixed, (2, None, 0, None)),
             ("store_swap", mixed, (0, None, 3, None)),
             ("load+store_swap", mixed, (2, None, 2, None)),
             ("asymmetric_swap", mixed, (1, n - 1, 2, tb + 1))]
+
+
+def _passes(runs, n: int, dt, dev, rng, tol: float, label: str) -> dict:
+    """Each run of a plan through the kernel against the plain version on a
+    random normalised n-qubit state, and timed (CUDA events, 5 launches);
+    one ``# pass`` line each. Returns the per-pass lists and the max error."""
+    import torch
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    itemsize = torch.finfo(dt).bits // 8
+    peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_FP64_FLOPS
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    out = torch.empty_like(st)
+    res = {"ms": [], "plain_ms": [], "bound_ms": [], "by_ops": [], "kinds": set(),
+           "max_abs_err": 0.0}
+    for i, run in enumerate(runs):
+        prep = run.prepare()
+        kw = dict(n=n, tile_bits=run.tile_bits, load_swap_k=run.load_swap_k,
+                  load_swap_hi=run.load_swap_hi, store_swap_k=run.store_swap_k,
+                  store_swap_hi=run.store_swap_hi)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = FG.fused_run_plain(st, prep, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        t_plain = e0.elapsed_time(e1)
+        ms = _cuda_ms(lambda: FG.fused_run(st, ops=run.ops, out=out,
+                                           prepared=prep, **kw), 5)
+        err = (out - ref).abs().max().item()
+        del ref
+        _require(err <= tol, f"{label} run {i} error {err} > {tol}")
+        nbytes, flops = _pass_work(prep, n, itemsize)
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = flops / peak * 1e3
+        kinds = [o[0] for o in prep.ops]
+        res["ms"].append(ms)
+        res["plain_ms"].append(t_plain)
+        res["bound_ms"].append(max(b_bytes, b_ops))
+        res["by_ops"].append(b_ops > b_bytes)
+        res["kinds"].update(kinds)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        folds = ", ".join(f"{k} {kinds.count(k)}" for k in
+                          ("lane_u", "window", "kraus1", "kraus2", "krausn")
+                          if k in kinds)
+        print(f"# {label} pass {i}: {len(run.ops)} ops -> {len(kinds)} "
+              f"({folds or 'no folds or channels'}), swaps load {run.load_swap_k} "
+              f"store {run.store_swap_k}: kernel {ms:.4f} ms, bound "
+              f"{max(b_bytes, b_ops):.4f} ms by "
+              f"{'operations' if b_ops > b_bytes else 'bytes'}, plain "
+              f"{t_plain:.2f} ms, max_abs_err {err:.3e}")
+    return res
+
+
+def _engine_replay(circ, qureg) -> None:
+    """The unfused tape on ``qureg``, one entry at a time, every gate through
+    the per-gate engine and every channel through the per-term engine
+    (``ops.density._apply_kraus_sum``), whatever route ``apply_channel``
+    would pick: the reference the fused run is held against."""
+    from quest_tpu_torch.ops import density as DN
+
+    kernel_route = DN._kraus_sum_kernel
+    DN._kraus_sum_kernel = lambda *a, **kw: None
+    try:
+        circ.run(qureg)
+    finally:
+        DN._kraus_sum_kernel = kernel_route
+
+
+def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
+    """The bench's channel circuit on the 14-qubit density register: plan,
+    per-run kernel vs plain, the run with the counts reset just before it,
+    the checks, then channel-ops/sec and the barrier channel's time."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    f32 = dt == torch.float32
+    prec, tol_kernel = (1, 1e-5) if f32 else (2, 1e-12)
+    tol_trace, tol_amp = (1e-4, 2e-4) if f32 else (1e-10, 1e-10)
+    label = f"density {'r4' if with_krausn else 'r3'} {str(dt)[6:]}"
+    circ = qt.density_circuit(N_DENSITY, with_krausn)
+    telemetry.reset()
+    t0 = time.perf_counter()
+    fz = circ.fused(max_qubits=4, pallas=True, dtype=dt)
+    plan_s = time.perf_counter() - t0
+    planned_barriers = telemetry.counter_total("fusion_barriers_total")
+    runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    barriers = [(f.__name__, a) for f, a, _ in fz._tape
+                if f not in (fusion._apply_pallas_run, fusion._apply_frame_swap)]
+    nsv = 2 * N_DENSITY
+    print(f"# {label}: {N_DENSITY}q density ({nsv} flattened qubits), "
+          f"{len(circ)} entries -> {len(runs)} fused runs at tile_bits "
+          f"{FG.hopper_tile_bits(nsv, dt)}, {len(fz._tape) - len(barriers)} passes, "
+          f"fusion_barriers_total {planned_barriers:g}: "
+          f"{[f'{n}{a}' for n, a in barriers]}; planned in {plan_s:.2f} s")
+    _require(runs and planned_barriers == len(barriers), f"{label}: plan")
+    res = _passes(runs, nsv, dt, dev, rng, tol_kernel, label)
+    torch.cuda.empty_cache()
+
+    rho = qt.createDensityQureg(N_DENSITY, env, prec)
+    qt.initPlusState(rho)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    fz.run(rho)
+    torch.cuda.synchronize()
+    launches = FG.fused_run.launches
+    passes = telemetry.counter_value("pallas_pass_total", kind="fused_run")
+    fallbacks = telemetry.counter_total("engine_fallback_total")
+    routes = {r: telemetry.counter_value("channel_route_total", route=r)
+              for r in ("superop", "kernel", "engine")}
+    print(f"# {label} run: launches {launches}, runs {len(runs)}, "
+          f"pallas_pass_total{{fused_run}} {passes:g}, engine_fallback_total "
+          f"{fallbacks:g}; barrier channels by route {routes}")
+    _require(launches == len(runs) == passes, f"{label}: launches != runs executed")
+    _require(fallbacks == 0, f"{label}: engine fallback")
+    _require(routes["engine"] == len(barriers) and routes["kernel"] == 0
+             and routes["superop"] == 0, f"{label}: barrier routes {routes}")
+    trace, purity = qt.calcTotalProb(rho), qt.calcPurity(rho)
+
+    ref = qt.createDensityQureg(N_DENSITY, env, prec)
+    qt.initPlusState(ref)
+    _engine_replay(circ, ref)
+    torch.cuda.synchronize()
+    _require(FG.fused_run.launches == launches, f"{label}: the reference launched")
+    diff = (rho.amps - ref.amps).abs().max().item()
+    rel = diff / ref.amps.abs().max().item()
+    purity_ref = qt.calcPurity(ref)
+    p0, p0_ref = qt.calcProbOfOutcome(rho, 0, 0), qt.calcProbOfOutcome(ref, 0, 0)
+    print(f"# {label} check: calcTotalProb {trace:.12f}, calcPurity {purity:.12f} "
+          f"(engine replay {purity_ref:.12f}), calcProbOfOutcome(0,0) {p0:.12f} vs "
+          f"{p0_ref:.12f}, max |fused - engine replay| {diff:.3e} "
+          f"({rel:.3e} of the largest amplitude)")
+    _require(abs(trace - 1) <= tol_trace, f"{label}: trace {trace}")
+    _require(diff <= tol_amp and rel <= tol_amp, f"{label}: amplitudes {diff}, {rel}")
+    _require(abs(purity - purity_ref) <= tol_amp and abs(p0 - p0_ref) <= tol_amp,
+             f"{label}: readouts")
+    qt.destroyQureg(ref)
+    del ref
+    torch.cuda.empty_cache()
+
+    reps = 3
+    fz.run(rho)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fz.run(rho)
+    torch.cuda.synchronize()
+    circuit_s = (time.perf_counter() - t0) / reps
+    cops = len(circ) / circuit_s
+    _require(abs(qt.calcTotalProb(rho) - 1) <= tol_trace, f"{label}: trace after reps")
+    barrier_ms = [_cuda_ms(lambda: getattr(qt, name)(rho, *a), 3) for name, a in barriers]
+    y = torch.empty_like(rho.amps)
+    copy_ms = _cuda_ms(lambda: y.copy_(rho.amps), 10)
+    print(f"# {label} channel-ops/sec: {cops:.2f} ({len(circ)} entries, "
+          f"{circuit_s * 1e3:.3f} ms per circuit; kernel passes {sum(res['ms']):.3f} ms, "
+          f"barrier channels {[round(b, 3) for b in barrier_ms]} ms = "
+          f"{sum(barrier_ms) / (circuit_s * 1e3):.1%} of the circuit); full-state "
+          f"copy_ {copy_ms:.4f} ms")
+    qt.destroyQureg(rho)
+    del y
+    torch.cuda.empty_cache()
+    res.update(launches=launches, passes=len(runs), channel_ops_per_sec=cops,
+               circuit_ms=circuit_s * 1e3, barrier_ms=barrier_ms, copy_ms=copy_ms,
+               trace=trace, purity=purity, max_abs_diff_vs_engine=diff)
+    return res
+
+
+def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
+    """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
+    stats: ms, plain and bound are means over every timed pass."""
+    ms = [m for p in paths.values() for m in p["ms"]]
+    bounds = [b for p in paths.values() for b in p["bound_ms"]]
+    ops_b = sum(b for p in paths.values() for b, o in zip(p["bound_ms"], p["by_ops"]) if o)
+    return {
+        "name": name, "route": "cuda", "source": "quest_tpu_torch/csrc/fused_gates.cu",
+        "replaces": replaces,
+        "launches": sum(p["launches"] for p in paths.values()),
+        "max_abs_err": max(errs + [p["max_abs_err"] for p in paths.values()]),
+        "ms": sum(ms) / len(ms),
+        "plain_ms": sum(m for p in paths.values() for m in p["plain_ms"]) / len(ms),
+        "bound_ms": sum(bounds) / len(bounds),
+        # which limit makes up most of the summed per-pass bound
+        "bound_by": "operations" if 2 * ops_b > sum(bounds) else "bytes",
+        # no single PyTorch call computes a fused gate run; a full-state
+        # copy_ (the memory floor) is reported beside it
+        "library_ms": None,
+        "library_yardsticks_ms": {"copy_": copy_ms},
+        "op_kinds": sorted(set().union(*(p["kinds"] for p in paths.values()))),
+        "paths": {k: {"launches": p["launches"], "passes": len(p["ms"]),
+                      "ms": sum(p["ms"]) / len(p["ms"]),
+                      "bound_ms": sum(p["bound_ms"]) / len(p["ms"]),
+                      "plain_ms": sum(p["plain_ms"]) / len(p["ms"])}
+                  for k, p in paths.items()},
+    }
 
 
 def main() -> int:
@@ -185,7 +423,8 @@ def main() -> int:
                   f"max_abs_err {err:.3e} (limit {tol:g})")
             _require(err <= tol, f"{dt} {name} error {err} > {tol}")
             errs[(str(dt), name)] = err
-        _require(seen == {"matrix", "parity", "swap", "diagw", "lane_u", "window"},
+        _require(seen == {"matrix", "parity", "swap", "diagw", "lane_u", "window",
+                          "kraus1", "kraus2", "krausn"},
                  f"kernel phase missed op kinds: {seen}")
         del st, out, ref
 
@@ -208,45 +447,8 @@ def main() -> int:
           f"planned in {plan_s:.2f} s; the same planner at the JAX package's "
           f"tile_bits {jax_tile} gives {wide} passes")
     _require(len(runs) > 0 and not other, "plan is not all fused runs")
-
-    itemsize = torch.finfo(dt).bits // 8
-    st = torch.as_tensor(rng.randn(2, 1 << N_MAIN), dtype=dt, device=dev)
-    st /= st.norm()
-    out = torch.empty_like(st)
-    pass_ms, plain_ms, bounds, by_ops, main_err = [], [], [], [], 0.0
-    for i, run in enumerate(runs):
-        prep = run.prepare()
-        kw = dict(n=N_MAIN, tile_bits=tb, load_swap_k=run.load_swap_k,
-                  load_swap_hi=run.load_swap_hi, store_swap_k=run.store_swap_k,
-                  store_swap_hi=run.store_swap_hi)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        ref = FG.fused_run_plain(st, prep, **kw)
-        e1.record()
-        torch.cuda.synchronize()
-        t_plain = e0.elapsed_time(e1)
-        ms = _cuda_ms(lambda: FG.fused_run(st, ops=run.ops, out=out,
-                                           prepared=prep, **kw), 5)
-        err = (out - ref).abs().max().item()
-        del ref
-        _require(err <= 1e-5, f"main-path run {i} error {err}")
-        main_err = max(main_err, err)
-        nbytes, flops = _pass_work(prep, N_MAIN, itemsize)
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = flops / PEAK_FP32_FLOPS * 1e3
-        pass_ms.append(ms)
-        plain_ms.append(t_plain)
-        bounds.append(max(b_bytes, b_ops))
-        by_ops.append(b_ops > b_bytes)
-        kinds = [o[0] for o in prep.ops]
-        print(f"# pass {i}: {len(run.ops)} ops -> {len(kinds)} "
-              f"(lane_u {kinds.count('lane_u')}, window {kinds.count('window')}), "
-              f"swaps load {run.load_swap_k} store {run.store_swap_k}: kernel "
-              f"{ms:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms by "
-              f"{'operations' if b_ops > b_bytes else 'bytes'}, plain "
-              f"{t_plain:.2f} ms, max_abs_err {err:.3e}")
-    del st, out
+    main = _passes(runs, N_MAIN, dt, dev, rng, 1e-5, "main-path")
+    torch.cuda.empty_cache()
 
     q = qt.createQureg(N_MAIN, env, precision_code=1)
     telemetry.reset()
@@ -261,6 +463,7 @@ def main() -> int:
           f"{fallbacks:g}")
     _require(launches == len(runs) == passes, "launches != runs executed")
     _require(fallbacks == 0, "engine fallback on the main path")
+    main["launches"] = launches
     total = qt.calcTotalProb(q)
     ref_q = qt.createQureg(N_MAIN, env, precision_code=1)
     circ.run(ref_q)  # the plain replay: one gate at a time, per-gate engine
@@ -288,7 +491,7 @@ def main() -> int:
     gps = len(circ) * reps / dt_s
     print(f"# gates/sec: {gps:.1f} ({len(circ)} gates x {reps} reps in "
           f"{dt_s:.4f} s; {dt_s / reps * 1e3:.3f} ms per circuit, "
-          f"{sum(pass_ms):.3f} ms of it kernel passes)")
+          f"{sum(main['ms']):.3f} ms of it kernel passes)")
     _require(abs(qt.calcTotalProb(q) - 1) <= 1e-4, "norm after timed reps")
 
     # -- yardsticks (never called by the port) -----------------------------
@@ -299,35 +502,44 @@ def main() -> int:
     mm_ms = _cuda_ms(lambda: torch.matmul(xc, u), 10)
     print(f"# yardsticks: full-state copy_ {copy_ms:.4f} ms, complex matmul "
           f"(2^19,128)@(128,128) {mm_ms:.4f} ms")
-
     npass = len(runs)
-    lane_ms = [m for m, o in zip(pass_ms, by_ops) if o]
-    print(f"# per pass: kernel {sum(pass_ms) / npass:.4f} ms mean "
+    lane_ms = [m for m, o in zip(main["ms"], main["by_ops"]) if o]
+    print(f"# per pass: kernel {sum(main['ms']) / npass:.4f} ms mean "
           f"({len(lane_ms)} operation-bound passes "
           f"{(sum(lane_ms) / max(len(lane_ms), 1)):.4f} ms mean), bound "
-          f"{sum(bounds) / npass:.4f} ms mean, plain {sum(plain_ms) / npass:.2f} ms mean")
-    entry = {
-        "name": "fused_gate_run", "route": "cuda",
-        "source": "quest_tpu_torch/csrc/fused_gates.cu",
-        "replaces": "quest_tpu/ops/pallas_gates.py:1141",
-        "launches": launches,
-        "max_abs_err": max(max(errs.values()), main_err),
-        "ms": sum(pass_ms) / npass,
-        "plain_ms": sum(plain_ms) / npass,
-        "bound_ms": sum(bounds) / npass,
-        # which limit makes up most of the summed per-pass bound
-        "bound_by": ("operations" if 2 * sum(b for b, o in zip(bounds, by_ops) if o)
-                     > sum(bounds) else "bytes"),
-        # no single PyTorch call computes a fused gate run; the yardsticks
-        # (the memory floor and one lane_u product) are reported beside it
-        "library_ms": None,
-        "library_yardsticks_ms": {"copy_": copy_ms, "matmul_lane_u": mm_ms},
-        "passes": npass, "gates_per_sec": gps,
-    }
-    print("# kernels: " + json.dumps({"fused_gate_run": {
-        "launches": launches, "max_abs_err": entry["max_abs_err"]}}))
+          f"{sum(main['bound_ms']) / npass:.4f} ms mean, plain "
+          f"{sum(main['plain_ms']) / npass:.2f} ms mean")
+    qt.destroyQureg(q)
+    del y, xc, u
+    torch.cuda.empty_cache()
+
+    # -- density path: the channel circuits, f32 then f64 ------------------
+    density = {}
+    for ddt in (torch.float32, torch.float64):
+        for tag, with_krausn in (("r3", False), ("r4", True)):
+            density[(ddt, tag)] = _density_path(qt, env, ddt, with_krausn, rng, dev)
+
+    f32_paths = {"statevec_26q_depth8": main}
+    f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
+    f64_paths = {f"density_14q_{t}": density[(torch.float64, t)] for t in ("r3", "r4")}
+    entries = [
+        _entry("fused_gate_run", "quest_tpu/ops/pallas_gates.py:1141", f32_paths,
+               [e for (d, _), e in errs.items() if d == str(torch.float32)], copy_ms),
+        _entry("fused_gate_run_f64", "quest_tpu/ops/pallas_gates.py:1253", f64_paths,
+               [e for (d, _), e in errs.items() if d == str(torch.float64)],
+               density[(torch.float64, "r4")]["copy_ms"]),
+    ]
+    entries[0].update(gates_per_sec=gps,
+                      library_yardsticks_ms={"copy_": copy_ms, "matmul_lane_u": mm_ms})
+    entries[1]["also_replaces"] = "quest_tpu/ops/pallas_df.py:255"
+    for e, paths in zip(entries, (f32_paths, f64_paths)):
+        e["channel_ops_per_sec"] = {k: p["channel_ops_per_sec"] for k, p in paths.items()
+                                    if "channel_ops_per_sec" in p}
+    print("# kernels: " + json.dumps({e["name"]: {
+        "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+        "op_kinds": e["op_kinds"]} for e in entries}))
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

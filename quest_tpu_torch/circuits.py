@@ -5,7 +5,9 @@ Record the L5 API calls (same names and argument order as ``QuEST.h``,
 without the leading register) on a tape, then ``run`` it on a register.
 ``fused`` plans the tape (``fusion.plan``) into passes of the fused
 gate-run kernel: ``Circuit(n)...fused(pallas=True).run(qureg)`` is the
-main path. There is no ``jit``: replay is a Python loop over the tape.
+main path, and ``Circuit(n, is_density_matrix=True)`` records gates and
+decoherence channels for a density register. There is no ``jit``: replay
+is a Python loop over the tape.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 from .registers import Qureg
 
 #: modules whose functions can be recorded on a tape
-_TAPEABLE_MODULES = ("gates", "state_init")
+_TAPEABLE_MODULES = ("gates", "decoherence", "state_init")
 
 
 def _tape_compatible(fn) -> bool:
@@ -61,9 +63,9 @@ class Circuit:
         c.run(qureg)
     """
 
-    def __init__(self, num_qubits: int):
+    def __init__(self, num_qubits: int, is_density_matrix: bool = False):
         self.num_qubits = int(num_qubits)
-        self.is_density_matrix = False
+        self.is_density_matrix = bool(is_density_matrix)
         self._tape: list = []
 
     # -- recording ----------------------------------------------------------
@@ -93,10 +95,10 @@ class Circuit:
         """Function amps -> amps replaying the tape on a bare register
         around the given planar tensor."""
         tape = tuple(self._tape)
-        n = self.num_qubits
+        n, is_density = self.num_qubits, self.is_density_matrix
 
         def fn(amps):
-            shell = Qureg(n, False, amps, env=None)
+            shell = Qureg(n, is_density, amps, env=None)
             for f, args, kwargs in tape:
                 f(shell, *args, **kwargs)
             return shell.amps
@@ -112,20 +114,22 @@ class Circuit:
         tile geometry, by default ``ops.fused_gates.hopper_tile_bits`` for
         ``dtype`` (the default precision's when None). Pinning it to
         ``ops.fused_gates.local_qubits(n, ...)`` reproduces the JAX
-        package's plan item for item. Registers of at most 7 qubits (no
-        lane tile) take the ordinary dense fusion."""
+        package's plan item for item. A density tape plans over the
+        flattened 2n-qubit state, so its geometry is that state's. States
+        of at most 7 qubits (no lane tile) take the ordinary dense fusion."""
         from . import fusion
         from .ops.fused_gates import LANE_BITS, hopper_tile_bits
         from .precision import as_torch_dtype, real_dtype
 
         dt = as_torch_dtype(dtype) if dtype is not None else real_dtype()
+        n_eff = (2 if self.is_density_matrix else 1) * self.num_qubits
         tb = None
-        if pallas and self.num_qubits > LANE_BITS:
-            tb = hopper_tile_bits(self.num_qubits, dt) if tile_bits is None \
-                else int(tile_bits)
+        if pallas and n_eff > LANE_BITS:
+            tb = hopper_tile_bits(n_eff, dt) if tile_bits is None else int(tile_bits)
         p = fusion.plan(tuple(self._tape), self.num_qubits, dt,
-                        max_qubits=max_qubits, pallas_tile_bits=tb)
-        out = Circuit(self.num_qubits)
+                        max_qubits=max_qubits, pallas_tile_bits=tb,
+                        is_density=self.is_density_matrix)
+        out = Circuit(self.num_qubits, self.is_density_matrix)
         out._tape = fusion.as_tape(p)
         return out
 
@@ -161,3 +165,29 @@ def random_layers(circ, num_qubits: int, depth: int, seed: int = 2026):
         for q in range(layer % 2, num_qubits - 1, 2):
             circ.controlledNot(q, q + 1)
         circ.controlledPhaseFlip(0, num_qubits - 1)
+
+
+def density_circuit(num_qubits: int, with_krausn: bool) -> Circuit:
+    """The bench's channel circuit on an n-qubit density register, the same
+    entries as the JAX package's (``bench.py::_density_circuit``): H on
+    qubits 0-3, CNOT(0,1), CNOT(2,3), mixDepolarising on qubits 0 and n-1,
+    a 1-qubit mixKrausMap, mixTwoQubitDephasing, and with ``with_krausn``
+    (the 11-op "r4" circuit; without it the 10-op "r3") a 3-target
+    mixMultiQubitKrausMap."""
+    k = 1 / np.sqrt(2)
+    kraus = [np.array([[k, 0], [0, k]]), np.array([[0, k], [k, 0]])]
+    circ = Circuit(num_qubits, is_density_matrix=True)
+    for q in range(4):
+        circ.hadamard(q)
+    circ.controlledNot(0, 1)
+    circ.controlledNot(2, 3)
+    circ.mixDepolarising(0, 0.05)
+    circ.mixDepolarising(num_qubits - 1, 0.05)
+    circ.mixKrausMap(1, kraus)
+    circ.mixTwoQubitDephasing(0, 1, 0.1)
+    if with_krausn:
+        xxx = np.kron(np.kron([[0, 1], [1, 0]], [[0, 1], [1, 0]]),
+                      [[0, 1], [1, 0]])
+        kraus3 = [0.8 * xxx, 0.6j * np.eye(8)]  # CPTP: 0.64 I + 0.36 I
+        circ.mixMultiQubitKrausMap([2, 3, 4], kraus3)
+    return circ

@@ -13,6 +13,10 @@
 //   lane_u  a dense 128x128 complex unitary on qubits [0, 7)
 //   window  a dense 2^span x 2^span complex unitary (span <= 5) on the
 //           in-tile qubits [lo, lo + span)
+//   kraus1, kraus2, krausn
+//           a whole decoherence channel on a density state,
+//           rho' = sum_k s_k K_k rho K_k^dagger with K_k on t = 1, 2 or 3
+//           in-tile row qubits and conj(K_k) on t in-tile column qubits
 // and folds a frame swap (the bit blocks [T-k, T) and [hi, hi+k) of the
 // flat index exchanged) into the loads and/or the stores.
 //
@@ -38,6 +42,17 @@
 // streamed through a 32 KiB shared-memory panel, so two blocks still fit
 // an SM; tensor-core MMA is later work.
 //
+// The kraus ops replace the kraus arms of _ops_body (pallas_gates.py:662,
+// which applies each term's K and conj(K) to a copy and accumulates). Here
+// every arity takes one design, the superoperator: the host builds
+// S = sum_k s_k conj(K_k) (x) K_k (4^t x 4^t) in double and the kernel
+// applies it as one dense op on the 2t in-tile qubits, in place, with no
+// extra shared memory (the per-term form would need a second tile-sized
+// buffer, one block per SM). That is 4^t complex multiply-adds per
+// amplitude: 4 (kraus1) and 16 (kraus2) keep the pass bound by bytes; 64
+// (krausn) makes it bound by operations. A thread holds 16 (f32) or 2
+// (f64) outputs at a time.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (quest_tpu_torch/_build.py does this at first use)
 
@@ -52,7 +67,8 @@ constexpr int kLanes = 1 << kLaneBits;
 constexpr int kRec = 8;  // int64 fields per op record
 
 enum OpKind : int { kMatrix = 0, kParity = 1, kSwap = 2, kDiagw = 3,
-                    kLaneU = 4, kWindow = 5 };
+                    kLaneU = 4, kWindow = 5, kKraus1 = 6, kKraus2 = 7,
+                    kKrausN = 8 };
 
 // the flat index g with its bit blocks [lo1, lo1+k) and [lo2, lo2+k)
 // exchanged (swap_bit_blocks as an index map; an involution)
@@ -68,6 +84,26 @@ __device__ __forceinline__ uint64_t swap_blocks(uint64_t g, int lo1, int lo2,
 // p with a zero bit inserted at position q
 __device__ __forceinline__ uint32_t insert_zero(uint32_t p, int q) {
   return ((p >> q) << (q + 1)) | (p & ((1u << q) - 1));
+}
+
+// p with a zero bit inserted at every set bit of mask
+__device__ __forceinline__ uint32_t insert_zeros(uint32_t p, uint32_t mask) {
+  for (uint32_t m = mask; m; m &= m - 1) p = insert_zero(p, __ffs(m) - 1);
+  return p;
+}
+
+// the low bits of v deposited, in order, at the set bits of mask
+__device__ __forceinline__ uint32_t deposit(uint32_t v, uint32_t mask) {
+  uint32_t out = 0;
+  for (uint32_t m = mask; m; m &= m - 1, v >>= 1) {
+    if (v & 1) out |= m & (0u - m);
+  }
+  return out;
+}
+
+// deposit(v + 1, mask) from deposit(v, mask)
+__device__ __forceinline__ uint32_t next_deposit(uint32_t d, uint32_t mask) {
+  return ((d | ~mask) + 1) & mask;
 }
 
 // four consecutive T (16-byte aligned) in one or two vector loads
@@ -88,6 +124,15 @@ __device__ __forceinline__ void ldg4(const double* p, double (&v)[4]) {
   const double2 a = __ldg(reinterpret_cast<const double2*>(p));
   const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+// two consecutive T (8- or 16-byte aligned) in one vector load
+__device__ __forceinline__ void ldg2(const float* p, float (&v)[2]) {
+  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = q.x; v[1] = q.y;
+}
+__device__ __forceinline__ void ldg2(const double* p, double (&v)[2]) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x; v[1] = q.y;
 }
 
 // four T as one storable value: float4, or a pair of double2 in a struct
@@ -267,6 +312,89 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
   }
 }
 
+// kraus1/kraus2/krausn as the superoperator S (G x G complex, G = 4^t) on
+// the 2t in-tile qubits of ``mask``, whose bit j of S's index is the j-th
+// lowest qubit of mask (the host orders S so): for every group base g (the
+// tile index with the mask bits clear), out[g + dep(d)] = sum_e S[d][e]
+// x[g + dep(e)], dep = deposit into mask. cf holds S^T real then S^T
+// imaginary (G x G each), so kR consecutive d of one e are one vector
+// load. A work item is kR values of d (a chunk) for kB groups strided by
+// nbg: each x read feeds kR complex FMAs and each S read kB. The chunks of
+// one group are consecutive items, so the threads that read a group share
+// its x reads (broadcasts) and finish them in the same round, before the
+// barrier after which they write. A round holds kR * kB outputs per
+// thread: 16 in f32 (one round at the largest tile), 2 in f64 (four
+// rounds): the f64 registers must also hold the kernel's own 64-bit state.
+template <typename T, int kR, int kB>
+__device__ __forceinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
+                                         const T* __restrict__ cf, int t,
+                                         uint32_t mask, int tid) {
+  const uint32_t G = 1u << (2 * t);
+  const uint32_t nchunks = G / kR;  // a power of two <= 32: divides kThreads
+  const uint32_t ngroups = tile >> (2 * t);
+  const uint32_t nbg = (ngroups + kB - 1) / kB;
+  const uint32_t items = nchunks * nbg;
+  const T* st_r = cf;
+  const T* st_i = cf + G * G;
+  for (uint32_t w0 = 0; w0 < items; w0 += kThreads) {
+    const uint32_t w = w0 + static_cast<uint32_t>(tid);
+    const bool active = w < items;
+    const uint32_t d0 = (w % nchunks) * kR;
+    const uint32_t gb = w / nchunks;
+    uint32_t base[kB];
+    bool valid[kB];
+    T outr[kB][kR], outi[kB][kR];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const uint32_t g = gb + b * nbg;
+      valid[b] = active && g < ngroups;
+      base[b] = valid[b] ? insert_zeros(g, mask) : 0;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) outr[b][r] = outi[b][r] = T(0);
+    }
+    if (active) {
+      uint32_t off = 0;
+      for (uint32_t e = 0; e < G; ++e) {
+        T sr[kR], si[kR];
+        if constexpr (kR == 4) {
+          ldg4(st_r + e * G + d0, sr);
+          ldg4(st_i + e * G + d0, si);
+        } else {
+          ldg2(st_r + e * G + d0, sr);
+          ldg2(st_i + e * G + d0, si);
+        }
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          if (valid[b]) {
+            const T xr = sre[base[b] + off], xi = sim[base[b] + off];
+#pragma unroll
+            for (int r = 0; r < kR; ++r) {
+              cmac(outr[b][r], outi[b][r], sr[r], si[r], xr, xi);
+            }
+          }
+        }
+        off = next_deposit(off, mask);
+      }
+    }
+    __syncthreads();  // every read of this round's groups is done
+    if (active) {
+      uint32_t off = deposit(d0, mask);
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          if (valid[b]) {
+            sre[base[b] + off] = outr[b][r];
+            sim[base[b] + off] = outi[b][r];
+          }
+        }
+        off = next_deposit(off, mask);
+      }
+    }
+    // the next round reads other groups only: no barrier needed here
+  }
+}
+
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
 // both planes of the tile, plus kLaneStage bytes for a run with lane_u.
@@ -375,6 +503,14 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
         } else {  // a span-1 zone (D = 2): two items per thread
           window_op<T, 2, 2>(sre, sim, tile, cf, lo, span, tid);
         }
+      }
+    } else if (kind == kKraus1 || kind == kKraus2 || kind == kKrausN) {
+      const int t = static_cast<int>(r[1]);
+      const uint32_t mask = static_cast<uint32_t>(r[5]);
+      if constexpr (sizeof(T) == 8) {
+        kraus_op<T, 2, 1>(sre, sim, tile, cf, t, mask, tid);
+      } else {
+        kraus_op<T, 4, 4>(sre, sim, tile, cf, t, mask, tid);
       }
     }
     __syncthreads();

@@ -1,11 +1,19 @@
 """Tape-level gate fusion: plan a recorded circuit into fused gate runs.
 
-A copy, for the state-vector slice, of ``quest_tpu/fusion.py``'s planner,
-so that at the same tile geometry the two packages emit the same plan item
-for item. Each tape entry is replayed once against a spy register with the
-gate primitives patched to record (kind, operands, qubits) instead of
-touching any state; entries that don't route through them act as fusion
-barriers and run unchanged.
+A copy of ``quest_tpu/fusion.py``'s planner, for state-vector and
+density tapes, so that at the same tile geometry the two packages emit the
+same plan item for item. Each tape entry is replayed once against a spy
+register with the gate primitives patched to record (kind, operands,
+qubits) instead of touching any state; entries that don't route through
+them act as fusion barriers and run unchanged.
+
+Density tapes plan over the flattened 2n-qubit state: every captured row
+op gains its conj-shadow twin on q + n (``_shadow_pop``), decoherence
+channels lower to ``kraus1``/``kraus2``/``krausn`` kernel ops
+(``_lower_channel``) and dephasing to wide diagonals, and the column
+qubits are just more high qubits for the frame machinery to relabel. A
+channel whose qubits no frame localises stays a barrier and runs through
+``ops.density.apply_channel``.
 
 With a tile geometry (``pallas_tile_bits``) every expressible gate joins a
 :class:`PallasRun` -- one read+write pass of the state through the fused
@@ -38,7 +46,12 @@ from . import precision, telemetry
 class GateEvent:
     """One primitive application captured from a tape entry.
 
-    kind: 'matrix' | 'diag' | 'x' | 'parity' | 'swap'."""
+    kind: 'matrix' | 'diag' | 'x' | 'parity' | 'swap' | 'channel'.
+
+    ``extended=True`` marks events that take no conj-shadow twin in density
+    planning: 'diag' events captured from the dephasing appliers carry
+    flattened-state targets (columns at q + n explicit); 'channel' events
+    carry ROW targets only, and ``_lower_channel`` adds the columns."""
     kind: str
     targets: tuple
     controls: tuple = ()
@@ -46,6 +59,8 @@ class GateEvent:
     matrix: Optional[np.ndarray] = None   # 'matrix': (2^t, 2^t) complex
     diag: Optional[np.ndarray] = None     # 'diag':   (2^t,) complex
     theta: float = 0.0                    # 'parity'
+    superop: Optional[np.ndarray] = None  # 'channel': (4^t, 4^t) complex
+    extended: bool = False                # targets already in 2n coords
 
     @property
     def support(self) -> frozenset:
@@ -63,16 +78,16 @@ class _SpyAmps:
 class _SpyQureg:
     """Minimal stand-in satisfying validation + the patched primitives."""
 
-    def __init__(self, num_qubits: int, dtype):
+    def __init__(self, num_qubits: int, dtype, is_density: bool = False):
         self.num_qubits_represented = int(num_qubits)
-        self.is_density_matrix = False
+        self.is_density_matrix = bool(is_density)
         self.amps = _SpyAmps(dtype)
         self.qasm_log = None
         self.env = None
 
     @property
     def num_qubits_in_state_vec(self):
-        return self.num_qubits_represented
+        return (2 if self.is_density_matrix else 1) * self.num_qubits_represented
 
     @property
     def dtype(self):
@@ -84,6 +99,34 @@ class _SpyQureg:
 
     def put(self, amps):  # swapGate calls this with the spy token
         self.amps = amps
+
+
+@contextlib.contextmanager
+def _channel_capture_ctx(events: list):
+    """Patch the density-channel appliers in :mod:`.ops.density` to record
+    events: Kraus channels (``apply_channel``, row targets) and dephasing
+    diagonals (``_diag_dispatch``, flattened 2n coordinates)."""
+    from .ops import density as DN
+
+    def cap_channel(amps, superop, *, n, targets):
+        events.append(GateEvent(
+            "channel", tuple(targets),
+            superop=np.asarray(superop, dtype=complex), extended=True))
+        return amps
+
+    def cap_dens_diag(amps, d, *, n, targets):
+        events.append(GateEvent("diag", tuple(targets),
+                                diag=np.asarray(d, dtype=complex).reshape(-1),
+                                extended=True))
+        return amps
+
+    saved = (DN.apply_channel, DN._diag_dispatch)
+    DN.apply_channel = cap_channel
+    DN._diag_dispatch = cap_dens_diag
+    try:
+        yield
+    finally:
+        DN.apply_channel, DN._diag_dispatch = saved
 
 
 @contextlib.contextmanager
@@ -127,16 +170,33 @@ def _capture_ctx(events: list):
          G._apply_gate_parity_phase, K.apply_swap) = saved
 
 
-def capture(fn, args, kwargs, num_qubits: int, dtype) -> Optional[list]:
+def capture(fn, args, kwargs, num_qubits: int, dtype,
+            is_density: bool = False) -> Optional[list]:
     """Replay one tape entry against a spy register; return its GateEvents,
     or None if the entry doesn't route through the capturable primitives
-    (it then acts as a fusion barrier and runs unchanged)."""
+    (it then acts as a fusion barrier and runs unchanged).
+
+    The first attempt uses a STATE-VECTOR spy, so that gates record their
+    row op only (shadows are derived in planning). On a density tape an
+    entry that fails it (a decoherence channel, whose validation demands a
+    density register) gets a second attempt against a density spy with the
+    channel appliers patched."""
     events: list = []
     shell = _SpyQureg(num_qubits, dtype)
     try:
         with _capture_ctx(events):
             fn(shell, *args, **kwargs)
+        return events if events else None
     except Exception:  # any entry the spy cannot replay is a barrier
+        pass
+    if not is_density:
+        return None
+    events = []
+    shell = _SpyQureg(num_qubits, dtype, is_density=True)
+    try:
+        with _capture_ctx(events), _channel_capture_ctx(events):
+            fn(shell, *args, **kwargs)
+    except Exception:
         return None
     return events if events else None
 
@@ -319,7 +379,7 @@ def _window(qubits) -> tuple:
 @dataclass
 class _POp:
     """A primitive op in LOGICAL coordinates plus its diagonality roles."""
-    kind: str            # 'matrix' | 'swap' | 'diagw' | 'parity'
+    kind: str            # 'matrix' | 'swap' | 'diagw' | 'parity' | 'kraus*'
     targets: tuple
     controls: tuple
     states: tuple
@@ -488,6 +548,13 @@ class _FramePlanner:
             return ("matrix", t[0], c, op.states, HashableMatrix(op.data))
         if op.kind == "swap":
             return ("swap", t[0], t[1], c, op.states)
+        if op.kind == "kraus1":
+            return ("kraus1", t[0], t[1], op.data)
+        if op.kind == "kraus2":
+            return ("kraus2", t[0], t[1], t[2], t[3], op.data)
+        if op.kind == "krausn":
+            h = len(t) // 2
+            return ("krausn", t[:h], t[h:], op.data)
         if op.kind == "diagw":
             return ("diagw", t, c, HashableMatrix(op.data))
         return ("parity", t, c, op.data)
@@ -568,16 +635,22 @@ class _FramePlannerTwoSlot(_FramePlanner):
 
 
 def plan(tape, num_qubits: int, dtype, max_qubits: int = 5,
-         max_diag_qubits: int = 12,
-         pallas_tile_bits: int | None = None) -> FusePlan:
+         max_diag_qubits: int = 12, pallas_tile_bits: int | None = None,
+         is_density: bool = False) -> FusePlan:
     """Greedy left-to-right fusion of a Circuit tape.
 
     Without ``pallas_tile_bits``: dense events merge while the combined
     contiguous window spans at most ``max_qubits``; diagonal events merge by
-    support up to ``max_diag_qubits``. With it: multi-frame planning into
-    fused-kernel runs (see the block comment above)."""
+    support up to ``max_diag_qubits`` (on a density register the items stay
+    in row coordinates and the primitives apply their shadows). With it:
+    multi-frame planning into fused-kernel runs (see the block comment
+    above); ``is_density`` plans a density tape over the flattened 2n-qubit
+    state. The plan's barriers are counted in ``fusion_barriers_total``."""
     if pallas_tile_bits is not None:
-        return _plan_pallas(tape, num_qubits, dtype, max_qubits, pallas_tile_bits)
+        p = _plan_pallas(tape, num_qubits, dtype, max_qubits, pallas_tile_bits,
+                         is_density=is_density)
+        telemetry.inc("fusion_barriers_total", p.num_barriers, mode="pallas")
+        return p
     out = FusePlan()
     cur = None  # None | FusedBlock | DiagBlock (mutable accumulators)
 
@@ -645,6 +718,7 @@ def plan(tape, num_qubits: int, dtype, max_qubits: int = 5,
                 add_dense(ev)
             out.num_fused_gates += 1
     flush()
+    telemetry.inc("fusion_barriers_total", out.num_barriers, mode="dense")
     return out
 
 
@@ -660,33 +734,93 @@ def _frame_transposes(p: FusePlan) -> int:
                for i in p.items)
 
 
+#: widest channel the krausn kernel op takes (the JAX package's limit):
+#: its superoperator is 4^t x 4^t, 64 x 64 at t = 3
+_KRAUSN_MAX_TARGETS = 3
+
+
+def _lower_channel(ev: GateEvent, n: int):
+    """'channel' event -> [_POp('kraus1'|'kraus2'|'krausn', extended
+    targets, ...)] for <= _KRAUSN_MAX_TARGETS-target Kraus maps, or None
+    (wider channels stay barriers). The op's data is the hashable
+    Kraus-term tuple ((sign, K), ...) of the superoperator's Choi
+    decomposition."""
+    from .ops.density import choi_kraus
+    from .ops.fused_gates import HashableMatrix
+
+    if not 1 <= len(ev.targets) <= _KRAUSN_MAX_TARGETS:
+        return None
+    terms = tuple((float(s), HashableMatrix(k))
+                  for s, k in choi_kraus(ev.superop))
+    if len(ev.targets) == 1:
+        t = ev.targets[0]
+        return [_POp("kraus1", (t, t + n), (), (), terms, False)]
+    if len(ev.targets) == 2:
+        t1, t2 = ev.targets
+        return [_POp("kraus2", (t1, t2, t1 + n, t2 + n), (), (), terms,
+                     False)]
+    rows = tuple(ev.targets)
+    return [_POp("krausn", rows + tuple(q + n for q in rows), (), (),
+                 terms, False)]
+
+
+def _shadow_pop(op: _POp, n: int) -> _POp:
+    """The density conj-shadow twin of a lowered row op: the same op on the
+    column qubits (q + n) with conjugated data (QuEST.c:184-193). Parity
+    phases conjugate by negating theta; swaps are real."""
+    targets = tuple(q + n for q in op.targets)
+    controls = tuple(q + n for q in op.controls)
+    if op.kind == "parity":
+        data = -float(op.data)
+    elif op.kind == "swap":
+        data = op.data
+    else:  # 'matrix' | 'diagw'
+        data = np.conj(np.asarray(op.data))
+    return _POp(op.kind, targets, controls, op.states, data, op.diag_targets)
+
+
 def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
-                 tile_bits: int) -> FusePlan:
+                 tile_bits: int, is_density: bool = False) -> FusePlan:
     """Multi-frame plan: lower every event to kernel primitive ops (ONE
     spy-capture pass over the tape), then schedule the lowered stream with
     BOTH frame schedulers and keep the plan with fewer items (ties: fewer
-    frame transposes)."""
+    frame transposes). A density tape (``is_density``) plans over the
+    flattened 2n-qubit state: every lowered row op is paired with its
+    conj-shadow twin, and the runs carry both explicitly."""
     from .ops.fused_gates import LANE_BITS
 
-    nsv = num_qubits
+    nsv = (2 if is_density else 1) * num_qubits
     k = min(max(nsv - tile_bits, 0), tile_bits - LANE_BITS)
     probe = _FramePlanner(FusePlan(), tile_bits, k, nsv)
 
     # -- pass 1: resolve every tape entry (capture + lower + routability) --
     resolved = []  # ('barrier', entry) | ('events', [(ev, pops|None)])
     for fn, args, kwargs in tape:
-        events = capture(fn, args, kwargs, num_qubits, dtype)
+        events = capture(fn, args, kwargs, num_qubits, dtype,
+                         is_density=is_density)
         lowered = None
         if events is not None:
             lowered = []
             for ev in events:
-                pops = _lower_event(ev)
+                if ev.kind == "channel":
+                    pops = _lower_channel(ev, num_qubits)
+                else:
+                    pops = _lower_event(ev)
+                    if pops is not None and is_density and not ev.extended:
+                        pops = [q for p in pops
+                                for q in (p, _shadow_pop(p, num_qubits))]
                 if pops is not None and not all(
                         probe.feasible_somewhere(p) for p in pops):
                     pops = None  # a target no frame localises
                 lowered.append(pops)
-            if not all(pops is not None or len(_window(ev.support)) <= max_qubits
-                       for ev, pops in zip(events, lowered)):
+
+            def routable(ev, pops):
+                # a unitary event falls back to a dense window block; a
+                # channel has no dense unitary to fall back to
+                return pops is not None or (
+                    ev.kind != "channel" and len(_window(ev.support)) <= max_qubits)
+
+            if not all(routable(ev, pops) for ev, pops in zip(events, lowered)):
                 events = None  # no route for some event: run the entry as-is
         if events is None:
             resolved.append(("barrier", (fn, args, kwargs)))
@@ -709,7 +843,8 @@ def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
                         sched.add(p)
                 else:
                     # dense multi-qubit matrix: a standalone window block
-                    # through the engine, in the identity frame
+                    # through the engine, in the identity frame (in row
+                    # coordinates: the primitive applies the density shadow)
                     sched.flush()
                     win = _window(ev.support)
                     out.items.append(FusedBlock(win, event_matrix(ev, win)))
@@ -757,7 +892,9 @@ def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
 
 
 def _apply_dense_block(qureg, U: np.ndarray, qubits: tuple) -> None:
-    """Tape entry of a FusedBlock: the per-gate engine (ops.apply)."""
+    """Tape entry of a FusedBlock: the per-gate engine (ops.apply), through
+    the gate primitive, which re-derives the density shadow on a density
+    register (the block stays in row coordinates)."""
     from . import gates as G
 
     G._apply_gate_matrix(qureg, U, qubits)
@@ -770,7 +907,9 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
     the kernel."""
     from .ops import apply as K
     from .ops import cplx
+    from .ops import density as DN
     from .ops import diagonal as D
+    from .ops.fused_gates import _KRAUS, kraus_parts
 
     nsv = qureg.num_qubits_in_state_vec
     dt, dev = qureg.dtype, qureg.device
@@ -794,6 +933,15 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
                 raise ValueError("swap with 0-controls has no engine route")
             qureg.put(K.apply_swap(qureg.amps, n=nsv, qb1=q1, qb2=q2,
                                    controls=controls))
+        elif op[0] in _KRAUS:
+            rows, cols, terms = kraus_parts(op)
+            out = None
+            for sign, kk in terms:
+                km = cplx.from_complex(kk.arr, dt, dev)
+                y = K.apply_matrix(qureg.amps, km, n=nsv, targets=rows)
+                y = K.apply_matrix(y, km, n=nsv, targets=cols, conj=True)
+                out = DN._acc_kraus_term(out, sign, y)
+            qureg.put(out)
         else:
             raise ValueError(f"no engine route for op {op[0]!r}")
 

@@ -2,11 +2,12 @@
 (``QuEST/src/QuEST.c``; declarations QuEST.h:1916-4760).
 
 Every function follows the reference's structure (QuEST.c:5-6): validate,
-apply, record QASM. They apply through four primitives
+apply the state-vector op, then on a density register the conjugated
+shadow op on the shifted qubits q + n (QuEST.c:184-193), and record QASM.
+They apply through four primitives
 (``_apply_gate_matrix``/``_diag``/``_x``/``_parity_phase``) and
 ``ops.apply.apply_swap``: the points that ``fusion.capture`` patches to
-record a gate instead of applying it. State-vector registers only; the
-density shadow ops wait for the density slice.
+record a gate instead of applying it.
 """
 
 from __future__ import annotations
@@ -30,30 +31,58 @@ __all__ = [
 # primitives
 # ---------------------------------------------------------------------------
 
+def _shift(qs, n):
+    return tuple(q + n for q in qs)
+
+
 def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
+    """U on a state-vector; U . U^dagger on a density matrix via the
+    conj-shadow (QuEST.c:184-193)."""
+    n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
+    targets, controls, states = tuple(targets), tuple(controls), tuple(states)
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
-    qureg.put(K.apply_matrix(qureg.amps, m, n=qureg.num_qubits_in_state_vec,
-                             targets=tuple(targets), controls=tuple(controls),
-                             control_states=tuple(states)))
+    amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=targets,
+                          controls=controls, control_states=states)
+    if qureg.is_density_matrix:
+        amps = K.apply_matrix(amps, m, n=nsv, targets=_shift(targets, n),
+                              controls=_shift(controls, n),
+                              control_states=states, conj=True)
+    qureg.put(amps)
 
 
 def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
+    n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
+    targets, controls = tuple(targets), tuple(controls)
     d = cplx.from_complex(np.asarray(diag).reshape(-1), qureg.dtype, qureg.device)
-    qureg.put(D.apply_diagonal(qureg.amps, d, n=qureg.num_qubits_in_state_vec,
-                               targets=tuple(targets), controls=tuple(controls)))
+    amps = D.apply_diagonal(qureg.amps, d, n=nsv, targets=targets,
+                            controls=controls)
+    if qureg.is_density_matrix:
+        amps = D.apply_diagonal(amps, d, n=nsv, targets=_shift(targets, n),
+                                controls=_shift(controls, n), conj=True)
+    qureg.put(amps)
 
 
 def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
-    qureg.put(K.apply_x_class(qureg.amps, n=qureg.num_qubits_in_state_vec,
-                              targets=tuple(targets), controls=tuple(controls),
-                              control_states=tuple(states)))
+    n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
+    targets, controls, states = tuple(targets), tuple(controls), tuple(states)
+    amps = K.apply_x_class(qureg.amps, n=nsv, targets=targets,
+                           controls=controls, control_states=states)
+    if qureg.is_density_matrix:
+        amps = K.apply_x_class(amps, n=nsv, targets=_shift(targets, n),
+                               controls=_shift(controls, n),
+                               control_states=states)
+    qureg.put(amps)
 
 
 def _apply_gate_parity_phase(qureg: Qureg, theta, qubits, controls=()):
-    qureg.put(D.apply_parity_phase(qureg.amps, theta,
-                                   n=qureg.num_qubits_in_state_vec,
-                                   qubits=tuple(qubits),
-                                   controls=tuple(controls)))
+    n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
+    qubits, controls = tuple(qubits), tuple(controls)
+    amps = D.apply_parity_phase(qureg.amps, theta, n=nsv, qubits=qubits,
+                                controls=controls)
+    if qureg.is_density_matrix:
+        amps = D.apply_parity_phase(amps, theta, n=nsv, qubits=_shift(qubits, n),
+                                    controls=_shift(controls, n), conj=True)
+    qureg.put(amps)
 
 
 def _log(qureg):
@@ -148,6 +177,9 @@ def rotateX(qureg: Qureg, target: int, angle: float) -> None:
 def swapGate(qureg: Qureg, qb1: int, qb2: int) -> None:
     """(QuEST.h:4331); axis transposition, see ops.apply.apply_swap."""
     V.validate_unique_targets(qureg, qb1, qb2, "swapGate")
-    qureg.put(K.apply_swap(qureg.amps, n=qureg.num_qubits_in_state_vec,
-                           qb1=qb1, qb2=qb2))
+    n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
+    amps = K.apply_swap(qureg.amps, n=nsv, qb1=qb1, qb2=qb2)
+    if qureg.is_density_matrix:
+        amps = K.apply_swap(amps, n=nsv, qb1=qb1 + n, qb2=qb2 + n)
+    qureg.put(amps)
     if _log(qureg): _log(qureg).record_controlled_gate("swap", qb1, qb2)

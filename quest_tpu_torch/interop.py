@@ -31,8 +31,8 @@ def state_to_numpy(qureg) -> np.ndarray:
 
 def ops_from_reference(ops) -> tuple:
     """A ``quest_tpu`` kernel-op tuple -> the port's: every matrix (an
-    object with an ``.arr`` ndarray) becomes the port's HashableMatrix,
-    every other field is kept."""
+    object with an ``.arr`` ndarray, kraus terms' K included) becomes the
+    port's HashableMatrix, every other field is kept."""
     def conv(x):
         if hasattr(x, "arr"):
             return HashableMatrix(np.asarray(x.arr))
@@ -43,10 +43,11 @@ def ops_from_reference(ops) -> tuple:
     return tuple(conv(op) for op in ops)
 
 
-def circuit_from_tape(entries, n: int) -> Circuit:
+def circuit_from_tape(entries, n: int, is_density_matrix: bool = False) -> Circuit:
     """Rebuild a port Circuit from a ``quest_tpu`` ``Circuit._tape``: each
-    entry ``(fn, args, kwargs)`` is recorded again by ``fn.__name__``."""
-    c = Circuit(n)
+    entry ``(fn, args, kwargs)`` (gates, initialisers and mix* channels) is
+    recorded again by ``fn.__name__``."""
+    c = Circuit(n, is_density_matrix)
     for fn, args, kwargs in entries:
         getattr(c, fn.__name__)(*args, **kwargs)
     return c

@@ -17,11 +17,19 @@ tuples in physical qubit coordinates (the planner's output,
     ("window", lo, span, W)              W: (2*2^span)^2 real block
                                          [[Ur, -Ui], [Ui, Ur]]: a folded
                                          unitary on qubits [lo, lo+span)
+    ("kraus1", r, c, terms)              a whole channel on a density
+    ("kraus2", r1, r2, c1, c2, terms)    state: rho' = sum_k s_k K_k rho
+    ("krausn", rows, cols, terms)        K_k^dagger, K_k on the row qubits
+                                         and conj(K_k) on the column
+                                         qubits (1, 2 or up to 3 of each,
+                                         rows[j] bit j of K's index);
+                                         terms = ((s_k, K_k), ...)
 
-The last two come from ``_fold_zone_ops``, which contracts runs of
-zone-local gates into dense per-zone unitaries with the same decisions as
-the JAX package. The tile is 2^tile_bits amplitudes; a dense (partner-
-exchanging) target must lie below tile_bits.
+``lane_u`` and ``window`` come from ``_fold_zone_ops``, which contracts
+runs of zone-local gates into dense per-zone unitaries with the same
+decisions as the JAX package; kraus ops never fold. The tile is
+2^tile_bits amplitudes; a dense (partner-exchanging) target must lie below
+tile_bits, and every qubit of a kraus op is dense.
 
 Route: ``fused_run`` launches the kernel for a CUDA tensor, and uses the
 plain PyTorch version ``fused_run_plain`` only for a CPU tensor. Both read
@@ -56,10 +64,10 @@ HOPPER_TILE_BITS = {torch.float32: 13, torch.float64: 12}
 #: width (in qubits) of each sublane fold zone, as in the JAX package
 _ZONE_SPAN = 5
 
-#: op kind codes of the kernel's op table (csrc/fused_gates.cu); 6-8 are
-#: reserved for the kraus1/kraus2/krausn ops of the density slice
+#: op kind codes of the kernel's op table (csrc/fused_gates.cu)
 _KIND = {"matrix": 0, "parity": 1, "swap": 2, "diagw": 3, "lane_u": 4,
-         "window": 5}
+         "window": 5, "kraus1": 6, "kraus2": 7, "krausn": 8}
+_KRAUS = ("kraus1", "kraus2", "krausn")
 _REC = 8
 
 
@@ -100,6 +108,15 @@ def _arr(m) -> np.ndarray:
     return np.asarray(m.arr if hasattr(m, "arr") else m)
 
 
+def kraus_parts(op) -> tuple[tuple, tuple, tuple]:
+    """(row qubits, column qubits, terms) of a kraus op."""
+    if op[0] == "kraus1":
+        return (op[1],), (op[2],), op[3]
+    if op[0] == "kraus2":
+        return tuple(op[1:3]), tuple(op[3:5]), op[5]
+    return tuple(op[1]), tuple(op[2]), op[3]
+
+
 # ---------------------------------------------------------------------------
 # host-side op algebra (copies of pallas_gates.py's, so folds agree)
 # ---------------------------------------------------------------------------
@@ -130,6 +147,9 @@ def op_dense_targets(op) -> tuple:
         return (op[1],)
     if op[0] == "swap":
         return (op[1], op[2])
+    if op[0] in _KRAUS:
+        rows, cols, _ = kraus_parts(op)
+        return rows + cols
     return ()  # parity / diagw / lane_u / window
 
 
@@ -140,6 +160,8 @@ def _op_support(op):
         return {op[1], op[2], *op[3]}
     if op[0] in ("diagw", "parity"):
         return {*op[1], *op[2]}
+    if op[0] in _KRAUS:
+        return set(op_dense_targets(op))
     return set(range(LANE_BITS))  # lane_u acts on the lane zone
 
 
@@ -177,7 +199,7 @@ def _op_cost(op) -> float:
         return tcost(op[1])
     if op[0] == "swap":
         return tcost(op[1]) + tcost(op[2])
-    return 0.02
+    return 0.02  # kraus ops never reach this model: zone_of() bars them
 
 
 def _fold_zone_ops(ops, tile_bits: int) -> tuple:
@@ -203,6 +225,8 @@ def _fold_zone_ops(ops, tile_bits: int) -> tuple:
     accum = {z: [] for z in zones}
 
     def zone_of(op):
+        if op[0] in _KRAUS:
+            return None  # non-unitary: never enters a zone's dense fold
         s = _op_support(op)
         for z in zones:
             if all(z[0] <= q < z[1] for q in s):
@@ -268,6 +292,22 @@ def _mask(qubits) -> int:
     return m
 
 
+def kraus_superop_table(terms, qubits) -> np.ndarray:
+    """The kernel's form of a kraus op: S^T, where S = sum_k s_k conj(K_k)
+    (x) K_k is the channel's superoperator on ``qubits`` (rows then
+    columns, bit j of S's index is qubits[j], as in
+    ``ops.density.kraus_superoperator``), re-indexed so that bit j is the
+    j-th LOWEST of the qubits: the kernel walks the index as a deposit into
+    the qubits' mask. Complex (G, G), entry [e, d] = S[d, e]."""
+    S = sum(s * np.kron(np.conj(K), K) for s, K in terms)
+    order = np.argsort(qubits)  # ascending position i holds bit order[i]
+    e = np.arange(S.shape[0])
+    to_asc = sum(((e >> int(j)) & 1) << i for i, j in enumerate(order))
+    Sa = np.empty_like(S)
+    Sa[np.ix_(to_asc, to_asc)] = S
+    return Sa.T
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
@@ -275,7 +315,14 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     every block padded to a multiple of 4:
     matrix 8 (m00..m11, re/im), parity 2 (cos, sin of theta/2), diagw 2^t
     interleaved re/im, lane_u U^T real then imaginary (128 x 128 each),
-    window U real then imaginary (D x D each)."""
+    window U real then imaginary (D x D each).
+
+    A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
+    the 2t qubits packed 6 bits each (rows then columns), their mask, and
+    the term count; its block is ``kraus_superop_table`` (G x G, real then
+    imaginary; built in float64 and rounded once to the state's type),
+    which the kernel applies, followed by each term as (s_k, K_k real, K_k
+    imaginary), which the plain version applies."""
     table = np.zeros((len(ops), _REC), dtype=np.int64)
     coeffs: list[np.ndarray] = []
     off = 0
@@ -330,6 +377,25 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
         elif kind == "lane_u":
             W = _arr(op[1]).real
             rec[6] = put(np.concatenate([W[0].reshape(-1), W[1].reshape(-1)]))
+        elif kind in _KRAUS:
+            rows, cols, terms = kraus_parts(op)
+            t = len(rows)
+            if not 1 <= t <= 3 or len(cols) != t:
+                raise ValueError(f"a kraus op takes 1 to 3 row qubits and as many "
+                                 f"column qubits, got {rows} and {cols}")
+            if not terms:
+                raise ValueError("a kraus op needs at least one term")
+            ks = [(float(s), _arr(K).astype(complex)) for s, K in terms]
+            qubits = rows + cols
+            St = kraus_superop_table(ks, qubits)
+            rec[1] = t
+            rec[2] = sum(int(q) << (6 * j) for j, q in enumerate(qubits))
+            rec[5] = _mask(qubits)
+            rec[6] = put(np.concatenate(
+                [St.real.reshape(-1), St.imag.reshape(-1)]
+                + [np.concatenate([[s], K.real.reshape(-1), K.imag.reshape(-1)])
+                   for s, K in ks]))
+            rec[7] = len(ks)
         else:  # window
             _, lo, span, W = op
             W = _arr(W).real
@@ -528,4 +594,37 @@ def _plain_op(x, rec, cf, idx):
         ui = cf[off + D * D:off + 2 * D * D].reshape(D, D)
         xr, xi = x[0].reshape(-1, D, 1 << a), x[1].reshape(-1, D, 1 << a)
         return torch.stack([ur @ xr - ui @ xi, ur @ xi + ui @ xr]).reshape(2, N)
+    if kind in (_KIND["kraus1"], _KIND["kraus2"], _KIND["krausn"]):
+        # per term, as _ops_body: K on the rows and conj(K) on the columns
+        # of a copy, accumulated with the term's sign
+        d = 1 << a
+        qubits = [(b >> (6 * j)) & 63 for j in range(2 * a)]
+        o = off + 2 * d ** 4  # the terms follow the superoperator
+        acc = None
+        for _ in range(flags):
+            s = cf[o]
+            kr = cf[o + 1:o + 1 + d * d].reshape(d, d)
+            ki = cf[o + 1 + d * d:o + 1 + 2 * d * d].reshape(d, d)
+            o += 1 + 2 * d * d
+            y = _plain_dense(x, kr, ki, qubits[:a], idx)
+            y = s * _plain_dense(y, kr, -ki, qubits[a:], idx)
+            acc = y if acc is None else acc + y
+        return acc
     raise ValueError(f"unknown op kind code {kind}")
+
+
+def _plain_dense(x, mr, mi, qubits, idx):
+    """A d x d complex matrix (mr + i mi) on ``qubits`` of the whole state
+    (qubits[j] is bit j of its index): out[i] = sum_delta M[r, r ^ delta]
+    x[i ^ flip(delta)], r the bits of i on ``qubits``."""
+    r = torch.zeros_like(idx)
+    for j, q in enumerate(qubits):
+        r |= ((idx >> q) & 1) << j
+    out_r, out_i = torch.zeros_like(x[0]), torch.zeros_like(x[1])
+    for delta in range(1 << len(qubits)):
+        flip = sum(1 << q for j, q in enumerate(qubits) if (delta >> j) & 1)
+        pr, pi = (x[0], x[1]) if not flip else (x[0][idx ^ flip], x[1][idx ^ flip])
+        cr, ci = mr[r, r ^ delta], mi[r, r ^ delta]
+        out_r += cr * pr - ci * pi
+        out_i += cr * pi + ci * pr
+    return torch.stack([out_r, out_i])

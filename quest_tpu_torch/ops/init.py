@@ -35,3 +35,31 @@ def init_debug(num_amps: int, dtype: torch.dtype, device) -> torch.Tensor:
     (statevec_initDebugState, QuEST_cpu.c:1649-1680)."""
     i = torch.arange(num_amps, dtype=dtype, device=device)
     return torch.stack([(2 * i) / 10, (2 * i + 1) / 10])
+
+
+def density_from_pure(pure_amps: torch.Tensor, *, n: int) -> torch.Tensor:
+    """rho = |psi><psi| flattened with row bits low (initPureState;
+    densmatr_initPureState, QuEST_cpu_distributed.c:387-429). Flat index =
+    col * 2^n + row, element = psi_row * conj(psi_col)."""
+    del n
+    pr, pi = pure_amps[0], pure_amps[1]
+    # out[c, r] = psi_r * conj(psi_c)
+    re = pr[:, None] * pr[None, :] + pi[:, None] * pi[None, :]
+    im = pr[:, None] * pi[None, :] - pi[:, None] * pr[None, :]
+    return torch.stack([re, im]).reshape(2, -1)
+
+
+def density_init_classical(num_amps: int, dtype: torch.dtype, device,
+                           index: int) -> torch.Tensor:
+    """rho = |s><s|: a single 1 at the diagonal flat index s * (2^n + 1)."""
+    dim = math.isqrt(num_amps)
+    amps = torch.zeros((2, num_amps), dtype=dtype, device=device)
+    amps[0, index * (dim + 1)] = 1
+    return amps
+
+
+def density_init_plus(num_amps: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """rho = |+><+| on n qubits: every element 1/2^n."""
+    amps = torch.zeros((2, num_amps), dtype=dtype, device=device)
+    amps[0].fill_(1.0 / math.isqrt(num_amps))
+    return amps

@@ -39,6 +39,18 @@ def total_prob_statevec(amps: torch.Tensor) -> torch.Tensor:
     return _csum(amps[0] * amps[0] + amps[1] * amps[1])
 
 
+def total_prob_density(amps: torch.Tensor, *, n: int) -> torch.Tensor:
+    """Re(trace(rho)) (densmatr_calcTotalProb)."""
+    dim = 1 << n
+    return _csum(torch.diagonal(amps[0].reshape(dim, dim)))
+
+
+def purity_density(amps: torch.Tensor) -> torch.Tensor:
+    """Tr(rho^2) = sum |rho_ij|^2 for Hermitian rho (densmatr_calcPurityLocal,
+    QuEST_cpu.c:878)."""
+    return _csum(amps[0] * amps[0] + amps[1] * amps[1])
+
+
 def prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
                     outcome: int) -> torch.Tensor:
     """P(measuring ``outcome`` on ``target``) of a state-vector

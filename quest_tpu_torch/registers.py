@@ -10,7 +10,9 @@ other thread blocks write, so it runs out of place: into ``spare``, a
 second buffer of the register's size that is allocated once, at the first
 such pass, and then ping-pongs with ``amps`` (``swap_spare``). A register
 that has run such a pass therefore holds two states' worth of device
-memory: 32 qubits in f32 fit an 80 GB card (2 x 32 GiB), 33 do not.
+memory: 32 qubits in f32 fit an 80 GB card (2 x 32 GiB), 33 do not. A
+density register of n qubits is a 2n-qubit state (row bits low, column
+bits high): at 14 qubits, 2 x 2 GiB in f32 and 2 x 4 GiB in f64.
 """
 
 from __future__ import annotations
@@ -92,6 +94,23 @@ def createQureg(num_qubits: int, env: QuESTEnv, precision_code: int | None = Non
         lambda: ops_init.init_classical(1 << num_qubits, dtype, env.device, 0),
         func)
     q = Qureg(num_qubits, False, amps, env)
+    q.qasm_log = QASMLogger(num_qubits, dtype)
+    return q
+
+
+def createDensityQureg(num_qubits: int, env: QuESTEnv,
+                       precision_code: int | None = None) -> Qureg:
+    """Density-matrix register in |0><0| on the env's device
+    (createDensityQureg, QuEST.h:673): a 2n-qubit flattened state, row bits
+    low and column bits high."""
+    func = "createDensityQureg"
+    validation._assert(num_qubits > 0, "Invalid number of qubits. Must create >0.", func)
+    validation.validate_num_amps_fit_type(num_qubits, True, func)
+    dtype = precision.real_dtype(precision_code)
+    amps = validation.validate_qureg_allocation(
+        lambda: ops_init.init_classical(1 << (2 * num_qubits), dtype, env.device, 0),
+        func)
+    q = Qureg(num_qubits, True, amps, env)
     q.qasm_log = QASMLogger(num_qubits, dtype)
     return q
 

@@ -1,5 +1,6 @@
 """State initialisation API (reference QuEST.h:1619-1876, QuEST.c init
-family): the initialisers of the ported slice, state-vector registers."""
+family): the initialisers of the ported slices, for state-vector and
+density registers."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from .ops import init as I
 from .registers import Qureg
 
 __all__ = ["initBlankState", "initZeroState", "initPlusState",
-           "initClassicalState", "initDebugState"]
+           "initClassicalState", "initPureState", "initDebugState"]
 
 
 def initBlankState(qureg: Qureg) -> None:
@@ -21,14 +22,23 @@ def initBlankState(qureg: Qureg) -> None:
 
 def initZeroState(qureg: Qureg) -> None:
     """Set the register to |0...0> (QuEST.h:194)."""
-    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device, 0))
+    if qureg.is_density_matrix:
+        amps = I.density_init_classical(qureg.num_amps_total, qureg.dtype,
+                                        qureg.device, 0)
+    else:
+        amps = I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device, 0)
+    qureg.put(amps)
     if qureg.qasm_log:
         qureg.qasm_log.record_init_zero()
 
 
 def initPlusState(qureg: Qureg) -> None:
     """Set the register to |+>^n, every amplitude equal (QuEST.h:195)."""
-    qureg.put(I.init_plus(qureg.num_amps_total, qureg.dtype, qureg.device))
+    if qureg.is_density_matrix:
+        amps = I.density_init_plus(qureg.num_amps_total, qureg.dtype, qureg.device)
+    else:
+        amps = I.init_plus(qureg.num_amps_total, qureg.dtype, qureg.device)
+    qureg.put(amps)
     if qureg.qasm_log:
         qureg.qasm_log.record_init_plus()
 
@@ -36,10 +46,32 @@ def initPlusState(qureg: Qureg) -> None:
 def initClassicalState(qureg: Qureg, state_index: int) -> None:
     """Set the register to computational basis state |stateInd> (QuEST.h:196)."""
     V.validate_state_index(qureg, state_index, "initClassicalState")
-    qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device,
-                               state_index))
+    if qureg.is_density_matrix:
+        amps = I.density_init_classical(qureg.num_amps_total, qureg.dtype,
+                                        qureg.device, state_index)
+    else:
+        amps = I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device,
+                                state_index)
+    qureg.put(amps)
     if qureg.qasm_log:
         qureg.qasm_log.record_init_classical(state_index)
+
+
+def initPureState(qureg: Qureg, pure: Qureg) -> None:
+    """Copy a pure state in; density targets get rho = |psi><psi|
+    (QuEST.h:1689; densmatr_initPureState)."""
+    func = "initPureState"
+    V.validate_second_qureg_state_vec(pure, func)
+    V.validate_matching_qureg_dims(qureg, pure, func)
+    if qureg.is_density_matrix:
+        amps = I.density_from_pure(pure.amps.to(qureg.dtype),
+                                   n=qureg.num_qubits_represented)
+    else:
+        amps = pure.amps.to(qureg.dtype, copy=True)
+    qureg.put(amps)
+    if qureg.qasm_log:
+        qureg.qasm_log.record_comment(
+            "Here, the register was initialised to an undisclosed given pure state.")
 
 
 def initDebugState(qureg: Qureg) -> None:

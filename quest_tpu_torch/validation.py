@@ -1,4 +1,4 @@
-"""Input validation: the validators the ported slice calls.
+"""Input validation: the validators the ported slices call.
 
 A copy of the matching functions of ``quest_tpu/validation.py`` (itself the
 counterpart of the reference's ``QuEST_validation.c``), with the messages
@@ -125,8 +125,76 @@ def validate_unitary_matrix(matrix, num_targets: int, eps: float, func: str) -> 
     _assert(is_unitary(matrix, eps), "Matrix is not unitary.", func)
 
 
+def validate_kraus_ops(ops, num_targets: int, eps: float, func: str, check_cptp: bool = True) -> None:
+    dim = 2 ** num_targets
+    _assert(len(ops) > 0, "Invalid number of operators.", func)
+    _assert(
+        len(ops) <= dim * dim,
+        "Invalid number of operators. Must be >0 and <= 4^numTargets.",
+        func,
+    )
+    for op in ops:
+        validate_matrix_size(op, num_targets, func)
+    if check_cptp:
+        acc = np.zeros((dim, dim), dtype=np.complex128)
+        for op in ops:
+            m = np.asarray(op).astype(np.complex128)
+            acc += m.conj().T @ m
+        _assert(
+            np.allclose(acc, np.eye(dim), atol=eps * dim),
+            "The specified Kraus map is not completely positive and trace preserving (CPTP).",
+            func,
+        )
+
+
+def validate_one_qubit_dephase_prob(prob: float, func: str) -> None:
+    _assert(0 <= prob <= 1 / 2, "The probability of a single-qubit dephase error cannot exceed 1/2.", func)
+
+
+def validate_two_qubit_dephase_prob(prob: float, func: str) -> None:
+    _assert(0 <= prob <= 3 / 4, "The probability of a two-qubit dephase error cannot exceed 3/4.", func)
+
+
+def validate_one_qubit_depol_prob(prob: float, func: str) -> None:
+    _assert(0 <= prob <= 3 / 4, "The probability of a single-qubit depolarising error cannot exceed 3/4.", func)
+
+
+def validate_two_qubit_depol_prob(prob: float, func: str) -> None:
+    _assert(0 <= prob <= 15 / 16, "The probability of a two-qubit depolarising error cannot exceed 15/16.", func)
+
+
+def validate_one_qubit_damping_prob(prob: float, func: str) -> None:
+    _assert(0 <= prob <= 1, "The probability of a single-qubit damping error cannot exceed 1.", func)
+
+
+def validate_pauli_probs(px: float, py: float, pz: float, func: str) -> None:
+    for p in (px, py, pz):
+        _assert(p >= 0, "Probabilities must be in [0, 1].", func)
+    _assert(
+        px + py + pz <= 1,
+        "The probabilities of any of the single-qubit Pauli errors cannot exceed the probability of no error.",
+        func,
+    )
+
+
+def validate_density_matr(qureg, func: str) -> None:
+    _assert(qureg.is_density_matrix, "Operation valid only for density matrices.", func)
+
+
 def validate_state_vec(qureg, func: str) -> None:
     _assert(not qureg.is_density_matrix, "Operation valid only for state-vectors.", func)
+
+
+def validate_second_qureg_state_vec(qureg2, func: str) -> None:
+    _assert(not qureg2.is_density_matrix, "Second argument must be a state-vector.", func)
+
+
+def validate_matching_qureg_dims(a, b, func: str) -> None:
+    _assert(
+        a.num_qubits_represented == b.num_qubits_represented,
+        "Dimensions of the qubit registers don't match.",
+        func,
+    )
 
 
 def validate_amp_index(qureg, index: int, func: str) -> None:

@@ -205,7 +205,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="exceeds the call geometry"):
         FG.fused_run(x, n=10, ops=ops, tile_bits=9, store_swap_k=2,
                      out=torch.empty_like(x))
-    with pytest.raises(ValueError, match="no op 'kraus1'"):
+    with pytest.raises(ValueError, match="no op 'kraus3'"):
+        FG.encode_ops((("kraus3", 0, 5, ()),))
+    with pytest.raises(ValueError, match="at least one term"):
         FG.encode_ops((("kraus1", 0, 5, ()),))
 
 

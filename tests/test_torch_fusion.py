@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _random_layers
+from bench import _density_circuit
 from quest_tpu import fusion as JF
 from quest_tpu.circuits import Circuit as JCircuit
 from quest_tpu.ops import pallas_gates as PG
@@ -19,6 +20,30 @@ from quest_tpu_torch.ops import fused_gates as FG
 from quest_tpu_torch.ops import init as ops_init
 
 
+def assert_ops_equal(got, ref):
+    """Op tuples equal; a kraus op's terms (from each package's Choi
+    decomposition) within 1e-12."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        if r[0] in FG._KRAUS:
+            (gr, gc, gt), (rr, rc, rt) = FG.kraus_parts(g), FG.kraus_parts(r)
+            assert (g[0], gr, gc, len(gt)) == (r[0], rr, rc, len(rt))
+            for (gs, gk), (rs, rk) in zip(gt, rt):
+                assert gs == rs
+                np.testing.assert_allclose(gk.arr, rk.arr, rtol=0, atol=1e-12)
+        else:
+            assert g == r
+
+
+def _assert_args_equal(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        if isinstance(r, (list, tuple)) and not isinstance(r, str):
+            _assert_args_equal(g, r)
+        else:
+            np.testing.assert_array_equal(g, r)
+
+
 def assert_plans_equal(ref, got):
     assert len(got.items) == len(ref.items)
     assert (got.num_fused_gates, got.num_barriers) == (ref.num_fused_gates,
@@ -26,7 +51,7 @@ def assert_plans_equal(ref, got):
     for a, b in zip(ref.items, got.items):
         assert type(b).__name__ == type(a).__name__
         if isinstance(a, JF.PallasRun):
-            assert b.ops == ops_from_reference(a.ops)
+            assert_ops_equal(b.ops, ops_from_reference(a.ops))
             assert (b.tile_bits, b.load_swap_k, b.load_swap_hi, b.store_swap_k,
                     b.store_swap_hi) == (a.tile_bits, a.load_swap_k,
                                          a.load_swap_hi, a.store_swap_k,
@@ -40,7 +65,8 @@ def assert_plans_equal(ref, got):
             assert b.qubits == a.qubits
             np.testing.assert_allclose(b.diag, a.diag, rtol=0, atol=1e-14)
         else:  # a barrier entry
-            assert b[0].__name__ == a[0].__name__ and b[1:] == a[1:]
+            assert b[0].__name__ == a[0].__name__
+            _assert_args_equal(b[1:], a[1:])
 
 
 def _apply_run_via_engine(qureg, run):
@@ -154,3 +180,39 @@ def test_plan_replays_to_unfused_state(n):
     for q in (q_kernel, q_engine):
         np.testing.assert_allclose(q.amps.numpy(), ref, rtol=1e-10,
                                    atol=1e-10 * np.abs(ref).max())
+
+
+def _density_tape(kind, n):
+    if kind == "r4":
+        return _density_circuit(n, True)
+    jc = JCircuit(n, is_density_matrix=True)
+    _random_layers(jc, n, depth=2, seed=n)
+    if kind == "layers+channels":
+        jc.mixDepolarising(n - 1, 0.1)
+        jc.mixTwoQubitDepolarising(0, n - 2, 0.2)
+        jc.mixDamping(2, 0.3)
+        jc.mixMultiQubitKrausMap([n - 1, 0, 2], [np.eye(8)])
+        jc.mixDephasing(n - 3, 0.1)
+        _random_layers(jc, n, depth=1, seed=n + 1)
+    return jc
+
+
+@pytest.mark.parametrize("kind", ["r4", "layers", "layers+channels"])
+@pytest.mark.parametrize("n", [5, 6])
+def test_density_pallas_plan_equals_reference(n, kind):
+    """Density tapes (the bench's r4 channel circuit, random layers with
+    and without channels) at the pinned tile local_qubits(2n, sublanes=4):
+    the port's plan equals quest_tpu's item for item -- shadow ops, kraus
+    ops with their terms, frame swaps and barriers."""
+    jc = _density_tape(kind, n)
+    tc = circuit_from_tape(jc._tape, n, True)
+    tb = PG.local_qubits(2 * n, sublanes=4)
+    ref = JF._plan_pallas(tuple(jc._tape), n, np.float64, 4, tb, is_density=True)
+    got = F._plan_pallas(tuple(tc._tape), n, torch.float64, 4, tb, is_density=True)
+    assert_plans_equal(ref, got)
+    ops = [op for i in got.items if isinstance(i, F.PallasRun) for op in i.ops]
+    assert any(op[0] == "matrix" and op[1] >= n for op in ops)  # shadow ops
+    if kind != "layers":
+        assert {op[0] for op in ops} & set(FG._KRAUS)
+    assert any(isinstance(i, F.PallasRun) and (i.load_swap_k or i.store_swap_k)
+               for i in got.items)

@@ -18,8 +18,13 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke"])
 def test_import_pulls_in_no_jax(module):
-    code = (f"import sys, json, {module}, quest_tpu_torch.fusion, "
-            "quest_tpu_torch.interop, quest_tpu_torch.ops.fused_gates; "
+    # every module of the port, found by walking the package
+    code = (f"import sys, json, importlib, pkgutil, {module}, quest_tpu_torch; "
+            "mods = [importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "quest_tpu_torch.__path__, 'quest_tpu_torch.')]; "
+            "assert {'quest_tpu_torch.decoherence', 'quest_tpu_torch.channels', "
+            "'quest_tpu_torch.ops.density', 'quest_tpu_torch.ops.measure'} "
+            "<= {m.__name__ for m in mods}; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

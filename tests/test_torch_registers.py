@@ -3,6 +3,7 @@ dense numpy oracle (tests/oracle.py), plane for plane, in f64 (1e-10)."""
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -142,3 +143,65 @@ def test_destroy_qureg_releases_buffers(envs):
     q.spare_buffer()
     tq.destroyQureg(q)
     assert q.amps is None and q.spare is None
+
+
+# ---------------------------------------------------------------------------
+# density registers
+# ---------------------------------------------------------------------------
+
+ND = 3
+
+
+def _density_pair(envs, n=ND):
+    jenv, tenv = envs
+    return jq.createDensityQureg(n, jenv), tq.createDensityQureg(n, tenv, 2)
+
+
+def test_create_density_qureg_matches_reference(envs):
+    jqr, tqr = _density_pair(envs)
+    _same(jqr, tqr)
+    assert tqr.is_density_matrix and tqr.num_qubits_in_state_vec == 2 * ND
+    assert tqr.num_amps_total == 1 << (2 * ND) and tqr.dtype == torch.float64
+    with pytest.raises(tq.QuESTError, match="Invalid number of qubits"):
+        tq.createDensityQureg(0, envs[1])
+
+
+@pytest.mark.parametrize("init,args", [
+    ("initZeroState", ()), ("initPlusState", ()), ("initBlankState", ()),
+    ("initClassicalState", (5,)), ("initDebugState", ()), ("initPureState", None),
+])
+def test_density_initialisers_match_reference(envs, init, args):
+    jqr, tqr = _density_pair(envs)
+    if args is None:  # rho = |psi><psi| of a debug-state vector
+        jp, tp = _pair(envs, ND)
+        jq.initDebugState(jp)
+        tq.initDebugState(tp)
+        jq.initPureState(jqr, jp)
+        tq.initPureState(tqr, tp)
+        psi = oracle.debug_statevec(1 << ND)
+        np.testing.assert_allclose(tq.get_np(tqr).reshape(1 << ND, 1 << ND).T,
+                                   np.outer(psi, psi.conj()), rtol=0, atol=TOL)
+    else:
+        getattr(jq, init)(jqr, *args)
+        getattr(tq, init)(tqr, *args)
+    _same(jqr, tqr, tol=1e-15 * max(np.abs(np.asarray(jqr.amps)).max(), 1.0))
+
+
+@pytest.mark.parametrize("gate,args", [(g[0], g[1]) for g in GATES],
+                         ids=[g[0] for g in GATES])
+def test_gate_on_density_matches_reference_and_oracle(envs, gate, args):
+    """The slice's gates on a density register: U on the rows, conj(U) on
+    the columns (the conj-shadow), plane for plane against quest_tpu and as
+    U rho U^dagger against the oracle (on 5-qubit registers, as GATES)."""
+    jqr, tqr = _density_pair(envs, N)
+    rho = oracle.random_density(N, np.random.RandomState(9))
+    flat = rho.T.reshape(-1)
+    planar = np.stack([flat.real, flat.imag])
+    jqr.put(jnp.asarray(planar))
+    tqr.put(torch.as_tensor(planar))
+    getattr(jq, gate)(jqr, *args)
+    getattr(tq, gate)(tqr, *args)
+    _same(jqr, tqr, tol=TOL)
+    op = dict((g[0], g[2]) for g in GATES)[gate]
+    got = tq.get_np(tqr).reshape(1 << N, 1 << N).T
+    np.testing.assert_allclose(got, op @ rho @ op.conj().T, rtol=0, atol=TOL)
