@@ -221,6 +221,42 @@ def _passes(runs, n: int, dt, dev, rng, tol: float, label: str) -> dict:
     return res
 
 
+def _kraus_ops_at_width(dt, dev, rng) -> dict:
+    """Each kraus kind alone in one pass over the 28-qubit flattened state
+    of the density path (no swap; the column qubits at the top of the
+    tile): kernel against plain, timed, with its bound."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.channels import depolarising_kraus
+    from quest_tpu_torch.fusion import PallasRun
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = 2 * N_DENSITY
+    tb = FG.hopper_tile_bits(n, dt)
+    HM = FG.HashableMatrix
+
+    def rk(d):
+        return HM(0.3 * (rng.randn(d, d) + 1j * rng.randn(d, d)))
+
+    xxx = np.kron(np.kron([[0, 1], [1, 0]], [[0, 1], [1, 0]]), [[0, 1], [1, 0]])
+    runs = {
+        "kraus1": ("kraus1", 0, tb - 1,
+                   tuple((1.0, HM(K)) for K in depolarising_kraus(0.05))),
+        "kraus2": ("kraus2", 0, 1, tb - 2, tb - 1, tuple((1.0, rk(4)) for _ in range(3))),
+        "krausn": ("krausn", (2, 3, 4), (tb - 3, tb - 2, tb - 1),
+                   ((1.0, HM(0.8 * xxx)), (1.0, HM(0.6j * np.eye(8))))),
+    }
+
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    res = _passes([PallasRun((op,), tb) for op in runs.values()], n, dt, dev, rng,
+                  tol, f"kraus ops alone {str(dt)[6:]}")
+    return {kind: {"ms": res["ms"][i], "bound_ms": res["bound_ms"][i],
+                   "plain_ms": res["plain_ms"][i],
+                   "bound_by": "operations" if res["by_ops"][i] else "bytes"}
+            for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
+
+
 def _engine_replay(circ, qureg) -> None:
     """The unfused tape on ``qureg``, one entry at a time, every gate through
     the per-gate engine and every channel through the per-term engine
@@ -394,8 +430,10 @@ def main() -> int:
     built = _build.build_all()
     print(f"# build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s in all)")
     for line in _build.build_log("fused_gates").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"# ptxas: {line.strip()}")
+        if "Function properties for" in line:  # which function the next lines describe
+            print(f"# ptxas: {line.split('for')[-1].strip()[-60:]}")
+        elif "registers" in line or "spill" in line:
+            print(f"# ptxas:   {line.replace('ptxas info    :', '').strip()}")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -423,9 +461,9 @@ def main() -> int:
                   f"max_abs_err {err:.3e} (limit {tol:g})")
             _require(err <= tol, f"{dt} {name} error {err} > {tol}")
             errs[(str(dt), name)] = err
-        _require(seen == {"matrix", "parity", "swap", "diagw", "lane_u", "window",
-                          "kraus1", "kraus2", "krausn"},
-                 f"kernel phase missed op kinds: {seen}")
+        kinds_checked = {"matrix", "parity", "swap", "diagw", "lane_u", "window",
+                         "kraus1", "kraus2", "krausn"}
+        _require(seen == kinds_checked, f"kernel phase missed op kinds: {seen}")
         del st, out, ref
 
     # -- main path: plan, per-run kernel vs plain, then the circuit --------
@@ -514,10 +552,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- density path: the channel circuits, f32 then f64 ------------------
-    density = {}
+    density, kraus_alone = {}, {}
     for ddt in (torch.float32, torch.float64):
         for tag, with_krausn in (("r3", False), ("r4", True)):
             density[(ddt, tag)] = _density_path(qt, env, ddt, with_krausn, rng, dev)
+        kraus_alone[ddt] = _kraus_ops_at_width(ddt, dev, rng)
+        torch.cuda.empty_cache()
 
     f32_paths = {"statevec_26q_depth8": main}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
@@ -532,12 +572,16 @@ def main() -> int:
     entries[0].update(gates_per_sec=gps,
                       library_yardsticks_ms={"copy_": copy_ms, "matmul_lane_u": mm_ms})
     entries[1]["also_replaces"] = "quest_tpu/ops/pallas_df.py:255"
-    for e, paths in zip(entries, (f32_paths, f64_paths)):
+    for e, paths, ddt in zip(entries, (f32_paths, f64_paths), (torch.float32, torch.float64)):
         e["channel_ops_per_sec"] = {k: p["channel_ops_per_sec"] for k, p in paths.items()
                                     if "channel_ops_per_sec" in p}
+        e["kraus_op_passes_28q"] = kraus_alone[ddt]
+        e["max_abs_err"] = max(e["max_abs_err"], kraus_alone[ddt]["max_abs_err"])
+        e["kernel_phase_op_kinds"] = sorted(kinds_checked)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
-        "op_kinds": e["op_kinds"]} for e in entries}))
+        "op_kinds_on_paths": e["op_kinds"],
+        "op_kinds_checked": e["kernel_phase_op_kinds"]} for e in entries}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

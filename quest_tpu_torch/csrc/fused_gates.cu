@@ -324,9 +324,11 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
 // its x reads (broadcasts) and finish them in the same round, before the
 // barrier after which they write. A round holds kR * kB outputs per
 // thread: 16 in f32 (one round at the largest tile), 2 in f64 (four
-// rounds): the f64 registers must also hold the kernel's own 64-bit state.
+// rounds). The op is kept out of line: inlined into the kernel it raised
+// the f64 instantiation's register spills from 8 to 84 bytes, which the
+// kernel's other ops then pay for.
 template <typename T, int kR, int kB>
-__device__ __forceinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
+__device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
                                          const T* __restrict__ cf, int t,
                                          uint32_t mask, int tid) {
   const uint32_t G = 1u << (2 * t);

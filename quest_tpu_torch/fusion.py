@@ -935,13 +935,8 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
                                    controls=controls))
         elif op[0] in _KRAUS:
             rows, cols, terms = kraus_parts(op)
-            out = None
-            for sign, kk in terms:
-                km = cplx.from_complex(kk.arr, dt, dev)
-                y = K.apply_matrix(qureg.amps, km, n=nsv, targets=rows)
-                y = K.apply_matrix(y, km, n=nsv, targets=cols, conj=True)
-                out = DN._acc_kraus_term(out, sign, y)
-            qureg.put(out)
+            qureg.put(DN._apply_kraus_sum(qureg.amps, [(s, k.arr) for s, k in terms],
+                                          nsv=nsv, rows=rows, cols=cols))
         else:
             raise ValueError(f"no engine route for op {op[0]!r}")
 

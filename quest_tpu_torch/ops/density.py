@@ -84,10 +84,8 @@ def apply_channel(amps: torch.Tensor, superop, *, n: int,
             telemetry.inc("channel_route_total", route="kernel")
             return new
     telemetry.inc("channel_route_total", route="engine")
-    ks = torch.as_tensor(np.stack([np.stack([k.real, k.imag]) for _, k in terms]),
-                         dtype=amps.dtype, device=amps.device)
-    return _apply_kraus_sum(amps, ks, n=n, targets=tuple(targets),
-                            signs=tuple(s for s, _ in terms))
+    return _apply_kraus_sum(amps, terms, nsv=2 * n, rows=tuple(targets),
+                            cols=tuple(q + n for q in targets))
 
 
 def _kraus_sum_kernel(amps: torch.Tensor, terms, n: int, t: int,
@@ -130,17 +128,17 @@ def _acc_kraus_term(out, sign, term):
     return term if out is None else out + term
 
 
-def _apply_kraus_sum(amps: torch.Tensor, ks: torch.Tensor, *, n: int,
-                     targets: tuple[int, ...],
-                     signs: tuple[float, ...]) -> torch.Tensor:
-    """sum_i signs[i] K_i rho K_i^dagger through the per-gate engine: two
-    ``apply_matrix`` passes per term (K on the rows, conj(K) on the
-    columns). ``ks`` is planar (terms, 2, d, d)."""
-    shifted = tuple(q + n for q in targets)
+def _apply_kraus_sum(amps: torch.Tensor, terms, *, nsv: int, rows: tuple,
+                     cols: tuple) -> torch.Tensor:
+    """sum_k s_k K_k rho K_k^dagger through the per-gate engine on an
+    nsv-qubit flattened state: two ``apply_matrix`` passes per term (K on
+    the ``rows`` qubits, conj(K) on the ``cols`` qubits). ``terms`` is
+    [(s_k, K_k complex ndarray), ...]."""
     out = None
-    for i, sign in enumerate(signs):
-        y = apply.apply_matrix(amps, ks[i], n=2 * n, targets=targets)
-        y = apply.apply_matrix(y, ks[i], n=2 * n, targets=shifted, conj=True)
+    for sign, k in terms:
+        km = cplx.from_complex(k, amps.dtype, amps.device)
+        y = apply.apply_matrix(amps, km, n=nsv, targets=rows)
+        y = apply.apply_matrix(y, km, n=nsv, targets=cols, conj=True)
         out = _acc_kraus_term(out, sign, y)
     return out
 

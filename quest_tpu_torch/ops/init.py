@@ -37,11 +37,10 @@ def init_debug(num_amps: int, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.stack([(2 * i) / 10, (2 * i + 1) / 10])
 
 
-def density_from_pure(pure_amps: torch.Tensor, *, n: int) -> torch.Tensor:
+def density_from_pure(pure_amps: torch.Tensor) -> torch.Tensor:
     """rho = |psi><psi| flattened with row bits low (initPureState;
     densmatr_initPureState, QuEST_cpu_distributed.c:387-429). Flat index =
     col * 2^n + row, element = psi_row * conj(psi_col)."""
-    del n
     pr, pi = pure_amps[0], pure_amps[1]
     # out[c, r] = psi_r * conj(psi_c)
     re = pr[:, None] * pr[None, :] + pi[:, None] * pi[None, :]

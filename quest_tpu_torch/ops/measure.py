@@ -10,16 +10,10 @@ from .layout import grouped_axes
 from .reduce import _csum
 
 
-def _density_diag_re(amps: torch.Tensor, n: int) -> torch.Tensor:
-    """Real part of the diagonal (2^n,) of a flattened density matrix."""
-    dim = 1 << n
-    return torch.diagonal(amps[0].reshape(dim, dim))
-
-
 def density_prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
                             outcome: int) -> torch.Tensor:
     """Tr(rho P_outcome): the sum of the diagonal elements whose bit
     ``target`` equals ``outcome`` (densmatr_calcProbOfOutcome)."""
     shape, axis_of = grouped_axes(n, (target,))
-    d = _density_diag_re(amps, n).reshape(shape)
+    d = torch.diagonal(amps[0].reshape(1 << n, 1 << n)).reshape(shape)
     return _csum(d.select(axis_of[target], outcome))

@@ -64,8 +64,7 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
     V.validate_second_qureg_state_vec(pure, func)
     V.validate_matching_qureg_dims(qureg, pure, func)
     if qureg.is_density_matrix:
-        amps = I.density_from_pure(pure.amps.to(qureg.dtype),
-                                   n=qureg.num_qubits_represented)
+        amps = I.density_from_pure(pure.amps.to(qureg.dtype))
     else:
         amps = pure.amps.to(qureg.dtype, copy=True)
     qureg.put(amps)

@@ -164,11 +164,9 @@ def test_channel_routes_agree_and_refuse_as_the_reference():
               - 0.3 * DN.kraus_superoperator([X]))
     for sup in (DN.kraus_superoperator(DN.depolarising_kraus(0.3)), non_cp):
         terms = DN.choi_kraus(sup)
-        ks = torch.as_tensor(np.stack([np.stack([k.real, k.imag]) for _, k in terms]))
-        signs = tuple(s for s, _ in terms)
         for t, lq in [(1, None), (3, 9), (0, 8)]:
             superop = DN.apply_channel(amps, sup, n=n, targets=(t,))
-            engine = DN._apply_kraus_sum(amps, ks, n=n, targets=(t,), signs=signs)
+            engine = DN._apply_kraus_sum(amps, terms, nsv=2 * n, rows=(t,), cols=(t + n,))
             kernel = DN._kraus_sum_kernel(amps, terms, n, t, lq=lq)
             ref = JDN._kraus_sum_pallas(jnp.asarray(x), JDN.choi_kraus(sup), n, t, lq=lq)
             for got in (engine, kernel):
@@ -471,3 +469,27 @@ def test_bench_channel_circuits_end_to_end(with_krausn, precision, tol):
     assert_close(state_to_numpy(t), np.asarray(j.amps), tol)
     assert abs(tq.calcTotalProb(t) - 1) < tol
     assert abs(tq.calcPurity(t) - jq.calcPurity(j)) < tol
+
+
+@pytest.mark.cuda
+def test_kraus_kernel_matches_plain_on_card():
+    """The CUDA kernel's kraus ops against its plain version on the card,
+    every kind with and without folded swaps, f32 and f64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 14
+    for dt, tb, tol in ((torch.float32, 9, 1e-5), (torch.float64, 9, 1e-12)):
+        x = torch.as_tensor(np.random.default_rng(5).normal(size=(2, 1 << n)),
+                            dtype=dt, device="cuda")
+        x /= x.norm()
+        for _, ops, swaps in _kraus_cases():
+            swaps = {k: (n - 2 if k.endswith("hi") else v) for k, v in swaps.items()}
+            pops = ops_from_reference(ops)
+            prep = FG.PreparedRun(pops, tb)
+            ref = FG.fused_run_plain(x, prep, n=n, tile_bits=tb, **swaps)
+            before = FG.fused_run.launches
+            got = FG.fused_run(x, n=n, ops=pops, tile_bits=tb, out=torch.empty_like(x),
+                               prepared=prep, **swaps)
+            torch.cuda.synchronize()
+            assert FG.fused_run.launches == before + 1
+            assert (got - ref).abs().max().item() <= tol
