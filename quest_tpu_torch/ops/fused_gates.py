@@ -380,9 +380,9 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
         elif kind in _KRAUS:
             rows, cols, terms = kraus_parts(op)
             t = len(rows)
-            if not 1 <= t <= 3 or len(cols) != t:
+            if not 1 <= t <= 3 or len(cols) != t or len(set(rows + cols)) != 2 * t:
                 raise ValueError(f"a kraus op takes 1 to 3 row qubits and as many "
-                                 f"column qubits, got {rows} and {cols}")
+                                 f"other column qubits, got {rows} and {cols}")
             if not terms:
                 raise ValueError("a kraus op needs at least one term")
             ks = [(float(s), _arr(K).astype(complex)) for s, K in terms]

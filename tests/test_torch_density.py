@@ -145,6 +145,8 @@ def test_kraus_ops_never_fold_and_refuse_wide_channels():
     assert kinds[0] == "kraus1" and "lane_u" in kinds
     with pytest.raises(ValueError, match="1 to 3 row qubits"):
         FG.encode_ops((("krausn", (0, 1, 2, 3), (4, 5, 6, 7), ((1.0, np.eye(16)),)),))
+    with pytest.raises(ValueError, match="other column qubits"):
+        FG.encode_ops((("kraus2", 0, 1, 1, 2, ((1.0, np.eye(4)),)),))
 
 
 # ---------------------------------------------------------------------------
