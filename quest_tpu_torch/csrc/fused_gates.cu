@@ -125,11 +125,7 @@ __device__ __forceinline__ void ldg4(const double* p, double (&v)[4]) {
   const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
-// two consecutive T (8- or 16-byte aligned) in one vector load
-__device__ __forceinline__ void ldg2(const float* p, float (&v)[2]) {
-  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-  v[0] = q.x; v[1] = q.y;
-}
+// two consecutive doubles (16-byte aligned) in one vector load
 __device__ __forceinline__ void ldg2(const double* p, double (&v)[2]) {
   const double2 q = __ldg(reinterpret_cast<const double2*>(p));
   v[0] = q.x; v[1] = q.y;
@@ -329,8 +325,8 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
 // kernel's other ops then pay for.
 template <typename T, int kR, int kB>
 __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
-                                         const T* __restrict__ cf, int t,
-                                         uint32_t mask, int tid) {
+                                      const T* __restrict__ cf, int t,
+                                      uint32_t mask, int tid) {
   const uint32_t G = 1u << (2 * t);
   const uint32_t nchunks = G / kR;  // a power of two <= 32: divides kThreads
   const uint32_t ngroups = tile >> (2 * t);
