@@ -13,8 +13,9 @@ no result, without them. Phases, in order:
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
    channel ops kraus1, kraus2, krausn with signed terms, unsorted targets
    and non-trace-preserving operators) and every folded swap form (load,
-   store, both, asymmetric; each kraus kind with and without one); limits
-   1e-5 (f32) and 1e-12 (f64) max abs error on a normalised state;
+   store, both, asymmetric, the pair swap; each kraus kind with and
+   without one); limits 1e-5 (f32) and 1e-12 (f64) on the max error over
+   the largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
    depth 8, f32) planned by ``Circuit.fused(max_qubits=5, pallas=True)``
    at the Hopper tile; each of its runs through the kernel against the
@@ -31,13 +32,15 @@ no result, without them. Phases, in order:
    ``Circuit.fused(max_qubits=4, pallas=True)`` at the Hopper tile; each
    run's pass through the kernel against the plain version (and timed),
    then the circuit through ``Circuit.run`` with the counts reset just
-   before it: launches must equal the runs executed,
-   ``engine_fallback_total`` must read 0, and every fusion barrier is
-   printed with the route its channel took (``channel_route_total``); the
-   trace must be within 1e-4 (f32) or 1e-10 (f64) of 1 and the amplitudes
-   within 2e-4 (f32) or 1e-10 (f64) of a per-gate replay of the unfused
-   tape with every channel on the per-term engine; then channel-ops/sec,
-   the barrier channel's own time, and a full-state ``copy_``.
+   before it: launches must equal the runs executed plus the fusion
+   barriers (each a Kraus channel that ``apply_channel`` sends through the
+   kernel as one ``kraus1`` pass: ``channel_route_total{kernel}``, printed
+   with the barrier; the barrier's pass is checked and timed with the
+   runs), ``engine_fallback_total`` must read 0; the trace must be within
+   1e-4 (f32) or 1e-10 (f64) of 1 and the amplitudes within 2e-4 (f32) or
+   1e-10 (f64) of a per-gate replay of the unfused tape with every Kraus
+   channel on the per-term engine; then channel-ops/sec, the barrier
+   channel's own time, and a full-state ``copy_``.
 
 Lines starting with ``#`` carry the detail; the line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -52,11 +55,12 @@ import sys
 import time
 
 N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY = 26, 8, 20, 14
-#: H100 SXM data-sheet rates: HBM bytes/s,
-#: and FP32 and FP64 FLOP/s outside the tensor cores
+#: H100 SXM data-sheet rates: HBM bytes/s, FP32 FLOP/s outside the tensor
+#: cores, and FP64 FLOP/s on the tensor cores (the card's top FP64 rate;
+#: 34e12 outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-PEAK_FP64_FLOPS = 34e12
+PEAK_FP64_FLOPS = 67e12
 
 
 def _require(cond: bool, what: str) -> None:
@@ -92,8 +96,8 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float]:
     each amplitude of both planes read once and written once; flops per
     control-satisfied amplitude: 2x2 matrix 16, diagonal 6, swap 0,
     lane_u 1024 (128 complex multiply-adds), window 8 * 2^span, a kraus op
-    on t row qubits 8 * 4^t (its superoperator's 4^t complex
-    multiply-adds)."""
+    on t row qubits with m terms 8 * min(4^t, 2 m 2^t): the fewer complex
+    multiply-adds of its superoperator form and its per-term form."""
     from quest_tpu_torch.ops.fused_gates import _KRAUS, _op_is_diag, kraus_parts
 
     N = 1 << n
@@ -101,7 +105,8 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float]:
     for op in prepared.ops:
         kind = op[0]
         if kind in _KRAUS:
-            flops += 8.0 * 4 ** len(kraus_parts(op)[0]) * N
+            rows, _, terms = kraus_parts(op)
+            flops += 8.0 * min(4 ** len(rows), 2 * len(terms) * 2 ** len(rows)) * N
         elif kind == "lane_u":
             flops += 1024.0 * N
         elif kind == "window":
@@ -113,9 +118,14 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float]:
     return 2.0 * 2 * N * itemsize, flops
 
 
+def _swaps(lk=0, lh=None, sk=0, sh=None, pair=None) -> dict:
+    return dict(load_swap_k=lk, load_swap_hi=lh, store_swap_k=sk, store_swap_hi=sh,
+                pair_swap=pair)
+
+
 def _kernel_cases(n: int, tb: int, rng):
-    """(name, ops, (load_k, load_hi, store_k, store_hi)) covering every op
-    kind and every folded-swap form at n qubits, tile bits tb."""
+    """(name, ops, fused_run swap keywords) covering every op kind and
+    every folded-swap form at n qubits, tile bits tb."""
     import numpy as np
 
     from quest_tpu_torch.ops.fused_gates import HashableMatrix as HM
@@ -152,24 +162,40 @@ def _kernel_cases(n: int, tb: int, rng):
     lane = tuple(("matrix", q % 7, (), (), ru()) for q in range(21))
     window = tuple(("matrix", 7 + q % 5, (), (), ru()) for q in range(25))
     mixed = matrix + parity + swap + diagw + lane[:9] + window[:10]
-    none = (0, None, 0, None)
-    cases = [("matrix", matrix, none), ("parity", parity, none),
-             ("swap", swap, none), ("diagw", diagw, none),
-             ("lane_u", lane, none), ("window", window, none)]
+    cases = [("matrix", matrix, _swaps()), ("parity", parity, _swaps()),
+             ("swap", swap, _swaps()), ("diagw", diagw, _swaps()),
+             ("lane_u", lane, _swaps()), ("window", window, _swaps())]
     for op, sw in zip(kraus, kraus_swapped):
         k = len(op[1]) if op[0] == "krausn" else int(op[0][-1])
-        cases.append((op[0], (op,), none))
-        cases.append((f"{op[0]}+swap", (sw,), (k, n - k, k, n - k)))
+        cases.append((op[0], (op,), _swaps()))
+        cases.append((f"{op[0]}+swap", (sw,), _swaps(k, n - k, k, n - k)))
+    # a row qubit from above the tile (the pair swap) and its column qubit
+    cases.append(("kraus1+pair_swap", (("kraus1", tb - 2, tb - 1, signed),),
+                  _swaps(1, n - 1, 1, n - 1, (tb - 2, n - 2))))
     return cases + [
-            ("load_swap", mixed, (2, None, 0, None)),
-            ("store_swap", mixed, (0, None, 3, None)),
-            ("load+store_swap", mixed, (2, None, 2, None)),
-            ("asymmetric_swap", mixed, (1, n - 1, 2, tb + 1))]
+            ("load_swap", mixed, _swaps(2, None, 0, None)),
+            ("store_swap", mixed, _swaps(0, None, 3, None)),
+            ("load+store_swap", mixed, _swaps(2, None, 2, None)),
+            ("asymmetric_swap", mixed, _swaps(1, n - 1, 2, tb + 1))]
 
 
-def _passes(runs, n: int, dt, dev, rng, tol: float, label: str) -> dict:
-    """Each run of a plan through the kernel against the plain version on a
-    random normalised n-qubit state, and timed (CUDA events, 5 launches);
+def _run_item(run) -> tuple:
+    """(op count, prepared run, fused_run keywords) of a planned run."""
+    return len(run.ops), run.prepare(), dict(
+        tile_bits=run.tile_bits, **_swaps(run.load_swap_k, run.load_swap_hi,
+                                          run.store_swap_k, run.store_swap_hi))
+
+
+def _rel_err(out, ref) -> tuple[float, float]:
+    """(max |out - ref|, that over max |ref|): kernel against plain."""
+    err = (out - ref).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
+def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
+    """Each pass (``_run_item``) through the kernel against the plain
+    version on a random normalised n-qubit state, the max error over the
+    largest amplitude within ``tol``, and timed (CUDA events, 5 launches);
     one ``# pass`` line each. Returns the per-pass lists and the max error."""
     import torch
 
@@ -182,23 +208,19 @@ def _passes(runs, n: int, dt, dev, rng, tol: float, label: str) -> dict:
     out = torch.empty_like(st)
     res = {"ms": [], "plain_ms": [], "bound_ms": [], "by_ops": [], "kinds": set(),
            "max_abs_err": 0.0}
-    for i, run in enumerate(runs):
-        prep = run.prepare()
-        kw = dict(n=n, tile_bits=run.tile_bits, load_swap_k=run.load_swap_k,
-                  load_swap_hi=run.load_swap_hi, store_swap_k=run.store_swap_k,
-                  store_swap_hi=run.store_swap_hi)
+    for i, (nops, prep, kw) in enumerate(items):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        ref = FG.fused_run_plain(st, prep, **kw)
+        ref = FG.fused_run_plain(st, prep, n=n, **kw)
         e1.record()
         torch.cuda.synchronize()
         t_plain = e0.elapsed_time(e1)
-        ms = _cuda_ms(lambda: FG.fused_run(st, ops=run.ops, out=out,
+        ms = _cuda_ms(lambda: FG.fused_run(st, n=n, ops=prep.ops, out=out,
                                            prepared=prep, **kw), 5)
-        err = (out - ref).abs().max().item()
+        err, rel = _rel_err(out, ref)
         del ref
-        _require(err <= tol, f"{label} run {i} error {err} > {tol}")
+        _require(rel <= tol, f"{label} pass {i} error {err} ({rel} relative) > {tol}")
         nbytes, flops = _pass_work(prep, n, itemsize)
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         b_ops = flops / peak * 1e3
@@ -212,12 +234,13 @@ def _passes(runs, n: int, dt, dev, rng, tol: float, label: str) -> dict:
         folds = ", ".join(f"{k} {kinds.count(k)}" for k in
                           ("lane_u", "window", "kraus1", "kraus2", "krausn")
                           if k in kinds)
-        print(f"# {label} pass {i}: {len(run.ops)} ops -> {len(kinds)} "
-              f"({folds or 'no folds or channels'}), swaps load {run.load_swap_k} "
-              f"store {run.store_swap_k}: kernel {ms:.4f} ms, bound "
+        pair = f" pair {kw['pair_swap']}" if kw.get("pair_swap") else ""
+        print(f"# {label} pass {i}: {nops} ops -> {len(kinds)} "
+              f"({folds or 'no folds or channels'}), swaps load {kw['load_swap_k']} "
+              f"store {kw['store_swap_k']}{pair}: kernel {ms:.4f} ms, bound "
               f"{max(b_bytes, b_ops):.4f} ms by "
               f"{'operations' if b_ops > b_bytes else 'bytes'}, plain "
-              f"{t_plain:.2f} ms, max_abs_err {err:.3e}")
+              f"{t_plain:.2f} ms, max_abs_err {err:.3e} ({rel:.3e} of the largest)")
     return res
 
 
@@ -249,27 +272,50 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
     }
 
     tol = 1e-5 if dt == torch.float32 else 1e-12
-    res = _passes([PallasRun((op,), tb) for op in runs.values()], n, dt, dev, rng,
-                  tol, f"kraus ops alone {str(dt)[6:]}")
+    res = _passes([_run_item(PallasRun((op,), tb)) for op in runs.values()], n, dt,
+                  dev, rng, tol, f"kraus ops alone {str(dt)[6:]}")
     return {kind: {"ms": res["ms"][i], "bound_ms": res["bound_ms"][i],
                    "plain_ms": res["plain_ms"][i],
                    "bound_by": "operations" if res["by_ops"][i] else "bytes"}
             for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
 
 
+def _channel_kraus(name: str, args) -> tuple | None:
+    """(row qubits, Kraus operators) of a Kraus-channel tape entry of the
+    bench's density circuits; None for a gate or a dephasing diagonal."""
+    from quest_tpu_torch.channels import depolarising_kraus
+
+    if name == "mixDepolarising":
+        return (args[0],), depolarising_kraus(args[1])
+    if name == "mixKrausMap":
+        return (args[0],), args[1]
+    if name == "mixMultiQubitKrausMap":
+        return tuple(args[0]), args[1]
+    _require(not name.startswith("mix") or "Dephasing" in name,
+             f"no Kraus operators for {name}")
+    return None
+
+
 def _engine_replay(circ, qureg) -> None:
-    """The unfused tape on ``qureg``, one entry at a time, every gate through
-    the per-gate engine and every channel through the per-term engine
-    (``ops.density._apply_kraus_sum``), whatever route ``apply_channel``
-    would pick: the reference the fused run is held against."""
+    """The unfused tape on ``qureg``, one entry at a time: gates and
+    dephasing diagonals through their own functions (the per-gate engine),
+    every Kraus channel straight through the per-term engine
+    (``ops.density._apply_kraus_sum``) with its Kraus operators: the
+    reference the fused run is held against."""
+    import numpy as np
+
     from quest_tpu_torch.ops import density as DN
 
-    kernel_route = DN._kraus_sum_kernel
-    DN._kraus_sum_kernel = lambda *a, **kw: None
-    try:
-        circ.run(qureg)
-    finally:
-        DN._kraus_sum_kernel = kernel_route
+    n = qureg.num_qubits_represented
+    for fn, args, kw in circ._tape:
+        channel = _channel_kraus(fn.__name__, args)
+        if channel is None:
+            fn(qureg, *args, **kw)
+            continue
+        rows, ks = channel
+        qureg.put(DN._apply_kraus_sum(
+            qureg.amps, [(1.0, np.asarray(k, dtype=complex)) for k in ks],
+            nsv=2 * n, rows=rows, cols=tuple(q + n for q in rows)))
 
 
 def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
@@ -279,6 +325,7 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     import torch
 
     from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import density as DN
     from quest_tpu_torch.ops import fused_gates as FG
 
     f32 = dt == torch.float32
@@ -295,13 +342,21 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     barriers = [(f.__name__, a) for f, a, _ in fz._tape
                 if f not in (fusion._apply_pallas_run, fusion._apply_frame_swap)]
     nsv = 2 * N_DENSITY
+    tb = FG.hopper_tile_bits(nsv, dt)
     print(f"# {label}: {N_DENSITY}q density ({nsv} flattened qubits), "
           f"{len(circ)} entries -> {len(runs)} fused runs at tile_bits "
-          f"{FG.hopper_tile_bits(nsv, dt)}, {len(fz._tape) - len(barriers)} passes, "
+          f"{tb}, {len(fz._tape)} passes, "
           f"fusion_barriers_total {planned_barriers:g}: "
           f"{[f'{n}{a}' for n, a in barriers]}; planned in {plan_s:.2f} s")
     _require(runs and planned_barriers == len(barriers), f"{label}: plan")
-    res = _passes(runs, nsv, dt, dev, rng, tol_kernel, label)
+    items = [_run_item(r) for r in runs]
+    for name, a in barriers:  # each barrier channel's one kraus1 pass
+        rows, ks = _channel_kraus(name, a)
+        _require(len(rows) == 1, f"{label}: barrier {name}{a} is not a 1-target channel")
+        op, swaps = DN.kraus1_pass(N_DENSITY, rows[0], tb,
+                                   tuple((1.0, FG.HashableMatrix(k)) for k in ks))
+        items.append((1, FG.PreparedRun((op,), tb), dict(tile_bits=tb, **swaps)))
+    res = _passes(items, nsv, dt, dev, rng, tol_kernel, label)
     torch.cuda.empty_cache()
 
     rho = qt.createDensityQureg(N_DENSITY, env, prec)
@@ -315,12 +370,13 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     fallbacks = telemetry.counter_total("engine_fallback_total")
     routes = {r: telemetry.counter_value("channel_route_total", route=r)
               for r in ("superop", "kernel", "engine")}
-    print(f"# {label} run: launches {launches}, runs {len(runs)}, "
-          f"pallas_pass_total{{fused_run}} {passes:g}, engine_fallback_total "
-          f"{fallbacks:g}; barrier channels by route {routes}")
-    _require(launches == len(runs) == passes, f"{label}: launches != runs executed")
+    print(f"# {label} run: launches {launches}, runs {len(runs)} + barrier "
+          f"channels {len(barriers)}, pallas_pass_total{{fused_run}} {passes:g}, "
+          f"engine_fallback_total {fallbacks:g}; barrier channels by route {routes}")
+    _require(launches == len(runs) + len(barriers) == passes,
+             f"{label}: launches != runs and barrier channels executed")
     _require(fallbacks == 0, f"{label}: engine fallback")
-    _require(routes["engine"] == len(barriers) and routes["kernel"] == 0
+    _require(routes["kernel"] == len(barriers) and routes["engine"] == 0
              and routes["superop"] == 0, f"{label}: barrier routes {routes}")
     trace, purity = qt.calcTotalProb(rho), qt.calcPurity(rho)
 
@@ -366,7 +422,7 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     qt.destroyQureg(rho)
     del y
     torch.cuda.empty_cache()
-    res.update(launches=launches, passes=len(runs), channel_ops_per_sec=cops,
+    res.update(launches=launches, passes=len(items), channel_ops_per_sec=cops,
                circuit_ms=circuit_s * 1e3, barrier_ms=barrier_ms, copy_ms=copy_ms,
                trace=trace, purity=purity, max_abs_diff_vs_engine=diff)
     return res
@@ -445,21 +501,18 @@ def main() -> int:
         st /= st.norm()
         out = torch.empty_like(st)
         seen = set()
-        for name, ops, (lk, lh, sk, sh) in _kernel_cases(N_KERNEL, tb, rng):
+        for name, ops, sw in _kernel_cases(N_KERNEL, tb, rng):
             prep = FG.PreparedRun(ops, tb)
-            ref = FG.fused_run_plain(st, prep, n=N_KERNEL, tile_bits=tb,
-                                     load_swap_k=lk, load_swap_hi=lh,
-                                     store_swap_k=sk, store_swap_hi=sh)
-            FG.fused_run(st, n=N_KERNEL, ops=ops, tile_bits=tb, load_swap_k=lk,
-                         load_swap_hi=lh, store_swap_k=sk, store_swap_hi=sh,
-                         out=out, prepared=prep)
+            ref = FG.fused_run_plain(st, prep, n=N_KERNEL, tile_bits=tb, **sw)
+            FG.fused_run(st, n=N_KERNEL, ops=ops, tile_bits=tb, out=out,
+                         prepared=prep, **sw)
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
+            err, rel = _rel_err(out, ref)
             kinds = sorted({o[0] for o in prep.ops})
             seen.update(kinds)
             print(f"# kernel {str(dt)[6:]} {name}: folded kinds {kinds}, "
-                  f"max_abs_err {err:.3e} (limit {tol:g})")
-            _require(err <= tol, f"{dt} {name} error {err} > {tol}")
+                  f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
+            _require(rel <= tol, f"{dt} {name} error {err} ({rel} relative) > {tol}")
             errs[(str(dt), name)] = err
         kinds_checked = {"matrix", "parity", "swap", "diagw", "lane_u", "window",
                          "kraus1", "kraus2", "krausn"}
@@ -485,7 +538,8 @@ def main() -> int:
           f"planned in {plan_s:.2f} s; the same planner at the JAX package's "
           f"tile_bits {jax_tile} gives {wide} passes")
     _require(len(runs) > 0 and not other, "plan is not all fused runs")
-    main = _passes(runs, N_MAIN, dt, dev, rng, 1e-5, "main-path")
+    main = _passes([_run_item(r) for r in runs], N_MAIN, dt, dev, rng, 1e-5,
+                   "main-path")
     torch.cuda.empty_cache()
 
     q = qt.createQureg(N_MAIN, env, precision_code=1)

@@ -18,7 +18,8 @@
 //           rho' = sum_k s_k K_k rho K_k^dagger with K_k on t = 1, 2 or 3
 //           in-tile row qubits and conj(K_k) on t in-tile column qubits
 // and folds a frame swap (the bit blocks [T-k, T) and [hi, hi+k) of the
-// flat index exchanged) into the loads and/or the stores.
+// flat index exchanged) into the loads and/or the stores, and a second,
+// 1-bit exchange (an in-tile bit with one above the tile) into both.
 //
 // Design. One thread block owns one tile of 2^T amplitudes (T = tile_bits)
 // and keeps both planes of it in shared memory for the whole op list.
@@ -80,6 +81,32 @@ __device__ __forceinline__ uint64_t swap_blocks(uint64_t g, int lo1, int lo2,
   const uint64_t b = (g >> lo2) & m;
   return (g & ~((m << lo1) | (m << lo2))) | (b << lo1) | (a << lo2);
 }
+
+// The flat index map of a pass's folded swaps on one tile: the bit block
+// [T-k, T) exchanged with [hi, hi+k), then bit plo with bit phi (pk = 1;
+// plo < T <= phi). A bit permutation, so map(tile_base | i) is
+// map(tile_base) | map(i): the first part once per block, the second a
+// few 32-bit operations per amplitude (none where nothing moves: a
+// block-uniform branch around the copy loops).
+struct FrameMap {
+  uint64_t base;  // map(tile_base)
+  uint32_t blk;   // the in-tile block [T-k, T)
+  uint32_t pbit;  // in-tile bit plo (0: no pair)
+  int lo, hi, plo, phi;
+  bool moves;
+  __device__ FrameMap(uint64_t tile_base, int T, int k, int hi_, int plo_,
+                      int phi_, int pk)
+      : base(swap_blocks(swap_blocks(tile_base, T - k, hi_, k), plo_, phi_,
+                         pk)),
+        blk(((1u << k) - 1) << (T - k)),
+        pbit(static_cast<uint32_t>(pk) << plo_),
+        lo(T - k), hi(hi_), plo(plo_), phi(phi_), moves(k != 0 || pk != 0) {}
+  __device__ __forceinline__ uint64_t operator()(uint32_t i) const {
+    return base | (i & ~(blk | pbit)) |
+           (static_cast<uint64_t>((i & blk) >> lo) << hi) |
+           (static_cast<uint64_t>((i & pbit) >> plo) << phi);
+  }
+};
 
 // p with a zero bit inserted at position q
 __device__ __forceinline__ uint32_t insert_zero(uint32_t p, int q) {
@@ -401,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
                  const long long* __restrict__ ops, int num_ops,
                  const T* __restrict__ coeffs, int load_k, int load_hi,
-                 int store_k, int store_hi) {
+                 int store_k, int store_hi, int pair_lo, int pair_hi) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t tile = 1u << tile_bits;
   T* sre = reinterpret_cast<T*>(smem_raw);
@@ -410,12 +437,21 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
   const uint64_t tile_base = static_cast<uint64_t>(blockIdx.x) << tile_bits;
   const uint64_t tile_mask = tile - 1;
   const int tid = threadIdx.x;
+  const int pair_k = pair_lo != pair_hi;  // the 1-bit exchange, both sides
 
-  for (uint32_t i = tid; i < tile; i += kThreads) {
-    const uint64_t s =
-        swap_blocks(tile_base | i, tile_bits - load_k, load_hi, load_k);
-    sre[i] = src[s];
-    sim[i] = src[N + s];
+  const FrameMap load(tile_base, tile_bits, load_k, load_hi, pair_lo, pair_hi,
+                      pair_k);
+  if (load.moves) {
+    for (uint32_t i = tid; i < tile; i += kThreads) {
+      const uint64_t s = load(i);
+      sre[i] = src[s];
+      sim[i] = src[N + s];
+    }
+  } else {
+    for (uint32_t i = tid; i < tile; i += kThreads) {
+      sre[i] = src[tile_base | i];
+      sim[i] = src[N + (tile_base | i)];
+    }
   }
   __syncthreads();
 
@@ -514,21 +550,31 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
     __syncthreads();
   }
 
-  for (uint32_t i = tid; i < tile; i += kThreads) {
-    const uint64_t d =
-        swap_blocks(tile_base | i, tile_bits - store_k, store_hi, store_k);
-    dst[d] = sre[i];
-    dst[N + d] = sim[i];
+  const FrameMap store(tile_base, tile_bits, store_k, store_hi, pair_lo,
+                       pair_hi, pair_k);
+  if (store.moves) {
+    for (uint32_t i = tid; i < tile; i += kThreads) {
+      const uint64_t d = store(i);
+      dst[d] = sre[i];
+      dst[N + d] = sim[i];
+    }
+  } else {
+    for (uint32_t i = tid; i < tile; i += kThreads) {
+      dst[tile_base | i] = sre[i];
+      dst[N + (tile_base | i)] = sim[i];
+    }
   }
 }
 
 template <typename T>
 int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
            const long long* ops, int num_ops, const T* coeffs, int load_k,
-           int load_hi, int store_k, int store_hi, int has_lane_u,
-           void* stream) {
+           int load_hi, int store_k, int store_hi, int pair_lo, int pair_hi,
+           int has_lane_u, void* stream) {
   if (tile_bits < kLaneBits || tile_bits > max_bits || n < tile_bits ||
-      n > 40 || num_ops < 0) {
+      n > 40 || num_ops < 0 ||
+      (pair_lo != pair_hi && (pair_lo < 0 || pair_lo >= tile_bits ||
+                              pair_hi < tile_bits || pair_hi >= n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
@@ -541,7 +587,7 @@ int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
   fused_run_kernel<T>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           src, dst, n, tile_bits, ops, num_ops, coeffs, load_k, load_hi,
-          store_k, store_hi);
+          store_k, store_hi, pair_lo, pair_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,24 +595,28 @@ int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
 
 extern "C" {
 
-// Both return the cudaError_t of the launch (0 = launched). has_lane_u:
-// the op table holds a lane_u op (its matrix needs the staging buffer).
+// Both return the cudaError_t of the launch (0 = launched). pair_lo <
+// tile_bits <= pair_hi: bits exchanged on load and on store (pair_lo ==
+// pair_hi: none). has_lane_u: the op table holds a lane_u op (its matrix
+// needs the staging buffer).
 int quest_fused_run_f32(const float* src, float* dst, int n, int tile_bits,
                         const long long* ops, int num_ops,
                         const float* coeffs, int load_k, int load_hi,
-                        int store_k, int store_hi, int has_lane_u,
-                        void* stream) {
+                        int store_k, int store_hi, int pair_lo, int pair_hi,
+                        int has_lane_u, void* stream) {
   return launch<float>(13, src, dst, n, tile_bits, ops, num_ops, coeffs,
-                       load_k, load_hi, store_k, store_hi, has_lane_u, stream);
+                       load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
+                       has_lane_u, stream);
 }
 
 int quest_fused_run_f64(const double* src, double* dst, int n, int tile_bits,
                         const long long* ops, int num_ops,
                         const double* coeffs, int load_k, int load_hi,
-                        int store_k, int store_hi, int has_lane_u,
-                        void* stream) {
+                        int store_k, int store_hi, int pair_lo, int pair_hi,
+                        int has_lane_u, void* stream) {
   return launch<double>(12, src, dst, n, tile_bits, ops, num_ops, coeffs,
-                        load_k, load_hi, store_k, store_hi, has_lane_u, stream);
+                        load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
+                        has_lane_u, stream);
 }
 
 const char* quest_cuda_error_string(int code) {

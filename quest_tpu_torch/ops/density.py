@@ -11,10 +11,9 @@ targets T is the superoperator sum_k conj(K_k) (x) K_k on qubits
 - up to ``_SUPEROP_MAX_QUBITS`` flattened qubits, one dense superoperator
   through the per-gate engine (``ops.apply.apply_matrix``);
 - above that, a 1-target channel runs as ONE pass of the fused gate-run
-  kernel (a ``kraus1`` op, the column qubit relocated into the tile by a
-  folded 1-bit swap) where the tile geometry allows it, for a CUDA
-  register on the card and for a CPU register through the kernel's plain
-  version;
+  kernel (a ``kraus1`` op, its qubits above the tile relocated into it by
+  swaps folded into the pass's loads and stores), for a CUDA register on
+  the card and for a CPU register through the kernel's plain version;
 - every other channel runs the per-term engine ``_apply_kraus_sum``: each
   Kraus term's K on the row qubits and conj(K) on the column qubits,
   accumulated with its sign.
@@ -92,34 +91,44 @@ def _kraus_sum_kernel(amps: torch.Tensor, terms, n: int, t: int,
                       lq: int | None = None) -> torch.Tensor | None:
     """A single-target Kraus sum as ONE fused-run pass: every term's K on
     the row qubit and conj(K) on the column qubit, sign-accumulated, in the
-    kernel's ``kraus1`` op. The column qubit t+n usually lies above the
-    tile; it is relocated to the top in-tile slot by a 1-bit swap folded
-    into the pass's loads and stores. Returns None where the route does
-    not apply, exactly where the JAX package's ``_kraus_sum_pallas`` does:
-    a state smaller than two lane rows, or a row qubit at or above the top
-    in-tile slot. ``lq`` (tile bits) defaults to the Hopper tile."""
+    kernel's ``kraus1`` op, placed by :func:`kraus1_pass`. Returns None
+    only for a state smaller than two lane rows, as the JAX package's
+    ``_kraus_sum_pallas`` does. ``lq`` (tile bits) defaults to the Hopper
+    tile."""
     from . import fused_gates as FG
 
-    nsv = 2 * n
     if amps.shape[-1] < 2 * FG._LANES:
         return None
     if lq is None:
-        lq = FG.hopper_tile_bits(nsv, amps.dtype)
-    c = t + n
-    hi = None
-    if c >= lq:
-        if t >= lq - 1:
-            return None  # the relocation slot lq-1 would displace the row qubit
-        hi = c
-        c = lq - 1
-    if t >= lq:
-        return None
+        lq = FG.hopper_tile_bits(2 * n, amps.dtype)
     terms_h = tuple((float(s), FG.HashableMatrix(k)) for s, k in terms)
-    k = 0 if hi is None else 1
-    return FG.fused_run(amps, n=nsv, ops=(("kraus1", t, c, terms_h),),
-                        tile_bits=lq, load_swap_k=k, load_swap_hi=hi,
-                        store_swap_k=k, store_swap_hi=hi,
+    op, swaps = kraus1_pass(n, t, lq, terms_h)
+    return FG.fused_run(amps, n=2 * n, ops=(op,), tile_bits=lq, **swaps,
                         out=torch.empty_like(amps))
+
+
+def kraus1_pass(n: int, t: int, lq: int, terms) -> tuple[tuple, dict]:
+    """The ``kraus1`` op of a channel on row qubit t of an n-qubit density
+    register, in the frame of a pass at tile bits ``lq``, and that pass's
+    folded swaps (``fused_run`` keywords). The column qubit t+n usually
+    lies above the tile; a 1-bit block swap relocates it to the top slot
+    lq-1, as the JAX package's ``_kraus_sum_pallas`` does. Where the row
+    qubit is at lq-1 or above the tile (JAX refuses it there, which at its
+    2^19 tile no single-card register reaches; the Hopper tile is 2^13),
+    the pair swap relocates the row qubit (t >= lq) or the column qubit
+    (t = lq-1) to slot lq-2."""
+    r, c = t, t + n
+    hi = pair = None
+    if c >= lq:
+        if t == lq - 1:
+            pair, c = (lq - 2, c), lq - 2
+        else:
+            hi, c = c, lq - 1
+            if t >= lq:
+                pair, r = (lq - 2, t), lq - 2
+    k = 0 if hi is None else 1
+    return ("kraus1", r, c, terms), dict(load_swap_k=k, load_swap_hi=hi, store_swap_k=k,
+                                         store_swap_hi=hi, pair_swap=pair)
 
 
 def _acc_kraus_term(out, sign, term):

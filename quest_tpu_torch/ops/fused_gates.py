@@ -318,11 +318,10 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     window U real then imaginary (D x D each).
 
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
-    the 2t qubits packed 6 bits each (rows then columns), their mask, and
-    the term count; its block is ``kraus_superop_table`` (G x G, real then
-    imaginary; built in float64 and rounded once to the state's type),
-    which the kernel applies, followed by each term as (s_k, K_k real, K_k
-    imaginary), which the plain version applies."""
+    the 2t qubits packed 6 bits each (rows then columns) and their mask;
+    its block is ``kraus_superop_table`` (G x G, real then imaginary; built
+    in float64 and rounded once to the state's type). The plain version
+    applies the op's terms, which stay on the host in the op tuple."""
     table = np.zeros((len(ops), _REC), dtype=np.int64)
     coeffs: list[np.ndarray] = []
     off = 0
@@ -391,11 +390,7 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             rec[1] = t
             rec[2] = sum(int(q) << (6 * j) for j, q in enumerate(qubits))
             rec[5] = _mask(qubits)
-            rec[6] = put(np.concatenate(
-                [St.real.reshape(-1), St.imag.reshape(-1)]
-                + [np.concatenate([[s], K.real.reshape(-1), K.imag.reshape(-1)])
-                   for s, K in ks]))
-            rec[7] = len(ks)
+            rec[6] = put(np.concatenate([St.real.reshape(-1), St.imag.reshape(-1)]))
         else:  # window
             _, lo, span, W = op
             W = _arr(W).real
@@ -429,7 +424,8 @@ class PreparedRun:
         return self._device[key]
 
 
-def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps) -> None:
+def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps,
+           pair) -> None:
     if amps.dim() != 2 or amps.shape[0] != 2 or amps.shape[1] != 1 << n:
         raise ValueError(f"state must be planar (2, 2^{n}), got {tuple(amps.shape)}")
     if amps.dtype not in (torch.float32, torch.float64):
@@ -448,12 +444,21 @@ def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps) -> None:
         if k and (k > tile_bits - LANE_BITS or hi < tile_bits or hi + k > n):
             raise ValueError(f"bit-block swap (k={k}, hi={hi}) exceeds the call "
                              f"geometry (tile_bits={tile_bits}, n={n})")
+    if pair is not None:
+        lo, hi = pair
+        blocks = {q for k, h in swaps if k
+                  for q in (*range(tile_bits - k, tile_bits), *range(h, h + k))}
+        if not 0 <= lo < tile_bits <= hi < n or {lo, hi} & blocks:
+            raise ValueError(f"pair swap {pair} must exchange an in-tile bit with "
+                             f"one above the tile (tile_bits={tile_bits}, n={n}), "
+                             f"apart from the bit-block swaps")
 
 
 def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
               load_swap_k: int = 0, store_swap_k: int = 0,
               load_swap_hi: int | None = None,
               store_swap_hi: int | None = None,
+              pair_swap: tuple[int, int] | None = None,
               out: torch.Tensor | None = None,
               prepared: PreparedRun | None = None) -> torch.Tensor:
     """Apply ``ops`` to the planar (2, 2^n) state in one pass and return
@@ -464,14 +469,18 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     ``swap_bit_blocks(lo1=tile_bits-k, lo2=load_swap_hi or tile_bits, k)``
     is folded into the loads, so ``ops`` are in this run's frame.
     ``store_swap_k``/``store_swap_hi`` fold the same relabeling into the
-    stores. A folded swap makes a thread block read tiles that others
-    write, so such a call needs ``out`` (a different buffer).
+    stores. ``pair_swap`` = (lo, hi), lo < tile_bits <= hi, exchanges the
+    two index bits in the loads AND the stores: it brings one more qubit
+    from above the tile to slot lo for this run only. A folded swap makes
+    a thread block read tiles that others write, so such a call needs
+    ``out`` (a different buffer).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version. ``prepared`` is the run's cached fold and op table."""
     lh = tile_bits if load_swap_hi is None else load_swap_hi
     sh = tile_bits if store_swap_hi is None else store_swap_hi
-    _check(amps, n, ops, tile_bits, ((load_swap_k, lh), (store_swap_k, sh)))
+    _check(amps, n, ops, tile_bits, ((load_swap_k, lh), (store_swap_k, sh)),
+           pair_swap)
     if prepared is None:
         prepared = PreparedRun(ops, tile_bits)
     elif prepared.tile_bits != tile_bits:
@@ -480,17 +489,20 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     if dst is not amps and (dst.shape != amps.shape or dst.dtype != amps.dtype
                             or dst.device != amps.device):
         raise ValueError("out must match the state's shape, dtype and device")
-    if (load_swap_k or store_swap_k) and dst.data_ptr() == amps.data_ptr():
+    if ((load_swap_k or store_swap_k or pair_swap)
+            and dst.data_ptr() == amps.data_ptr()):
         raise ValueError("a folded frame swap runs out of place: pass out=")
     telemetry.inc("pallas_pass_total", kind="fused_run")
     if amps.device.type == "cpu":
         dst.copy_(fused_run_plain(amps, prepared, n=n, tile_bits=tile_bits,
                                   load_swap_k=load_swap_k, load_swap_hi=lh,
-                                  store_swap_k=store_swap_k, store_swap_hi=sh))
+                                  store_swap_k=store_swap_k, store_swap_hi=sh,
+                                  pair_swap=pair_swap))
         return dst
     if amps.device.type != "cuda":
         raise ValueError(f"no fused-run route for device {amps.device}")
-    _launch(amps, dst, n, tile_bits, prepared, load_swap_k, lh, store_swap_k, sh)
+    _launch(amps, dst, n, tile_bits, prepared, load_swap_k, lh, store_swap_k, sh,
+            pair_swap or (0, 0))
     return dst
 
 
@@ -498,7 +510,7 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
 fused_run.launches = 0
 
 
-def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh) -> None:
+def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh, pair) -> None:
     from .. import _build
 
     if not (src.is_contiguous() and dst.is_contiguous()):
@@ -511,7 +523,7 @@ def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh) -> None:
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(src.data_ptr(), dst.data_ptr(), n, tile_bits,
                  table.data_ptr(), int(table.shape[0]), coeffs.data_ptr(),
-                 lk, lh, sk, sh, int(prepared.has_lane_u), stream)
+                 lk, lh, sk, sh, *pair, int(prepared.has_lane_u), stream)
     if err != 0:
         msg = lib.quest_cuda_error_string(err).decode()
         raise RuntimeError(f"fused-run kernel launch failed: {msg} ({err})")
@@ -521,19 +533,28 @@ def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh) -> None:
 def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
                     tile_bits: int, load_swap_k: int = 0,
                     load_swap_hi: int | None = None, store_swap_k: int = 0,
-                    store_swap_hi: int | None = None) -> torch.Tensor:
+                    store_swap_hi: int | None = None,
+                    pair_swap: tuple[int, int] | None = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the same encoded ops, one at
-    a time on the whole state with torch indexing, and folded swaps as
-    explicit ``swap_bit_blocks`` before and after. Returns a new tensor."""
+    a time on the whole state with torch indexing (a kraus op from its
+    terms, which the op tuple keeps), and folded swaps as explicit
+    ``swap_bit_blocks`` before and after. Returns a new tensor."""
     x = amps
     if load_swap_k:
         x = swap_bit_blocks(x, n=n, lo1=tile_bits - load_swap_k,
                             lo2=tile_bits if load_swap_hi is None else load_swap_hi,
                             k=load_swap_k)
+    if pair_swap:
+        x = swap_bit_blocks(x, n=n, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
     idx = torch.arange(1 << n, device=amps.device)
     cf = torch.as_tensor(prepared.coeffs, dtype=amps.dtype, device=amps.device)
-    for rec in prepared.table.tolist():
-        x = _plain_op(x, rec, cf, idx)
+    for op, rec in zip(prepared.ops, prepared.table.tolist()):
+        if op[0] in _KRAUS:
+            x = _plain_kraus(x, op, idx)
+        else:
+            x = _plain_op(x, rec, cf, idx)
+    if pair_swap:
+        x = swap_bit_blocks(x, n=n, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
     if store_swap_k:
         x = swap_bit_blocks(x, n=n, lo1=tile_bits - store_swap_k,
                             lo2=tile_bits if store_swap_hi is None else store_swap_hi,
@@ -594,23 +615,22 @@ def _plain_op(x, rec, cf, idx):
         ui = cf[off + D * D:off + 2 * D * D].reshape(D, D)
         xr, xi = x[0].reshape(-1, D, 1 << a), x[1].reshape(-1, D, 1 << a)
         return torch.stack([ur @ xr - ui @ xi, ur @ xi + ui @ xr]).reshape(2, N)
-    if kind in (_KIND["kraus1"], _KIND["kraus2"], _KIND["krausn"]):
-        # per term, as _ops_body: K on the rows and conj(K) on the columns
-        # of a copy, accumulated with the term's sign
-        d = 1 << a
-        qubits = [(b >> (6 * j)) & 63 for j in range(2 * a)]
-        o = off + 2 * d ** 4  # the terms follow the superoperator
-        acc = None
-        for _ in range(flags):
-            s = cf[o]
-            kr = cf[o + 1:o + 1 + d * d].reshape(d, d)
-            ki = cf[o + 1 + d * d:o + 1 + 2 * d * d].reshape(d, d)
-            o += 1 + 2 * d * d
-            y = _plain_dense(x, kr, ki, qubits[:a], idx)
-            y = s * _plain_dense(y, kr, -ki, qubits[a:], idx)
-            acc = y if acc is None else acc + y
-        return acc
     raise ValueError(f"unknown op kind code {kind}")
+
+
+def _plain_kraus(x, op, idx):
+    """A kraus op per term, as _ops_body applies it: K on the rows and
+    conj(K) on the columns of a copy, accumulated with the term's sign."""
+    rows, cols, terms = kraus_parts(op)
+    acc = None
+    for s, K in terms:
+        k = _arr(K).astype(complex)
+        kr = torch.as_tensor(k.real, dtype=x.dtype, device=x.device)
+        ki = torch.as_tensor(k.imag, dtype=x.dtype, device=x.device)
+        y = _plain_dense(x, kr, ki, rows, idx)
+        y = float(s) * _plain_dense(y, kr, -ki, cols, idx)
+        acc = y if acc is None else acc + y
+    return acc
 
 
 def _plain_dense(x, mr, mi, qubits, idx):

@@ -156,7 +156,8 @@ def test_kraus_ops_never_fold_and_refuse_wide_channels():
 def test_channel_routes_agree_and_refuse_as_the_reference():
     """The superoperator, the per-term engine and the kraus1 kernel pass
     (column in-tile and relocated by the folded 1-bit swap) agree, signed
-    terms included; the kernel route refuses where the JAX one does."""
+    terms included; the kernel route refuses a state below two lane rows,
+    as the JAX one does."""
     rng = np.random.RandomState(12)
     n = 6
     x = rng.randn(2, 1 << (2 * n))
@@ -174,10 +175,45 @@ def test_channel_routes_agree_and_refuse_as_the_reference():
             for got in (engine, kernel):
                 assert_close(got.numpy(), superop.numpy())
             assert_close(kernel.numpy(), np.asarray(ref))
-        # refusals: row qubit at the relocation slot, a state below two rows
-        assert DN._kraus_sum_kernel(amps, terms, n, 5, lq=6) is None
+        # refusal: a state below two rows
         assert DN._kraus_sum_kernel(amps[:, :128], terms, 3, 0) is None
     np.testing.assert_array_equal(amps.numpy(), x)  # inputs untouched
+
+
+@pytest.mark.parametrize("t,lq", [(7, 8), (8, 8), (8, 9), (7, 9)],
+                         ids=["row_top_slot", "row_above", "row_top_slot_lq8",
+                              "row_below_top"])
+def test_kernel_route_relocates_a_row_qubit_at_or_above_the_top_slot(t, lq):
+    """A row qubit in the top in-tile slot or above the tile (where the JAX
+    route, at its larger tile, never meets one on a single card) is still
+    ONE kraus1 pass: the pair swap brings it, or the column qubit, to slot
+    lq-2. The result equals quest_tpu's channel, signed terms included."""
+    rng = np.random.RandomState(t + 10 * lq)
+    n = 9
+    x = rng.randn(2, 1 << (2 * n))
+    X = np.array([[0, 1], [1, 0]], dtype=complex)
+    non_cp = (DN.kraus_superoperator([np.sqrt(0.8) * np.eye(2)])
+              - 0.3 * DN.kraus_superoperator([X]))
+    for sup in (DN.kraus_superoperator(DN.depolarising_kraus(0.3)), non_cp):
+        telemetry.reset()
+        got = DN._kraus_sum_kernel(torch.as_tensor(x), DN.choi_kraus(sup), n, t, lq=lq)
+        assert telemetry.counter_value("pallas_pass_total", kind="fused_run") == 1
+        ref = JDN.apply_channel(jnp.asarray(x), sup, n=n, targets=(t,))
+        assert_close(got.numpy(), np.asarray(ref))
+
+
+def test_pair_swap_is_checked():
+    """The pair swap exchanges an in-tile bit with one above the tile, apart
+    from the bit-block swaps, and runs out of place."""
+    x = torch.zeros(2, 1 << 12, dtype=torch.float64)
+    ops = (("matrix", 0, (), (), FG.HashableMatrix(np.eye(2))),)
+    for kw in (dict(pair_swap=(9, 10)), dict(pair_swap=(8, 8)),
+               dict(pair_swap=(7, 10), load_swap_k=1, load_swap_hi=10),
+               dict(pair_swap=(8, 11), store_swap_k=1, store_swap_hi=10)):
+        with pytest.raises(ValueError, match="pair swap"):
+            FG.fused_run(x, n=12, ops=ops, tile_bits=9, out=torch.empty_like(x), **kw)
+    with pytest.raises(ValueError, match="out of place"):
+        FG.fused_run(x, n=12, ops=ops, tile_bits=9, pair_swap=(7, 10))
 
 
 def test_large_register_channel_takes_the_kernel_route(monkeypatch):
@@ -495,3 +531,13 @@ def test_kraus_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             assert FG.fused_run.launches == before + 1
             assert (got - ref).abs().max().item() <= tol
+        # the row qubit above the tile, relocated by the pair swap
+        terms = tuple((1.0, FG.HashableMatrix(k)) for k in DN.depolarising_kraus(0.2))
+        prep = FG.PreparedRun((("kraus1", tb - 2, tb - 1, terms),), tb)
+        swaps = dict(load_swap_k=1, load_swap_hi=n - 1, store_swap_k=1,
+                     store_swap_hi=n - 1, pair_swap=(tb - 2, n - 2))
+        ref = FG.fused_run_plain(x, prep, n=n, tile_bits=tb, **swaps)
+        got = FG.fused_run(x, n=n, ops=prep.ops, tile_bits=tb, out=torch.empty_like(x),
+                           prepared=prep, **swaps)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= tol
