@@ -40,7 +40,23 @@ no result, without them. Phases, in order:
    1e-4 (f32) or 1e-10 (f64) of 1 and the amplitudes within 2e-4 (f32) or
    1e-10 (f64) of a per-gate replay of the unfused tape with every Kraus
    channel on the per-term engine; then channel-ops/sec, the barrier
-   channel's own time, and a full-state ``copy_``.
+   channel's own time, and a full-state ``copy_``;
+6. window: ``ops.window_dot.window_dot`` at 26 qubits, f32 and f64, on
+   the windows [7, 11], [12, 17] (the widest, span 6) and [21, 25], each
+   with a random unitary, without and with ``conj``: each call counted
+   (one launch) and held against ``window_dot_plain``; then its time
+   beside its bound and one complex ``torch.matmul`` computing the same;
+7. gate surface: ``gate_surface_tape`` (every function of ``gates.py``
+   and ``operators.py`` beyond the bench set that a tape records, twice)
+   at 26 qubits, f32, planned by ``Circuit.fused(max_qubits=5,
+   pallas=True)`` at the Hopper tile, each run against the plain version,
+   then run with the counts reset: launches = fused runs + lane_u dense
+   blocks, zero fallbacks, total probability within 1e-4 of 1, amplitudes
+   within 2e-4 of a per-gate replay; the same with the plan of
+   ``Circuit.fused(max_qubits=5)`` (dense blocks below the lane boundary
+   as lane_u passes of the fused-run kernel, the rest on the engine); and
+   the tape without its left-multiplying operators on a 13-qubit density
+   register, trace within 1e-4.
 
 Lines starting with ``#`` carry the detail; the line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -55,6 +71,9 @@ import sys
 import time
 
 N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY = 26, 8, 20, 14
+#: window_dot's windows (lo, span) at N_MAIN qubits: the lowest it takes,
+#: the widest, and the top 5-qubit window (tools/microbench.py's)
+WINDOWS = ((7, 5), (12, 6), (21, 5))
 #: H100 SXM data-sheet rates: HBM bytes/s, FP32 FLOP/s outside the tensor
 #: cores, and FP64 FLOP/s on the tensor cores (the card's top FP64 rate;
 #: 34e12 outside them)
@@ -280,6 +299,107 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
             for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
 
 
+#: the operators that left-multiply a density register (M rho, no
+#: conj-shadow, so the trace is not kept): left out of the density run
+LEFT_MULT = ("applyMatrix2", "applyMatrix4", "applyMatrixN", "applyMultiControlledMatrixN")
+
+
+def gate_surface_tape(circ, qt, n: int, seed: int, with_left_mult: bool = True) -> None:
+    """Record on ``circ`` every function of the dense-gate surface that a
+    tape takes (the gates beyond the bench set, and the applyMatrix*
+    operators) twice: first on qubits inside a 5-qubit window at the bottom
+    of the register (a dense block there lies below the lane boundary),
+    then on qubits drawn from the whole register. Qubits, angles, axes,
+    Pauli codes and matrices (at most 5 qubits, unitary, so the norm is
+    kept) come from ``np.random.RandomState(seed)``. ``qt`` is the package
+    whose ``createSubDiagonalOp`` builds diagonalUnitary's operator.
+    ``with_left_mult=False`` records the same tape without the LEFT_MULT
+    calls."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def unitary(k):
+        q, r = np.linalg.qr(rng.randn(1 << k, 1 << k) + 1j * rng.randn(1 << k, 1 << k))
+        return q * (np.diag(r) / np.abs(np.diag(r)))
+
+    def angle():
+        return float(rng.uniform(-np.pi, np.pi))
+
+    def pair():
+        v = rng.randn(2) + 1j * rng.randn(2)
+        v /= np.linalg.norm(v)
+        return complex(v[0]), complex(v[1])
+
+    def axis():
+        return tuple(float(x) for x in rng.uniform(-1, 1, 3))
+
+    def codes(k):
+        return [int(c) for c in rng.randint(1, 4, k)]
+
+    def subdiag(k):
+        op = qt.createSubDiagonalOp(k)
+        op.elems[:] = np.exp(1j * rng.uniform(0, 2 * np.pi, 1 << k))
+        return op
+
+    # name -> (qubits it takes, its arguments from the drawn qubits q)
+    calls = {
+        "phaseShift": (1, lambda q: (q[0], angle())),
+        "controlledPhaseShift": (2, lambda q: (q[0], q[1], angle())),
+        "multiControlledPhaseShift": (3, lambda q: (list(q), angle())),
+        "multiControlledPhaseFlip": (3, lambda q: (list(q),)),
+        "sGate": (1, lambda q: (q[0],)),
+        "pauliY": (1, lambda q: (q[0],)),
+        "pauliZ": (1, lambda q: (q[0],)),
+        "controlledPauliY": (2, lambda q: (q[0], q[1])),
+        "rotateY": (1, lambda q: (q[0], angle())),
+        "rotateAroundAxis": (1, lambda q: (q[0], angle(), axis())),
+        "controlledRotateX": (2, lambda q: (q[0], q[1], angle())),
+        "controlledRotateY": (2, lambda q: (q[0], q[1], angle())),
+        "controlledRotateZ": (2, lambda q: (q[0], q[1], angle())),
+        "controlledRotateAroundAxis": (2, lambda q: (q[0], q[1], angle(), axis())),
+        "multiRotatePauli": (3, lambda q: (list(q), codes(3), angle())),
+        "multiControlledMultiRotatePauli": (
+            4, lambda q: (list(q[:2]), list(q[2:]), codes(2), angle())),
+        "multiControlledMultiRotateZ": (4, lambda q: (list(q[:2]), list(q[2:]), angle())),
+        "diagonalUnitary": (3, lambda q: (list(q), subdiag(3))),
+        "multiQubitNot": (3, lambda q: (list(q),)),
+        "multiControlledMultiQubitNot": (4, lambda q: (list(q[:2]), list(q[2:]))),
+        "compactUnitary": (1, lambda q: (q[0], *pair())),
+        "controlledCompactUnitary": (2, lambda q: (q[0], q[1], *pair())),
+        "controlledUnitary": (2, lambda q: (q[0], q[1], unitary(1))),
+        "multiControlledUnitary": (3, lambda q: (list(q[:2]), q[2], unitary(1))),
+        "sqrtSwapGate": (2, lambda q: (q[0], q[1])),
+        "twoQubitUnitary": (2, lambda q: (q[0], q[1], unitary(2))),
+        "controlledTwoQubitUnitary": (3, lambda q: (q[0], q[1], q[2], unitary(2))),
+        "multiControlledTwoQubitUnitary": (
+            4, lambda q: (list(q[:2]), q[2], q[3], unitary(2))),
+        "multiQubitUnitary": (5, lambda q: (list(q), unitary(5))),
+        "controlledMultiQubitUnitary": (4, lambda q: (q[0], list(q[1:]), unitary(3))),
+        "multiControlledMultiQubitUnitary": (
+            5, lambda q: (list(q[:2]), list(q[2:]), unitary(3))),
+        "applyMatrix2": (1, lambda q: (q[0], unitary(1))),
+        "applyMatrix4": (2, lambda q: (q[0], q[1], unitary(2))),
+        "applyMatrixN": (3, lambda q: (list(q), unitary(3))),
+        "applyGateMatrixN": (3, lambda q: (list(q), unitary(3))),
+        "applyMultiControlledMatrixN": (4, lambda q: (list(q[:2]), list(q[2:]), unitary(2))),
+        "applyMultiControlledGateMatrixN": (
+            4, lambda q: (list(q[:2]), list(q[2:]), unitary(2))),
+    }
+    entries = []
+    for low in (True, False):
+        for name, (k, build) in calls.items():
+            if low:
+                lo = int(rng.randint(0, min(2, n - 5) + 1))
+                q = tuple(int(x) for x in lo + rng.permutation(5)[:k])
+            else:
+                q = tuple(int(x) for x in rng.choice(n, k, replace=False))
+            entries.append((name, build(q)))
+    for name, args in entries:
+        if with_left_mult or name not in LEFT_MULT:
+            getattr(circ, name)(*args)
+
+
 def _channel_kraus(name: str, args) -> tuple | None:
     """(row qubits, Kraus operators) of a Kraus-channel tape entry of the
     bench's density circuits; None for a gate or a dephasing diagonal."""
@@ -428,6 +548,228 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     return res
 
 
+def _window_phase(dev, rng) -> dict:
+    """``window_dot`` at N_MAIN qubits in f32 and f64 on WINDOWS, each
+    with a random unitary, without and with ``conj``: each call is the
+    entry point's run, its launch counted from 0 just before it and read
+    just after; its result against ``window_dot_plain`` on the same input.
+    Then the window's time (CUDA events, after a warm-up), its bound, the
+    plain version's time, and one complex ``torch.matmul`` of the D x D
+    matrix with a complex (A, D, B) copy of the state."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.ops import window_dot as WD
+
+    n, N = N_MAIN, 1 << N_MAIN
+    out = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        itemsize = torch.finfo(dt).bits // 8
+        peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_FP64_FLOPS
+        st = torch.as_tensor(rng.randn(2, N), dtype=dt, device=dev)
+        st /= st.norm()
+        rows, launches, max_err = [], 0, 0.0
+        for lo, span in WINDOWS:
+            hi, d = lo + span - 1, 1 << span
+            q, r = np.linalg.qr(rng.randn(d, d) + 1j * rng.randn(d, d))
+            u = q * (np.diag(r) / np.abs(np.diag(r)))
+            m = torch.as_tensor(np.stack([u.real, u.imag]), dtype=dt, device=dev)
+            for conj in (False, True):
+                x = st.clone()
+                WD.window_dot.launches = 0
+                WD.window_dot(x, m, n=n, lo=lo, hi=hi, conj=conj)
+                torch.cuda.synchronize()
+                launched = WD.window_dot.launches
+                _require(launched == 1, f"window_dot [{lo}, {hi}] launched {launched} times")
+                launches += launched
+                ref = WD.window_dot_plain(st, m, n=n, lo=lo, hi=hi, conj=conj)
+                err, rel = _rel_err(x, ref)
+                del ref
+                _require(rel <= tol, f"window_dot {dt} [{lo}, {hi}] conj={conj}: error "
+                                     f"{err} ({rel} relative) > {tol}")
+                max_err = max(max_err, err)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ref = WD.window_dot_plain(st, m, n=n, lo=lo, hi=hi)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            del ref
+            ms = _cuda_ms(lambda: WD.window_dot(x, m, n=n, lo=lo, hi=hi), 10)
+            xc = torch.complex(st[0], st[1]).reshape(N >> (lo + span), d, 1 << lo)
+            uc = torch.complex(m[0], m[1])
+            lib_ms = _cuda_ms(lambda: torch.matmul(uc, xc), 10)
+            del x, xc
+            torch.cuda.empty_cache()
+            b_bytes = 2.0 * 2 * N * itemsize / HBM_BYTES_PER_S * 1e3
+            b_ops = 8.0 * d * N / peak * 1e3
+            rows.append({"lo": lo, "hi": hi, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": max(b_bytes, b_ops),
+                         "bound_by": "operations" if b_ops > b_bytes else "bytes",
+                         "library_ms": lib_ms})
+            print(f"# window {str(dt)[6:]} [{lo}, {hi}] (D {d}) at {n}q: kernel {ms:.4f} ms, "
+                  f"bound {max(b_bytes, b_ops):.4f} ms by "
+                  f"{'operations' if b_ops > b_bytes else 'bytes'}, torch.matmul "
+                  f"{lib_ms:.4f} ms, plain {plain_ms:.2f} ms")
+        print(f"# window {str(dt)[6:]}: launches {launches} (3 windows x conj off/on), "
+              f"max_abs_err {max_err:.3e} (limit {tol:g} of the largest amplitude)")
+        out[dt] = {"rows": rows, "launches": launches, "max_abs_err": max_err}
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _window_entry(name: str, phase: dict) -> dict:
+    rows = phase["rows"]
+
+    def mean(k):
+        return sum(r[k] for r in rows) / len(rows)
+
+    ops_b = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return {
+        "name": name, "route": "cuda", "source": "quest_tpu_torch/csrc/window_dot.cu",
+        "replaces": "quest_tpu/ops/pallas_gates.py:1312",
+        "launches": phase["launches"], "max_abs_err": phase["max_abs_err"],
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": "operations" if 2 * ops_b > sum(r["bound_ms"] for r in rows) else "bytes",
+        "library_ms": mean("library_ms"), "library_call": "torch.matmul (complex)",
+        "windows": rows,
+    }
+
+
+def _surface_names() -> set:
+    """Every function of gates.py and operators.py beyond the bench gate
+    set that a tape records (measurement is not recorded)."""
+    from quest_tpu_torch import gates, operators
+
+    bench = {"hadamard", "tGate", "rotateZ", "rotateX", "controlledNot",
+             "controlledPhaseFlip", "unitary", "multiRotateZ", "swapGate",
+             "multiStateControlledUnitary", "pauliX"}
+    measuring = {"measure", "measureWithStats", "collapseToOutcome"}
+    return (set(gates.__all__) | set(operators.__all__)) - bench - measuring
+
+
+def _gate_surface_path(qt, env, dev, rng) -> dict:
+    """The dense-gate surface at N_MAIN qubits, f32: the tape planned by
+    ``Circuit.fused(max_qubits=5, pallas=True)`` at the Hopper tile, each
+    fused run through the kernel against the plain version (and timed),
+    then the circuit through ``Circuit.run`` with the counts reset just
+    before it, against a per-gate replay of the unfused tape; then the same
+    tape planned without ``pallas`` (dense blocks; those below the lane
+    boundary as lane_u kernel passes), and the tape without its LEFT_MULT
+    calls on an N_MAIN/2-qubit density register."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    dt = torch.float32
+    circ = qt.Circuit(N_MAIN)
+    gate_surface_tape(circ, qt, N_MAIN, seed=303)
+    names = [f.__name__ for f, _, _ in circ._tape]
+    missing = {s for s in _surface_names() if names.count(s) < 2}
+    _require(not missing, f"gate-surface tape calls these fewer than twice: {missing}")
+
+    def kernel_passes(fz, qureg):
+        """Launches a run of ``fz`` on ``qureg`` must make: one per fused
+        run, one per dense block that takes the lane_u route."""
+        runs = sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape)
+        lane = sum(fusion.dense_block_route(qureg.num_qubits_in_state_vec,
+                                            qureg.is_density_matrix, tuple(a[1]),
+                                            qureg.device.type == "cuda") == "lane_u"
+                   for f, a, _ in fz._tape if f is fusion._apply_dense_block)
+        return runs, lane
+
+    def run_counted(fz, qureg):
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        fz.run(qureg)
+        torch.cuda.synchronize()
+        return (FG.fused_run.launches,
+                telemetry.counter_value("pallas_pass_total", kind="fused_run"),
+                telemetry.counter_total("engine_fallback_total"))
+
+    def replay(c, qureg):
+        launched = FG.fused_run.launches
+        c.run(qureg)  # one gate at a time through the per-gate engine
+        torch.cuda.synchronize()
+        _require(FG.fused_run.launches == launched, "the per-gate replay launched")
+
+    res = {}
+    ref = qt.createQureg(N_MAIN, env, 1)
+    qt.initPlusState(ref)
+    replay(circ, ref)
+    for label, pallas in (("fused", True), ("dense", False)):
+        t0 = time.perf_counter()
+        fz = circ.fused(max_qubits=5, pallas=pallas, dtype=dt)
+        plan_s = time.perf_counter() - t0
+        kinds = {}
+        for f, _, _ in fz._tape:
+            kinds[f.__name__] = kinds.get(f.__name__, 0) + 1
+        q = qt.createQureg(N_MAIN, env, 1)
+        qt.initPlusState(q)
+        nruns, nlane = kernel_passes(fz, q)
+        if pallas:
+            runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+            res.update(_passes([_run_item(r) for r in runs], N_MAIN, dt, dev, rng, 1e-5,
+                               "gate-surface"))
+        launches, passes, fallbacks = run_counted(fz, q)
+        total = qt.calcTotalProb(q)
+        diff = (q.amps - ref.amps).abs().max().item()
+        print(f"# gate surface {label}: {N_MAIN}q f32, {len(circ)} entries -> plan "
+              f"{kinds} in {plan_s:.2f} s; launches {launches} (fused runs {nruns} + "
+              f"lane_u dense blocks {nlane}), pallas_pass_total{{fused_run}} "
+              f"{passes:g}, engine_fallback_total {fallbacks:g}; calcTotalProb "
+              f"{total:.9f}, max |run - per-gate replay| {diff:.3e}")
+        _require(launches == nruns + nlane == passes, f"gate surface {label}: launches")
+        _require(fallbacks == 0, f"gate surface {label}: engine fallback")
+        _require(abs(total - 1) <= 1e-4, f"gate surface {label}: total probability {total}")
+        _require(diff <= 2e-4, f"gate surface {label}: amplitudes {diff}")
+        res[f"{label}_launches"] = launches
+        if pallas:
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fz.run(q)
+            torch.cuda.synchronize()
+            res["circuit_ms"] = (time.perf_counter() - t0) / reps * 1e3
+            print(f"# gate surface fused: {res['circuit_ms']:.3f} ms per circuit "
+                  f"({len(circ)} entries), {sum(res['ms']):.3f} ms of it fused-run passes")
+        qt.destroyQureg(q)
+        torch.cuda.empty_cache()
+    qt.destroyQureg(ref)
+    torch.cuda.empty_cache()
+
+    nd = N_MAIN // 2
+    dcirc = qt.Circuit(nd, is_density_matrix=True)
+    gate_surface_tape(dcirc, qt, nd, seed=303, with_left_mult=False)
+    fz = dcirc.fused(max_qubits=5, pallas=True, dtype=dt)
+    rho = qt.createDensityQureg(nd, env, 1)
+    qt.initPlusState(rho)
+    nruns, nlane = kernel_passes(fz, rho)
+    launches, passes, fallbacks = run_counted(fz, rho)
+    trace = qt.calcTotalProb(rho)
+    dref = qt.createDensityQureg(nd, env, 1)
+    qt.initPlusState(dref)
+    replay(dcirc, dref)
+    diff = (rho.amps - dref.amps).abs().max().item()
+    print(f"# gate surface density: {nd}q density ({2 * nd} flattened qubits), "
+          f"{len(dcirc)} entries, launches {launches} (fused runs {nruns}), "
+          f"engine_fallback_total {fallbacks:g}; calcTotalProb {trace:.9f}, "
+          f"max |run - per-gate replay| {diff:.3e}")
+    _require(launches == nruns + nlane == passes, "gate surface density: launches")
+    _require(fallbacks == 0, "gate surface density: engine fallback")
+    _require(abs(trace - 1) <= 1e-4, f"gate surface density: trace {trace}")
+    _require(diff <= 2e-4, f"gate surface density: amplitudes {diff}")
+    res["density_launches"] = launches
+    res["launches"] = res["fused_launches"] + res["dense_launches"] + launches
+    qt.destroyQureg(rho)
+    qt.destroyQureg(dref)
+    torch.cuda.empty_cache()
+    return res
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -485,11 +827,12 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"# build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s in all)")
-    for line in _build.build_log("fused_gates").splitlines():
-        if "Function properties for" in line:  # which function the next lines describe
-            print(f"# ptxas: {line.split('for')[-1].strip()[-60:]}")
-        elif "registers" in line or "spill" in line:
-            print(f"# ptxas:   {line.replace('ptxas info    :', '').strip()}")
+    for lib in _build.SOURCES:
+        for line in _build.build_log(lib).splitlines():
+            if "Function properties for" in line:  # which function the next lines describe
+                print(f"# ptxas {lib}: {line.split('for')[-1].strip()[-60:]}")
+            elif "registers" in line or "spill" in line:
+                print(f"# ptxas {lib}:   {line.replace('ptxas info    :', '').strip()}")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -613,7 +956,13 @@ def main() -> int:
         kraus_alone[ddt] = _kraus_ops_at_width(ddt, dev, rng)
         torch.cuda.empty_cache()
 
-    f32_paths = {"statevec_26q_depth8": main}
+    # -- window phase: window_dot's entry point, f32 and f64 ---------------
+    window = _window_phase(dev, rng)
+
+    # -- gate-surface phase: every tapeable gate and operator, f32 ---------
+    surface = _gate_surface_path(qt, env, dev, rng)
+
+    f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {f"density_14q_{t}": density[(torch.float64, t)] for t in ("r3", "r4")}
     entries = [
@@ -632,10 +981,13 @@ def main() -> int:
         e["kraus_op_passes_28q"] = kraus_alone[ddt]
         e["max_abs_err"] = max(e["max_abs_err"], kraus_alone[ddt]["max_abs_err"])
         e["kernel_phase_op_kinds"] = sorted(kinds_checked)
+    entries[0]["gate_surface"] = {k: surface[k] for k in (
+        "fused_launches", "dense_launches", "density_launches", "circuit_ms")}
+    entries += [_window_entry("window_dot", window[torch.float32]),
+                _window_entry("window_dot_f64", window[torch.float64])]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
-        "op_kinds_on_paths": e["op_kinds"],
-        "op_kinds_checked": e["kernel_phase_op_kinds"]} for e in entries}))
+        "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ real amplitude layout as ``quest_tpu`` (a density matrix of n qubits is a
 (``createQuESTEnv()`` = ``cuda:0``) unless the caller passes
 ``device="cpu"``. Fused gate runs, decoherence channels among them,
 execute on the card through the hand-written CUDA kernel
-``csrc/fused_gates.cu``, in float32 and float64.
+``csrc/fused_gates.cu``, in float32 and float64; a dense unitary on a
+contiguous qubit window through ``csrc/window_dot.cu``
+(``ops.window_dot``).
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -14,35 +16,27 @@ This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 from .calculations import (calcProbOfOutcome, calcPurity, calcTotalProb,
                            getAmp, getDensityAmp, getImagAmp, getRealAmp)
 from .circuits import Circuit, density_circuit, random_layers
-from .decoherence import (mixDamping, mixDephasing, mixDepolarising,
-                          mixKrausMap, mixMultiQubitKrausMap,
-                          mixNonTPKrausMap, mixNonTPMultiQubitKrausMap,
-                          mixNonTPTwoQubitKrausMap, mixPauli,
-                          mixTwoQubitDephasing, mixTwoQubitDepolarising,
-                          mixTwoQubitKrausMap)
+from .datatypes import *  # noqa: F401,F403
+from .datatypes import __all__ as _datatypes_all
+from .decoherence import *  # noqa: F401,F403
+from .decoherence import __all__ as _decoherence_all
 from .environment import (QuESTEnv, createQuESTEnv, seedQuEST,
                           seedQuESTDefault)
-from .gates import (controlledNot, controlledPhaseFlip, hadamard,
-                    multiRotateZ, multiStateControlledUnitary, pauliX,
-                    rotateX, rotateZ, swapGate, tGate, unitary)
+from .gates import *  # noqa: F401,F403
+from .gates import __all__ as _gates_all
+from .operators import *  # noqa: F401,F403
+from .operators import __all__ as _operators_all
 from .registers import (Qureg, createDensityQureg, createQureg, destroyQureg,
                         get_np)
-from .state_init import (initBlankState, initClassicalState, initDebugState,
-                         initPlusState, initPureState, initZeroState)
+from .state_init import *  # noqa: F401,F403
+from .state_init import __all__ as _state_init_all
 from .validation import QuESTError
 
 __all__ = [
     "QuESTEnv", "createQuESTEnv", "seedQuEST", "seedQuESTDefault",
     "Qureg", "createQureg", "createDensityQureg", "destroyQureg", "get_np",
-    "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
-    "initPureState", "initDebugState",
-    "hadamard", "tGate", "rotateZ", "rotateX", "controlledNot",
-    "controlledPhaseFlip", "unitary", "multiRotateZ", "swapGate",
-    "multiStateControlledUnitary", "pauliX",
-    "mixDephasing", "mixTwoQubitDephasing", "mixDepolarising", "mixDamping",
-    "mixTwoQubitDepolarising", "mixPauli", "mixKrausMap",
-    "mixTwoQubitKrausMap", "mixMultiQubitKrausMap", "mixNonTPKrausMap",
-    "mixNonTPTwoQubitKrausMap", "mixNonTPMultiQubitKrausMap",
+    *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
+    *_decoherence_all,
     "calcTotalProb", "calcProbOfOutcome", "calcPurity", "getAmp",
     "getRealAmp", "getImagAmp", "getDensityAmp",
     "Circuit", "random_layers", "density_circuit", "QuESTError",

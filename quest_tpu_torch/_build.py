@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 
 #: library name -> source, relative to the package
-SOURCES = {"fused_gates": "csrc/fused_gates.cu"}
+SOURCES = {"fused_gates": "csrc/fused_gates.cu", "window_dot": "csrc/window_dot.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -107,6 +107,12 @@ SIGNATURES = {
                                  _CI, _CI, _CI, _CI, _CI, _VP], _CI),
         "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _VP, _CI, _VP, _CI, _CI,
                                  _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+        "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+    "window_dot": {
+        # (amps, mat, n, lo, span, conj, stream) -> cudaError_t
+        "quest_window_dot_f32": ([_VP, _VP, _CI, _CI, _CI, _CI, _VP], _CI),
+        "quest_window_dot_f64": ([_VP, _VP, _CI, _CI, _CI, _CI, _VP], _CI),
         "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
 }

@@ -20,7 +20,16 @@ import numpy as np
 from .registers import Qureg
 
 #: modules whose functions can be recorded on a tape
-_TAPEABLE_MODULES = ("gates", "decoherence", "state_init")
+_TAPEABLE_MODULES = ("gates", "operators", "decoherence", "state_init")
+#: API names that never go on a tape: measurement and collapse need host
+#: control flow and the RNG, the rest host data (the JAX package's set)
+_EXCLUDED = {
+    "measure", "measureWithStats", "collapseToOutcome",
+    "createDiagonalOp", "destroyDiagonalOp", "syncDiagonalOp",
+    "initDiagonalOp", "setDiagonalOpElems", "initDiagonalOpFromPauliHamil",
+    "createDiagonalOpFromPauliHamilFile", "calcExpecDiagonalOp",
+    "initStateFromAmps", "setAmps", "setDensityAmps",
+}
 
 
 def _tape_compatible(fn) -> bool:
@@ -71,7 +80,7 @@ class Circuit:
     # -- recording ----------------------------------------------------------
 
     def __getattr__(self, name):
-        if name.startswith("_"):
+        if name.startswith("_") or name in _EXCLUDED:
             raise AttributeError(name)
         fn = _resolve(name)
 

@@ -891,13 +891,50 @@ def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
         lo2=fs.tile_bits if fs.hi is None else fs.hi, k=fs.k))
 
 
+def dense_block_route(nsv: int, is_density: bool, qubits: tuple,
+                      on_card: bool) -> str:
+    """How a FusedBlock on ``qubits`` runs, as the JAX package's
+    ``_apply_dense_block`` decides on its accelerator: "lane_u" (one pass
+    of the fused-run kernel) for a state-vector window below the lane
+    boundary (hi < 7) of a state of at least two lane rows, "engine" (the
+    per-gate engine) for everything else, windows at lo >= 7 included,
+    where the JAX package measured the engine faster than its window
+    kernel. A CPU register (``on_card`` False) always takes the engine."""
+    from .ops.fused_gates import LANE_BITS, _LANES
+
+    if (on_card and qubits[-1] < LANE_BITS and (1 << nsv) >= 2 * _LANES
+            and not is_density):
+        return "lane_u"
+    return "engine"
+
+
+def _lane_u_pass(qureg, U: np.ndarray, qubits: tuple) -> None:
+    """A window below the lane boundary as ONE fused-run pass: the block
+    embedded in the 128x128 lane unitary, as the kernel's lane_u op
+    (W = (Ur^T, Ui^T, Ur^T + Ui^T)), in place."""
+    from .ops.fused_gates import (LANE_BITS, HashableMatrix, fused_run,
+                                  hopper_tile_bits)
+
+    nsv = qureg.num_qubits_in_state_vec
+    lane = event_matrix(GateEvent("matrix", tuple(qubits), matrix=U),
+                        tuple(range(LANE_BITS)))
+    W = np.stack([lane.real.T, lane.imag.T, lane.real.T + lane.imag.T])
+    fused_run(qureg.amps, n=nsv, ops=(("lane_u", HashableMatrix(W)),),
+              tile_bits=hopper_tile_bits(nsv, qureg.dtype))
+
+
 def _apply_dense_block(qureg, U: np.ndarray, qubits: tuple) -> None:
-    """Tape entry of a FusedBlock: the per-gate engine (ops.apply), through
-    the gate primitive, which re-derives the density shadow on a density
-    register (the block stays in row coordinates)."""
+    """Tape entry of a FusedBlock, routed by :func:`dense_block_route`:
+    a lane_u pass of the fused-run kernel, or the per-gate engine
+    (ops.apply) through the gate primitive, which re-derives the density
+    shadow on a density register (the block stays in row coordinates)."""
     from . import gates as G
 
-    G._apply_gate_matrix(qureg, U, qubits)
+    if dense_block_route(qureg.num_qubits_in_state_vec, qureg.is_density_matrix,
+                         tuple(qubits), qureg.device.type == "cuda") == "lane_u":
+        _lane_u_pass(qureg, U, qubits)
+    else:
+        G._apply_gate_matrix(qureg, U, qubits)
 
 
 def _apply_ops_via_engine(qureg, ops: tuple) -> None:

@@ -1,8 +1,10 @@
-"""Carry states, kernel ops and circuits across from ``quest_tpu``.
+"""Carry states, kernel ops, API arguments and circuits across from
+``quest_tpu``.
 
 The tests use these to feed identical inputs to both packages. Nothing
 here imports ``quest_tpu`` or JAX: the JAX side's objects arrive as numpy
-arrays, tuples, and matrices that expose their ndarray as ``.arr``.
+arrays, tuples, matrices that expose their ndarray as ``.arr``, and the
+data structures ``Vector`` and ``SubDiagonalOp``, recognised by name.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from .circuits import Circuit
+from .datatypes import SubDiagonalOp, Vector
 from .ops.fused_gates import HashableMatrix
 
 
@@ -43,11 +46,30 @@ def ops_from_reference(ops) -> tuple:
     return tuple(conv(op) for op in ops)
 
 
+def arg_from_reference(x):
+    """One ``quest_tpu`` API argument -> the port's: a ``Vector`` or a
+    ``SubDiagonalOp`` becomes the port's own, a matrix (a ComplexMatrixN
+    array, a bound matrix, a jax array) a numpy copy; lists and tuples
+    convert element by element, every other value is kept."""
+    name = type(x).__name__
+    if name == "Vector":
+        return Vector(float(x.x), float(x.y), float(x.z))
+    if name == "SubDiagonalOp":
+        return SubDiagonalOp(int(x.num_qubits), np.array(x.elems, dtype=complex))
+    if isinstance(x, (list, tuple)):
+        return type(x)(arg_from_reference(y) for y in x)
+    if hasattr(x, "__array__") and not isinstance(x, np.generic):
+        return np.array(x)
+    return x
+
+
 def circuit_from_tape(entries, n: int, is_density_matrix: bool = False) -> Circuit:
     """Rebuild a port Circuit from a ``quest_tpu`` ``Circuit._tape``: each
-    entry ``(fn, args, kwargs)`` (gates, initialisers and mix* channels) is
-    recorded again by ``fn.__name__``."""
+    entry ``(fn, args, kwargs)`` (gates, operators, initialisers and mix*
+    channels) is recorded again by ``fn.__name__``, its arguments carried
+    across by :func:`arg_from_reference`."""
     c = Circuit(n, is_density_matrix)
     for fn, args, kwargs in entries:
-        getattr(c, fn.__name__)(*args, **kwargs)
+        getattr(c, fn.__name__)(*arg_from_reference(tuple(args)),
+                                **{k: arg_from_reference(v) for k, v in kwargs.items()})
     return c

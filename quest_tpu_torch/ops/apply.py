@@ -39,8 +39,15 @@ def _plan(n, targets, controls):
 
 
 def _grouped(amps, n, targets, controls):
+    """The grouped, permuted view as a NEW contiguous tensor: where the
+    permutation only moves size-1 axes (targets on the top qubits),
+    ``contiguous()`` returns a view of ``amps`` itself, and the functions
+    below, which write into the grouped tensor, would change their input."""
     shape, perm, inv = _plan(n, targets, controls)
-    return amps.reshape(shape).permute(perm).contiguous(), inv
+    t = amps.reshape(shape).permute(perm).contiguous()
+    if t.data_ptr() == amps.data_ptr():
+        t = t.clone()
+    return t, inv
 
 
 def _ungroup(tensor, inv):

@@ -1,4 +1,5 @@
-"""State initialisation (reference: ``QuEST_cpu.c:1416-1680`` init family).
+"""State initialisation (reference: ``QuEST_cpu.c:1416-1680`` init family)
+and the weighted sum of registers.
 
 Each function returns a fresh planar (2, num_amps) tensor on ``device``.
 """
@@ -62,3 +63,14 @@ def density_init_plus(num_amps: int, dtype: torch.dtype, device) -> torch.Tensor
     amps = torch.zeros((2, num_amps), dtype=dtype, device=device)
     amps[0].fill_(1.0 / math.isqrt(num_amps))
     return amps
+
+
+def weighted_sum(f1: complex, amps1: torch.Tensor, f2: complex, amps2: torch.Tensor,
+                 fo: complex, amps_out: torch.Tensor) -> torch.Tensor:
+    """f1*q1 + f2*q2 + fo*out with complex factors, planar in and out --
+    setWeightedQureg (QuEST_cpu.c:3933)."""
+    def term(f, a):
+        f = complex(f)
+        return torch.stack([f.real * a[0] - f.imag * a[1],
+                            f.real * a[1] + f.imag * a[0]])
+    return term(f1, amps1) + term(f2, amps2) + term(fo, amps_out)

@@ -1,15 +1,28 @@
 """State initialisation API (reference QuEST.h:1619-1876, QuEST.c init
-family): the initialisers of the ported slices, for state-vector and
-density registers."""
+family), for state-vector and density registers: every function of
+``quest_tpu/state_init.py``.
+
+``setAmps`` and ``setDensityAmps`` write the given slice of the register's
+tensor in place (the reference's C semantics; the JAX package, whose
+arrays are immutable, builds a new one). Every other function binds a new
+tensor.
+"""
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from . import validation as V
 from .ops import init as I
 from .registers import Qureg
 
-__all__ = ["initBlankState", "initZeroState", "initPlusState",
-           "initClassicalState", "initPureState", "initDebugState"]
+__all__ = [
+    "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
+    "initPureState", "initDebugState", "initStateFromAmps", "setAmps",
+    "setDensityAmps", "cloneQureg", "setWeightedQureg", "getNumQubits",
+    "getNumAmps",
+]
 
 
 def initBlankState(qureg: Qureg) -> None:
@@ -78,3 +91,85 @@ def initDebugState(qureg: Qureg) -> None:
     qureg.put(I.init_debug(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_comment("initDebugState")
+
+
+def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
+    """Full overwrite from host arrays (QuEST.h:1748)."""
+    func = "initStateFromAmps"
+    reals = np.asarray(reals).reshape(-1)
+    imags = np.asarray(imags).reshape(-1)
+    V._assert(reals.size == qureg.num_amps_total and imags.size == qureg.num_amps_total,
+              "Invalid number of amplitudes. Must match the register size.", func)
+    qureg.put(torch.as_tensor(np.stack([reals, imags]), dtype=qureg.dtype,
+                              device=qureg.device).clone())
+    if qureg.qasm_log:
+        qureg.qasm_log.record_comment(
+            "Here, the register was initialised to an undisclosed given pure state.")
+
+
+def _write_slice(qureg: Qureg, start: int, reals, imags, num_amps: int) -> None:
+    vals = np.stack([np.asarray(reals).reshape(-1)[:num_amps],
+                     np.asarray(imags).reshape(-1)[:num_amps]])
+    qureg.amps[:, start:start + num_amps] = torch.as_tensor(
+        vals, dtype=qureg.dtype, device=qureg.device)
+
+
+def setAmps(qureg: Qureg, start_ind: int, reals, imags, num_amps: int) -> None:
+    """Overwrite a contiguous slice, in place (QuEST.h:1797)."""
+    func = "setAmps"
+    V.validate_state_vec(qureg, func)
+    V.validate_num_amps(qureg, start_ind, num_amps, func)
+    _write_slice(qureg, start_ind, reals, imags, num_amps)
+    if qureg.qasm_log:
+        qureg.qasm_log.record_comment(
+            "Here, some amplitudes in the statevector were manually edited.")
+
+
+def setDensityAmps(qureg: Qureg, start_row: int, start_col: int, reals, imags,
+                   num_amps: int) -> None:
+    """Overwrite density elements column-wise from (start_row, start_col),
+    in place (QuEST.h:1829). Flat order runs down rows then across columns,
+    the row-bits-low layout."""
+    func = "setDensityAmps"
+    V.validate_density_matr(qureg, func)
+    dim = 1 << qureg.num_qubits_represented
+    start = start_col * dim + start_row
+    V._assert(0 <= start_row < dim and 0 <= start_col < dim,
+              "Invalid amplitude index. Note amplitudes are zero indexed.", func)
+    V._assert(num_amps >= 0 and start + num_amps <= qureg.num_amps_total,
+              "Invalid number of amplitudes. Must be >=0 and fit within the register.", func)
+    _write_slice(qureg, start, reals, imags, num_amps)
+    if qureg.qasm_log:
+        qureg.qasm_log.record_comment(
+            "Here, some amplitudes in the density matrix were manually edited.")
+
+
+def cloneQureg(target: Qureg, source: Qureg) -> None:
+    """Overwrite target's state with a copy of source's (QuEST.h:1876)."""
+    func = "cloneQureg"
+    V.validate_matching_qureg_types(target, source, func)
+    V.validate_matching_qureg_dims(target, source, func)
+    target.put(source.amps.to(target.dtype, copy=True))
+
+
+def setWeightedQureg(fac1: complex, qureg1: Qureg, fac2: complex, qureg2: Qureg,
+                     fac_out: complex, out: Qureg) -> None:
+    """out = fac1 q1 + fac2 q2 + facOut out (QuEST.h:5688)."""
+    func = "setWeightedQureg"
+    V.validate_matching_qureg_types(qureg1, qureg2, func)
+    V.validate_matching_qureg_types(qureg1, out, func)
+    V.validate_matching_qureg_dims(qureg1, qureg2, func)
+    V.validate_matching_qureg_dims(qureg1, out, func)
+    out.put(I.weighted_sum(fac1, qureg1.amps.to(out.dtype), fac2,
+                           qureg2.amps.to(out.dtype), fac_out, out.amps))
+
+
+def getNumQubits(qureg: Qureg) -> int:
+    """Number of qubits the register represents (QuEST.h:134)."""
+    return qureg.num_qubits_represented
+
+
+def getNumAmps(qureg: Qureg) -> int:
+    """Number of statevector amplitudes, 2^numQubits (QuEST.h:135)."""
+    V.validate_state_vec(qureg, "getNumAmps")
+    return qureg.num_amps_total

@@ -1,5 +1,10 @@
 """Input validation: the validators the ported slices call.
 
+They cover targets and controls, unitarity of 2x2, 4x4 and N-qubit
+matrices and of compact pairs, Pauli codes, outcomes and measurement
+probabilities, amplitude ranges, matching registers, Kraus maps and the
+channel probabilities.
+
 A copy of the matching functions of ``quest_tpu/validation.py`` (itself the
 counterpart of the reference's ``QuEST_validation.c``), with the messages
 verbatim so that ``pytest.raises(match=...)`` cases carry over. A failure
@@ -9,6 +14,7 @@ overridable hook waits for the rest of the API.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -30,6 +36,11 @@ def _fail(msg: str, func: str) -> None:
 def _assert(cond: bool, msg: str, func: str) -> None:
     if not cond:
         _fail(msg, func)
+
+
+def validate_num_qubits(num_qubits: int, func: str) -> None:
+    _assert(num_qubits > 0, "Invalid number of qubits. Must create >0.", func)
+    _assert(num_qubits < 63, "Invalid number of qubits. The given number of qubits cannot be stored.", func)
 
 
 def validate_target(qureg, target: int, func: str) -> None:
@@ -125,6 +136,72 @@ def validate_unitary_matrix(matrix, num_targets: int, eps: float, func: str) -> 
     _assert(is_unitary(matrix, eps), "Matrix is not unitary.", func)
 
 
+def validate_unitary_complex_pair(alpha: complex, beta: complex, eps: float, func: str) -> None:
+    _assert(
+        abs(abs(alpha) ** 2 + abs(beta) ** 2 - 1) < eps,
+        "Compact unitary formed by complex alpha and beta is not unitary.",
+        func,
+    )
+
+
+def validate_vector(v, func: str) -> None:
+    _assert(
+        math.sqrt(v[0] ** 2 + v[1] ** 2 + v[2] ** 2) > 1e-15,
+        "Invalid axis vector. Must be non-zero.",
+        func,
+    )
+
+
+def validate_matrix_init(matrix, func: str) -> None:
+    """A destroyed or never-created ComplexMatrixN has no storage (None
+    itself, or a bound matrix whose ``real`` plane is gone)."""
+    storage = (matrix if isinstance(matrix, np.ndarray)
+               else getattr(matrix, "real", matrix))
+    _assert(storage is not None,
+            "The ComplexMatrixN was not successfully created (possibly "
+            "insufficient memory available).", func)
+
+
+def validate_matrix_init_dims(matrix, real, imag, func: str) -> None:
+    m = np.asarray(matrix)
+    _assert(np.asarray(real).shape == m.shape and np.asarray(imag).shape == m.shape,
+            "The real/imag components must match the dimension of the "
+            "created matrix.", func)
+
+
+def validate_sub_diag_op_targets(op, num_targets: int, func: str) -> None:
+    _assert(op.num_qubits == num_targets,
+            "The given SubDiagonalOp has an incompatible dimension with the "
+            "given number of target qubits.", func)
+
+
+def validate_unitary_sub_diag_op(op, eps: float, func: str) -> None:
+    elems = np.asarray(op.elems)
+    _assert(bool(np.all(np.abs(np.abs(elems) - 1) < 100 * eps)),
+            "Diagonal operator is not unitary.", func)
+
+
+def validate_pauli_codes(codes, func: str) -> None:
+    for c in codes:
+        _assert(
+            int(c) in (0, 1, 2, 3),
+            "Invalid Pauli code. Codes must be 0 (or PAULI_I), 1 (PAULI_X), 2 (PAULI_Y) or 3 (PAULI_Z).",
+            func,
+        )
+
+
+def validate_num_pauli_codes(codes, expected: int, func: str) -> None:
+    _assert(len(codes) == expected,
+            "Invalid number of Pauli codes. The number of codes must match the number of target qubits.",
+            func)
+    validate_pauli_codes(codes, func)
+
+
+def validate_measurement_prob(prob: float, eps: float, func: str) -> None:
+    """The outcome to collapse to must have probability above REAL_EPS."""
+    _assert(prob > eps, "Can't collapse to state with zero probability.", func)
+
+
 def validate_kraus_ops(ops, num_targets: int, eps: float, func: str, check_cptp: bool = True) -> None:
     dim = 2 ** num_targets
     _assert(len(ops) > 0, "Invalid number of operators.", func)
@@ -185,6 +262,14 @@ def validate_state_vec(qureg, func: str) -> None:
     _assert(not qureg.is_density_matrix, "Operation valid only for state-vectors.", func)
 
 
+def validate_matching_qureg_types(a, b, func: str) -> None:
+    _assert(
+        a.is_density_matrix == b.is_density_matrix,
+        "Registers must both be state-vectors or both be density matrices.",
+        func,
+    )
+
+
 def validate_second_qureg_state_vec(qureg2, func: str) -> None:
     _assert(not qureg2.is_density_matrix, "Second argument must be a state-vector.", func)
 
@@ -201,6 +286,15 @@ def validate_amp_index(qureg, index: int, func: str) -> None:
     _assert(
         0 <= index < qureg.num_amps_total,
         "Invalid amplitude index. Note amplitudes are zero indexed.",
+        func,
+    )
+
+
+def validate_num_amps(qureg, start: int, num: int, func: str) -> None:
+    validate_amp_index(qureg, start, func)
+    _assert(
+        num >= 0 and start + num <= qureg.num_amps_total,
+        "Invalid number of amplitudes. Must be >=0 and fit within the register.",
         func,
     )
 

@@ -13,11 +13,14 @@ from bench import _density_circuit
 from quest_tpu import fusion as JF
 from quest_tpu.circuits import Circuit as JCircuit
 from quest_tpu.ops import pallas_gates as PG
+import quest_tpu as jq
 import quest_tpu_torch as tq
 from quest_tpu_torch import fusion as F
 from quest_tpu_torch.interop import circuit_from_tape, ops_from_reference
 from quest_tpu_torch.ops import fused_gates as FG
 from quest_tpu_torch.ops import init as ops_init
+
+from . import oracle
 
 
 def assert_ops_equal(got, ref):
@@ -216,3 +219,107 @@ def test_density_pallas_plan_equals_reference(n, kind):
         assert {op[0] for op in ops} & set(FG._KRAUS)
     assert any(isinstance(i, F.PallasRun) and (i.load_swap_k or i.store_swap_k)
                for i in got.items)
+
+
+# ---------------------------------------------------------------------------
+# the dense-gate surface
+# ---------------------------------------------------------------------------
+
+def _surface_tape(n, is_density=False):
+    """chip_smoke.py's gate-surface tape (every tapeable gate and operator
+    beyond the bench set, twice), recorded on a quest_tpu Circuit and
+    carried across."""
+    from chip_smoke import gate_surface_tape
+
+    jc = JCircuit(n, is_density_matrix=is_density)
+    gate_surface_tape(jc, jq, n, seed=n, with_left_mult=not is_density)
+    return jc, circuit_from_tape(jc._tape, n, is_density)
+
+
+@pytest.mark.parametrize("n", [9, 11])
+def test_gate_surface_plan_equals_reference(n):
+    """Plans of a circuit of the new gates and operators equal quest_tpu's
+    item for item at the pinned tile (kernel ops, dense window blocks,
+    the applyMatrix* barriers), and replay to the unfused state."""
+    jc, tc = _surface_tape(n)
+    tb = PG.local_qubits(n, sublanes=4)
+    ref = JF._plan_pallas(tuple(jc._tape), n, np.float64, 5, tb)
+    got = F._plan_pallas(tuple(tc._tape), n, torch.float64, 5, tb)
+    assert_plans_equal(ref, got)
+    kinds = {type(i).__name__ for i in got.items}
+    assert {"PallasRun", "FusedBlock", "tuple"} <= kinds
+    env = tq.createQuESTEnv(device="cpu")
+    q_plan, q_ref = tq.createQureg(n, env, 2), tq.createQureg(n, env, 2)
+    for q in (q_plan, q_ref):
+        tq.initPlusState(q)
+    for f, a, kw in F.as_tape(got):
+        f(q_plan, *a, **kw)
+    tc.run(q_ref)
+    np.testing.assert_allclose(q_plan.amps.numpy(), q_ref.amps.numpy(), rtol=0, atol=1e-10)
+
+
+def test_gate_surface_density_plan_equals_reference():
+    n = 5
+    jc, tc = _surface_tape(n, is_density=True)
+    tb = PG.local_qubits(2 * n, sublanes=4)
+    ref = JF._plan_pallas(tuple(jc._tape), n, np.float64, 5, tb, is_density=True)
+    got = F._plan_pallas(tuple(tc._tape), n, torch.float64, 5, tb, is_density=True)
+    assert_plans_equal(ref, got)
+    dense = JF.plan(tuple(jc._tape), n, np.float64, max_qubits=5)
+    assert_plans_equal(dense, F.plan(tuple(tc._tape), n, torch.float64, max_qubits=5))
+
+
+class _Shell:
+    """The register attributes the dense-block dispatch reads."""
+
+    def __init__(self, nsv, is_density):
+        self.num_qubits_in_state_vec = nsv
+        self.is_density_matrix = is_density
+        self.amps = None
+
+    def put(self, amps):
+        self.amps = amps
+
+
+def test_dense_block_route_matches_reference(monkeypatch):
+    """The route the port takes for a FusedBlock on the card is the one
+    quest_tpu's _apply_dense_block takes on its accelerator: a lane_u pass
+    of the fused kernel for a state-vector window with hi < 7 and at least
+    2 x 128 amplitudes, the engine otherwise. On a CPU register the port
+    always takes the engine."""
+    import quest_tpu.gates as JG
+
+    taken = []
+    monkeypatch.setattr(JF, "_pallas_usable", lambda q: True)
+    monkeypatch.setattr(PG, "fused_local_run",
+                        lambda amps, **kw: taken.append("lane_u") or amps)
+    monkeypatch.setattr(JG, "_apply_gate_matrix",
+                        lambda *a, **kw: taken.append("engine"))
+    windows = [(0,), (2, 3, 4), (3, 4, 5, 6), (5, 6, 7), (6,), (7, 8), (9, 10, 11)]
+    for nsv in (7, 8, 9, 12):
+        for is_density in (False, True):
+            for qubits in windows:
+                if qubits[-1] >= nsv:
+                    continue
+                U = np.eye(1 << len(qubits), dtype=complex)
+                JF._apply_dense_block(_Shell(nsv, is_density), U, qubits)
+                assert F.dense_block_route(nsv, is_density, qubits, True) == taken[-1]
+                assert F.dense_block_route(nsv, is_density, qubits, False) == "engine"
+    assert {"lane_u", "engine"} == set(taken)
+
+
+@pytest.mark.parametrize("qubits", [(0, 1), (2, 4, 5), (1, 2, 3, 4, 6)])
+def test_lane_u_pass_matches_engine(qubits):
+    """A dense block as one lane_u pass (the kernel's plain version on the
+    CPU) equals the block through the per-gate engine."""
+    n = 10
+    env = tq.createQuESTEnv(device="cpu")
+    U = oracle.random_unitary(len(qubits), np.random.RandomState(len(qubits)))
+    q_lane, q_engine = tq.createQureg(n, env, 2), tq.createQureg(n, env, 2)
+    for q in (q_lane, q_engine):
+        tq.initDebugState(q)
+    F._lane_u_pass(q_lane, U, qubits)
+    tq.multiQubitUnitary(q_engine, list(qubits), U)
+    ref = q_engine.amps.numpy()
+    np.testing.assert_allclose(q_lane.amps.numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())

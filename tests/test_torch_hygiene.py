@@ -23,7 +23,9 @@ def test_import_pulls_in_no_jax(module):
             "mods = [importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "quest_tpu_torch.__path__, 'quest_tpu_torch.')]; "
             "assert {'quest_tpu_torch.decoherence', 'quest_tpu_torch.channels', "
-            "'quest_tpu_torch.ops.density', 'quest_tpu_torch.ops.measure'} "
+            "'quest_tpu_torch.ops.density', 'quest_tpu_torch.ops.measure', "
+            "'quest_tpu_torch.datatypes', 'quest_tpu_torch.operators', "
+            "'quest_tpu_torch.ops.window_dot'} "
             "<= {m.__name__ for m in mods}; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")

@@ -205,3 +205,21 @@ def test_gate_on_density_matches_reference_and_oracle(envs, gate, args):
     op = dict((g[0], g[2]) for g in GATES)[gate]
     got = tq.get_np(tqr).reshape(1 << N, 1 << N).T
     np.testing.assert_allclose(got, op @ rho @ op.conj().T, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("targets,controls", [((N - 1,), ()), ((N - 2, N - 1), ()),
+                                              ((N - 1,), (N - 2,)), ((0, N - 1), ())])
+def test_engine_leaves_its_input_as_it_was(targets, controls):
+    """apply_matrix / apply_x_class return a new tensor even where the
+    grouped view is already contiguous (targets on the top qubits)."""
+    from quest_tpu_torch.ops import apply as K
+
+    x = torch.as_tensor(np.random.RandomState(1).randn(2, 1 << N))
+    x0 = x.clone()
+    m = torch.as_tensor(np.stack([_U.real, _U.imag]) if len(targets) == 1 else
+                        np.stack([np.kron(_U, _U).real, np.kron(_U, _U).imag]))
+    y = K.apply_matrix(x, m, n=N, targets=targets, controls=controls)
+    z = K.apply_x_class(x, n=N, targets=targets, controls=controls)
+    assert torch.equal(x, x0)
+    assert y.data_ptr() != x.data_ptr() and z.data_ptr() != x.data_ptr()
+    assert not torch.equal(y, x0) and not torch.equal(z, x0)
