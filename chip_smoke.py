@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (``quest_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --windows    # the build and the window phase only
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero, printing
 no result, without them. Phases, in order:
@@ -734,8 +735,25 @@ def _gate_surface_path(qt, env, dev, rng) -> dict:
                 fz.run(q)
             torch.cuda.synchronize()
             res["circuit_ms"] = (time.perf_counter() - t0) / reps * 1e3
+            # one more run, each tape item timed alone: where the circuit's time goes
+            by_kind: dict = {}
+            for f, a, kw in fz._tape:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                f(q, *a, **kw)
+                e1.record()
+                torch.cuda.synchronize()
+                kind = f.__name__
+                if f is fusion._apply_dense_block:
+                    kind += "/" + fusion.dense_block_route(N_MAIN, False, tuple(a[1]), True)
+                elif f not in (fusion._apply_pallas_run, fusion._apply_frame_swap):
+                    kind = "barrier " + kind
+                by_kind[kind] = by_kind.get(kind, 0.0) + e0.elapsed_time(e1)
+            res["ms_by_item"] = by_kind
             print(f"# gate surface fused: {res['circuit_ms']:.3f} ms per circuit "
-                  f"({len(circ)} entries), {sum(res['ms']):.3f} ms of it fused-run passes")
+                  f"({len(circ)} entries), {sum(res['ms']):.3f} ms of it fused-run passes; "
+                  f"by item, ms: {json.dumps({k: round(v, 3) for k, v in by_kind.items()})}")
         qt.destroyQureg(q)
         torch.cuda.empty_cache()
     qt.destroyQureg(ref)
@@ -834,6 +852,13 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"# ptxas {lib}:   {line.replace('ptxas info    :', '').strip()}")
     dev = torch.device("cuda:0")
+    if sys.argv[1:] == ["--windows"]:
+        # only the window phase: the A/B measurement of two versions of the
+        # window kernel, run once from each version's checkout
+        window = _window_phase(dev, np.random.RandomState(11))
+        print(card)
+        print(json.dumps({"windows": {str(dt)[6:]: w["rows"] for dt, w in window.items()}}))
+        return 0
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
     errs = {}
@@ -982,7 +1007,8 @@ def main() -> int:
         e["max_abs_err"] = max(e["max_abs_err"], kraus_alone[ddt]["max_abs_err"])
         e["kernel_phase_op_kinds"] = sorted(kinds_checked)
     entries[0]["gate_surface"] = {k: surface[k] for k in (
-        "fused_launches", "dense_launches", "density_launches", "circuit_ms")}
+        "fused_launches", "dense_launches", "density_launches", "circuit_ms",
+        "ms_by_item")}
     entries += [_window_entry("window_dot", window[torch.float32]),
                 _window_entry("window_dot_f64", window[torch.float64])]
     print("# kernels: " + json.dumps({e["name"]: {

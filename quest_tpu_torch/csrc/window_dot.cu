@@ -13,16 +13,18 @@
 // Design. Blocks are persistent: one per resident slot on each SM, each
 // walking work items (an `a` and a chunk of BC consecutive `b` columns)
 // with a grid stride, so U is staged into shared memory once per block:
-// Ur and Ui, rows padded to D + 1 so that lanes reading different rows hit
-// different banks (at most 2 x 64 x 65 values, 33 KB f32 / 66 KB f64). A
-// work item's (D x BC) input panel, both planes, is loaded with 16-byte
-// vector loads that are coalesced over b, into shared memory; then each
-// thread computes an R x 4 tile of outputs (R = 4 rows, 2 when D = 2;
-// 4 consecutive columns) from the panel and writes it straight back with
-// 16-byte stores. A block reads and writes only its own columns, and every
-// read of a panel finishes before the barrier after which its outputs are
-// written, so the kernel runs in place. D x BC is 4096 (f32) or 2048 (f64)
-// amplitudes, BC = min(B, that / D).
+// Ur and Ui transposed, so that a thread reads the R rows it needs of one
+// column as one vector load (at most 2 x 64 x 64 values, 32 KiB f32 /
+// 64 KiB f64). A work item's (D x BC) input panel, both planes, is copied
+// into shared memory by asynchronous 16-byte copies (cp.async) coalesced
+// over b, into one of two buffers: the next item's panel streams in while
+// the block computes this one (one buffer where two would leave room for
+// only one block per SM: f64 at D = 64). Each thread computes an R x 4
+// tile of outputs (R = 4 rows, 2 when D = 2; 4 consecutive columns) from
+// the panel and writes it straight back with 16-byte stores. A block reads and
+// writes only its own columns, and a panel is read whole into shared
+// memory before any output of it is written, so the kernel runs in place.
+// D x BC is 4096 (f32) or 2048 (f64) amplitudes, BC = min(B, that / D).
 //
 // What bounds it on an H100: the pass moves 2 x state bytes (each
 // amplitude read once and written once), 0.32 ms for a 26-qubit f32 state
@@ -64,26 +66,70 @@ __device__ __forceinline__ void store4(double* p, const double v[4]) {
   reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
+__device__ __forceinline__ void load2(const float* p, float v[2]) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+__device__ __forceinline__ void load2(const double* p, double v[2]) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+
+// cp.async: a 16-byte copy from global to shared memory that does not
+// hold up the issuing thread; a commit closes a group of them, and the
+// wait lets at most the newest group still be in flight
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
+}
+// four consecutive values (16 bytes of float, 32 of double), asynchronously
+template <typename T>
+__device__ __forceinline__ void copy4_async(T* smem, const T* gmem) {
+  constexpr int kPer16 = 16 / sizeof(T);
+#pragma unroll
+  for (int h = 0; h < kCols; h += kPer16) copy16_async(smem + h, gmem + h);
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// R consecutive values (R = 2 or 4), aligned to R
+template <int R, typename T>
+__device__ __forceinline__ void load_rows(const T* p, T v[R]) {
+  if constexpr (R == 4) {
+    load4(p, v);
+  } else {
+    load2(p, v);
+  }
+}
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 window_dot_kernel(T* __restrict__ amps, const T* __restrict__ mat,
                   uint64_t num, int lo, int span, int bc_bits, int conj,
-                  uint64_t num_work) {
+                  uint64_t num_work, int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = 1 << span;
-  const int ld = D + 1;
   const int BC = 1 << bc_bits;
-  T* ur = reinterpret_cast<T*>(smem_raw);
-  T* ui = ur + D * ld;
-  T* xr = ui + D * ld;  // 2 D (D + 1) values in: a multiple of 4 (D even)
-  T* xi = xr + D * BC;
+  // U transposed (urt[k * D + d] = Ur[d][k]): a thread reads its R rows of
+  // column k as one vector load, the same address across a warp's lanes
+  // of one row group (a broadcast)
+  T* urt = reinterpret_cast<T*>(smem_raw);
+  T* uit = urt + D * D;
+  T* panels = uit + D * D;  // 2 D^2 values in: 16-byte aligned
+  const int panel = 2 * D * BC;  // both planes of one work item's panel
 
   for (int i = threadIdx.x; i < D * D; i += kThreads) {
     const int r = i >> span, c = i & (D - 1);
     const T v = mat[D * D + i];
-    ur[r * ld + c] = mat[i];
-    ui[r * ld + c] = conj ? -v : v;
+    urt[c * D + r] = mat[i];
+    uit[c * D + r] = conj ? -v : v;
   }
 
   const int chunk_bits = lo - bc_bits;
@@ -91,41 +137,59 @@ window_dot_kernel(T* __restrict__ amps, const T* __restrict__ mat,
   const int cgroups = BC / kCols;
   const int ntiles = (D / R) * cgroups;
   const int nvec = (D * BC) / kCols;
-
-  for (uint64_t w = blockIdx.x; w < num_work; w += gridDim.x) {
-    // flat index of (a, 0, b0)
-    const uint64_t base = ((w >> chunk_bits) << (lo + span)) +
-                          ((w & chunk_mask) << bc_bits);
-    __syncthreads();  // U staged; the last item's panel read by every thread
+  // flat index of (a, 0, b0) of work item w
+  auto base_of = [&](uint64_t w) {
+    return ((w >> chunk_bits) << (lo + span)) + ((w & chunk_mask) << bc_bits);
+  };
+  // start copying work item w's panel into buffer dst (16 bytes a copy)
+  auto fetch = [&](uint64_t w, T* dst) {
+    const uint64_t base = base_of(w);
     for (int v = threadIdx.x; v < nvec; v += kThreads) {
       const int e = v * kCols;
       const uint64_t g = base + (static_cast<uint64_t>(e >> bc_bits) << lo) +
                          (e & (BC - 1));
-      T t[kCols];
-      load4(amps + g, t);
-      store4(xr + e, t);
-      load4(amps + num + g, t);
-      store4(xi + e, t);
+      copy4_async(dst + e, amps + g);
+      copy4_async(dst + D * BC + e, amps + num + g);
     }
-    __syncthreads();
+  };
+
+  int cur = 0;
+  if (stages == 2 && blockIdx.x < num_work) fetch(blockIdx.x, panels);
+  async_commit();
+  for (uint64_t w = blockIdx.x; w < num_work; w += gridDim.x) {
+    if (stages == 2) {
+      // the next item's panel streams in while this one computes
+      if (w + gridDim.x < num_work) fetch(w + gridDim.x, panels + (cur ^ 1) * panel);
+      async_commit();
+      async_wait_all_but_newest();
+    } else {
+      fetch(w, panels);
+      async_commit();
+      async_wait_all();
+    }
+    __syncthreads();  // U staged and this item's panel landed, every thread's part
+    const T* xr = panels + cur * panel;
+    const T* xi = xr + D * BC;
+    const uint64_t base = base_of(w);
     for (int t = threadIdx.x; t < ntiles; t += kThreads) {
       const int c0 = (t % cgroups) * kCols;
       const int d0 = (t / cgroups) * R;
       T ar[R][kCols] = {}, ai[R][kCols] = {};
       for (int k = 0; k < D; ++k) {
         T pr[kCols], pi[kCols];
+        T mr[R], mi[R];
         load4(xr + k * BC + c0, pr);
         load4(xi + k * BC + c0, pi);
+        load_rows<R>(urt + k * D + d0, mr);
+        load_rows<R>(uit + k * D + d0, mi);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const T mr = ur[(d0 + r) * ld + k];
-          const T mi = ui[(d0 + r) * ld + k];
 #pragma unroll
           for (int j = 0; j < kCols; ++j) {
-            ar[r][j] = fmadd(mr, pr[j], ar[r][j]);
-            ar[r][j] = fmadd(-mi, pi[j], ar[r][j]);
-            ai[r][j] = fmadd(mr, pi[j], ai[r][j]);
-            ai[r][j] = fmadd(mi, pr[j], ai[r][j]);
+            ar[r][j] = fmadd(mr[r], pr[j], ar[r][j]);
+            ar[r][j] = fmadd(-mi[r], pi[j], ar[r][j]);
+            ai[r][j] = fmadd(mr[r], pi[j], ai[r][j]);
+            ai[r][j] = fmadd(mi[r], pr[j], ai[r][j]);
           }
         }
       }
@@ -136,6 +200,8 @@ window_dot_kernel(T* __restrict__ amps, const T* __restrict__ mat,
         store4(amps + num + g, ai[r]);
       }
     }
+    __syncthreads();  // every thread done reading this panel: it is refilled next
+    cur ^= stages - 1;
   }
 }
 
@@ -144,30 +210,35 @@ int launch_rows(T* amps, const T* mat, int n, int lo, int span, int conj,
                 void* stream) {
   const int panel_bits = sizeof(T) == 4 ? 12 : 11;
   const int bc_bits = lo < panel_bits - span ? lo : panel_bits - span;
-  const int D = 1 << span;
-  const size_t smem = sizeof(T) * (2 * static_cast<size_t>(D) * (D + 1) +
-                                   (2 * static_cast<size_t>(D) << bc_bits));
-  cudaError_t err = cudaFuncSetAttribute(
-      window_dot_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess) {
-    return static_cast<int>(err);
+  const size_t D = size_t(1) << span;
+  auto kernel = window_dot_kernel<T, R>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, window_dot_kernel<T, R>, kThreads, smem)) != cudaSuccess) {
-    return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // two panel buffers where two blocks still fit an SM with them, else one
+  // (f64 at D = 64, whose U alone is 64 KiB)
+  int stages = 2, per_sm = 0;
+  size_t smem = 0;
+  for (; stages >= 1; --stages) {
+    smem = sizeof(T) * (2 * D * D + ((2 * stages * D) << bc_bits));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm >= 2 || stages == 1) break;
   }
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const uint64_t num_work = 1ull << (n - span - bc_bits);
   const uint64_t slots = static_cast<uint64_t>(sms) * per_sm;
   const unsigned grid = static_cast<unsigned>(num_work < slots ? num_work : slots);
-  window_dot_kernel<T, R>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          amps, mat, 1ull << n, lo, span, bc_bits, conj, num_work);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      amps, mat, 1ull << n, lo, span, bc_bits, conj, num_work, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

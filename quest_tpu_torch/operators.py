@@ -33,7 +33,9 @@ def _apply_matrix_left(qureg: Qureg, matrix, targets, controls=()):
 
 
 def _apply_matrix_gate(qureg: Qureg, matrix, targets, controls=()):
-    """M|psi> or M.rho.M^dagger (the Gate variants)."""
+    """M|psi> or M.rho.M^dagger (the Gate variants). Not through
+    ``gates._apply_gate_matrix``: ``fusion.capture`` patches that, and an
+    operator entry stays a fusion barrier, as in the JAX package."""
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
     amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=tuple(targets),

@@ -1,3 +1,4 @@
 """Functional kernels over planar (2, 2^n) amplitude tensors: the per-gate
 engine (apply, diagonal), the readouts (reduce, measure), the initial
-states (init) and the fused gate-run kernel (fused_gates)."""
+states (init), the fused gate-run kernel (fused_gates) and the dense
+window kernel (window_dot)."""

@@ -4,15 +4,16 @@ The port keeps the counter names of ``quest_tpu.telemetry`` that the slice
 needs:
 
 - ``pallas_pass_total{kind}``: one per pass over the state, ``kind`` =
-  ``fused_run`` (a fused-gate-run kernel pass) or ``frame_swap`` (an
-  explicit bit-block relabeling);
+  ``fused_run`` (a fused-gate-run kernel pass), ``frame_swap`` (an
+  explicit bit-block relabeling) or ``window_dot`` (a dense window);
 - ``engine_fallback_total{reason}``: the JAX package counts here every
   time a kernel route degrades to the per-gate engine. The port has no such
   fallback, so nothing increments it; it exists so that a run can show it
   reads 0.
 
 Kernel launch counts live on the kernel wrappers themselves
-(``ops.fused_gates.fused_run.launches``). A counter key is the name, plus
+(``ops.fused_gates.fused_run.launches``,
+``ops.window_dot.window_dot.launches``). A counter key is the name, plus
 ``{k=v,...}`` with the labels sorted, as in the JAX package.
 """
 

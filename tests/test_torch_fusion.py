@@ -318,8 +318,13 @@ def test_lane_u_pass_matches_engine(qubits):
     q_lane, q_engine = tq.createQureg(n, env, 2), tq.createQureg(n, env, 2)
     for q in (q_lane, q_engine):
         tq.initDebugState(q)
-    F._lane_u_pass(q_lane, U, qubits)
-    tq.multiQubitUnitary(q_engine, list(qubits), U)
+    window = tuple(range(qubits[0], qubits[-1] + 1))
+    block = F.FusedBlock(window, F.event_matrix(
+        F.GateEvent("matrix", qubits, matrix=U), window))
+    for _ in range(2):  # the second replay reuses the block's prepared pass
+        F._lane_u_pass(q_lane, block)
+        tq.multiQubitUnitary(q_engine, list(qubits), U)
+    assert block.lane_run is not None
     ref = q_engine.amps.numpy()
     np.testing.assert_allclose(q_lane.amps.numpy(), ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())
