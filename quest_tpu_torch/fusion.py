@@ -911,40 +911,47 @@ def dense_block_route(nsv: int, is_density: bool, qubits: tuple,
     return "engine"
 
 
-def _lane_u_pass(qureg, block: FusedBlock) -> None:
-    """A window below the lane boundary as ONE fused-run pass: the block
-    embedded in the 128x128 lane unitary (I (x) U (x) I over the contiguous
-    window), as the kernel's lane_u op (W = (Ur^T, Ui^T, Ur^T + Ui^T)), in
-    place. The prepared pass is kept on ``block`` for the next replay."""
-    from .ops.fused_gates import (LANE_BITS, HashableMatrix, PreparedRun,
-                                  fused_run, hopper_tile_bits)
+def lane_u_run(block: FusedBlock, tile_bits: int):
+    """A window below the lane boundary as ONE fused-run pass
+    (ops.fused_gates.PreparedRun): the block embedded in the 128x128 lane
+    unitary (I (x) U (x) I over the contiguous window), as the kernel's
+    lane_u op (W = (Ur^T, Ui^T, Ur^T + Ui^T)). Kept on ``block`` for the
+    next replay."""
+    from .ops.fused_gates import LANE_BITS, HashableMatrix, PreparedRun
 
-    nsv = qureg.num_qubits_in_state_vec
-    tb = hopper_tile_bits(nsv, qureg.dtype)
     prep = block.lane_run
-    if prep is None or prep.tile_bits != tb:
+    if prep is None or prep.tile_bits != tile_bits:
         lo, hi = block.qubits[0], block.qubits[-1]
         lane = np.kron(np.eye(1 << (LANE_BITS - 1 - hi)),
                        np.kron(np.asarray(block.matrix, dtype=complex), np.eye(1 << lo)))
         W = np.stack([lane.real.T, lane.imag.T, lane.real.T + lane.imag.T])
-        prep = block.lane_run = PreparedRun((("lane_u", HashableMatrix(W)),), tb)
+        prep = block.lane_run = PreparedRun((("lane_u", HashableMatrix(W)),), tile_bits)
+    return prep
+
+
+def _lane_u_pass(qureg, block: FusedBlock) -> None:
+    """The block's :func:`lane_u_run` through the fused-run kernel, in place."""
+    from .ops.fused_gates import fused_run, hopper_tile_bits
+
+    nsv = qureg.num_qubits_in_state_vec
+    tb = hopper_tile_bits(nsv, qureg.dtype)
+    prep = lane_u_run(block, tb)
     fused_run(qureg.amps, n=nsv, ops=prep.ops, tile_bits=tb, prepared=prep)
 
 
-def _apply_dense_block(qureg, U: np.ndarray, qubits: tuple,
-                       block: FusedBlock | None = None) -> None:
-    """Tape entry of a FusedBlock (``block``, when given, keeps its
-    prepared lane_u pass), routed by :func:`dense_block_route`: a lane_u
-    pass of the fused-run kernel, or the per-gate engine (ops.apply)
-    through the gate primitive, which re-derives the density shadow on a
-    density register (the block stays in row coordinates)."""
+def _apply_dense_block(qureg, block: FusedBlock) -> None:
+    """Tape entry of a FusedBlock, routed by :func:`dense_block_route`: a
+    lane_u pass of the fused-run kernel (kept on the block for the next
+    replay), or the per-gate engine (ops.apply) through the gate
+    primitive, which re-derives the density shadow on a density register
+    (the block stays in row coordinates)."""
     from . import gates as G
 
     if dense_block_route(qureg.num_qubits_in_state_vec, qureg.is_density_matrix,
-                         tuple(qubits), qureg.device.type == "cuda") == "lane_u":
-        _lane_u_pass(qureg, block or FusedBlock(tuple(qubits), U))
+                         block.qubits, qureg.device.type == "cuda") == "lane_u":
+        _lane_u_pass(qureg, block)
     else:
-        G._apply_gate_matrix(qureg, U, qubits)
+        G._apply_gate_matrix(qureg, block.matrix, block.qubits)
 
 
 def _apply_ops_via_engine(qureg, ops: tuple) -> None:
@@ -997,8 +1004,7 @@ def as_tape(p: FusePlan) -> list:
         if isinstance(item, DiagBlock):
             entries.append((G._apply_gate_diag, (item.diag, item.qubits), {}))
         elif isinstance(item, FusedBlock):
-            entries.append((_apply_dense_block, (item.matrix, item.qubits),
-                            {"block": item}))
+            entries.append((_apply_dense_block, (item,), {}))
         elif isinstance(item, PallasRun):
             entries.append((_apply_pallas_run, (item,), {}))
         elif isinstance(item, FrameSwap):
