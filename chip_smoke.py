@@ -58,9 +58,29 @@ no result, without them. Phases, in order:
    as lane_u passes of the fused-run kernel, the rest on the engine); and
    the tape without its left-multiplying operators on a 13-qubit density
    register, trace within 1e-4, entries within 1e-5 of the largest of
-   its per-gate replay.
+   its per-gate replay;
+8. sharded: the per-shard kernel (phase 2 also holds it, at N_KERNEL
+   qubits over N_SHARDS virtual shards of cuda:0, f32 and f64: controls,
+   diagonal targets, diagw and parity members on sharded qubits and
+   shard-local folded swaps; each shard's pass against the plain version
+   with the shard's index, the shards together against the one-device
+   kernel); then the main path's circuit on a register sharded over
+   N_SHARDS virtual shards of cuda:0 (``createQuESTEnv(devices=...)``),
+   f32 and f64, planned by ``Circuit.fused(..., shard_devices=N_SHARDS)``:
+   each run's pass on each shard against the plain version (and timed),
+   the run with the counts reset just before it (launches = runs x
+   shards, zero fallbacks, ``exchange_calls_total{grouped_permute}`` =
+   collective transposes), the gathered state within 1e-5 (f32) / 1e-10
+   (f64) of the largest amplitude of the one-device fused run, a plain
+   per-gate replay over the shards (pair exchanges, x permutes, phases)
+   against the one-device per-gate replay, the readouts, gates/sec,
+   each collective permute's time beside its bound, and one run's time
+   on the card's clock split into the shard passes, the permutes and the
+   rest (CUDA events around each launch and permute).
 
-Lines starting with ``#`` carry the detail; the line before the last is
+The earlier phases pin ``createQuESTEnv(device="cuda:0")``, so that a host
+with more cards does not shard them. Lines starting with ``#`` carry the
+detail; the line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
 """
 
@@ -72,7 +92,7 @@ import subprocess
 import sys
 import time
 
-N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY = 26, 8, 20, 14
+N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY, N_SHARDS = 26, 8, 20, 14, 4
 #: window_dot's windows (lo, span) at N_MAIN qubits: the lowest it takes,
 #: the widest, and the top 5-qubit window (tools/microbench.py's)
 WINDOWS = ((7, 5), (12, 6), (21, 5))
@@ -198,6 +218,91 @@ def _kernel_cases(n: int, tb: int, rng):
             ("store_swap", mixed, _swaps(0, None, 3, None)),
             ("load+store_swap", mixed, _swaps(2, None, 2, None)),
             ("asymmetric_swap", mixed, _swaps(1, n - 1, 2, tb + 1))]
+
+
+def _shard_kernel_cases(n: int, nl: int, rng):
+    """(name, ops, fused_run swap keywords) of the per-shard kernel checks
+    on an n-qubit state sharded with nl local qubits: matrix ops with
+    controls on sharded qubits (both control states) and diagonal targets
+    there, diagw and parity ops with members on them, a controlled swap,
+    and a mixed run with lane and window folds under shard-local folded
+    swaps (load: [tb-2, tb) with [nl-2, nl); store: [tb-1, tb) with
+    [tb, tb+1))."""
+    import numpy as np
+
+    from quest_tpu_torch.ops.fused_gates import HashableMatrix as HM
+
+    def ru():
+        q, _ = np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))
+        return HM(q)
+
+    s1, s2 = n - 1, n - 2  # sharded qubits: bits of the shard index
+    roles = (("matrix", 3, (s1,), (1,), ru()),
+             ("matrix", 9, (s2, 8), (0, 1), ru()),
+             ("matrix", 0, (s1, s2), (0, 0), ru()),
+             ("matrix", s1, (2,), (1,), HM(np.diag([1j, -1]))),
+             ("matrix", s2, (s1,), (0,), HM(np.diag(np.exp([0.3j, -1.1j])))))
+    diag = (("diagw", (1, s1, 10), (s2,), HM(np.exp(1j * rng.rand(8)))),
+            ("diagw", (s2, s1), (), HM(np.exp(1j * rng.rand(4)))),
+            ("parity", (0, s1, 12), (), 0.77),
+            ("parity", (s2, 5), (s1,), -1.3))
+    swap = (("swap", 1, 11, (s1,), (0,)),)
+    folds = (tuple(("matrix", q % 7, (), (), ru()) for q in range(9))
+             + tuple(("matrix", 7 + q % 5, (), (), ru()) for q in range(10)))
+    return [("sharded controls", roles, _swaps()),
+            ("sharded diagw and parity", diag + swap, _swaps()),
+            ("mixed, shard-local folded swaps", roles + diag + swap + folds,
+             _swaps(2, nl - 2, 1, None))]
+
+
+def _shard_kernel_phase(dev, rng) -> dict:
+    """The per-shard kernel at N_KERNEL qubits over N_SHARDS virtual shards
+    of cuda:0, f32 and f64: each shard's pass (``fused_run`` with
+    ``local_n`` and the shard's index) against ``fused_run_plain`` with the
+    same index, and the shards' results together against the one-device
+    kernel on the whole state; errors over the largest amplitude. Returns
+    {dtype: max abs error}."""
+    import torch
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = N_KERNEL
+    nl = n - (N_SHARDS - 1).bit_length()
+    errs = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        tb = FG.HOPPER_TILE_BITS[dt]
+        st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+        st /= st.norm()
+        shards = [c.contiguous() for c in st.chunk(N_SHARDS, dim=1)]
+        outs = [torch.empty_like(c) for c in shards]
+        whole = torch.empty_like(st)
+        errs[dt] = 0.0
+        for name, ops, sw in _shard_kernel_cases(n, nl, rng):
+            prep = FG.PreparedRun(ops, tb)
+            worst = worst_rel = 0.0
+            for r, (shard, out) in enumerate(zip(shards, outs)):
+                ref = FG.fused_run_plain(shard, prep, n=n, tile_bits=tb, local_n=nl,
+                                         shard_index=r, **sw)
+                FG.fused_run(shard, n=n, ops=ops, tile_bits=tb, out=out, prepared=prep,
+                             local_n=nl, shard_index=r, **sw)
+                torch.cuda.synchronize()
+                err, rel = _rel_err(out, ref)
+                _require(rel <= tol, f"per-shard {dt} {name} shard {r}: error {err} "
+                                     f"({rel} relative) > {tol}")
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            FG.fused_run(st, n=n, ops=ops, tile_bits=tb, out=whole, prepared=prep, **sw)
+            err_w, rel_w = _rel_err(torch.cat(outs, dim=1), whole)
+            _require(rel_w <= tol, f"per-shard {dt} {name}: shards against the one-device "
+                                   f"kernel {err_w} ({rel_w} relative) > {tol}")
+            errs[dt] = max(errs[dt], worst)
+            print(f"# kernel per shard {str(dt)[6:]} {name}: {n}q over {N_SHARDS} shards "
+                  f"(local_n {nl}), folded kinds {sorted({o[0] for o in prep.ops})}, "
+                  f"max_abs_err {worst:.3e} ({worst_rel:.3e} of the largest) against the "
+                  f"plain version with the shard's index, {err_w:.3e} ({rel_w:.3e} of the largest) against the one-device "
+                  f"kernel (limit {tol:g})")
+        del st, shards, outs, whole
+        torch.cuda.empty_cache()
+    return errs
 
 
 def _run_item(run) -> tuple:
@@ -804,6 +909,259 @@ def _gate_surface_path(qt, env, dev, rng) -> dict:
     return res
 
 
+def _sharded_path(qt, dev, rng, dt) -> dict:
+    """The main path's circuit (N_MAIN qubits, depth DEPTH_MAIN) on a
+    register sharded over N_SHARDS virtual shards of cuda:0, in ``dt``:
+    the plan of ``Circuit.fused(max_qubits=5, pallas=True,
+    shard_devices=N_SHARDS)``; each run's pass on each shard through the
+    kernel against the plain version with the shard's index (and timed);
+    the run with the counts reset just before it (launches = runs x
+    shards, zero fallbacks, ``exchange_calls_total{grouped_permute}`` =
+    the collective transposes); the gathered state against the one-device
+    fused run; a plain per-gate replay over the shards against the
+    one-device per-gate replay; the readouts; gates/sec; each collective
+    permute's time beside its bound."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.parallel import exchange as X
+
+    f32 = dt == torch.float32
+    prec, tol_kernel, tol = (1, 1e-5, 1e-5) if f32 else (2, 1e-12, 1e-10)
+    label = f"sharded {str(dt)[6:]}"
+    n, nl = N_MAIN, N_MAIN - (N_SHARDS - 1).bit_length()
+    itemsize = torch.finfo(dt).bits // 8
+    peak = PEAK_FP32_FLOPS if f32 else PEAK_FP64_FLOPS
+    env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    circ = qt.Circuit(n)
+    qt.random_layers(circ, n, DEPTH_MAIN)
+    t0 = time.perf_counter()
+    fz = circ.fused(max_qubits=5, pallas=True, dtype=dt, shard_devices=N_SHARDS)
+    plan_s = time.perf_counter() - t0
+    runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    other = [f.__name__ for f, _, _ in fz._tape
+             if f not in (fusion._apply_pallas_run, fusion._apply_frame_swap)]
+    ts = fusion.tape_transpose_stats(fz._tape, nl)
+    print(f"# {label}: {n}q depth {DEPTH_MAIN} over {N_SHARDS} shards of {dev} (local_n "
+          f"{nl}), {len(circ)} gates -> {len(runs)} fused runs at tile_bits "
+          f"{runs[0].tile_bits}, {len(fz._tape) - len(runs)} frame swaps; transposes: "
+          f"{ts['collective_transposes']} collective, {ts['local_transposes']} local; "
+          f"planned in {plan_s:.2f} s")
+    _require(runs and not other, f"{label}: plan is not all fused runs and frame swaps")
+
+    # each run's pass on each shard: kernel against plain, timed
+    st = [torch.as_tensor(rng.randn(2, 1 << nl), dtype=dt, device=dev)
+          for _ in range(N_SHARDS)]
+    norm = sum(float((x * x).sum()) for x in st) ** 0.5
+    for x in st:
+        x /= norm
+    out = torch.empty_like(st[0])
+    res = {"ms": [], "plain_ms": [], "bound_ms": [], "by_ops": [], "kinds": set(),
+           "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for i, run in enumerate(runs):
+        prep = run.prepare()
+        kw = dict(tile_bits=run.tile_bits, **_swaps(run.load_swap_k, run.load_swap_hi,
+                                                      run.store_swap_k, run.store_swap_hi))
+        # swaps reaching a sharded qubit run as collectives: not in the pass
+        for k, h in (("load_swap_k", "load_swap_hi"), ("store_swap_k", "store_swap_hi")):
+            hi = run.tile_bits if kw[h] is None else kw[h]
+            if kw[k] and hi + kw[k] > nl:
+                kw[k], kw[h] = 0, None
+        nbytes, flops = _pass_work(prep, nl, itemsize)
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        for r, shard in enumerate(st):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ref = FG.fused_run_plain(shard, prep, n=n, local_n=nl, shard_index=r, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = _cuda_ms(lambda: FG.fused_run(shard, n=n, ops=run.ops, out=out,
+                                               prepared=prep, local_n=nl, shard_index=r,
+                                               **kw), 3)
+            err, rel = _rel_err(out, ref)
+            del ref
+            _require(rel <= tol_kernel, f"{label} run {i} shard {r}: error {err} "
+                                        f"({rel} relative) > {tol_kernel}")
+            res["ms"].append(ms)
+            res["plain_ms"].append(e0.elapsed_time(e1))
+            res["bound_ms"].append(max(b_bytes, b_ops))
+            res["by_ops"].append(b_ops > b_bytes)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel)
+        res["kinds"].update(o[0] for o in prep.ops)
+        print(f"# {label} run {i}: {len(run.ops)} ops -> {len(prep.ops)}, folded swaps "
+              f"load {kw['load_swap_k']} store {kw['store_swap_k']}: per shard "
+              f"{[round(m, 4) for m in res['ms'][-N_SHARDS:]]} ms, bound "
+              f"{max(b_bytes, b_ops):.4f} ms by {'operations' if b_ops > b_bytes else 'bytes'}, "
+              f"plain {sum(res['plain_ms'][-N_SHARDS:]) / N_SHARDS:.2f} ms, max_abs_err "
+              f"{res['max_abs_err']:.3e} ({res['max_rel_err']:.3e} of the largest) so far")
+    del st, out
+    torch.cuda.empty_cache()
+
+    # the circuit on the sharded register, counts reset just before it
+    q = qt.createQureg(n, env, prec)
+    qt.initPlusState(q)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    fz.run(q)
+    torch.cuda.synchronize()
+    launches = FG.fused_run.launches
+    fallbacks = telemetry.counter_total("engine_fallback_total")
+    grouped = telemetry.counter_value("exchange_calls_total", kind="grouped_permute")
+    passes = telemetry.counter_value("pallas_pass_total", kind="fused_run")
+    print(f"# {label} run: launches {launches} (runs {len(runs)} x {N_SHARDS} shards), "
+          f"pallas_pass_total{{fused_run}} {passes:g}, engine_fallback_total {fallbacks:g}, "
+          f"exchange_calls_total{{grouped_permute}} {grouped:g} (collective transposes "
+          f"{ts['collective_transposes']})")
+    _require(launches == len(runs) * N_SHARDS == passes, f"{label}: launches")
+    _require(fallbacks == 0, f"{label}: engine fallback")
+    _require(grouped == ts["collective_transposes"], f"{label}: collective permutes")
+    res["launches"] = launches
+
+    one = qt.createQuESTEnv(device=dev)
+    ref = qt.createQureg(n, one, prec)
+    qt.initPlusState(ref)
+    circ.fused(max_qubits=5, pallas=True, dtype=dt).run(ref)
+    torch.cuda.synchronize()
+    gathered = torch.cat(q.shards, dim=1)
+    diff, rel = _rel_err(gathered, ref.amps)
+    # the largest amplitude of the last shard: an index there, read back
+    last = (N_SHARDS - 1 << nl) + int(q.shards[-1].abs().sum(0).argmax())
+    a_gathered = complex(*gathered[:, last].tolist())
+    del gathered
+    total = qt.calcTotalProb(q)
+    p0, p0_ref = qt.calcProbOfOutcome(q, 0, 0), qt.calcProbOfOutcome(ref, 0, 0)
+    pt, pt_ref = qt.calcProbOfOutcome(q, n - 1, 1), qt.calcProbOfOutcome(ref, n - 1, 1)
+    a, a_ref = qt.getAmp(q, last), qt.getAmp(ref, last)
+    print(f"# {label} check: max |sharded - one-device fused| {diff:.3e} ({rel:.3e} of the "
+          f"largest, limit {tol:g}); calcTotalProb {total:.12f}; calcProbOfOutcome(0,0) "
+          f"{p0:.12f} vs {p0_ref:.12f}, ({n - 1},1) {pt:.12f} vs {pt_ref:.12f}; "
+          f"getAmp({last}) {a:.6e} vs {a_ref:.6e}")
+    tol_read = 2e-4 if f32 else 1e-10
+    _require(rel <= tol, f"{label}: gathered state {diff} ({rel} relative)")
+    _require(abs(total - 1) <= tol_read, f"{label}: total probability {total}")
+    _require(abs(p0 - p0_ref) <= tol_read and abs(pt - pt_ref) <= tol_read,
+             f"{label}: outcome probabilities")
+    _require(a == a_gathered and abs(a - a_ref) <= diff, f"{label}: getAmp({last})")
+    del ref
+    torch.cuda.empty_cache()
+
+    # the plain per-gate replay over the shards against the one-device one
+    telemetry.reset()
+    q2 = qt.createQureg(n, env, prec)
+    qt.initPlusState(q2)
+    launched = FG.fused_run.launches
+    t0 = time.perf_counter()
+    circ.run(q2)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    kinds = {k: telemetry.counter_value("exchange_calls_total", kind=k)
+             for k in ("pair_exchange", "x_permute", "grouped_permute")}
+    _require(FG.fused_run.launches == launched, f"{label}: the per-gate replay launched")
+    r2 = qt.createQureg(n, one, prec)
+    qt.initPlusState(r2)
+    circ.run(r2)
+    torch.cuda.synchronize()
+    gathered = torch.cat(q2.shards, dim=1)
+    diff2, rel2 = _rel_err(gathered, r2.amps)
+    del gathered
+    print(f"# {label} per-gate replay over the shards: {replay_s * 1e3:.1f} ms "
+          f"({len(circ) / replay_s:.1f} gates/s), exchanges {kinds}; max |sharded - "
+          f"one-device per-gate replay| {diff2:.3e} ({rel2:.3e} of the largest)")
+    _require(kinds["pair_exchange"] > 0 and kinds["x_permute"] > 0,
+             f"{label}: the replay took no pair exchange or x permute")
+    _require(rel2 <= tol, f"{label}: per-gate replay {diff2} ({rel2} relative)")
+    qt.destroyQureg(q2)
+    qt.destroyQureg(r2)
+    torch.cuda.empty_cache()
+
+    # gates/sec of the fused circuit over the shards, and where its time goes
+    reps = 3
+    fz.run(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fz.run(q)
+    torch.cuda.synchronize()
+    circuit_s = (time.perf_counter() - t0) / reps
+    gps = len(circ) / circuit_s
+    _require(abs(qt.calcTotalProb(q) - 1) <= tol_read, f"{label}: norm after timed reps")
+    perm_rows = []
+    spare = q.shard_spare_buffers()
+    blocks = sorted({(r.tile_bits, k, h if h is not None else r.tile_bits)
+                     for r in runs for k, h in ((r.load_swap_k, r.load_swap_hi),
+                                                (r.store_swap_k, r.store_swap_hi))
+                     if k and (r.tile_bits if h is None else h) + k > nl})
+    bound_perm = 2.0 * 2 * (1 << n) * itemsize / HBM_BYTES_PER_S * 1e3
+    for tb, k, hi in blocks:
+        source = list(range(n))
+        for j in range(k):
+            source[tb - k + j], source[hi + j] = hi + j, tb - k + j
+        ms = _cuda_ms(lambda: X.dist_permute_bits(q.shards, n=n, source=source, out=spare), 3)
+        perm_rows.append({"block": [tb - k, hi, k], "ms": ms, "bound_ms": bound_perm})
+    copy_ms = _cuda_ms(lambda: spare[0].copy_(q.shards[0]), 10)
+    ms_perm = {tuple(r["block"]): r["ms"] for r in perm_rows}
+    coll_ms = sum(ms_perm[(r.tile_bits - k, r.tile_bits if h is None else h, k)]
+                  for r in runs for k, h in ((r.load_swap_k, r.load_swap_hi),
+                                             (r.store_swap_k, r.store_swap_hi))
+                  if k and (r.tile_bits if h is None else h) + k > nl)
+    print(f"# {label} gates/sec: {gps:.1f} ({circuit_s * 1e3:.3f} ms per circuit; "
+          f"per-shard kernel passes {sum(res['ms']):.3f} ms, collective permutes "
+          f"~{coll_ms:.3f} ms); collective permutes "
+          f"{json.dumps([{'block': r['block'], 'ms': round(r['ms'], 4)} for r in perm_rows])}"
+          f" each against a bound of {bound_perm:.4f} ms (2 x state bytes / 3.35 TB/s); "
+          f"one shard's copy_ {copy_ms:.4f} ms")
+
+    # one more run with CUDA events around every kernel launch and every
+    # collective permute, none synchronised: the circuit's time on the
+    # card's clock split into the shard passes, the permutes and the rest
+    # (the card waiting between them)
+    spans: dict = {"kernel": [], "permute": []}
+
+    def timed(kind, fn):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[kind].append((e0, e1))
+            return out
+        return call
+
+    launch, permute = FG._launch, X.dist_permute_bits
+    FG._launch, X.dist_permute_bits = timed("kernel", launch), timed("permute", permute)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fz.run(q)
+    e1.record()
+    torch.cuda.synchronize()
+    FG._launch, X.dist_permute_bits = launch, permute
+    split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    total_ms = e0.elapsed_time(e1)
+    rest_ms = total_ms - split["kernel"] - split["permute"]
+    print(f"# {label} in the circuit: {total_ms:.3f} ms on the card's clock; "
+          f"{len(spans['kernel'])} shard passes {split['kernel']:.3f} ms, "
+          f"{len(spans['permute'])} collective permutes {split['permute']:.3f} ms, "
+          f"the rest {rest_ms:.3f} ms ({rest_ms / total_ms:.1%}, the card waiting)")
+    _require(len(spans["kernel"]) == len(runs) * N_SHARDS
+             and len(spans["permute"]) == ts["collective_transposes"],
+             f"{label}: the timed run's launches and permutes")
+    qt.destroyQureg(q)
+    torch.cuda.empty_cache()
+    res.update(in_circuit_ms={"total": total_ms, "shard_passes": split["kernel"],
+                              "collective_permutes": split["permute"], "rest": rest_ms})
+    res.update(gates_per_sec=gps, circuit_ms=circuit_s * 1e3, permutes=perm_rows,
+               copy_ms=copy_ms, replay_gates_per_sec=len(circ) / replay_s,
+               collective_transposes=ts["collective_transposes"],
+               local_transposes=ts["local_transposes"], runs=len(runs),
+               max_abs_diff_vs_one_device=diff)
+    return res
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -830,6 +1188,30 @@ def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
                       "bound_ms": sum(p["bound_ms"]) / len(p["ms"]),
                       "plain_ms": sum(p["plain_ms"]) / len(p["ms"])}
                   for k, p in paths.items()},
+    }
+
+
+def _shard_entry(name: str, replaces: str, res: dict, kernel_err: float) -> dict:
+    """The ``kernels`` line of the per-shard kernel from the sharded phase:
+    ms, plain and bound are means over every timed shard pass."""
+    npass = len(res["ms"])
+    ops_b = sum(b for b, o in zip(res["bound_ms"], res["by_ops"]) if o)
+    return {
+        "name": name, "route": "cuda", "source": "quest_tpu_torch/csrc/fused_gates.cu",
+        "replaces": replaces, "launches": res["launches"],
+        "max_abs_err": max(res["max_abs_err"], kernel_err),
+        "ms": sum(res["ms"]) / npass, "plain_ms": sum(res["plain_ms"]) / npass,
+        "bound_ms": sum(res["bound_ms"]) / npass,
+        "bound_by": "operations" if 2 * ops_b > sum(res["bound_ms"]) else "bytes",
+        # no single PyTorch call computes a fused gate run; one shard's
+        # copy_ (its memory floor) is reported beside it
+        "library_ms": None, "library_yardsticks_ms": {"copy_ one shard": res["copy_ms"]},
+        "shards": N_SHARDS, "op_kinds": sorted(res["kinds"]),
+        "gates_per_sec": res["gates_per_sec"], "circuit_ms": res["circuit_ms"],
+        "per_gate_replay_gates_per_sec": res["replay_gates_per_sec"],
+        "runs": res["runs"], "collective_transposes": res["collective_transposes"],
+        "local_transposes": res["local_transposes"], "collective_permutes": res["permutes"],
+        "in_circuit_ms": res["in_circuit_ms"],
     }
 
 
@@ -895,10 +1277,11 @@ def main() -> int:
                          "kraus1", "kraus2", "krausn"}
         _require(seen == kinds_checked, f"kernel phase missed op kinds: {seen}")
         del st, out, ref
+    shard_errs = _shard_kernel_phase(dev, rng)
 
     # -- main path: plan, per-run kernel vs plain, then the circuit --------
     dt = torch.float32
-    env = qt.createQuESTEnv()
+    env = qt.createQuESTEnv(device="cuda:0")
     circ = qt.Circuit(N_MAIN)
     qt.random_layers(circ, N_MAIN, DEPTH_MAIN)
     t0 = time.perf_counter()
@@ -996,6 +1379,9 @@ def main() -> int:
     # -- gate-surface phase: every tapeable gate and operator, f32 ---------
     surface = _gate_surface_path(qt, env, dev, rng)
 
+    # -- sharded phase: the main path's circuit over 4 shards, f32 and f64 -
+    sharded = {ddt: _sharded_path(qt, dev, rng, ddt) for ddt in (torch.float32, torch.float64)}
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {f"density_14q_{t}": density[(torch.float64, t)] for t in ("r3", "r4")}
@@ -1019,7 +1405,12 @@ def main() -> int:
         "fused_launches", "dense_launches", "density_launches", "circuit_ms",
         "ms_by_item")}
     entries += [_window_entry("window_dot", window[torch.float32]),
-                _window_entry("window_dot_f64", window[torch.float64])]
+                _window_entry("window_dot_f64", window[torch.float64]),
+                _shard_entry("fused_gate_run_per_shard", "quest_tpu/ops/pallas_gates.py:1283",
+                             sharded[torch.float32], shard_errs[torch.float32]),
+                _shard_entry("fused_gate_run_per_shard_f64",
+                             "quest_tpu/ops/pallas_gates.py:1228",
+                             sharded[torch.float64], shard_errs[torch.float64])]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))

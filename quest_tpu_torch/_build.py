@@ -97,16 +97,16 @@ def build_log(name: str) -> str:
 
 
 #: the C signatures of each library's exported functions
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "fused_gates": {
-        # (src, dst, n, tile_bits, ops, num_ops, coeffs, load_k, load_hi,
-        #  store_k, store_hi, pair_lo, pair_hi, has_lane_u, stream)
-        #  -> cudaError_t
-        "quest_fused_run_f32": ([_VP, _VP, _CI, _CI, _VP, _CI, _VP, _CI, _CI,
-                                 _CI, _CI, _CI, _CI, _CI, _VP], _CI),
-        "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _VP, _CI, _VP, _CI, _CI,
-                                 _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+        # (src, dst, n, local_n, shard_index, tile_bits, ops, num_ops,
+        #  coeffs, load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
+        #  has_lane_u, stream) -> cudaError_t
+        "quest_fused_run_f32": ([_VP, _VP, _CI, _CI, _CLL, _CI, _VP, _CI, _VP,
+                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+        "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _CLL, _CI, _VP, _CI, _VP,
+                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
         "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "window_dot": {

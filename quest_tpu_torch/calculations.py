@@ -1,7 +1,7 @@
 """Calculations of the ported slices: total probability, outcome
 probabilities, purity and amplitude reads of state-vector and density
 registers (reference QuEST.h:2516, 276, 4247, 286-288, 2489; kernels in
-ops.reduce and ops.measure)."""
+ops.reduce and ops.measure), sharded state vectors included."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ __all__ = ["calcTotalProb", "calcProbOfOutcome", "calcPurity", "getAmp",
 
 def calcTotalProb(qureg: Qureg) -> float:
     """sum |amp|^2 (state-vector) or Re tr(rho) (density) (QuEST.h:2516)."""
+    if qureg.shards is not None:
+        return float(R.total_prob_shards(qureg.shards))
     if qureg.is_density_matrix:
         return float(R.total_prob_density(qureg.amps, n=qureg.num_qubits_represented))
     return float(R.total_prob_statevec(qureg.amps))
@@ -25,6 +27,9 @@ def calcProbOfOutcome(qureg: Qureg, target: int, outcome: int) -> float:
     func = "calcProbOfOutcome"
     V.validate_target(qureg, target, func)
     V.validate_outcome(outcome, func)
+    if qureg.shards is not None:
+        return float(R.prob_of_outcome_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
+                                              target=target, outcome=outcome))
     if qureg.is_density_matrix:
         return float(M.density_prob_of_outcome(
             qureg.amps, n=qureg.num_qubits_represented, target=target, outcome=outcome))
@@ -43,7 +48,11 @@ def getAmp(qureg: Qureg, index: int) -> complex:
     func = "getAmp"
     V.validate_state_vec(qureg, func)
     V.validate_amp_index(qureg, index, func)
-    re, im = qureg.amps[:, index].tolist()
+    if qureg.shards is not None:  # index -> (shard, offset)
+        c = qureg.num_amps_total // len(qureg.shards)
+        re, im = qureg.shards[index // c][:, index % c].tolist()
+    else:
+        re, im = qureg.amps[:, index].tolist()
     return complex(re, im)
 
 

@@ -115,7 +115,8 @@ class Circuit:
         return fn
 
     def fused(self, max_qubits: int = 5, dtype=None, pallas: bool = False,
-              tile_bits: int | None = None) -> "Circuit":
+              tile_bits: int | None = None,
+              shard_devices: int | None = None) -> "Circuit":
         """A new Circuit whose tape is the fusion plan of this one.
 
         ``pallas=True`` plans fused gate runs (one pass of the fused-run
@@ -125,25 +126,46 @@ class Circuit:
         ``ops.fused_gates.local_qubits(n, ...)`` reproduces the JAX
         package's plan item for item. A density tape plans over the
         flattened 2n-qubit state, so its geometry is that state's. States
-        of at most 7 qubits (no lane tile) take the ordinary dense fusion."""
+        of at most 7 qubits (no lane tile) take the ordinary dense fusion.
+
+        ``shard_devices`` plans for a register sharded over that many
+        devices (a power of 2): the tile is chosen for the shard's size, so
+        every run executes per shard, and the frames are planned twice,
+        plainly and aligned to the shard boundary, keeping the plan with
+        fewer collective transposes (``fusion.plan_pallas_sharded``)."""
         from . import fusion
         from .ops.fused_gates import LANE_BITS, hopper_tile_bits
         from .precision import as_torch_dtype, real_dtype
 
         dt = as_torch_dtype(dtype) if dtype is not None else real_dtype()
         n_eff = (2 if self.is_density_matrix else 1) * self.num_qubits
+        shard_boundary = None
+        if pallas and shard_devices and shard_devices > 1:
+            d = int(shard_devices)
+            if d & (d - 1):
+                raise ValueError(
+                    f"shard_devices must be a power of 2 (got {d}); "
+                    "amplitude sharding splits whole top qubits")
+            n_eff -= d.bit_length() - 1
+            shard_boundary = n_eff
         tb = None
         if pallas and n_eff > LANE_BITS:
             tb = hopper_tile_bits(n_eff, dt) if tile_bits is None else int(tile_bits)
-        p = fusion.plan(tuple(self._tape), self.num_qubits, dt,
-                        max_qubits=max_qubits, pallas_tile_bits=tb,
-                        is_density=self.is_density_matrix)
+        if tb is not None and shard_boundary is not None:
+            p = fusion.plan_pallas_sharded(tuple(self._tape), self.num_qubits, dt,
+                                           max_qubits, tb, shard_boundary,
+                                           is_density=self.is_density_matrix)
+        else:
+            p = fusion.plan(tuple(self._tape), self.num_qubits, dt,
+                            max_qubits=max_qubits, pallas_tile_bits=tb,
+                            is_density=self.is_density_matrix)
         out = Circuit(self.num_qubits, self.is_density_matrix)
         out._tape = fusion.as_tape(p)
         return out
 
     def run(self, qureg: Qureg) -> Qureg:
-        """Apply the circuit to ``qureg`` (mutates it, like the C API)."""
+        """Apply the circuit to ``qureg`` (mutates it, like the C API),
+        sharded or not: each entry takes the register's route."""
         if qureg.num_qubits_represented != self.num_qubits or \
            qureg.is_density_matrix != self.is_density_matrix:
             raise ValueError(

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel quest_tpu/ops/pallas_gates.py::_fused_local_run
 // (the manual-DMA chunk loop _make_dma_kernel and the BlockSpec grid kernel
-// _make_kernel, both running the op body _ops_body). It computes what
+// _make_kernel, both running the op body _ops_body), on one device and per
+// shard of a sharded state. It computes what
 // _ops_body computes, op kind for op kind:
 //   matrix  2x2 on an in-tile target (or a diagonal 2x2 on any qubit), any
 //           controls with any control states
@@ -25,7 +26,22 @@
 // and keeps both planes of it in shared memory for the whole op list.
 // Bits >= T of an amplitude's index come from blockIdx; a partner
 // exchange amp[i ^ 2^q] is a shared-memory access, with __syncthreads()
-// between ops. The ops arrive as a table (8 int64 per op: kind, qubits,
+// between ops.
+//
+// Per shard (the BlockSpec grid kernel _make_kernel with local_n and its
+// SMEM shard index hi_ref, pallas_gates.py:725-767, and the per-shard f64
+// runs of _make_dma_kernel, :818-824 and :887-888). A state sharded over
+// D = 2^d devices is D blocks (2, 2^local_n) of the flat index, shard r
+// holding [r 2^local_n, (r+1) 2^local_n). One launch runs on one shard: the
+// grid covers its 2^(local_n - T) tiles and addresses stay local, while an
+// op's roles read the GLOBAL index, (shard_index << local_n) | local index.
+// So controls, diagonal targets, diagw members and parity members on the
+// sharded qubits (q >= local_n) resolve inside the kernel, per block, with
+// no communication. Dense targets stay below the tile and folded swaps
+// inside the shard (hi + k <= local_n): the caller checks both. A
+// single-device call passes local_n = n and shard_index = 0.
+//
+// The ops arrive as a table (8 int64 per op: kind, qubits,
 // control mask and values, parity mask, offset of the op's coefficients)
 // plus a coefficient buffer, so one build serves every plan. A pass with
 // a folded swap reads tiles that other blocks write: the caller runs it
@@ -425,16 +441,21 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
 // both planes of the tile, plus kLaneStage bytes for a run with lane_u.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
-                 const long long* __restrict__ ops, int num_ops,
-                 const T* __restrict__ coeffs, int load_k, int load_hi,
-                 int store_k, int store_hi, int pair_lo, int pair_hi) {
+fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
+                 int tile_bits, const long long* __restrict__ ops,
+                 int num_ops, const T* __restrict__ coeffs, int load_k,
+                 int load_hi, int store_k, int store_hi, int pair_lo,
+                 int pair_hi) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t tile = 1u << tile_bits;
   T* sre = reinterpret_cast<T*>(smem_raw);
   T* sim = sre + tile;
-  const uint64_t N = 1ull << n;
+  const uint64_t N = 1ull << local_n;  // amplitudes of one plane of the shard
+  // the tile's address in the shard, and its index bits >= T in the whole
+  // state (shard_base = shard_index << local_n): the first for loads and
+  // stores, the second for every op's roles
   const uint64_t tile_base = static_cast<uint64_t>(blockIdx.x) << tile_bits;
+  const uint64_t role_base = shard_base | tile_base;
   const uint64_t tile_mask = tile - 1;
   const int tid = threadIdx.x;
   const int pair_k = pair_lo != pair_hi;  // the 1-bit exchange, both sides
@@ -462,7 +483,7 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
     const uint64_t cval = static_cast<uint64_t>(r[4]);
     // controls above the tile resolve per tile: where they miss, the op
     // is the identity on this whole tile (a block-uniform branch)
-    if ((tile_base & cmask & ~tile_mask) != (cval & ~tile_mask)) continue;
+    if ((role_base & cmask & ~tile_mask) != (cval & ~tile_mask)) continue;
     const uint32_t lmask = static_cast<uint32_t>(cmask & tile_mask);
     const uint32_t lval = static_cast<uint32_t>(cval & tile_mask);
     const T* cf = coeffs + r[6];
@@ -474,7 +495,7 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
       if (r[7] & 1) {  // diagonal: the target may be any qubit
         for (uint32_t i = tid; i < tile; i += kThreads) {
           if ((i & lmask) != lval) continue;
-          const bool b = ((tile_base | i) >> q) & 1;
+          const bool b = ((role_base | i) >> q) & 1;
           cmul_into(sre[i], sim[i], b ? m11r : m00r, b ? m11i : m00i);
         }
       } else {
@@ -492,7 +513,7 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
     } else if (kind == kParity) {
       const uint64_t pmask = static_cast<uint64_t>(r[5]);
       const T c = cf[0], s = cf[1];
-      const uint32_t gpar = __popcll(tile_base & pmask & ~tile_mask) & 1;
+      const uint32_t gpar = __popcll(role_base & pmask & ~tile_mask) & 1;
       const uint32_t lpm = static_cast<uint32_t>(pmask & tile_mask);
       for (uint32_t i = tid; i < tile; i += kThreads) {
         if ((i & lmask) != lval) continue;
@@ -517,7 +538,7 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
       const uint64_t packed = static_cast<uint64_t>(r[2]);
       for (uint32_t i = tid; i < tile; i += kThreads) {
         if ((i & lmask) != lval) continue;
-        const uint64_t g = tile_base | i;
+        const uint64_t g = role_base | i;
         uint32_t k = 0;
         for (int j = 0; j < t; ++j) {
           const int q = static_cast<int>((packed >> (6 * j)) & 63);
@@ -566,15 +587,22 @@ fused_run_kernel(const T* src, T* dst, int n, int tile_bits,
   }
 }
 
+// n: the qubits of the whole state, which bound the ops' qubits; local_n:
+// those of the shard this launch runs on (its grid is 2^(local_n - T)
+// blocks), shard_index its place among the 2^(n - local_n) shards.
 template <typename T>
-int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
-           const long long* ops, int num_ops, const T* coeffs, int load_k,
-           int load_hi, int store_k, int store_hi, int pair_lo, int pair_hi,
+int launch(int max_bits, const T* src, T* dst, int n, int local_n,
+           long long shard_index, int tile_bits, const long long* ops,
+           int num_ops, const T* coeffs, int load_k, int load_hi,
+           int store_k, int store_hi, int pair_lo, int pair_hi,
            int has_lane_u, void* stream) {
-  if (tile_bits < kLaneBits || tile_bits > max_bits || n < tile_bits ||
-      n > 40 || num_ops < 0 ||
+  if (tile_bits < kLaneBits || tile_bits > max_bits ||
+      local_n < tile_bits || n < local_n || n > 40 || num_ops < 0 ||
+      shard_index < 0 || shard_index >= (1ll << (n - local_n)) ||
+      (load_k && load_hi + load_k > local_n) ||
+      (store_k && store_hi + store_k > local_n) ||
       (pair_lo != pair_hi && (pair_lo < 0 || pair_lo >= tile_bits ||
-                              pair_hi < tile_bits || pair_hi >= n))) {
+                              pair_hi < tile_bits || pair_hi >= local_n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
@@ -583,11 +611,12 @@ int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
       fused_run_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = 1u << (n - tile_bits);
+  const unsigned grid = 1u << (local_n - tile_bits);
+  const uint64_t shard_base = static_cast<uint64_t>(shard_index) << local_n;
   fused_run_kernel<T>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          src, dst, n, tile_bits, ops, num_ops, coeffs, load_k, load_hi,
-          store_k, store_hi, pair_lo, pair_hi);
+          src, dst, local_n, shard_base, tile_bits, ops, num_ops, coeffs,
+          load_k, load_hi, store_k, store_hi, pair_lo, pair_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,28 +624,32 @@ int launch(int max_bits, const T* src, T* dst, int n, int tile_bits,
 
 extern "C" {
 
-// Both return the cudaError_t of the launch (0 = launched). pair_lo <
+// Both return the cudaError_t of the launch (0 = launched). src and dst
+// hold one shard, (2, 2^local_n), of an n-qubit state: shard shard_index
+// (local_n = n, shard_index = 0 for a state on one device). pair_lo <
 // tile_bits <= pair_hi: bits exchanged on load and on store (pair_lo ==
 // pair_hi: none). has_lane_u: the op table holds a lane_u op (its matrix
 // needs the staging buffer).
-int quest_fused_run_f32(const float* src, float* dst, int n, int tile_bits,
+int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
+                        long long shard_index, int tile_bits,
                         const long long* ops, int num_ops,
                         const float* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
                         int has_lane_u, void* stream) {
-  return launch<float>(13, src, dst, n, tile_bits, ops, num_ops, coeffs,
-                       load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
-                       has_lane_u, stream);
+  return launch<float>(13, src, dst, n, local_n, shard_index, tile_bits, ops,
+                       num_ops, coeffs, load_k, load_hi, store_k, store_hi,
+                       pair_lo, pair_hi, has_lane_u, stream);
 }
 
-int quest_fused_run_f64(const double* src, double* dst, int n, int tile_bits,
+int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
+                        long long shard_index, int tile_bits,
                         const long long* ops, int num_ops,
                         const double* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
                         int has_lane_u, void* stream) {
-  return launch<double>(12, src, dst, n, tile_bits, ops, num_ops, coeffs,
-                        load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
-                        has_lane_u, stream);
+  return launch<double>(12, src, dst, n, local_n, shard_index, tile_bits,
+                        ops, num_ops, coeffs, load_k, load_hi, store_k,
+                        store_hi, pair_lo, pair_hi, has_lane_u, stream);
 }
 
 const char* quest_cuda_error_string(int code) {

@@ -445,18 +445,29 @@ class _FramePlanner:
     upward, so every qubit is in-tile in some frame. A new op joins the
     EARLIEST pending run whose frame localises it and whose every LATER
     pending op commutes past it; ops that fit nowhere open a new run.
-    Holding every run open until flush lets late ops join early runs."""
+    Holding every run open until flush lets late ops join early runs.
 
-    def __init__(self, out: FusePlan, tile_bits: int, k: int, nsv: int):
+    ``boundary`` (a sharded register's local qubit count) aligns the block
+    edges to the shard boundary, so that frames below it relabel inside
+    each shard and only frames reaching the sharded bits pay a collective
+    transpose."""
+
+    def __init__(self, out: FusePlan, tile_bits: int, k: int, nsv: int,
+                 boundary: int | None = None):
         self.out = out
         self.tb = tile_bits
         self.k = k
         self.nsv = nsv
+        self.boundary = boundary
         self.frames = [None]
-        hi = tile_bits
-        while k > 0 and hi < nsv:
-            self.frames.append((hi, min(k, nsv - hi)))
-            hi += k
+        edges = [tile_bits, nsv]
+        if boundary is not None and tile_bits < boundary < nsv:
+            edges.insert(1, boundary)
+        for lo, hi_edge in zip(edges, edges[1:]):
+            hi = lo
+            while k > 0 and hi < hi_edge:
+                self.frames.append((hi, min(k, hi_edge - hi)))
+                hi += k
         self.cur_frame = None        # physical frame of the state
         self.runs = []               # ordered pending [frame, [_POp]]
 
@@ -490,18 +501,28 @@ class _FramePlanner:
     def _synth_frame(self, op: _POp):
         """Invent a frame when the static k-block tiling localises none: a
         block [hi0, hi0+kf) anchored at the op's high targets, kept narrow
-        enough that the displaced region [tb-kf, tb) avoids its low ones."""
+        enough that the displaced region [tb-kf, tb) avoids its low ones.
+        Where that block straddles the shard boundary, the two blocks
+        clipped at it are tried first (their transposes stay inside the
+        shards, or keep the collective to the sharded bits)."""
         targs = tuple(op.targets)
         high = sorted(t for t in targs if t >= self.tb)
         if not high or self.k <= 0:
             return None
         max_lo = max((t for t in targs if t < self.tb), default=-1)
         hi0 = high[0]
-        w = high[-1] + 1 - hi0
-        if w <= 0 or w > self.k or w >= self.tb - max_lo or hi0 + w > self.nsv:
-            return None
-        f = (hi0, w)
-        return f if self.feasible(op, f) else None
+        kf = high[-1] + 1 - hi0
+        b = self.boundary
+        cands = []
+        if b is not None and hi0 < b < hi0 + kf:
+            cands += [(hi0, b - hi0), (b, high[-1] + 1 - b)]
+        cands.append((hi0, kf))
+        for a0, w in cands:
+            if w <= 0 or w > self.k or w >= self.tb - max_lo or a0 + w > self.nsv:
+                continue
+            if self.feasible(op, (a0, w)):
+                return (a0, w)
+        return None
 
     def feasible_somewhere(self, op: _POp) -> bool:
         return (any(self.feasible(op, f) for f in self.frames)
@@ -731,10 +752,53 @@ def num_passes(p: FusePlan) -> int:
     return sum(isinstance(i, (PallasRun, FrameSwap)) for i in p.items)
 
 
-def _frame_transposes(p: FusePlan) -> int:
-    return sum((1 if i.load_swap_k else 0) + (1 if i.store_swap_k else 0)
-               if isinstance(i, PallasRun) else int(isinstance(i, FrameSwap))
-               for i in p.items)
+def transpose_stats(p: FusePlan, shard_qubits: int | None) -> dict:
+    """(collective, local) frame-transpose counts of a fused plan: a
+    relabeling is a collective exactly when its block reaches a sharded
+    qubit (>= ``shard_qubits``); None counts all as local (one device)."""
+    coll = loc = 0
+    for i in p.items:
+        swaps = []
+        if isinstance(i, PallasRun):
+            swaps = [(k, i.tile_bits if hi is None else hi)
+                     for k, hi in ((i.load_swap_k, i.load_swap_hi),
+                                   (i.store_swap_k, i.store_swap_hi)) if k]
+        elif isinstance(i, FrameSwap):
+            swaps = [(i.k, i.tile_bits if i.hi is None else i.hi)]
+        for k, hi in swaps:
+            if shard_qubits is not None and hi + k > shard_qubits:
+                coll += 1
+            else:
+                loc += 1
+    return {"collective_transposes": coll, "local_transposes": loc}
+
+
+def tape_transpose_stats(tape, shard_qubits: int | None) -> dict:
+    """:func:`transpose_stats` of an ``as_tape`` tape (a fused Circuit's)."""
+    return transpose_stats(FusePlan(items=[
+        a[0] for f, a, _ in tape if f in (_apply_pallas_run, _apply_frame_swap)]),
+        shard_qubits)
+
+
+def plan_pallas_sharded(tape, num_qubits: int, dtype, max_qubits: int,
+                        tile_bits: int, n_local: int,
+                        is_density: bool = False) -> FusePlan:
+    """Plan for a register sharded with ``n_local`` local qubits twice --
+    frame blocks tiled plainly from tile_bits, and aligned to the shard
+    boundary -- and keep the plan with fewer collective transposes (ties:
+    fewer items), as the JAX package does."""
+    nsv = (2 if is_density else 1) * num_qubits
+    boundaries = [None]
+    if tile_bits < n_local < nsv:
+        boundaries.append(n_local)
+    cands = [_plan_pallas(tape, num_qubits, dtype, max_qubits, tile_bits,
+                          is_density=is_density, shard_boundary=b,
+                          score_shard_qubits=n_local)
+             for b in boundaries]
+    best = min(cands, key=lambda p: (
+        transpose_stats(p, n_local)["collective_transposes"], len(p.items)))
+    telemetry.inc("fusion_barriers_total", best.num_barriers, mode="pallas_sharded")
+    return best
 
 
 #: widest channel the krausn kernel op takes (the JAX package's limit):
@@ -783,18 +847,27 @@ def _shadow_pop(op: _POp, n: int) -> _POp:
 
 
 def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
-                 tile_bits: int, is_density: bool = False) -> FusePlan:
+                 tile_bits: int, is_density: bool = False,
+                 shard_boundary: int | None = None,
+                 score_shard_qubits: int | None = None) -> FusePlan:
     """Multi-frame plan: lower every event to kernel primitive ops (ONE
     spy-capture pass over the tape), then schedule the lowered stream with
-    BOTH frame schedulers and keep the plan with fewer items (ties: fewer
-    frame transposes). A density tape (``is_density``) plans over the
-    flattened 2n-qubit state: every lowered row op is paired with its
-    conj-shadow twin, and the runs carry both explicitly."""
+    BOTH frame schedulers and keep the cheaper plan: fewer items (ties:
+    fewer frame transposes) on one device, fewer collective transposes
+    first when ``score_shard_qubits`` is set. ``shard_boundary`` aligns
+    the frames to a shard boundary (``_FramePlanner``). A density tape
+    (``is_density``) plans over the flattened 2n-qubit state: every
+    lowered row op is paired with its conj-shadow twin, and the runs carry
+    both explicitly."""
     from .ops.fused_gates import LANE_BITS
 
     nsv = (2 if is_density else 1) * num_qubits
     k = min(max(nsv - tile_bits, 0), tile_bits - LANE_BITS)
-    probe = _FramePlanner(FusePlan(), tile_bits, k, nsv)
+
+    def make_planner(cls):
+        return cls(FusePlan(), tile_bits, k, nsv, boundary=shard_boundary)
+
+    probe = make_planner(_FramePlanner)
 
     # -- pass 1: resolve every tape entry (capture + lower + routability) --
     resolved = []  # ('barrier', entry) | ('events', [(ev, pops|None)])
@@ -832,7 +905,7 @@ def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
 
     # -- pass 2: schedule with each planner, keep the cheaper plan --------
     def schedule(cls):
-        sched = cls(FusePlan(), tile_bits, k, nsv)
+        sched = make_planner(cls)
         out = sched.out
         for kind, payload in resolved:
             if kind == "barrier":
@@ -855,8 +928,14 @@ def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
         sched.flush()
         return out
 
+    def score(p):
+        st = transpose_stats(p, score_shard_qubits)
+        if score_shard_qubits is not None:
+            return (st["collective_transposes"], len(p.items))
+        return (len(p.items), st["local_transposes"])
+
     return min((schedule(cls) for cls in (_FramePlanner, _FramePlannerTwoSlot)),
-               key=lambda p: (len(p.items), _frame_transposes(p)))
+               key=score)
 
 
 # ---------------------------------------------------------------------------
@@ -869,9 +948,13 @@ def _apply_pallas_run(qureg, run: PallasRun) -> None:
     A run without folded swaps updates the state in place; a run with one
     writes into the register's spare buffer, which then becomes the state
     (see registers.Qureg). A CUDA register launches the kernel or raises;
-    a CPU register runs the kernel's plain version."""
+    a CPU register runs the kernel's plain version. A sharded register
+    takes :func:`_apply_pallas_sharded`."""
     from .ops.fused_gates import fused_run
 
+    if qureg.shards is not None:
+        _apply_pallas_sharded(qureg, run)
+        return
     swapped = bool(run.load_swap_k or run.store_swap_k)
     out = fused_run(
         qureg.amps, n=qureg.num_qubits_in_state_vec, ops=run.ops,
@@ -884,10 +967,98 @@ def _apply_pallas_run(qureg, run: PallasRun) -> None:
         qureg.swap_spare()
 
 
+def _sharded_run_plan(qureg, run: PallasRun):
+    """Per-shard legality of a run on a sharded register: (n_local, None)
+    when every shard can run it at the run's tile -- the tile fits in a
+    shard, so every dense target pairs inside it, while roles on sharded
+    qubits resolve against the shard index in the kernel -- else (None,
+    the JAX package's fallback reason). One pass per shard, no
+    communication: the reference runs its local kernel per rank between
+    exchanges the same way (QuEST_cpu_distributed.c:870-905)."""
+    from .ops.fused_gates import _LANES
+
+    n_local = qureg.num_local_qubits
+    if (1 << n_local) < 2 * _LANES or run.tile_bits > n_local:
+        return None, "shard_map_unsupported"
+    return n_local, None
+
+
+def _frame_permute(qureg, tile_bits: int, k: int, hi: int) -> None:
+    """One frame transpose of a sharded register, the blocks
+    [tile_bits-k, tile_bits) and [hi, hi+k) exchanged: a block reaching a
+    sharded qubit is ``dist_permute_bits`` of the block swap (a collective,
+    into the shards' spare buffers); one inside the shards a
+    ``swap_bit_blocks`` pass on each shard."""
+    from .ops.fused_gates import swap_bit_blocks
+    from .parallel import exchange as X
+
+    telemetry.inc("pallas_pass_total", kind="frame_swap")
+    nsv, nl = qureg.num_qubits_in_state_vec, qureg.num_local_qubits
+    lo1 = tile_bits - k
+    if hi + k > nl:
+        source = list(range(nsv))
+        for j in range(k):
+            source[lo1 + j], source[hi + j] = hi + j, lo1 + j
+        X.dist_permute_bits(qureg.shards, n=nsv, source=source,
+                            out=qureg.shard_spare_buffers())
+        qureg.swap_shard_spares()
+    else:
+        qureg.put_shards(swap_bit_blocks(a, n=nl, lo1=lo1, lo2=hi, k=k)
+                         for a in qureg.shards)
+
+
+def _apply_pallas_sharded(qureg, run: PallasRun) -> None:
+    """A PallasRun on a sharded register: one launch of the fused-run kernel
+    per shard, on the shard's device, with the shard's index (roles on
+    sharded qubits resolve in the kernel). Folded swaps inside the shards
+    ride the kernel, and such a pass writes into the shards' spare
+    buffers; one reaching a sharded qubit runs as an explicit collective
+    transpose before or after (:func:`_frame_permute`). A run the shards
+    cannot execute (:func:`_sharded_run_plan`) replays its ops through the
+    per-gate engine over shards, the reason counted in
+    ``engine_fallback_total``."""
+    from .ops.fused_gates import fused_run
+
+    tb = run.tile_bits
+    lk, sk = run.load_swap_k, run.store_swap_k
+    lh = tb if run.load_swap_hi is None else run.load_swap_hi
+    sh = tb if run.store_swap_hi is None else run.store_swap_hi
+    n_local, reason = _sharded_run_plan(qureg, run)
+    if n_local is None:
+        telemetry.inc("engine_fallback_total", reason=reason)
+        if lk:
+            _frame_permute(qureg, tb, lk, lh)
+        _apply_ops_via_engine(qureg, run.ops)
+        if sk:
+            _frame_permute(qureg, tb, sk, sh)
+        return
+    fold_l = bool(lk) and lh + lk <= n_local
+    fold_s = bool(sk) and sh + sk <= n_local
+    if lk and not fold_l:
+        _frame_permute(qureg, tb, lk, lh)
+    prep = run.prepare()
+    outs = qureg.shard_spare_buffers() if fold_l or fold_s else [None] * len(qureg.shards)
+    for r, (shard, out) in enumerate(zip(qureg.shards, outs)):
+        fused_run(shard, n=qureg.num_qubits_in_state_vec, local_n=n_local,
+                  shard_index=r, ops=run.ops, tile_bits=tb,
+                  load_swap_k=lk if fold_l else 0, load_swap_hi=lh,
+                  store_swap_k=sk if fold_s else 0, store_swap_hi=sh,
+                  out=out, prepared=prep)
+    if fold_l or fold_s:
+        qureg.swap_shard_spares()
+    if sk and not fold_s:
+        _frame_permute(qureg, tb, sk, sh)
+
+
 def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
-    """Tape entry of a FrameSwap: one relabeling pass."""
+    """Tape entry of a FrameSwap: one relabeling pass (on a sharded
+    register, :func:`_frame_permute`)."""
     from .ops.fused_gates import swap_bit_blocks
 
+    if qureg.shards is not None:
+        _frame_permute(qureg, fs.tile_bits, fs.k,
+                       fs.tile_bits if fs.hi is None else fs.hi)
+        return
     telemetry.inc("pallas_pass_total", kind="frame_swap")
     qureg.put(swap_bit_blocks(
         qureg.amps, n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,
@@ -947,10 +1118,11 @@ def _apply_dense_block(qureg, block: FusedBlock) -> None:
     (the block stays in row coordinates)."""
     from . import gates as G
 
-    if dense_block_route(qureg.num_qubits_in_state_vec, qureg.is_density_matrix,
-                         block.qubits, qureg.device.type == "cuda") == "lane_u":
+    if qureg.shards is None and dense_block_route(
+            qureg.num_qubits_in_state_vec, qureg.is_density_matrix,
+            block.qubits, qureg.device.type == "cuda") == "lane_u":
         _lane_u_pass(qureg, block)
-    else:
+    else:  # a sharded register: the engine over shards, as the JAX package
         G._apply_gate_matrix(qureg, block.matrix, block.qubits)
 
 
@@ -958,13 +1130,18 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
     """Replay kernel-format ops (physical coordinates) through the per-gate
     engine, one op at a time: the independent plain replay of a run that
     the tests hold the kernel route against. Nothing calls it in place of
-    the kernel."""
+    the kernel on one device; on a sharded register it is the route of a
+    run the shards cannot execute (:func:`_apply_pallas_sharded`), through
+    the per-gate engine over shards."""
     from .ops import apply as K
     from .ops import cplx
     from .ops import density as DN
     from .ops import diagonal as D
     from .ops.fused_gates import _KRAUS, kraus_parts
 
+    if qureg.shards is not None:
+        _apply_ops_via_shard_engine(qureg, ops)
+        return
     nsv = qureg.num_qubits_in_state_vec
     dt, dev = qureg.dtype, qureg.device
     for op in ops:
@@ -993,6 +1170,36 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
                                           nsv=nsv, rows=rows, cols=cols))
         else:
             raise ValueError(f"no engine route for op {op[0]!r}")
+
+
+def _apply_ops_via_shard_engine(qureg, ops: tuple) -> None:
+    """:func:`_apply_ops_via_engine` on a sharded state vector: each op
+    through the register's per-gate engine over shards
+    (``parallel.scheduler``)."""
+    from .ops import cplx
+    from .parallel.scheduler import engine
+
+    eng, nsv = engine(qureg), qureg.num_qubits_in_state_vec
+    dt, dev = qureg.dtype, qureg.device
+    for op in ops:
+        if op[0] == "matrix":
+            _, q, controls, states, m = op
+            new = eng.apply_matrix(qureg.shards, cplx.from_complex(m.arr, dt, dev),
+                                   n=nsv, targets=(q,), controls=controls,
+                                   control_states=states)
+        elif op[0] == "parity":
+            _, qubits, controls, theta = op
+            new = eng.apply_parity_phase(qureg.shards, theta, n=nsv, qubits=qubits,
+                                         controls=controls)
+        elif op[0] == "diagw":
+            _, targets, controls, d = op
+            new = eng.apply_diagonal(qureg.shards, cplx.from_complex(d.arr, dt, dev),
+                                     n=nsv, targets=targets, controls=controls)
+        elif op[0] == "swap" and not op[3]:
+            new = eng.apply_swap(qureg.shards, n=nsv, qb1=op[1], qb2=op[2])
+        else:
+            raise ValueError(f"no route over shards for op {op[0]!r}")
+        qureg.put_shards(new)
 
 
 def as_tape(p: FusePlan) -> list:

@@ -8,8 +8,10 @@ shadow op on the shifted qubits q + n (QuEST.c:184-193), and record QASM.
 The unitaries apply through four primitives
 (``_apply_gate_matrix``/``_diag``/``_x``/``_parity_phase``) and
 ``ops.apply.apply_swap``: the points that ``fusion.capture`` patches to
-record a gate instead of applying it. Measurement draws from the env's
-host Mersenne Twister as the reference does.
+record a gate instead of applying it. On a sharded register the
+primitives (and ``swapGate``) route through the register's per-gate
+engine over shards (``parallel.scheduler``). Measurement draws from the
+env's host Mersenne Twister as the reference does, sharded or not.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 from . import matrices, validation as V
 from .datatypes import SubDiagonalOp, Vector
 from .ops import apply as K, cplx, diagonal as D, measure as M, reduce as R
+from .parallel.scheduler import engine as _engine
 from .registers import Qureg
 
 __all__ = [
@@ -56,6 +59,11 @@ def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
+    if qureg.shards is not None:
+        qureg.put_shards(_engine(qureg).apply_matrix(
+            qureg.shards, m, n=nsv, targets=targets, controls=controls,
+            control_states=states))
+        return
     amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=targets,
                           controls=controls, control_states=states)
     if qureg.is_density_matrix:
@@ -69,6 +77,10 @@ def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls = tuple(targets), tuple(controls)
     d = cplx.from_complex(np.asarray(diag).reshape(-1), qureg.dtype, qureg.device)
+    if qureg.shards is not None:
+        qureg.put_shards(_engine(qureg).apply_diagonal(
+            qureg.shards, d, n=nsv, targets=targets, controls=controls))
+        return
     amps = D.apply_diagonal(qureg.amps, d, n=nsv, targets=targets,
                             controls=controls)
     if qureg.is_density_matrix:
@@ -80,6 +92,11 @@ def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
 def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
+    if qureg.shards is not None:
+        qureg.put_shards(_engine(qureg).apply_x(
+            qureg.shards, n=nsv, targets=targets, controls=controls,
+            control_states=states))
+        return
     amps = K.apply_x_class(qureg.amps, n=nsv, targets=targets,
                            controls=controls, control_states=states)
     if qureg.is_density_matrix:
@@ -92,6 +109,10 @@ def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
 def _apply_gate_parity_phase(qureg: Qureg, theta, qubits, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     qubits, controls = tuple(qubits), tuple(controls)
+    if qureg.shards is not None:
+        qureg.put_shards(_engine(qureg).apply_parity_phase(
+            qureg.shards, theta, n=nsv, qubits=qubits, controls=controls))
+        return
     amps = D.apply_parity_phase(qureg.amps, theta, n=nsv, qubits=qubits,
                                 controls=controls)
     if qureg.is_density_matrix:
@@ -439,10 +460,14 @@ def swapGate(qureg: Qureg, qb1: int, qb2: int) -> None:
     """(QuEST.h:4331); axis transposition, see ops.apply.apply_swap."""
     V.validate_unique_targets(qureg, qb1, qb2, "swapGate")
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
-    amps = K.apply_swap(qureg.amps, n=nsv, qb1=qb1, qb2=qb2)
-    if qureg.is_density_matrix:
-        amps = K.apply_swap(amps, n=nsv, qb1=qb1 + n, qb2=qb2 + n)
-    qureg.put(amps)
+    if qureg.shards is not None:
+        qureg.put_shards(_engine(qureg).apply_swap(qureg.shards, n=nsv, qb1=qb1,
+                                                   qb2=qb2))
+    else:
+        amps = K.apply_swap(qureg.amps, n=nsv, qb1=qb1, qb2=qb2)
+        if qureg.is_density_matrix:
+            amps = K.apply_swap(amps, n=nsv, qb1=qb1 + n, qb2=qb2 + n)
+        qureg.put(amps)
     if _log(qureg): _log(qureg).record_controlled_gate("swap", qb1, qb2)
 
 
@@ -521,6 +546,9 @@ def multiControlledMultiQubitUnitary(qureg: Qureg, controls, targets, u) -> None
 # ---------------------------------------------------------------------------
 
 def _prob_of_outcome(qureg: Qureg, target: int, outcome: int) -> float:
+    if qureg.shards is not None:
+        return float(R.prob_of_outcome_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
+                                              target=target, outcome=outcome))
     if qureg.is_density_matrix:
         p = M.density_prob_of_outcome(qureg.amps, n=qureg.num_qubits_represented,
                                       target=target, outcome=outcome)
@@ -531,6 +559,11 @@ def _prob_of_outcome(qureg: Qureg, target: int, outcome: int) -> float:
 
 
 def _collapse(qureg: Qureg, target: int, outcome: int, prob: float) -> None:
+    if qureg.shards is not None:
+        qureg.put_shards(M.collapse_shards(qureg.shards, prob,
+                                           n=qureg.num_qubits_in_state_vec,
+                                           target=target, outcome=outcome))
+        return
     if qureg.is_density_matrix:
         amps = M.density_collapse(qureg.amps, prob, n=qureg.num_qubits_represented,
                                   target=target, outcome=outcome)

@@ -27,9 +27,39 @@ def state_from_numpy(planar, device) -> torch.Tensor:
 
 
 def state_to_numpy(qureg) -> np.ndarray:
-    """A register's (or a tensor's) planar state -> numpy (2, 2^n)."""
+    """A register's (or a tensor's) planar state -> numpy (2, 2^n); a
+    sharded register's shards are gathered here."""
+    shards = getattr(qureg, "shards", None)
+    if shards is not None:
+        return np.concatenate(shard_arrays(qureg), axis=1)
     amps = getattr(qureg, "amps", qureg)
     return amps.detach().cpu().numpy()
+
+
+def shard_arrays(qureg) -> list:
+    """A sharded register's shards as numpy planar (2, C) arrays, in shard
+    order: the pieces of a sharded ``quest_tpu`` array of the same state."""
+    return [s.detach().cpu().numpy() for s in qureg.shards]
+
+
+def load_state(qureg, amps) -> None:
+    """Overwrite ``qureg``'s state with a planar (2, 2^n) state: a numpy
+    array, or a sharded ``quest_tpu`` array (anything with
+    ``addressable_shards``, each piece's ``.data`` and ``.index``), carried
+    piece by piece into the shards it covers, never gathered whole."""
+    pieces = ([(np.asarray(p.data), p.index[1]) for p in amps.addressable_shards]
+              if hasattr(amps, "addressable_shards")
+              else [(np.asarray(amps), slice(None))])
+    N = qureg.num_amps_total
+    shards = qureg.shards if qureg.shards is not None else [qureg.amps]
+    c = N // len(shards)
+    for data, cols in pieces:
+        a, b, _ = cols.indices(N)
+        for r, shard in enumerate(shards):
+            lo, hi = max(a, r * c), min(b, (r + 1) * c)
+            if lo < hi:
+                shard[:, lo - r * c:hi - r * c] = torch.tensor(
+                    data[:, lo - a:hi - a], dtype=shard.dtype, device=shard.device)
 
 
 def ops_from_reference(ops) -> tuple:

@@ -4,8 +4,9 @@ QuEST.h:5892-6147), the ``applyMatrix*`` part of ``quest_tpu/operators.py``.
 ``applyMatrix2``/``applyMatrix4``/``applyMatrixN``/
 ``applyMultiControlledMatrixN`` LEFT-multiply a density register (M rho,
 no conj-shadow); the Gate variants apply M rho M^dagger. Neither asks for
-unitarity. Pauli sums, Trotter circuits, the QFT, phase functions and
-diagonal operators wait for the operators slice.
+unitarity. On a sharded state vector they run through the per-gate
+engine over shards. Pauli sums, Trotter circuits, the QFT, phase
+functions and diagonal operators wait for the operators slice.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ def _record(qureg, text):
 def _apply_matrix_left(qureg: Qureg, matrix, targets, controls=()):
     """M|psi> or M.rho (left multiplication only)."""
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
+    if qureg.shards is not None:
+        _apply_sharded(qureg, m, targets, controls)
+        return
     qureg.put(K.apply_matrix(qureg.amps, m, n=qureg.num_qubits_in_state_vec,
                              targets=tuple(targets), controls=tuple(controls)))
 
@@ -38,6 +42,9 @@ def _apply_matrix_gate(qureg: Qureg, matrix, targets, controls=()):
     operator entry stays a fusion barrier, as in the JAX package."""
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
+    if qureg.shards is not None:  # a state vector: M|psi>
+        _apply_sharded(qureg, m, targets, controls)
+        return
     amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=tuple(targets),
                           controls=tuple(controls))
     if qureg.is_density_matrix:
@@ -45,6 +52,16 @@ def _apply_matrix_gate(qureg: Qureg, matrix, targets, controls=()):
                               targets=tuple(q + n for q in targets),
                               controls=tuple(c + n for c in controls), conj=True)
     qureg.put(amps)
+
+
+def _apply_sharded(qureg: Qureg, m, targets, controls) -> None:
+    """M|psi> on a sharded state vector, through the per-gate engine over
+    shards (``parallel.scheduler``)."""
+    from .parallel.scheduler import engine
+
+    qureg.put_shards(engine(qureg).apply_matrix(
+        qureg.shards, m, n=qureg.num_qubits_in_state_vec, targets=tuple(targets),
+        controls=tuple(controls)))
 
 
 def applyMatrix2(qureg: Qureg, target: int, u) -> None:

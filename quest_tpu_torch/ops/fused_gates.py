@@ -424,16 +424,19 @@ class PreparedRun:
         return self._device[key]
 
 
-def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps,
-           pair) -> None:
-    if amps.dim() != 2 or amps.shape[0] != 2 or amps.shape[1] != 1 << n:
-        raise ValueError(f"state must be planar (2, 2^{n}), got {tuple(amps.shape)}")
+def _check(amps: torch.Tensor, n: int, local_n: int, shard_index: int, ops,
+           tile_bits: int, swaps, pair) -> None:
+    if not 0 < local_n <= n or not 0 <= shard_index < 1 << (n - local_n):
+        raise ValueError(f"shard {shard_index} of 2^{local_n} amplitudes does not "
+                         f"lie in a {n}-qubit state")
+    if amps.dim() != 2 or amps.shape[0] != 2 or amps.shape[1] != 1 << local_n:
+        raise ValueError(f"state must be planar (2, 2^{local_n}), got {tuple(amps.shape)}")
     if amps.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"state must be float32 or float64, got {amps.dtype}")
-    if not LANE_BITS <= tile_bits <= min(n, HOPPER_TILE_BITS[amps.dtype]):
+    if not LANE_BITS <= tile_bits <= min(local_n, HOPPER_TILE_BITS[amps.dtype]):
         raise ValueError(
             f"tile_bits={tile_bits} outside [{LANE_BITS}, "
-            f"min(n={n}, {HOPPER_TILE_BITS[amps.dtype]})] for {amps.dtype}")
+            f"min(local_n={local_n}, {HOPPER_TILE_BITS[amps.dtype]})] for {amps.dtype}")
     for o in ops:
         bad = [q for q in op_dense_targets(o) if q >= tile_bits]
         if bad:
@@ -441,17 +444,17 @@ def _check(amps: torch.Tensor, n: int, ops, tile_bits: int, swaps,
                 f"{o[0]} dense target(s) {bad} >= tile_bits {tile_bits} (the "
                 f"local_qubits of this geometry); route wide targets via ops.apply")
     for k, hi in swaps:
-        if k and (k > tile_bits - LANE_BITS or hi < tile_bits or hi + k > n):
+        if k and (k > tile_bits - LANE_BITS or hi < tile_bits or hi + k > local_n):
             raise ValueError(f"bit-block swap (k={k}, hi={hi}) exceeds the call "
-                             f"geometry (tile_bits={tile_bits}, n={n})")
+                             f"geometry (tile_bits={tile_bits}, local_n={local_n})")
     if pair is not None:
         lo, hi = pair
         blocks = {q for k, h in swaps if k
                   for q in (*range(tile_bits - k, tile_bits), *range(h, h + k))}
-        if not 0 <= lo < tile_bits <= hi < n or {lo, hi} & blocks:
+        if not 0 <= lo < tile_bits <= hi < local_n or {lo, hi} & blocks:
             raise ValueError(f"pair swap {pair} must exchange an in-tile bit with "
-                             f"one above the tile (tile_bits={tile_bits}, n={n}), "
-                             f"apart from the bit-block swaps")
+                             f"one above the tile (tile_bits={tile_bits}, "
+                             f"local_n={local_n}), apart from the bit-block swaps")
 
 
 def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
@@ -460,10 +463,18 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
               store_swap_hi: int | None = None,
               pair_swap: tuple[int, int] | None = None,
               out: torch.Tensor | None = None,
-              prepared: PreparedRun | None = None) -> torch.Tensor:
+              prepared: PreparedRun | None = None,
+              local_n: int | None = None, shard_index: int = 0) -> torch.Tensor:
     """Apply ``ops`` to the planar (2, 2^n) state in one pass and return
     the tensor that holds the result: ``out`` when given, else ``amps``
     itself (updated in place).
+
+    ``local_n`` < n runs the pass on one shard of a sharded n-qubit state:
+    ``amps`` is (2, 2^local_n), the amplitudes [shard_index 2^local_n,
+    (shard_index + 1) 2^local_n) of the flat index. The ops' qubits stay
+    global: a role (control, diagonal target, diagw or parity member) on a
+    qubit at or above local_n reads that bit of ``shard_index``. Dense
+    targets lie below the tile and folded swaps inside the shard.
 
     ``load_swap_k`` = k > 0 means the state arrives in the other frame:
     ``swap_bit_blocks(lo1=tile_bits-k, lo2=load_swap_hi or tile_bits, k)``
@@ -479,8 +490,9 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     plain version. ``prepared`` is the run's cached fold and op table."""
     lh = tile_bits if load_swap_hi is None else load_swap_hi
     sh = tile_bits if store_swap_hi is None else store_swap_hi
-    _check(amps, n, ops, tile_bits, ((load_swap_k, lh), (store_swap_k, sh)),
-           pair_swap)
+    local_n = n if local_n is None else local_n
+    _check(amps, n, local_n, shard_index, ops, tile_bits,
+           ((load_swap_k, lh), (store_swap_k, sh)), pair_swap)
     if prepared is None:
         prepared = PreparedRun(ops, tile_bits)
     elif prepared.tile_bits != tile_bits:
@@ -497,12 +509,13 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
         dst.copy_(fused_run_plain(amps, prepared, n=n, tile_bits=tile_bits,
                                   load_swap_k=load_swap_k, load_swap_hi=lh,
                                   store_swap_k=store_swap_k, store_swap_hi=sh,
-                                  pair_swap=pair_swap))
+                                  pair_swap=pair_swap, local_n=local_n,
+                                  shard_index=shard_index))
         return dst
     if amps.device.type != "cuda":
         raise ValueError(f"no fused-run route for device {amps.device}")
-    _launch(amps, dst, n, tile_bits, prepared, load_swap_k, lh, store_swap_k, sh,
-            pair_swap or (0, 0))
+    _launch(amps, dst, n, local_n, shard_index, tile_bits, prepared, load_swap_k,
+            lh, store_swap_k, sh, pair_swap or (0, 0))
     return dst
 
 
@@ -510,7 +523,8 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
 fused_run.launches = 0
 
 
-def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh, pair) -> None:
+def _launch(src, dst, n, local_n, shard_index, tile_bits, prepared, lk, lh, sk,
+            sh, pair) -> None:
     from .. import _build
 
     if not (src.is_contiguous() and dst.is_contiguous()):
@@ -521,7 +535,7 @@ def _launch(src, dst, n, tile_bits, prepared, lk, lh, sk, sh, pair) -> None:
     table, coeffs = prepared.device_tables(src.device, src.dtype)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), dst.data_ptr(), n, tile_bits,
+        err = fn(src.data_ptr(), dst.data_ptr(), n, local_n, shard_index, tile_bits,
                  table.data_ptr(), int(table.shape[0]), coeffs.data_ptr(),
                  lk, lh, sk, sh, *pair, int(prepared.has_lane_u), stream)
     if err != 0:
@@ -534,29 +548,34 @@ def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
                     tile_bits: int, load_swap_k: int = 0,
                     load_swap_hi: int | None = None, store_swap_k: int = 0,
                     store_swap_hi: int | None = None,
-                    pair_swap: tuple[int, int] | None = None) -> torch.Tensor:
+                    pair_swap: tuple[int, int] | None = None,
+                    local_n: int | None = None, shard_index: int = 0) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the same encoded ops, one at
-    a time on the whole state with torch indexing (a kraus op from its
-    terms, which the op tuple keeps), and folded swaps as explicit
-    ``swap_bit_blocks`` before and after. Returns a new tensor."""
+    a time on the whole state (or shard: ``local_n``, ``shard_index`` as
+    for :func:`fused_run`) with torch indexing (a kraus op from its terms,
+    which the op tuple keeps), and folded swaps as explicit
+    ``swap_bit_blocks`` before and after. Roles read the global index,
+    partners the shard's own. Returns a new tensor."""
+    ln = n if local_n is None else local_n
     x = amps
     if load_swap_k:
-        x = swap_bit_blocks(x, n=n, lo1=tile_bits - load_swap_k,
+        x = swap_bit_blocks(x, n=ln, lo1=tile_bits - load_swap_k,
                             lo2=tile_bits if load_swap_hi is None else load_swap_hi,
                             k=load_swap_k)
     if pair_swap:
-        x = swap_bit_blocks(x, n=n, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
-    idx = torch.arange(1 << n, device=amps.device)
+        x = swap_bit_blocks(x, n=ln, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
+    loc = torch.arange(1 << ln, device=amps.device)
+    idx = loc | (int(shard_index) << ln)
     cf = torch.as_tensor(prepared.coeffs, dtype=amps.dtype, device=amps.device)
     for op, rec in zip(prepared.ops, prepared.table.tolist()):
         if op[0] in _KRAUS:
-            x = _plain_kraus(x, op, idx)
+            x = _plain_kraus(x, op, idx, loc)
         else:
-            x = _plain_op(x, rec, cf, idx)
+            x = _plain_op(x, rec, cf, idx, loc)
     if pair_swap:
-        x = swap_bit_blocks(x, n=n, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
+        x = swap_bit_blocks(x, n=ln, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
     if store_swap_k:
-        x = swap_bit_blocks(x, n=n, lo1=tile_bits - store_swap_k,
+        x = swap_bit_blocks(x, n=ln, lo1=tile_bits - store_swap_k,
                             lo2=tile_bits if store_swap_hi is None else store_swap_hi,
                             k=store_swap_k)
     return x if x.data_ptr() != amps.data_ptr() else x.clone()
@@ -566,7 +585,7 @@ def _bits(mask: int):
     return [q for q in range(mask.bit_length()) if (mask >> q) & 1]
 
 
-def _plain_op(x, rec, cf, idx):
+def _plain_op(x, rec, cf, idx, loc):
     kind, a, b, cmask, cval, pmask, off, flags = rec
     N = x.shape[1]
     ok = None if not cmask else (idx & cmask) == cval
@@ -595,7 +614,7 @@ def _plain_op(x, rec, cf, idx):
     if kind == _KIND["swap"]:
         differ = (((idx >> a) ^ (idx >> b)) & 1).bool()
         sel = differ if ok is None else differ & ok
-        partner = x[:, idx ^ ((1 << a) | (1 << b))]
+        partner = x[:, loc ^ ((1 << a) | (1 << b))]
         return torch.where(sel, partner, x)
     if kind == _KIND["diagw"]:
         sel = torch.zeros_like(idx)
@@ -618,7 +637,7 @@ def _plain_op(x, rec, cf, idx):
     raise ValueError(f"unknown op kind code {kind}")
 
 
-def _plain_kraus(x, op, idx):
+def _plain_kraus(x, op, idx, loc):
     """A kraus op per term, as _ops_body applies it: K on the rows and
     conj(K) on the columns of a copy, accumulated with the term's sign."""
     rows, cols, terms = kraus_parts(op)
@@ -627,23 +646,24 @@ def _plain_kraus(x, op, idx):
         k = _arr(K).astype(complex)
         kr = torch.as_tensor(k.real, dtype=x.dtype, device=x.device)
         ki = torch.as_tensor(k.imag, dtype=x.dtype, device=x.device)
-        y = _plain_dense(x, kr, ki, rows, idx)
-        y = float(s) * _plain_dense(y, kr, -ki, cols, idx)
+        y = _plain_dense(x, kr, ki, rows, idx, loc)
+        y = float(s) * _plain_dense(y, kr, -ki, cols, idx, loc)
         acc = y if acc is None else acc + y
     return acc
 
 
-def _plain_dense(x, mr, mi, qubits, idx):
+def _plain_dense(x, mr, mi, qubits, idx, loc):
     """A d x d complex matrix (mr + i mi) on ``qubits`` of the whole state
     (qubits[j] is bit j of its index): out[i] = sum_delta M[r, r ^ delta]
-    x[i ^ flip(delta)], r the bits of i on ``qubits``."""
+    x[i ^ flip(delta)], r the bits of i on ``qubits`` (all in the shard:
+    ``loc`` addresses the partner)."""
     r = torch.zeros_like(idx)
     for j, q in enumerate(qubits):
         r |= ((idx >> q) & 1) << j
     out_r, out_i = torch.zeros_like(x[0]), torch.zeros_like(x[1])
     for delta in range(1 << len(qubits)):
         flip = sum(1 << q for j, q in enumerate(qubits) if (delta >> j) & 1)
-        pr, pi = (x[0], x[1]) if not flip else (x[0][idx ^ flip], x[1][idx ^ flip])
+        pr, pi = (x[0], x[1]) if not flip else (x[0][loc ^ flip], x[1][loc ^ flip])
         cr, ci = mr[r, r ^ delta], mi[r, r ^ delta]
         out_r += cr * pr - ci * pi
         out_i += cr * pi + ci * pr

@@ -1,7 +1,10 @@
 """State initialisation (reference: ``QuEST_cpu.c:1416-1680`` init family)
 and the weighted sum of registers.
 
-Each function returns a fresh planar (2, num_amps) tensor on ``device``.
+Each ``init_*`` function returns a fresh planar (2, num_amps) tensor on
+``device``; each ``shards_*`` function the shards of the same state over
+``devices`` (shard r, the amplitudes [r C, (r+1) C), C = num_amps / D,
+built on devices[r]: no full state is built anywhere).
 """
 
 from __future__ import annotations
@@ -36,6 +39,39 @@ def init_debug(num_amps: int, dtype: torch.dtype, device) -> torch.Tensor:
     (statevec_initDebugState, QuEST_cpu.c:1649-1680)."""
     i = torch.arange(num_amps, dtype=dtype, device=device)
     return torch.stack([(2 * i) / 10, (2 * i + 1) / 10])
+
+
+def shards_blank(num_amps: int, dtype: torch.dtype, devices) -> list:
+    """All-zero shards -- initBlankState."""
+    c = num_amps // len(devices)
+    return [torch.zeros((2, c), dtype=dtype, device=d) for d in devices]
+
+
+def shards_classical(num_amps: int, dtype: torch.dtype, devices,
+                     index: int = 0) -> list:
+    """|index> over the shards: a one in shard index // C."""
+    out = shards_blank(num_amps, dtype, devices)
+    c = num_amps // len(devices)
+    out[index // c][0, index % c] = 1
+    return out
+
+
+def shards_plus(num_amps: int, dtype: torch.dtype, devices) -> list:
+    """Uniform superposition over the shards -- initPlusState."""
+    out = shards_blank(num_amps, dtype, devices)
+    for s in out:
+        s[0].fill_(1.0 / math.sqrt(num_amps))
+    return out
+
+
+def shards_debug(num_amps: int, dtype: torch.dtype, devices) -> list:
+    """initDebugState over the shards: shard r computes its own indices."""
+    c = num_amps // len(devices)
+    out = []
+    for r, d in enumerate(devices):
+        i = torch.arange(r * c, (r + 1) * c, dtype=dtype, device=d)
+        out.append(torch.stack([(2 * i) / 10, (2 * i + 1) / 10]))
+    return out
 
 
 def density_from_pure(pure_amps: torch.Tensor) -> torch.Tensor:

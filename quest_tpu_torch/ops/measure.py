@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import local_qubit_count
 from .layout import grouped_axes
 from .reduce import _csum
 
@@ -59,3 +60,17 @@ def density_collapse(amps: torch.Tensor, prob: float, *, n: int, target: int,
     if renorm:
         out = out * (1.0 / prob)
     return out.reshape(2, -1)
+
+
+def collapse_shards(shards, prob: float, *, n: int, target: int,
+                    outcome: int) -> list:
+    """:func:`collapse_statevec` over the shards: per shard on a local
+    target; on a sharded one, the shards whose index has the other bit
+    value are zeroed and the rest scaled, with no communication."""
+    nl = local_qubit_count(n, shards)
+    if target < nl:
+        return [collapse_statevec(s, prob, n=nl, target=target, outcome=outcome)
+                for s in shards]
+    scale = 1.0 / math.sqrt(prob)
+    return [s * scale if (r >> (target - nl)) & 1 == outcome else torch.zeros_like(s)
+            for r, s in enumerate(shards)]

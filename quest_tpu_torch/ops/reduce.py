@@ -5,11 +5,18 @@ The reference protects its norm accumulations with Kahan summation
 precision drifts over 2^N terms. As in ``quest_tpu/ops/reduce.py``: f64
 states accumulate in f64; f32 states sum by the adjacent-pair cascade,
 whose rounding error grows O(log N) instead of O(N).
+
+A sharded state (a list of shards, shard r the amplitudes [r C, (r+1) C))
+reduces per shard, each on its device, and the D partial sums then
+cascade in shard order: for power-of-two shards the same pairing as the
+whole state's cascade.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import local_qubit_count
 
 
 def _pairwise_sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -57,3 +64,28 @@ def prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
     (statevec_findProbabilityOfZeroLocal, ``QuEST_cpu.c:3385``)."""
     sub = amps.reshape(2, 1 << (n - 1 - target), 2, 1 << target)[:, :, outcome, :]
     return _csum(sub[0] * sub[0] + sub[1] * sub[1])
+
+
+def _csum_parts(parts) -> torch.Tensor:
+    """The per-shard partial sums (0-d tensors), cascaded in shard order on
+    the first shard's device."""
+    return _csum(torch.stack([p.to(parts[0].device) for p in parts]))
+
+
+def total_prob_shards(shards) -> torch.Tensor:
+    """sum |amp|^2 of a sharded state vector."""
+    return _csum_parts([total_prob_statevec(s) for s in shards])
+
+
+def prob_of_outcome_shards(shards, *, n: int, target: int,
+                           outcome: int) -> torch.Tensor:
+    """P(``outcome`` on ``target``) of a sharded state vector: per shard on a
+    local target; on a sharded one, the whole shards whose index has that
+    bit (their sum; 0 if none)."""
+    nl = local_qubit_count(n, shards)
+    if target < nl:
+        return _csum_parts([prob_of_outcome(s, n=nl, target=target, outcome=outcome)
+                            for s in shards])
+    parts = [total_prob_statevec(s) for r, s in enumerate(shards)
+             if (r >> (target - nl)) & 1 == outcome]
+    return _csum_parts(parts)

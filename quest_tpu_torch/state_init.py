@@ -5,7 +5,9 @@ family), for state-vector and density registers: every function of
 ``setAmps`` and ``setDensityAmps`` write the given slice of the register's
 tensor in place (the reference's C semantics; the JAX package, whose
 arrays are immutable, builds a new one). Every other function binds a new
-tensor.
+tensor. On a sharded register (``registers.Qureg.shards``) each shard is
+built on its own device, and ``setAmps`` writes into the shards the slice
+covers.
 """
 
 from __future__ import annotations
@@ -25,9 +27,17 @@ __all__ = [
 ]
 
 
+def _devices(qureg: Qureg) -> list:
+    return [s.device for s in qureg.shards]
+
+
 def initBlankState(qureg: Qureg) -> None:
     """All-zero amplitudes (unnormalised) (QuEST.h:1619)."""
-    qureg.put(I.init_blank(qureg.num_amps_total, qureg.dtype, qureg.device))
+    if qureg.shards is not None:
+        qureg.put_shards(I.shards_blank(qureg.num_amps_total, qureg.dtype,
+                                        _devices(qureg)))
+    else:
+        qureg.put(I.init_blank(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_comment(
             "Here, the register was initialised to an unphysical all-zero-amplitudes 'state'.")
@@ -35,23 +45,30 @@ def initBlankState(qureg: Qureg) -> None:
 
 def initZeroState(qureg: Qureg) -> None:
     """Set the register to |0...0> (QuEST.h:194)."""
-    if qureg.is_density_matrix:
+    if qureg.shards is not None:
+        qureg.put_shards(I.shards_classical(qureg.num_amps_total, qureg.dtype,
+                                            _devices(qureg), 0))
+        amps = None
+    elif qureg.is_density_matrix:
         amps = I.density_init_classical(qureg.num_amps_total, qureg.dtype,
                                         qureg.device, 0)
     else:
         amps = I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device, 0)
-    qureg.put(amps)
+    if amps is not None:
+        qureg.put(amps)
     if qureg.qasm_log:
         qureg.qasm_log.record_init_zero()
 
 
 def initPlusState(qureg: Qureg) -> None:
     """Set the register to |+>^n, every amplitude equal (QuEST.h:195)."""
-    if qureg.is_density_matrix:
-        amps = I.density_init_plus(qureg.num_amps_total, qureg.dtype, qureg.device)
+    if qureg.shards is not None:
+        qureg.put_shards(I.shards_plus(qureg.num_amps_total, qureg.dtype,
+                                       _devices(qureg)))
+    elif qureg.is_density_matrix:
+        qureg.put(I.density_init_plus(qureg.num_amps_total, qureg.dtype, qureg.device))
     else:
-        amps = I.init_plus(qureg.num_amps_total, qureg.dtype, qureg.device)
-    qureg.put(amps)
+        qureg.put(I.init_plus(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_init_plus()
 
@@ -59,13 +76,15 @@ def initPlusState(qureg: Qureg) -> None:
 def initClassicalState(qureg: Qureg, state_index: int) -> None:
     """Set the register to computational basis state |stateInd> (QuEST.h:196)."""
     V.validate_state_index(qureg, state_index, "initClassicalState")
-    if qureg.is_density_matrix:
-        amps = I.density_init_classical(qureg.num_amps_total, qureg.dtype,
-                                        qureg.device, state_index)
+    if qureg.shards is not None:
+        qureg.put_shards(I.shards_classical(qureg.num_amps_total, qureg.dtype,
+                                            _devices(qureg), state_index))
+    elif qureg.is_density_matrix:
+        qureg.put(I.density_init_classical(qureg.num_amps_total, qureg.dtype,
+                                           qureg.device, state_index))
     else:
-        amps = I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device,
-                                state_index)
-    qureg.put(amps)
+        qureg.put(I.init_classical(qureg.num_amps_total, qureg.dtype, qureg.device,
+                                   state_index))
     if qureg.qasm_log:
         qureg.qasm_log.record_init_classical(state_index)
 
@@ -76,11 +95,15 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
     func = "initPureState"
     V.validate_second_qureg_state_vec(pure, func)
     V.validate_matching_qureg_dims(qureg, pure, func)
-    if qureg.is_density_matrix:
+    if qureg.shards is not None or pure.shards is not None:
+        _copy_shards(qureg, pure, func)
+        amps = None
+    elif qureg.is_density_matrix:
         amps = I.density_from_pure(pure.amps.to(qureg.dtype))
     else:
         amps = pure.amps.to(qureg.dtype, copy=True)
-    qureg.put(amps)
+    if amps is not None:
+        qureg.put(amps)
     if qureg.qasm_log:
         qureg.qasm_log.record_comment(
             "Here, the register was initialised to an undisclosed given pure state.")
@@ -88,7 +111,11 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
 
 def initDebugState(qureg: Qureg) -> None:
     """amp_i = (2i + (2i+1) i)/10: the deterministic test fixture (QuEST.h:1721)."""
-    qureg.put(I.init_debug(qureg.num_amps_total, qureg.dtype, qureg.device))
+    if qureg.shards is not None:
+        qureg.put_shards(I.shards_debug(qureg.num_amps_total, qureg.dtype,
+                                        _devices(qureg)))
+    else:
+        qureg.put(I.init_debug(qureg.num_amps_total, qureg.dtype, qureg.device))
     if qureg.qasm_log:
         qureg.qasm_log.record_comment("initDebugState")
 
@@ -100,8 +127,15 @@ def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
     imags = np.asarray(imags).reshape(-1)
     V._assert(reals.size == qureg.num_amps_total and imags.size == qureg.num_amps_total,
               "Invalid number of amplitudes. Must match the register size.", func)
-    qureg.put(torch.as_tensor(np.stack([reals, imags]), dtype=qureg.dtype,
-                              device=qureg.device).clone())
+    if qureg.shards is not None:
+        c = qureg.num_amps_total // len(qureg.shards)
+        qureg.put_shards(
+            torch.as_tensor(np.stack([reals[r * c:(r + 1) * c], imags[r * c:(r + 1) * c]]),
+                            dtype=qureg.dtype, device=d).clone()
+            for r, d in enumerate(_devices(qureg)))
+    else:
+        qureg.put(torch.as_tensor(np.stack([reals, imags]), dtype=qureg.dtype,
+                                  device=qureg.device).clone())
     if qureg.qasm_log:
         qureg.qasm_log.record_comment(
             "Here, the register was initialised to an undisclosed given pure state.")
@@ -110,8 +144,16 @@ def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
 def _write_slice(qureg: Qureg, start: int, reals, imags, num_amps: int) -> None:
     vals = np.stack([np.asarray(reals).reshape(-1)[:num_amps],
                      np.asarray(imags).reshape(-1)[:num_amps]])
-    qureg.amps[:, start:start + num_amps] = torch.as_tensor(
-        vals, dtype=qureg.dtype, device=qureg.device)
+    if qureg.shards is None:
+        qureg.amps[:, start:start + num_amps] = torch.as_tensor(
+            vals, dtype=qureg.dtype, device=qureg.device)
+        return
+    c = qureg.num_amps_total // len(qureg.shards)
+    for r, shard in enumerate(qureg.shards):
+        lo, hi = max(start, r * c), min(start + num_amps, (r + 1) * c)
+        if lo < hi:
+            shard[:, lo - r * c:hi - r * c] = torch.as_tensor(
+                vals[:, lo - start:hi - start], dtype=qureg.dtype, device=shard.device)
 
 
 def setAmps(qureg: Qureg, start_ind: int, reals, imags, num_amps: int) -> None:
@@ -149,7 +191,22 @@ def cloneQureg(target: Qureg, source: Qureg) -> None:
     func = "cloneQureg"
     V.validate_matching_qureg_types(target, source, func)
     V.validate_matching_qureg_dims(target, source, func)
-    target.put(source.amps.to(target.dtype, copy=True))
+    if target.shards is not None or source.shards is not None:
+        _copy_shards(target, source, func)
+    else:
+        target.put(source.amps.to(target.dtype, copy=True))
+
+
+def _copy_shards(target: Qureg, source: Qureg, func: str) -> None:
+    """A copy of ``source``'s state-vector shards into ``target``, shard by
+    shard; both must be sharded alike."""
+    V._assert(not target.is_density_matrix and target.shards is not None
+              and source.shards is not None
+              and len(target.shards) == len(source.shards),
+              "Both registers must be state vectors sharded over the same "
+              "number of devices.", func)
+    target.put_shards(s.to(device=t.device, dtype=target.dtype, copy=True)
+                      for t, s in zip(target.shards, source.shards))
 
 
 def setWeightedQureg(fac1: complex, qureg1: Qureg, fac2: complex, qureg2: Qureg,
@@ -160,6 +217,16 @@ def setWeightedQureg(fac1: complex, qureg1: Qureg, fac2: complex, qureg2: Qureg,
     V.validate_matching_qureg_types(qureg1, out, func)
     V.validate_matching_qureg_dims(qureg1, qureg2, func)
     V.validate_matching_qureg_dims(qureg1, out, func)
+    if any(q.shards is not None for q in (qureg1, qureg2, out)):
+        V._assert(out.shards is not None
+                  and all(q.shards is not None and len(q.shards) == len(out.shards)
+                          for q in (qureg1, qureg2)),
+                  "All three registers must be sharded over the same number of "
+                  "devices.", func)
+        out.put_shards(I.weighted_sum(fac1, a.to(o.device, o.dtype), fac2,
+                                      b.to(o.device, o.dtype), fac_out, o)
+                       for a, b, o in zip(qureg1.shards, qureg2.shards, out.shards))
+        return
     out.put(I.weighted_sum(fac1, qureg1.amps.to(out.dtype), fac2,
                            qureg2.amps.to(out.dtype), fac_out, out.amps))
 

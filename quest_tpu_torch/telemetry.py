@@ -6,10 +6,15 @@ needs:
 - ``pallas_pass_total{kind}``: one per pass over the state, ``kind`` =
   ``fused_run`` (a fused-gate-run kernel pass), ``frame_swap`` (an
   explicit bit-block relabeling) or ``window_dot`` (a dense window);
-- ``engine_fallback_total{reason}``: the JAX package counts here every
-  time a kernel route degrades to the per-gate engine. The port has no such
-  fallback, so nothing increments it; it exists so that a run can show it
-  reads 0.
+- ``engine_fallback_total{reason}``: every time a kernel route degrades
+  to the per-gate engine, with the JAX package's reasons. One device has
+  no such fallback; on a sharded register a run whose tile does not fit
+  in a shard (a plan made without ``shard_devices``) replays on the
+  engine over the shards, ``reason=shard_map_unsupported``;
+- ``exchange_calls_total{kind}``: one per exchange between the shards of
+  a register (``parallel.exchange``), ``kind`` = ``pair_exchange``,
+  ``x_permute``, ``grouped_permute``, ``swap_rank_permute`` or
+  ``swap_odd_parity``, as the JAX package counts its collectives.
 
 Kernel launch counts live on the kernel wrappers themselves
 (``ops.fused_gates.fused_run.launches``,

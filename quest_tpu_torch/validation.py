@@ -312,6 +312,21 @@ def validate_num_seeds(seeds, func: str) -> None:
             "Invalid number of seeds. Must use at least 1 seed.", func)
 
 
+def validate_num_ranks(num_ranks: int, func: str) -> None:
+    """A power-of-2 device count, as validateNumRanks (QuEST_validation.c:354-366)."""
+    _assert(num_ranks >= 1 and (num_ranks & (num_ranks - 1)) == 0,
+            "Invalid number of devices. Must be a power of 2.", func)
+
+
+def validate_matrix_fits_in_node(local_qubit_count: int, num_targets: int,
+                                 func: str) -> None:
+    """validateMultiQubitMatrixFitsInNode (QuEST_validation.c:522-524)."""
+    _assert(local_qubit_count >= num_targets,
+            "The specified matrix targets too many qubits; the batches of "
+            "amplitudes to modify cannot all fit in a single distributed "
+            "node's memory allocation.", func)
+
+
 def validate_num_amps_fit_type(num_qubits: int, is_density: bool, func: str) -> None:
     bits = (2 if is_density else 1) * num_qubits
     _assert(bits < 63,
