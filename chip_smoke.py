@@ -42,10 +42,14 @@ no result, without them. Phases, in order:
    channel on the per-term engine; then channel-ops/sec, the barrier
    channel's own time, and a full-state ``copy_``;
 6. window: ``ops.window_dot.window_dot`` at 26 qubits, f32 and f64, on
-   the windows [7, 11], [12, 17] (the widest, span 6) and [21, 25], each
-   with a random unitary, without and with ``conj``: each call counted
-   (one launch) and held against ``window_dot_plain``; then its time
-   beside its bound and one complex ``torch.matmul`` computing the same;
+   the windows [7, 11], [12, 17] (the widest, span 6) and [21, 25], and
+   on [7, 7], [8, 9], [13, 15], [20, 23] (spans 1-4: the FMA path and the
+   small tensor-core tiles), each with a random unitary, without and with
+   ``conj``: each call counted (one launch) and held against
+   ``window_dot_plain``; then each window's time beside its bound (f32
+   products at the 3xTF32 rate from span 3 up) and one complex
+   ``torch.matmul`` computing the same; the registers and spills of each
+   kernel instantiation are printed after the build;
 7. gate surface: ``gate_surface_tape`` (every function of ``gates.py``
    and ``operators.py`` beyond the bench set that a tape records, twice)
    at 26 qubits, f32, planned by ``Circuit.fused(max_qubits=5,
@@ -73,7 +77,10 @@ no result, without them. Phases, in order:
    collective transposes), the gathered state within 1e-5 (f32) / 1e-10
    (f64) of the largest amplitude of the one-device fused run, a plain
    per-gate replay over the shards (pair exchanges, x permutes, phases)
-   against the one-device per-gate replay, the readouts, gates/sec,
+   against the one-device per-gate replay, a 3-target unitary whose two
+   sharded targets relocate into its controls' slots (the controls move
+   with the swaps) against the one-device per-gate engine, the readouts,
+   gates/sec,
    each collective permute's time beside its bound, and one run's time
    on the card's clock split into the shard passes, the permutes and the
    rest (CUDA events around each launch and permute).
@@ -96,12 +103,19 @@ N_MAIN, DEPTH_MAIN, N_KERNEL, N_DENSITY, N_SHARDS = 26, 8, 20, 14, 4
 #: window_dot's windows (lo, span) at N_MAIN qubits: the lowest it takes,
 #: the widest, and the top 5-qubit window (tools/microbench.py's)
 WINDOWS = ((7, 5), (12, 6), (21, 5))
+#: further windows, spans 1-4, held against the plain version and timed:
+#: the FMA path (spans 1, 2) and the small tensor-core tiles (D = 8, 16)
+CHECK_WINDOWS = ((7, 1), (8, 2), (13, 3), (20, 4))
 #: H100 SXM data-sheet rates: HBM bytes/s, FP32 FLOP/s outside the tensor
 #: cores, and FP64 FLOP/s on the tensor cores (the card's top FP64 rate;
 #: 34e12 outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 67e12
+#: dense TF32 on the tensor cores, and the rate of an f32 product done as
+#: 3xTF32 (three TF32 passes), window_dot's f32 route for spans >= 3
+PEAK_TF32_FLOPS = 494.7e12
+TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 
 
 def _require(cond: bool, what: str) -> None:
@@ -114,6 +128,40 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def _ptxas_kernels(log: str) -> list[dict]:
+    """Each kernel's registers and spill bytes from a build log of
+    ``nvcc -Xptxas -v``, its name demangled by ``c++filt`` where the host
+    has it."""
+    import re
+
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            rows.append({"kernel": name, "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2)), "registers": None})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["registers"] is None:
+            rows[-1]["registers"] = int(m.group(1))
+    rows = [r for r in rows if r["registers"] is not None]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(rows):
+        for r, full in zip(rows, names):
+            full = full.replace("(anonymous namespace)::", "")
+            r["kernel"] = full.split("(")[0].removeprefix("void ")
+    return rows
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -656,13 +704,14 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
 
 
 def _window_phase(dev, rng) -> dict:
-    """``window_dot`` at N_MAIN qubits in f32 and f64 on WINDOWS, each
-    with a random unitary, without and with ``conj``: each call is the
-    entry point's run, its launch counted from 0 just before it and read
-    just after; its result against ``window_dot_plain`` on the same input.
-    Then the window's time (CUDA events, after a warm-up), its bound, the
-    plain version's time, and one complex ``torch.matmul`` of the D x D
-    matrix with a complex (A, D, B) copy of the state."""
+    """``window_dot`` at N_MAIN qubits in f32 and f64 on WINDOWS and
+    CHECK_WINDOWS (spans 1-6), each with a random unitary, without and
+    with ``conj``: each call is the entry point's run, its launch counted
+    from 0 just before it and read just after; its result against
+    ``window_dot_plain`` on the same input. Then each window's time (CUDA
+    events, after a warm-up) beside its bound, the plain version's time,
+    and one complex ``torch.matmul`` of the D x D matrix with a complex
+    (A, D, B) copy of the state."""
     import numpy as np
     import torch
 
@@ -671,16 +720,17 @@ def _window_phase(dev, rng) -> dict:
     n, N = N_MAIN, 1 << N_MAIN
     out = {}
     for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        f32 = dt == torch.float32
         itemsize = torch.finfo(dt).bits // 8
-        peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_FP64_FLOPS
         st = torch.as_tensor(rng.randn(2, N), dtype=dt, device=dev)
         st /= st.norm()
         rows, launches, max_err = [], 0, 0.0
-        for lo, span in WINDOWS:
+        for lo, span in WINDOWS + CHECK_WINDOWS:
             hi, d = lo + span - 1, 1 << span
             q, r = np.linalg.qr(rng.randn(d, d) + 1j * rng.randn(d, d))
             u = q * (np.diag(r) / np.abs(np.diag(r)))
             m = torch.as_tensor(np.stack([u.real, u.imag]), dtype=dt, device=dev)
+            err_w, rel_w = 0.0, 0.0
             for conj in (False, True):
                 x = st.clone()
                 WD.window_dot.launches = 0
@@ -694,7 +744,8 @@ def _window_phase(dev, rng) -> dict:
                 del ref
                 _require(rel <= tol, f"window_dot {dt} [{lo}, {hi}] conj={conj}: error "
                                      f"{err} ({rel} relative) > {tol}")
-                max_err = max(max_err, err)
+                err_w, rel_w = max(err_w, err), max(rel_w, rel)
+            max_err = max(max_err, err_w)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -709,18 +760,24 @@ def _window_phase(dev, rng) -> dict:
             lib_ms = _cuda_ms(lambda: torch.matmul(uc, xc), 10)
             del x, xc
             torch.cuda.empty_cache()
+            # the rate of the products: FP64 or 3xTF32 on the tensor cores
+            # (spans >= 3), FP32 FMA outside them (spans 1, 2)
+            peak = (PEAK_FP64_FLOPS if not f32 else
+                    TF32X3_FLOPS if span >= 3 else PEAK_FP32_FLOPS)
             b_bytes = 2.0 * 2 * N * itemsize / HBM_BYTES_PER_S * 1e3
             b_ops = 8.0 * d * N / peak * 1e3
+            bound = max(b_bytes, b_ops)
+            by = "operations" if b_ops > b_bytes else "bytes"
             rows.append({"lo": lo, "hi": hi, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": max(b_bytes, b_ops),
-                         "bound_by": "operations" if b_ops > b_bytes else "bytes",
-                         "library_ms": lib_ms})
-            print(f"# window {str(dt)[6:]} [{lo}, {hi}] (D {d}) at {n}q: kernel {ms:.4f} ms, "
-                  f"bound {max(b_bytes, b_ops):.4f} ms by "
-                  f"{'operations' if b_ops > b_bytes else 'bytes'}, torch.matmul "
-                  f"{lib_ms:.4f} ms, plain {plain_ms:.2f} ms")
-        print(f"# window {str(dt)[6:]}: launches {launches} (3 windows x conj off/on), "
-              f"max_abs_err {max_err:.3e} (limit {tol:g} of the largest amplitude)")
+                         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                         "max_abs_err": err_w, "max_rel_err": rel_w,
+                         "timed": (lo, span) in WINDOWS})
+            print(f"# window {str(dt)[6:]} [{lo}, {hi}] (D {d}) at {n}q: kernel {ms:.4f} ms "
+                  f"({bound / ms:.1%} of the bound), bound {bound:.4f} ms by {by}, "
+                  f"torch.matmul {lib_ms:.4f} ms, plain {plain_ms:.2f} ms; max_abs_err "
+                  f"{err_w:.3e} ({rel_w:.3e} of the largest, conj off and on)")
+        print(f"# window {str(dt)[6:]}: launches {launches} ({len(rows)} windows x conj "
+              f"off/on), max_abs_err {max_err:.3e} (limit {tol:g} of the largest amplitude)")
         out[dt] = {"rows": rows, "launches": launches, "max_abs_err": max_err}
         del st
         torch.cuda.empty_cache()
@@ -728,7 +785,9 @@ def _window_phase(dev, rng) -> dict:
 
 
 def _window_entry(name: str, phase: dict) -> dict:
-    rows = phase["rows"]
+    """The ``kernels`` line of window_dot: ms, plain, bound and library are
+    means over WINDOWS; every checked window is listed."""
+    rows = [r for r in phase["rows"] if r["timed"]]
 
     def mean(k):
         return sum(r[k] for r in rows) / len(rows)
@@ -741,7 +800,7 @@ def _window_entry(name: str, phase: dict) -> dict:
         "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
         "bound_by": "operations" if 2 * ops_b > sum(r["bound_ms"] for r in rows) else "bytes",
         "library_ms": mean("library_ms"), "library_call": "torch.matmul (complex)",
-        "windows": rows,
+        "windows": phase["rows"],
     }
 
 
@@ -923,9 +982,12 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     permute's time beside its bound."""
     import torch
 
+    import numpy as np
+
     from quest_tpu_torch import fusion, telemetry
     from quest_tpu_torch.ops import fused_gates as FG
     from quest_tpu_torch.parallel import exchange as X
+    from quest_tpu_torch.parallel.scheduler import engine
 
     f32 = dt == torch.float32
     prec, tol_kernel, tol = (1, 1e-5, 1e-5) if f32 else (2, 1e-12, 1e-10)
@@ -1075,6 +1137,34 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     _require(rel2 <= tol, f"{label}: per-gate replay {diff2} ({rel2} relative)")
     qt.destroyQureg(q2)
     qt.destroyQureg(r2)
+    torch.cuda.empty_cache()
+
+    # the relocation that carries controls (QuEST_cpu_distributed.c:
+    # 1526-1568): a 3-target unitary on two sharded qubits and one local,
+    # its controls on the slots 0 and 1 that the sharded targets swap into
+    d8 = 8
+    u8 = np.linalg.qr(rng.randn(d8, d8) + 1j * rng.randn(d8, d8))[0]
+    targets, controls = [n - 1, n - 2, n - 3], [0, 1]
+    q3 = qt.createQureg(n, env, prec)
+    qt.initDebugState(q3)
+    swaps0 = engine(q3).stats["relocation_swaps"]
+    qt.multiControlledMultiQubitUnitary(q3, controls, targets, u8)
+    torch.cuda.synchronize()
+    swaps = engine(q3).stats["relocation_swaps"] - swaps0
+    r3 = qt.createQureg(n, one, prec)
+    qt.initDebugState(r3)
+    qt.multiControlledMultiQubitUnitary(r3, controls, targets, u8)
+    gathered = torch.cat(q3.shards, dim=1)
+    diff3, rel3 = _rel_err(gathered, r3.amps)
+    del gathered
+    print(f"# {label} relocation carrying controls: multiControlledMultiQubitUnitary "
+          f"targets {targets} controls {controls} over {N_SHARDS} shards (local_n {nl}): "
+          f"relocation swaps {swaps}; max |sharded - one-device per-gate| {diff3:.3e} "
+          f"({rel3:.3e} of the largest, limit {tol:g})")
+    _require(swaps == 4, f"{label}: relocation swaps {swaps} != 4")
+    _require(rel3 <= tol, f"{label}: relocation carrying controls {diff3} ({rel3} relative)")
+    qt.destroyQureg(q3)
+    qt.destroyQureg(r3)
     torch.cuda.empty_cache()
 
     # gates/sec of the fused circuit over the shards, and where its time goes
@@ -1243,12 +1333,12 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"# build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s in all)")
-    for lib in _build.SOURCES:
-        for line in _build.build_log(lib).splitlines():
-            if "Function properties for" in line:  # which function the next lines describe
-                print(f"# ptxas {lib}: {line.split('for')[-1].strip()[-60:]}")
-            elif "registers" in line or "spill" in line:
-                print(f"# ptxas {lib}:   {line.replace('ptxas info    :', '').strip()}")
+    ptxas = {lib: _ptxas_kernels(_build.build_log(lib)) for lib in _build.SOURCES}
+    for lib, kernels in ptxas.items():
+        for k in kernels:
+            print(f"# ptxas {lib}: {k['kernel']}: {k['registers']} registers, "
+                  f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes "
+                  f"spill loads")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1411,6 +1501,9 @@ def main() -> int:
                 _shard_entry("fused_gate_run_per_shard_f64",
                              "quest_tpu/ops/pallas_gates.py:1228",
                              sharded[torch.float64], shard_errs[torch.float64])]
+    for e in entries:
+        if e["name"].startswith("window_dot"):
+            e["ptxas"] = ptxas["window_dot"]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))

@@ -3,10 +3,11 @@
 Each source under ``csrc/`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which
 ``ctypes`` loads. The build runs at first use, into ``_build/`` beside
-this file (git-ignored), and is keyed by a hash of the source and the
-flags, so an edited source rebuilds. ``build_all`` starts one ``nvcc``
-per source, all at once. A failed build raises with the compiler's
-output; nothing falls back.
+this file (git-ignored), and is keyed by a hash of the flags, the source
+and every header under ``csrc/`` that it includes (``#include "..."``,
+followed through headers), so an edited source or header rebuilds.
+``build_all`` starts one ``nvcc`` per source, all at once. A failed
+build raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,6 +24,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
+CSRC = "csrc"
 
 #: library name -> source, relative to the package
 SOURCES = {"fused_gates": "csrc/fused_gates.cu", "window_dot": "csrc/window_dot.cu"}
@@ -46,10 +49,31 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(name: str) -> list[Path]:
+    """The source of ``name`` and every header under ``csrc/`` that it
+    includes, directly or through another header, in a fixed order."""
+    csrc = _PKG / CSRC
+    seen, todo = [], [_PKG / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = csrc / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (_PKG / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -60,7 +84,8 @@ def _start(name: str):
         return None, out, None, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(_PKG / CSRC), "-o", str(tmp),
+           str(_PKG / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, out, tmp, time.perf_counter()

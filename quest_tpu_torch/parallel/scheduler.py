@@ -4,16 +4,17 @@ scheduler.py``, its immediate mode).
 
 QuEST_cpu_distributed.c dispatches so:
   - a 1-qubit dense gate on a sharded target: pair exchange (:870-905);
-  - a dense gate with several targets, some sharded: relocate each
-    sharded target to a free local qubit (swapQubitAmps), apply locally,
-    swap back (:1526-1568);
+  - a dense gate with several targets, some sharded: swap each sharded
+    target into the lowest local qubit that is not a target
+    (swapQubitAmps), a control held there moving with the swap, apply
+    locally, swap back (:1526-1568);
   - X class: a whole-shard exchange (:1109-1152);
   - diagonal and phase gates: no communication.
-Sharded controls never travel: they are a shard-index predicate. After
-every gate the register is back in the identity layout. The JAX package
-reaches the same per-gate policy through GSPMD or through this mode of its
-scheduler; its deferred relocations, journal and ``plan_circuit`` comm
-model are later work.
+Sharded controls are a shard-index predicate: they travel only when a
+relocation swap moves them. After every gate the register is back in the
+identity layout. The JAX package reaches the same per-gate policy through
+GSPMD or through this mode of its scheduler; its deferred relocations,
+journal and ``plan_circuit`` comm model are later work.
 """
 
 from __future__ import annotations
@@ -37,21 +38,24 @@ class DistributedScheduler:
     and communication-free ops, as the JAX package's."""
     stats: dict = field(default_factory=_stats)
 
-    def _relocate(self, shards, n, nl, targets, support):
-        """Swap each sharded target with a free local qubit (one outside
-        the gate's support); returns (shards, {old: new})."""
-        shard = [t for t in targets if t >= nl]
-        free = [p for p in range(nl) if p not in support]
-        if len(free) < len(shard):
-            # the reference's matrix-fits-in-node check
-            # (validateMultiQubitMatrixFitsInNode, QuEST_validation.c:522-524)
-            V.validate_matrix_fits_in_node(len(free), len(shard), "applyMatrix")
-        relocation = {}
-        for s, f in zip(shard, free):
+    def _relocate(self, shards, n, nl, targets):
+        """Swap each sharded target into the lowest local qubit that is not
+        a target (QuEST_cpu_distributed.c:1526-1568); a control that held
+        that slot moves with the swap, to the target's old position, where
+        it resolves from the shard index. Returns (shards, the swaps as
+        (sharded, local) pairs, {old position: new position})."""
+        if len(targets) > nl:
+            # the reference's only limit (validateMultiQubitMatrixFitsInNode,
+            # QuEST_validation.c:522-524)
+            V.validate_matrix_fits_in_node(nl, len(targets), "applyMatrix")
+        free = [p for p in range(nl) if p not in targets]
+        swaps = list(zip([t for t in targets if t >= nl], free))
+        moved = {}
+        for s, f in swaps:
             self.stats["relocation_swaps"] += 1
             shards = X.dist_swap(shards, n=n, qb1=f, qb2=s)
-            relocation[s] = f
-        return shards, relocation
+            moved[s], moved[f] = f, s
+        return shards, swaps, moved
 
     def apply_matrix(self, shards, matrix, *, n, targets, controls=(),
                      control_states=(), conj=False) -> list:
@@ -67,14 +71,13 @@ class DistributedScheduler:
             return X.dist_apply_matrix1(
                 shards, matrix, n=n, target=targets[0], controls=controls,
                 control_states=tuple(control_states), conj=conj)
-        shards, relocation = self._relocate(shards, n, nl, targets,
-                                            set(targets) | set(controls))
+        shards, swaps, moved = self._relocate(shards, n, nl, targets)
         self.stats["local"] += 1
         shards = X.dist_apply_local_matrix(
-            shards, matrix, n=n, targets=tuple(relocation.get(t, t) for t in targets),
-            controls=tuple(relocation.get(c, c) for c in controls),
+            shards, matrix, n=n, targets=tuple(moved.get(t, t) for t in targets),
+            controls=tuple(moved.get(c, c) for c in controls),
             control_states=tuple(control_states), conj=conj)
-        for s, f in relocation.items():
+        for s, f in swaps:
             self.stats["relocation_swaps"] += 1
             shards = X.dist_swap(shards, n=n, qb1=f, qb2=s)
         return shards

@@ -7,6 +7,8 @@ numpy from a seed and fed to both. Tolerances: 1e-10 in f64; 2e-4 in f32,
 where the JAX kernel's zone dots are bf16x3 and the port's plain FP32.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from quest_tpu.ops import pallas_gates as PG
 import quest_tpu as jq
 import quest_tpu_torch as tq
 from quest_tpu_torch import fusion as F
+from quest_tpu_torch import registers as TR
 from quest_tpu_torch import telemetry
 from quest_tpu_torch.interop import (arg_from_reference, circuit_from_tape, load_state,
                                      ops_from_reference, shard_arrays, state_to_numpy)
@@ -134,10 +137,8 @@ def test_refused_calls_raise():
     q = tq.createQureg(6, tenv, 2)
     one = tq.createQuESTEnv(device="cpu")
     rho = tq.createDensityQureg(6, one, 2)
-    with pytest.raises(tq.QuESTError):
-        tq.initPureState(rho, q)
-    with pytest.raises(tq.QuESTError):
-        tq.cloneQureg(tq.createQureg(6, one, 2), q)
+    with pytest.raises(tq.QuESTError, match="later slice"):
+        tq.initPureState(rho, q)  # a density matrix from a sharded state
     with pytest.raises(tq.QuESTError):
         tq.calcPurity(q)
     with pytest.raises(tq.QuESTError):
@@ -145,8 +146,8 @@ def test_refused_calls_raise():
     with pytest.raises(tq.QuESTError):
         q.put(torch.zeros(2, 64, dtype=torch.float64))
     with pytest.raises(tq.QuESTError, match="too many qubits"):
-        # two sharded targets (4, 5) and one free local qubit (3) to take
-        # them: the reference's matrix-fits-in-node check
+        # five targets against the four local qubits: the reference's only
+        # refusal (validateMultiQubitMatrixFitsInNode)
         tq.multiQubitUnitary(q, [0, 1, 2, 4, 5], np.eye(32))
     q2 = tq.createQureg(6, tenv, 2)
     tq.initDebugState(q2)
@@ -531,3 +532,131 @@ def test_oracle_specs_on_a_sharded_register(case):
     got = tq.get_np(tqr)
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
     np.testing.assert_allclose(got, jq.get_np(jqr), rtol=0, atol=TOL)
+
+
+ALL_CASES = CF.conformance_cases(SN)
+#: the gate the sharded engine refused before a relocation could carry a
+#: control: targets (6, 5, 4), controls (0, 1), four local qubits
+C1_CASE = "multiControlledMultiQubitUnitary-1"
+
+
+@pytest.mark.parametrize("case", ALL_CASES, ids=lambda c: c.id)
+def test_every_oracle_spec_on_eight_shards(case):
+    """Every conformance case on an 8-shard register (4 local qubits)
+    against the oracle; the relocation case and every case with a target
+    on a sharded qubit also against quest_tpu on 8 CPU devices."""
+    d = 8
+    nl = SN - 3
+    v = oracle.random_statevec(SN, CF.case_rng("shard8:" + case.id))
+    tqr = tq.createQureg(SN, tq.createQuESTEnv(devices=["cpu"] * d), 2)
+    tq.initStateFromAmps(tqr, v.real, v.imag)
+    getattr(tq, case.name)(tqr, *arg_from_reference(case.args))
+    assert len(tqr.shards) == d
+    ref = oracle.apply_to_statevec(v, SN, case.targets, case.matrix,
+                                   controls=case.controls,
+                                   control_states=case.control_states)
+    got = tq.get_np(tqr)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
+    if case.id == C1_CASE or any(t >= nl for t in case.targets):
+        jqr = jq.createQureg(SN, jq.createQuESTEnv(jax.devices()[:d]), 2)
+        jq.initStateFromAmps(jqr, v.real, v.imag)
+        getattr(jq, case.name)(jqr, *case.args)
+        np.testing.assert_allclose(got, jq.get_np(jqr), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("d", [4, 8])
+def test_relocation_carries_a_control(d):
+    """A dense gate whose sharded targets swap into slots held by controls
+    (QuEST_cpu_distributed.c:1526-1568): the controls move with the swaps,
+    resolve from the shard index, and every swap is undone after it."""
+    nl = SN - (d - 1).bit_length()
+    case = next(c for c in ALL_CASES if c.id == C1_CASE)
+    v = oracle.random_statevec(SN, np.random.RandomState(d))
+    tqr = tq.createQureg(SN, tq.createQuESTEnv(devices=["cpu"] * d), 2)
+    tq.initStateFromAmps(tqr, v.real, v.imag)
+    getattr(tq, case.name)(tqr, *arg_from_reference(case.args))
+    sharded = [t for t in case.targets if t >= nl]
+    assert tqr.env.engine.stats["relocation_swaps"] == 2 * len(sharded)
+    ref = oracle.apply_to_statevec(v, SN, case.targets, case.matrix,
+                                   controls=case.controls,
+                                   control_states=case.control_states)
+    np.testing.assert_allclose(tq.get_np(tqr), ref, rtol=0, atol=TOL)
+    # two sharded targets swap into slots 0 and 1: one control there and
+    # one on a sharded qubit (a local one where every sharded qubit is a
+    # target); then controls on both slots
+    targets = (SN - 1, nl)
+    other = [q for q in range(nl, SN) if q not in targets][:1] or [2]
+    u = oracle.random_unitary(2, np.random.RandomState(d))
+    for controls in ((0, other[0]), (1, 0)):
+        tq.initStateFromAmps(tqr, v.real, v.imag)
+        tq.multiControlledMultiQubitUnitary(tqr, list(controls), list(targets), u)
+        exp = oracle.apply_to_statevec(v, SN, targets, u, controls=controls)
+        np.testing.assert_allclose(tq.get_np(tqr), exp, rtol=0, atol=TOL)
+
+
+def _layout_pair(n, d, seed):
+    """A quest_tpu and a port register on d devices (d = 1: one device),
+    both holding the same random state."""
+    jenv = jq.createQuESTEnv(jax.devices()[:d])
+    tenv = tq.createQuESTEnv(devices=["cpu"] * d) if d > 1 else tq.createQuESTEnv(device="cpu")
+    jqr, tqr = jq.createQureg(n, jenv, 2), tq.createQureg(n, tenv, 2)
+    v = oracle.random_statevec(n, np.random.RandomState(seed))
+    jq.initStateFromAmps(jqr, v.real, v.imag)
+    tq.initStateFromAmps(tqr, v.real, v.imag)
+    assert (tqr.shards is None) == (d == 1)
+    return jqr, tqr
+
+
+@contextlib.contextmanager
+def _no_host_staging():
+    """Fails a call that reads a register back to the host (``get_np``,
+    ``Tensor.numpy``/``tolist``/``cpu``): layout changes copy between
+    devices."""
+    def refuse(*a, **k):
+        raise AssertionError("a register went through host memory")
+
+    with pytest.MonkeyPatch.context() as mp:
+        for obj, name in ((TR, "get_np"), (torch.Tensor, "numpy"),
+                          (torch.Tensor, "tolist"), (torch.Tensor, "cpu")):
+            mp.setattr(obj, name, refuse)
+        yield
+
+
+@pytest.mark.parametrize("func", ["cloneQureg", "initPureState"])
+@pytest.mark.parametrize("src,dst", [(4, 1), (1, 4), (4, 8), (8, 4), (4, 4)])
+def test_copies_across_layouts_match_reference(func, src, dst):
+    """cloneQureg and initPureState between a sharded and an unsharded
+    state vector and between meshes of different sizes, against
+    quest_tpu: the target keeps its layout and holds the source's state."""
+    n = 7
+    js, ts = _layout_pair(n, src, 1)
+    jt, tt = _layout_pair(n, dst, 2)
+    layout = None if tt.shards is None else [(s.shape, s.device) for s in tt.shards]
+    getattr(jq, func)(jt, js)
+    with _no_host_staging():
+        getattr(tq, func)(tt, ts)
+    assert layout == (None if tt.shards is None else [(s.shape, s.device) for s in tt.shards])
+    assert all(x.data_ptr() != y.data_ptr() for x in (tt.shards or [tt.amps])
+               for y in (ts.shards or [ts.amps]))
+    np.testing.assert_array_equal(tq.get_np(tt), np.asarray(jq.get_np(jt)))
+    np.testing.assert_array_equal(tq.get_np(tt), tq.get_np(ts))
+
+
+@pytest.mark.parametrize("d1,d2,dout", [(4, 1, 1), (1, 1, 4), (1, 8, 4), (4, 4, 4)])
+def test_weighted_sum_across_layouts_matches_reference(d1, d2, dout):
+    """setWeightedQureg with inputs in any layout: each brought to out's,
+    then summed per shard; against numpy, and against quest_tpu where it
+    takes the layouts (at most one mesh besides single devices)."""
+    n = 7
+    (j1, t1), (j2, t2), (jo, to) = (_layout_pair(n, d, s)
+                                    for s, d in enumerate((d1, d2, dout)))
+    f1, f2, fo = 0.5 - 0.2j, 1j, -0.3
+    exp = f1 * tq.get_np(t1) + f2 * tq.get_np(t2) + fo * tq.get_np(to)
+    with _no_host_staging():
+        tq.setWeightedQureg(f1, t1, f2, t2, fo, to)
+    assert (to.shards is None) == (dout == 1)
+    got = tq.get_np(to)
+    np.testing.assert_allclose(got, exp, rtol=0, atol=1e-15)
+    if len({d for d in (d1, d2, dout) if d > 1}) <= 1:
+        jq.setWeightedQureg(f1, j1, f2, j2, fo, jo)
+        np.testing.assert_allclose(got, np.asarray(jq.get_np(jo)), rtol=0, atol=TOL)
