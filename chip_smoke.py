@@ -14,8 +14,10 @@ no result, without them. Phases, in order:
    channel ops kraus1, kraus2, krausn with signed terms, unsorted targets
    and non-trace-preserving operators) and every folded swap form (load,
    store, both, asymmetric, the pair swap; each kraus kind with and
-   without one); limits 1e-5 (f32) and 1e-12 (f64) on the max error over
-   the largest amplitude, here and in every kernel-vs-plain check below;
+   without one), and lane_u on the small tiles of SMALL_TILE_QUBITS (2 to
+   32 rows: the f32 tensor-core fold below one m16 tile, and the f64 FMA
+   fold); limits 1e-5 (f32) and 1e-12 (f64) on the max error over the
+   largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
    depth 8, f32) planned by ``Circuit.fused(max_qubits=5, pallas=True)``
    at the Hopper tile; each of its runs through the kernel against the
@@ -24,8 +26,12 @@ no result, without them. Phases, in order:
    equal the runs executed, ``engine_fallback_total`` must read 0, the
    total probability must be within 1e-4 of 1 and the amplitudes within
    2e-4 of a plain per-gate replay; then gates/sec;
-4. yardsticks: a full-state ``copy_`` and ``torch.matmul`` of one lane_u
-   product, which the port never calls;
+4. yardstick: a full-state ``copy_``, which the port never calls; then the
+   lane_u phase: one-op lane_u passes at 26 qubits, f32 (a Haar 128x128
+   unitary, and a 3-qubit block folded by ``fusion.lane_u_run``), each
+   against the plain version and the exact complex128 product, timed
+   beside its bound (at the 3xTF32 rate) and one complex ``torch.matmul``
+   of the same product, which the port never calls;
 5. density path, f32 then f64: the bench's channel circuits ("r3", 10
    entries, and "r4", 11 with a 3-target Kraus map) on a 14-qubit density
    register (28 flattened qubits) from ``initPlusState``, planned by
@@ -49,7 +55,7 @@ no result, without them. Phases, in order:
    ``window_dot_plain``; then each window's time beside its bound (f32
    products at the 3xTF32 rate from span 3 up) and one complex
    ``torch.matmul`` computing the same; the registers and spills of each
-   kernel instantiation are printed after the build;
+   kernel instantiation of both libraries are printed after the build;
 7. gate surface: ``gate_surface_tape`` (every function of ``gates.py``
    and ``operators.py`` beyond the bench set that a tape records, twice)
    at 26 qubits, f32, planned by ``Circuit.fused(max_qubits=5,
@@ -113,9 +119,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 67e12
 #: dense TF32 on the tensor cores, and the rate of an f32 product done as
-#: 3xTF32 (three TF32 passes), window_dot's f32 route for spans >= 3
+#: 3xTF32 (three TF32 passes): window_dot's f32 route for spans >= 3 and
+#: the fused-run kernel's f32 lane_u fold
 PEAK_TF32_FLOPS = 494.7e12
 TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
+#: lane_u passes of the lane_u phase at N_MAIN qubits, f32: a Haar 128x128
+#: unitary, and a 3-qubit block [LANE_BLOCK_LO, +3) folded as
+#: fusion.lane_u_run folds a dense block below the lane boundary
+LANE_BLOCK_LO = 2
+#: states below the 2^13 tile whose lane_u ops the kernel phase checks:
+#: tiles of 2, 8, 16 and 32 rows of 128 lanes
+SMALL_TILE_QUBITS = (8, 10, 11, 12)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -180,31 +194,45 @@ def _cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float]:
-    """(bytes, flops) one pass of ``prepared`` needs on an n-qubit state:
-    each amplitude of both planes read once and written once; flops per
-    control-satisfied amplitude: 2x2 matrix 16, diagonal 6, swap 0,
-    lane_u 1024 (128 complex multiply-adds), window 8 * 2^span, a kraus op
-    on t row qubits with m terms 8 * min(4^t, 2 m 2^t): the fewer complex
-    multiply-adds of its superoperator form and its per-term form."""
+def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float, float]:
+    """(bytes, flops, lane_u flops) one pass of ``prepared`` needs on an
+    n-qubit state: each amplitude of both planes read once and written
+    once; flops per control-satisfied amplitude: 2x2 matrix 16, diagonal 6,
+    swap 0, window 8 * 2^span, a kraus op on t row qubits with m terms 8 *
+    min(4^t, 2 m 2^t): the fewer complex multiply-adds of its superoperator
+    form and its per-term form; and apart, lane_u 1024 (128 complex
+    multiply-adds), whose f32 products run on the tensor cores."""
     from quest_tpu_torch.ops.fused_gates import _KRAUS, _op_is_diag, kraus_parts
 
     N = 1 << n
-    flops = 0.0
+    flops = lane = 0.0
     for op in prepared.ops:
         kind = op[0]
         if kind in _KRAUS:
             rows, _, terms = kraus_parts(op)
             flops += 8.0 * min(4 ** len(rows), 2 * len(terms) * 2 ** len(rows)) * N
         elif kind == "lane_u":
-            flops += 1024.0 * N
+            lane += 1024.0 * N
         elif kind == "window":
             flops += 8.0 * (1 << op[2]) * N
         elif kind == "matrix":
             flops += (6.0 if _op_is_diag(op) else 16.0) * N / (1 << len(op[2]))
         elif kind in ("parity", "diagw"):
             flops += 6.0 * N / (1 << len(op[2]))
-    return 2.0 * 2 * N * itemsize, flops
+    return 2.0 * 2 * N * itemsize, flops, lane
+
+
+def _bound_ms(work: tuple, f32: bool) -> tuple[float, float]:
+    """(bytes ms, operations ms) of ``_pass_work``'s work on the card: the
+    bytes at HBM_BYTES_PER_S; the flops at the rate each product runs at:
+    in f32 the lane_u products at TF32X3_FLOPS (3xTF32 on the tensor
+    cores), the rest at PEAK_FP32_FLOPS; in f64 all at PEAK_FP64_FLOPS."""
+    nbytes, flops, lane = work
+    if f32:
+        ops_s = flops / PEAK_FP32_FLOPS + lane / TF32X3_FLOPS
+    else:
+        ops_s = (flops + lane) / PEAK_FP64_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
 def _swaps(lk=0, lh=None, sk=0, sh=None, pair=None) -> dict:
@@ -261,6 +289,12 @@ def _kernel_cases(n: int, tb: int, rng):
     # a row qubit from above the tile (the pair swap) and its column qubit
     cases.append(("kraus1+pair_swap", (("kraus1", tb - 2, tb - 1, signed),),
                   _swaps(1, n - 1, 1, n - 1, (tb - 2, n - 2))))
+    # lane_u under a pair swap (on bit 1 with a block swap, on bit 3
+    # alone): the folded swaps' gathers in the f32 tensor-core instantiation
+    cases.append(("lane_u+pair_swap bit 1", lane[:9] + window[:5],
+                  _swaps(1, n - 1, 1, n - 1, (1, n - 2))))
+    cases.append(("lane_u+pair_swap bit 3", lane[:9] + parity,
+                  _swaps(0, None, 0, None, (3, n - 3))))
     return cases + [
             ("load_swap", mixed, _swaps(2, None, 0, None)),
             ("store_swap", mixed, _swaps(0, None, 3, None)),
@@ -376,7 +410,6 @@ def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
     from quest_tpu_torch.ops import fused_gates as FG
 
     itemsize = torch.finfo(dt).bits // 8
-    peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_FP64_FLOPS
     st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
     st /= st.norm()
     out = torch.empty_like(st)
@@ -395,9 +428,7 @@ def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
         err, rel = _rel_err(out, ref)
         del ref
         _require(rel <= tol, f"{label} pass {i} error {err} ({rel} relative) > {tol}")
-        nbytes, flops = _pass_work(prep, n, itemsize)
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = flops / peak * 1e3
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, n, itemsize), dt == torch.float32)
         kinds = [o[0] for o in prep.ops]
         res["ms"].append(ms)
         res["plain_ms"].append(t_plain)
@@ -452,6 +483,86 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
                    "plain_ms": res["plain_ms"][i],
                    "bound_by": "operations" if res["by_ops"][i] else "bytes"}
             for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
+
+
+def _lane_u_phase(dev, rng) -> dict:
+    """One-op lane_u passes at N_MAIN qubits, f32, through ``fused_run``:
+    a Haar 128x128 unitary, and a random 3-qubit unitary on [LANE_BLOCK_LO,
+    LANE_BLOCK_LO + 3) folded into the lane zone by ``fusion.lane_u_run``.
+    Each launch counted; the result against ``fused_run_plain`` (limit 1e-5
+    of the largest amplitude) and against the exact complex128 product;
+    then the pass's time (CUDA events) beside its bound, its share of the
+    bound, the plain version's time and one complex ``torch.matmul`` of the
+    (2^(N_MAIN-7), 128) state by the 128x128 matrix, the same product."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n, dt = N_MAIN, torch.float32
+    tb = FG.hopper_tile_bits(n, dt)
+
+    def haar(d):
+        q, r = np.linalg.qr(rng.randn(d, d) + 1j * rng.randn(d, d))
+        return q * (np.diag(r) / np.abs(np.diag(r)))
+
+    u = haar(128)
+    block = fusion.FusedBlock(tuple(range(LANE_BLOCK_LO, LANE_BLOCK_LO + 3)), haar(8))
+    runs = {"haar 128x128": FG.PreparedRun(
+                (("lane_u", FG.HashableMatrix(np.stack([u.real.T, u.imag.T,
+                                                        u.real.T + u.imag.T]))),), tb),
+            f"3-qubit block on {list(block.qubits)}": fusion.lane_u_run(block, tb)}
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    xc = torch.complex(st[0], st[1]).reshape(-1, FG._LANES)
+    rows, launches, worst = [], 0, 0.0
+    for name, prep in runs.items():
+        (op,) = prep.ops
+        _require(op[0] == "lane_u", f"lane_u phase: {name} did not fold to one lane_u op")
+        w = np.asarray(op[1].arr).real
+        x = st.clone()
+        FG.fused_run.launches = 0
+        FG.fused_run(x, n=n, ops=prep.ops, tile_bits=tb, prepared=prep)
+        torch.cuda.synchronize()
+        _require(FG.fused_run.launches == 1, f"lane_u phase: {name} launches")
+        launches += 1
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = FG.fused_run_plain(st, prep, n=n, tile_bits=tb)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err, rel = _rel_err(x, ref)
+        _require(rel <= 1e-5, f"lane_u {name}: error {err} ({rel} relative) > 1e-5")
+        del ref
+        wc = torch.as_tensor(w[0] + 1j * w[1], device=dev)
+        exact = xc.to(torch.complex128) @ wc
+        ex = torch.stack([exact.real.reshape(-1), exact.imag.reshape(-1)])
+        rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
+        del exact, ex
+        ms = _cuda_ms(lambda: FG.fused_run(x, n=n, ops=prep.ops, tile_bits=tb, prepared=prep),
+                      20)
+        wc64 = wc.to(torch.complex64)
+        lib_ms = _cuda_ms(lambda: torch.matmul(xc, wc64), 20)
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, n, 4), True)
+        bound = max(b_bytes, b_ops)
+        by = "operations" if b_ops > b_bytes else "bytes"
+        worst = max(worst, err)
+        rows.append({"name": name, "ms": ms, "bound_ms": bound, "bound_by": by,
+                     "share_of_bound": bound / ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "max_abs_err": err, "max_rel_err": rel,
+                     "rel_err_vs_exact": rel_exact})
+        print(f"# lane_u {name} at {n}q f32: kernel {ms:.4f} ms ({bound / ms:.1%} of the "
+              f"bound), bound {bound:.4f} ms by {by}, torch.matmul {lib_ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms; max_abs_err {err:.3e} ({rel:.3e} of the largest, limit "
+              f"1e-5), {rel_exact:.3e} of the largest from the exact complex128 product")
+        del x
+        torch.cuda.empty_cache()
+    del st, xc
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "max_abs_err": worst}
 
 
 #: the operators that left-multiply a density register (M rho, no
@@ -994,7 +1105,6 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     label = f"sharded {str(dt)[6:]}"
     n, nl = N_MAIN, N_MAIN - (N_SHARDS - 1).bit_length()
     itemsize = torch.finfo(dt).bits // 8
-    peak = PEAK_FP32_FLOPS if f32 else PEAK_FP64_FLOPS
     env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
     circ = qt.Circuit(n)
     qt.random_layers(circ, n, DEPTH_MAIN)
@@ -1030,8 +1140,7 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
             hi = run.tile_bits if kw[h] is None else kw[h]
             if kw[k] and hi + kw[k] > nl:
                 kw[k], kw[h] = 0, None
-        nbytes, flops = _pass_work(prep, nl, itemsize)
-        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, nl, itemsize), f32)
         for r, shard in enumerate(st):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -1367,6 +1476,28 @@ def main() -> int:
                          "kraus1", "kraus2", "krausn"}
         _require(seen == kinds_checked, f"kernel phase missed op kinds: {seen}")
         del st, out, ref
+        # lane_u on tiles below 2^13: fewer rows than the f32 kernel's 64
+        # (fewer than one m16 tile below 2^11), and the f64 fold unchanged
+        for n in SMALL_TILE_QUBITS:
+            stb = FG.hopper_tile_bits(n, dt)
+            ops = tuple(("matrix", q % 7, (), (),
+                         FG.HashableMatrix(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0]))
+                        for q in range(21)) + (("parity", (2, n - 1), (), 0.9),)
+            prep = FG.PreparedRun(ops, stb)
+            _require(prep.has_lane_u, f"small tile {n}q: no lane_u fold")
+            st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+            st /= st.norm()
+            ref = FG.fused_run_plain(st, prep, n=n, tile_bits=stb)
+            x = st.clone()
+            FG.fused_run(x, n=n, ops=ops, tile_bits=stb, prepared=prep)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(x, ref)
+            print(f"# kernel {str(dt)[6:]} lane_u small tile: {n}q, tile_bits {stb} "
+                  f"({1 << (stb - 7)} rows), folded kinds {[o[0] for o in prep.ops]}, "
+                  f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
+            _require(rel <= tol, f"{dt} lane_u {n}q error {err} ({rel} relative) > {tol}")
+            errs[(str(dt), f"lane_u {n}q")] = err
+        del st, x, ref
     shard_errs = _shard_kernel_phase(dev, rng)
 
     # -- main path: plan, per-run kernel vs plain, then the circuit --------
@@ -1436,14 +1567,10 @@ def main() -> int:
           f"{sum(main['ms']):.3f} ms of it kernel passes)")
     _require(abs(qt.calcTotalProb(q) - 1) <= 1e-4, "norm after timed reps")
 
-    # -- yardsticks (never called by the port) -----------------------------
+    # -- yardstick (never called by the port) ------------------------------
     y = torch.empty_like(q.amps)
     copy_ms = _cuda_ms(lambda: y.copy_(q.amps), 10)
-    xc = torch.complex(q.amps[0], q.amps[1]).reshape(-1, 128)
-    u = torch.randn(128, 128, dtype=torch.complex64, device=dev)
-    mm_ms = _cuda_ms(lambda: torch.matmul(xc, u), 10)
-    print(f"# yardsticks: full-state copy_ {copy_ms:.4f} ms, complex matmul "
-          f"(2^19,128)@(128,128) {mm_ms:.4f} ms")
+    print(f"# yardstick: full-state copy_ {copy_ms:.4f} ms")
     npass = len(runs)
     lane_ms = [m for m, o in zip(main["ms"], main["by_ops"]) if o]
     print(f"# per pass: kernel {sum(main['ms']) / npass:.4f} ms mean "
@@ -1452,8 +1579,11 @@ def main() -> int:
           f"{sum(main['bound_ms']) / npass:.4f} ms mean, plain "
           f"{sum(main['plain_ms']) / npass:.2f} ms mean")
     qt.destroyQureg(q)
-    del y, xc, u
+    del y
     torch.cuda.empty_cache()
+
+    # -- lane_u phase: one-op passes of the f32 tensor-core fold -----------
+    lane = _lane_u_phase(dev, rng)
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -1482,8 +1612,10 @@ def main() -> int:
                [e for (d, _), e in errs.items() if d == str(torch.float64)],
                density[(torch.float64, "r4")]["copy_ms"]),
     ]
-    entries[0].update(gates_per_sec=gps,
-                      library_yardsticks_ms={"copy_": copy_ms, "matmul_lane_u": mm_ms})
+    entries[0].update(gates_per_sec=gps, lane_u_passes=lane["rows"],
+                      library_yardsticks_ms={"copy_": copy_ms,
+                                             "matmul_lane_u": lane["rows"][0]["library_ms"]})
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], lane["max_abs_err"])
     entries[1]["also_replaces"] = "quest_tpu/ops/pallas_df.py:255"
     for e, paths, ddt in zip(entries, (f32_paths, f64_paths), (torch.float32, torch.float64)):
         e["channel_ops_per_sec"] = {k: p["channel_ops_per_sec"] for k, p in paths.items()
@@ -1502,8 +1634,7 @@ def main() -> int:
                              "quest_tpu/ops/pallas_gates.py:1228",
                              sharded[torch.float64], shard_errs[torch.float64])]
     for e in entries:
-        if e["name"].startswith("window_dot"):
-            e["ptxas"] = ptxas["window_dot"]
+        e["ptxas"] = ptxas["window_dot" if e["name"].startswith("window_dot") else "fused_gates"]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))

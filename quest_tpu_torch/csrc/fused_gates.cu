@@ -52,12 +52,21 @@
 // 3.35 TB/s. Elementwise and 2x2 ops cost a few flops per amplitude, so a
 // pass of them is bound by bytes, and the design keeps the whole op list
 // between one load and one store of each tile. A lane_u op is 128 complex
-// multiply-adds per amplitude (about 6.9e10 flop at 26 qubits), about
-// 1 ms at the 67 TFLOP/s FP32 rate: passes that carry one are bound by
-// operations. Here it is plain FMA chains from shared memory, its 128x128
-// matrix (128 KiB in f32, 256 KiB in f64: too big to sit beside the tile)
-// streamed through a 32 KiB shared-memory panel, so two blocks still fit
-// an SM; tensor-core MMA is later work.
+// multiply-adds per amplitude (about 6.9e10 flop at 26 qubits): 1.03 ms
+// at the 67 TFLOP/s FP32 rate, 0.42 ms as 3xTF32 on the tensor cores
+// (494.7/3 TFLOP/s), so passes that carry one are bound by operations.
+//   f32: the tensor cores, mma.sync m16n8k8 in 3xTF32 (mma.cuh). The
+//     product is OUT (rows x 128) = X (rows x 128) U^T, four real
+//     products summed into two accumulators. U^T arrives split into TF32
+//     hi and lo by the host, in fragment order (the coefficient block
+//     ``encode_ops`` writes), and is streamed into shared memory by
+//     cp.async in 4 panels of 32 k, two buffers deep. Tile plus panels
+//     take 224 KiB: a run that carries a lane_u op launches an
+//     instantiation of its own with one block per SM (128 registers a
+//     thread); runs without one keep two blocks per SM.
+//   f64: plain FMA chains from shared memory, its 128x128 matrix (256 KiB:
+//     too big to sit beside the tile) streamed through a 32 KiB panel, so
+//     two blocks still fit an SM.
 //
 // The kraus ops replace the kraus arms of _ops_body (pallas_gates.py:662,
 // which applies each term's K and conj(K) to a copy and accumulates). Here
@@ -75,6 +84,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -213,11 +224,11 @@ __device__ __forceinline__ void cmul_into(T& xr, T& xi, T fr, T fi) {
   xi = i;
 }
 
-// lane_u: out[row][c'] = sum_c U[c'][c] x[row][c] on every 128-lane row
-// of the tile. cf holds U^T real then U^T imaginary (128 x 128 each). A
-// warp owns rows {w, w + 16, ...} and a lane the columns 4*lane..4*lane+3,
-// so each broadcast x[row][c] feeds 16 FMAs. U^T (128 KiB in f32, 256 KiB
-// in f64) is too big for the L1 beside two tiles, so it is staged through
+// lane_u in f64: out[row][c'] = sum_c U[c'][c] x[row][c] on every
+// 128-lane row of the tile. cf holds U^T real then U^T imaginary (128 x
+// 128 each). A warp owns rows {w, w + 16, ...} and a lane the columns
+// 4*lane..4*lane+3, so each broadcast x[row][c] feeds 16 FMAs. U^T (256
+// KiB) is too big for the L1 beside two tiles, so it is staged through
 // the shared buffer ``wbuf`` in panels of c: 32 KiB, so that two blocks
 // (2 x (64 + 32) KiB) still fit an SM and one stages while the other
 // computes.
@@ -227,8 +238,9 @@ template <typename T>
 __device__ __forceinline__ void lane_u_op(T* sre, T* sim, T* wbuf,
                                           uint32_t tile,
                                           const T* __restrict__ cf, int tid) {
+  static_assert(sizeof(T) == 8, "the f32 lane_u op is lane_u_mma");
   constexpr int kWarps = kThreads / 32;
-  constexpr int kRows = sizeof(T) == 4 ? 4 : 2;  // rows/warp at the max tile
+  constexpr int kRows = 2;  // rows/warp at the max tile
   constexpr int kPanel = kLaneStage / (2 * kLanes * sizeof(T));  // c per panel
   const uint32_t rows = tile >> kLaneBits;
   const int warp = tid >> 5;
@@ -281,6 +293,127 @@ __device__ __forceinline__ void lane_u_op(T* sre, T* sim, T* wbuf,
       for (int v = 0; v < 4; ++v) {
         sre[row * kLanes + c4 + v] = accr[j][v];
         sim[row * kLanes + c4 + v] = acci[j][v];
+      }
+    }
+  }
+}
+
+// lane_u in f32, on the tensor cores: OUT = X U^T for the tile's rows
+// (rows = tile / 128 <= 64) as mma.sync m16n8k8 in 3xTF32. Warp w takes
+// the m16 tile of rows 16 (w mod 4) and the 32 output columns 32 (w / 4),
+// four n8 tiles, and holds their real and imaginary sums (32 floats a
+// thread): out_r = xr Ur^T + xi (-Ui^T), out_i = xr Ui^T + xi Ur^T. Rows
+// past the tile's are read as 0 and not stored (tiles of 2^7 to 2^10).
+//
+// The order of the sum over c is free as long as A and B take the same
+// one. Within each 16 columns of a row, lane (g, t) reads c = 4t .. 4t+3
+// with one 16-byte load; of these, 4t + 2h and 4t + 2h + 1 are its A
+// values k = t and t + 4 of k step h. The host writes U^T split, for each
+// output column n, in that order: at kLaneSplitOff, per plane (real,
+// imaginary), per n, per chunk c of 16, per h, per t, the four values
+// hi(U^T[16c+4t+2h][n]), hi(U^T[..+1][n]), lo(..), lo(..+1) -- lane (g, t)'s
+// B fragment of k step (c, h) for column n = g of its n8 tile, one
+// 16-byte load. A panel (32 values of c, both planes) is 80 KiB, staged
+// with row stride kPanelLd = 80 floats (16 mod 32: the 8 lanes of a
+// quarter warp, two n and four t, hit 32 different banks).
+constexpr int kLaneSplitOff = 2 * kLanes * kLanes;  // after U^T re, im
+constexpr int kPanelK = 32;
+constexpr int kPanelLd = 2 * kPanelK + 16;
+constexpr int kPanelPlane = kLanes * kPanelLd;       // floats
+constexpr int kPanelFloats = 2 * kPanelPlane;
+constexpr int kLaneMmaStage = 2 * kPanelFloats * 4;  // two panels, bytes
+// 16-byte pieces of each plane a thread loads at once (the 2^13 tile)
+constexpr int kTileVecs = (1 << 13) / (4 * kThreads);
+
+// start copying panel p of the split U^T (cf: the split block) into buf
+__device__ __forceinline__ void stage_lane_panel(float* buf,
+                                                 const float* __restrict__ cf,
+                                                 int p, int tid) {
+  constexpr int kPieces = 2 * kPanelK / 4;  // 16-byte pieces per (plane, n)
+  for (int v = tid; v < 2 * kLanes * kPieces; v += kThreads) {
+    const int pn = v / kPieces, piece = v % kPieces;  // pn = plane * 128 + n
+    quest_mma::copy16_async(
+        buf + pn * kPanelLd + 4 * piece,
+        cf + pn * (2 * kLanes) + p * (2 * kPanelK) + 4 * piece);
+  }
+}
+
+__device__ __forceinline__ void lane_u_mma(float* sre, float* sim, float* wbuf,
+                                           uint32_t tile,
+                                           const float* __restrict__ cf,
+                                           int tid) {
+  const float* split = cf + kLaneSplitOff;
+  const uint32_t rows = tile >> kLaneBits;
+  const int warp = tid >> 5;
+  const quest_mma::Lane l = quest_mma::lane_coords();
+  const uint32_t row0 = 16 * (warp & 3) + l.g, row1 = row0 + 8;
+  const int n0 = 32 * (warp >> 2);
+  const bool active = 16 * static_cast<uint32_t>(warp & 3) < rows;
+  const bool ok0 = row0 < rows, ok1 = row1 < rows;
+  float accr[4][4], acci[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = 0.f;
+
+  constexpr int kPanels = kLanes / kPanelK;
+  stage_lane_panel(wbuf, split, 0, tid);
+  quest_mma::async_commit();
+  stage_lane_panel(wbuf + kPanelFloats, split, 1, tid);
+  quest_mma::async_commit();
+  for (int p = 0; p < kPanels; ++p) {
+    quest_mma::async_wait<1>();  // panel p, this thread's part
+    __syncthreads();             // every thread's part
+    const float* br = wbuf + (p & 1) * kPanelFloats;
+    const float* bi = br + kPanelPlane;
+    if (active) {
+#pragma unroll
+      for (int cc = 0; cc < kPanelK / 16; ++cc) {
+        const int col = kPanelK * p + 16 * cc + 4 * l.t;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 r0 = ok0 ? *reinterpret_cast<const float4*>(sre + row0 * kLanes + col) : z;
+        const float4 r1 = ok1 ? *reinterpret_cast<const float4*>(sre + row1 * kLanes + col) : z;
+        const float4 i0 = ok0 ? *reinterpret_cast<const float4*>(sim + row0 * kLanes + col) : z;
+        const float4 i1 = ok1 ? *reinterpret_cast<const float4*>(sim + row1 * kLanes + col) : z;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]
+          const float xr[4] = {h ? r0.z : r0.x, h ? r1.z : r1.x,
+                               h ? r0.w : r0.y, h ? r1.w : r1.y};
+          const float xi[4] = {h ? i0.z : i0.x, h ? i1.z : i1.x,
+                               h ? i0.w : i0.y, h ? i1.w : i1.y};
+          const quest_mma::SplitA sr = quest_mma::split_a(xr);
+          const quest_mma::SplitA si = quest_mma::split_a(xi);
+          const int boff = 32 * cc + 16 * h + 4 * l.t;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = n0 + 8 * j + l.g;
+            const quest_mma::SplitB ur = quest_mma::load_b_split(br + n * kPanelLd + boff);
+            const quest_mma::SplitB ui = quest_mma::load_b_split(bi + n * kPanelLd + boff);
+            quest_mma::mma_3xtf32(accr[j], sr, ur);
+            quest_mma::mma_3xtf32(accr[j], si, quest_mma::negate(ui));
+            quest_mma::mma_3xtf32(acci[j], sr, ui);
+            quest_mma::mma_3xtf32(acci[j], si, ur);
+          }
+        }
+      }
+    }
+    __syncthreads();  // panel p consumed (and, after the last, every read of the tile)
+    if (p + 2 < kPanels) stage_lane_panel(wbuf + (p & 1) * kPanelFloats, split, p + 2, tid);
+    quest_mma::async_commit();  // (empty at the end: keeps wait<1> uniform)
+  }
+  if (active) {
+    // c[0] = C[g][2t], c[1] = C[g][2t+1], c[2] = C[g+8][2t], c[3] = C[g+8][2t+1]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + 8 * j + 2 * l.t;
+      if (ok0) {
+        *reinterpret_cast<float2*>(sre + row0 * kLanes + col) = make_float2(accr[j][0], accr[j][1]);
+        *reinterpret_cast<float2*>(sim + row0 * kLanes + col) = make_float2(acci[j][0], acci[j][1]);
+      }
+      if (ok1) {
+        *reinterpret_cast<float2*>(sre + row1 * kLanes + col) = make_float2(accr[j][2], accr[j][3]);
+        *reinterpret_cast<float2*>(sim + row1 * kLanes + col) = make_float2(acci[j][2], acci[j][3]);
       }
     }
   }
@@ -438,9 +571,11 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
 
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
-// both planes of the tile, plus kLaneStage bytes for a run with lane_u.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// both planes of the tile, plus, for a run with lane_u, kLaneStage bytes
+// (f64) or kLaneMmaStage (f32, the kLaneMma instantiation: one block per
+// SM, which leaves the compiler 128 registers a thread).
+template <typename T, bool kLaneMma>
+__global__ void __launch_bounds__(kThreads, kLaneMma ? 1 : 2)
 fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
                  int tile_bits, const long long* __restrict__ ops,
                  int num_ops, const T* __restrict__ coeffs, int load_k,
@@ -467,6 +602,28 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
       const uint64_t s = load(i);
       sre[i] = src[s];
       sim[i] = src[N + s];
+    }
+  } else if constexpr (kLaneMma) {
+    // one block per SM: nothing else hides the load, so the whole tile is
+    // in flight at once (16-byte loads, all issued before any store)
+    for (uint32_t i0 = 4 * tid; i0 < tile; i0 += kTileVecs * 4 * kThreads) {
+      float4 re[kTileVecs], im[kTileVecs];
+#pragma unroll
+      for (int k = 0; k < kTileVecs; ++k) {
+        const uint32_t i = i0 + k * 4 * kThreads;
+        if (i < tile) {
+          re[k] = *reinterpret_cast<const float4*>(src + (tile_base | i));
+          im[k] = *reinterpret_cast<const float4*>(src + N + (tile_base | i));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kTileVecs; ++k) {
+        const uint32_t i = i0 + k * 4 * kThreads;
+        if (i < tile) {
+          *reinterpret_cast<float4*>(sre + i) = re[k];
+          *reinterpret_cast<float4*>(sim + i) = im[k];
+        }
+      }
     }
   } else {
     for (uint32_t i = tid; i < tile; i += kThreads) {
@@ -547,7 +704,13 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
         cmul_into(sre[i], sim[i], cf[2 * k], cf[2 * k + 1]);
       }
     } else if (kind == kLaneU) {
-      lane_u_op<T>(sre, sim, sim + tile, tile, cf, tid);
+      if constexpr (sizeof(T) == 8) {
+        lane_u_op<T>(sre, sim, sim + tile, tile, cf, tid);
+      } else if constexpr (kLaneMma) {
+        lane_u_mma(sre, sim, sim + tile, tile, cf, tid);
+      } else {
+        __trap();  // the launcher sends every f32 run with lane_u to kLaneMma
+      }
     } else if (kind == kWindow) {
       const int lo = static_cast<int>(r[1]), span = static_cast<int>(r[2]);
       if constexpr (sizeof(T) == 8) {
@@ -579,6 +742,11 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
       dst[d] = sre[i];
       dst[N + d] = sim[i];
     }
+  } else if constexpr (kLaneMma) {
+    for (uint32_t i = 4 * tid; i < tile; i += 4 * kThreads) {
+      *reinterpret_cast<float4*>(dst + (tile_base | i)) = *reinterpret_cast<const float4*>(sre + i);
+      *reinterpret_cast<float4*>(dst + N + (tile_base | i)) = *reinterpret_cast<const float4*>(sim + i);
+    }
   } else {
     for (uint32_t i = tid; i < tile; i += kThreads) {
       dst[tile_base | i] = sre[i];
@@ -605,18 +773,23 @@ int launch(int max_bits, const T* src, T* dst, int n, int local_n,
                               pair_hi < tile_bits || pair_hi >= local_n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // an f32 run with lane_u: the tensor-core instantiation, chosen by what
+  // the run holds
+  const bool mma = sizeof(T) == 4 && has_lane_u;
+  auto kernel = fused_run_kernel<T, false>;
+  if constexpr (sizeof(T) == 4) {
+    if (mma) kernel = fused_run_kernel<T, true>;
+  }
   const int smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
-                   (has_lane_u ? kLaneStage : 0);
+                   (!has_lane_u ? 0 : mma ? kLaneMmaStage : kLaneStage);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_run_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = 1u << (local_n - tile_bits);
   const uint64_t shard_base = static_cast<uint64_t>(shard_index) << local_n;
-  fused_run_kernel<T>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          src, dst, local_n, shard_base, tile_bits, ops, num_ops, coeffs,
-          load_k, load_hi, store_k, store_hi, pair_lo, pair_hi);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      src, dst, local_n, shard_base, tile_bits, ops, num_ops, coeffs,
+      load_k, load_hi, store_k, store_hi, pair_lo, pair_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -629,7 +802,7 @@ extern "C" {
 // (local_n = n, shard_index = 0 for a state on one device). pair_lo <
 // tile_bits <= pair_hi: bits exchanged on load and on store (pair_lo ==
 // pair_hi: none). has_lane_u: the op table holds a lane_u op (its matrix
-// needs the staging buffer).
+// needs the staging buffer; in f32, the tensor-core instantiation).
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,
                         const long long* ops, int num_ops,

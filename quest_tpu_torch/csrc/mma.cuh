@@ -1,6 +1,7 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a): the fragment
-// loads and stores of mma.sync m16n8k8, the 3xTF32 split, and the
-// mma.sync wrappers for FP64 and TF32.
+// loads and stores of mma.sync m16n8k8, the 3xTF32 split, the mma.sync
+// wrappers for FP64 and TF32, and the cp.async copies that stage
+// operands into shared memory.
 //
 // One shape serves both precisions: mma.sync.aligned.m16n8k8.row.col
 // with .f64 operands and accumulator (exact FP64 FMA arithmetic, PTX ISA
@@ -137,11 +138,39 @@ __device__ __forceinline__ SplitA split_a(const float a[4]) {
   return s;
 }
 
+// -b, exactly: the split of -x is the split of x with both signs flipped
+__device__ __forceinline__ SplitB negate(const SplitB& b) {
+  return SplitB{{b.hi[0] ^ 0x80000000u, b.hi[1] ^ 0x80000000u},
+                {b.lo[0] ^ 0x80000000u, b.lo[1] ^ 0x80000000u}};
+}
+
+// a B fragment split ahead of time: hi[0], hi[1], lo[0], lo[1] at p, one
+// 16-byte load (p 16-byte aligned)
+__device__ __forceinline__ SplitB load_b_split(const float* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  return SplitB{{v.x, v.y}, {v.z, v.w}};
+}
+
 // c += a b in 3xTF32: the small terms first, then hi*hi
 __device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, const SplitB& b) {
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.lo);
   mma_tf32(c, a.hi, b.hi);
+}
+
+// cp.async: a 16-byte copy from global to shared memory that does not
+// hold up the issuing thread; a commit closes a group of them, and
+// wait_group<N> lets at most the N newest groups still be in flight
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace quest_mma

@@ -65,20 +65,9 @@ constexpr int kMaxSpan = 6;
 // shared pieces
 // ---------------------------------------------------------------------------
 
-// cp.async: a 16-byte copy from global to shared memory that does not
-// hold up the issuing thread; a commit closes a group of them, and
-// wait_group<N> lets at most the N newest groups still be in flight
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using quest_mma::async_commit;
+using quest_mma::async_wait;
+using quest_mma::copy16_async;
 
 // the grid of a persistent kernel with `smem` bytes of dynamic shared
 // memory: every block that fits on the SMs at once, at most one per item

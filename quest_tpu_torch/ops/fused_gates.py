@@ -308,14 +308,44 @@ def kraus_superop_table(terms, qubits) -> np.ndarray:
     return Sa.T
 
 
+def tf32_split(w) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) of float32 ``w`` as the kernel splits an operand for 3xTF32
+    (``csrc/mma.cuh``: ``split_tf32``): hi = w rounded to TF32, nearest
+    with ties away from zero, as ``(bits + 0x1000) & 0xffffe000``; lo = w -
+    hi, exact in float32 (the tensor core reads it as TF32, dropping its
+    low 13 bits). Both float32."""
+    w = np.ascontiguousarray(w, dtype=np.float32)
+    hi = ((w.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+    return hi, w - hi
+
+
+def lane_u_split_table(wr, wi) -> np.ndarray:
+    """The f32 kernel's form of a lane_u op's U^T (``wr``, ``wi``: U^T real
+    and imaginary, 128 x 128, [c][n]): each rounded to float32 and split
+    by :func:`tf32_split`, laid out in the order of its B fragments
+    (``csrc/fused_gates.cu``, ``lane_u_mma``): per plane, per output column
+    n, per chunk j of 16 c, per k step h, per t the four values hi(c0),
+    hi(c0 + 1), lo(c0), lo(c0 + 1) with c0 = 16 j + 4 t + 2 h. Float32,
+    (2, 128, 8, 2, 4, 4)."""
+    planes = []
+    for w in (wr, wi):
+        hi, lo = tf32_split(w)
+        # c = 16 j + 4 t + 2 h + e: (j, t, h, e, n) -> (n, j, h, t, [hi, lo], e)
+        hl = np.stack([hi, lo]).reshape(2, 8, 4, 2, 2, _LANES)
+        planes.append(hl.transpose(5, 1, 3, 2, 0, 4).reshape(_LANES, 8, 2, 4, 4))
+    return np.stack(planes)
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
     ``coeffs``, flags -- and ``coeffs`` float64 holds each op's numbers,
     every block padded to a multiple of 4:
     matrix 8 (m00..m11, re/im), parity 2 (cos, sin of theta/2), diagw 2^t
-    interleaved re/im, lane_u U^T real then imaginary (128 x 128 each),
-    window U real then imaginary (D x D each).
+    interleaved re/im, lane_u U^T real then imaginary (128 x 128 each)
+    and then, for the f32 kernel, the same split into TF32 hi and lo in
+    its fragment order (``lane_u_split_table``, 2 x 128 x 256), window U
+    real then imaginary (D x D each).
 
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
@@ -375,7 +405,8 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             rec[6] = put(np.stack([d.real, d.imag], axis=1))
         elif kind == "lane_u":
             W = _arr(op[1]).real
-            rec[6] = put(np.concatenate([W[0].reshape(-1), W[1].reshape(-1)]))
+            rec[6] = put(np.concatenate([W[0].reshape(-1), W[1].reshape(-1),
+                                         lane_u_split_table(W[0], W[1]).reshape(-1)]))
         elif kind in _KRAUS:
             rows, cols, terms = kraus_parts(op)
             t = len(rows)

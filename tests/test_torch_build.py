@@ -20,11 +20,11 @@ def pkg_copy(tmp_path, monkeypatch):
 def test_window_dot_includes_the_tensor_core_header(pkg_copy):
     names = [p.name for p in _build._inputs("window_dot")]
     assert names == ["window_dot.cu", "mma.cuh"]
-    assert [p.name for p in _build._inputs("fused_gates")] == ["fused_gates.cu"]
+    assert [p.name for p in _build._inputs("fused_gates")] == ["fused_gates.cu", "mma.cuh"]
 
 
 @pytest.mark.parametrize("edited,changes", [
-    ("mma.cuh", {"window_dot"}),
+    ("mma.cuh", {"window_dot", "fused_gates"}),
     ("window_dot.cu", {"window_dot"}),
     ("fused_gates.cu", {"fused_gates"}),
 ])

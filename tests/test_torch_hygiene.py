@@ -1,4 +1,4 @@
-"""The port stands alone: importing it (or the on-card smoke script) pulls
+"""The port stands alone: importing it (or an on-card script) pulls
 in neither JAX nor quest_tpu, and its entry point never picks the CPU by
 itself."""
 
@@ -16,7 +16,7 @@ import quest_tpu_torch as tq
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke", "chip_lane_u_breakdown"])
 def test_import_pulls_in_no_jax(module):
     # every module of the port, found by walking the package
     code = (f"import sys, json, importlib, pkgutil, {module}, quest_tpu_torch; "

@@ -1,0 +1,175 @@
+"""The lane_u fold of the port's fused gate run (a dense 128x128 unitary on
+qubits [0, 7), ``quest_tpu_torch/ops/fused_gates.py``) against the JAX
+package's Pallas kernel (``quest_tpu/ops/pallas_gates.py``, the lane_u arm
+of ``_ops_body``), and the f32 kernel's tensor-core arithmetic modelled in
+numpy.
+
+On the CPU the port's wrapper takes the kernel's plain PyTorch version and
+the JAX kernel runs in the Pallas interpreter. Tolerances, as in
+``test_torch_fused_gates.py``: 1e-10 in f64; 2e-4 in f32, where the JAX
+zone dots are bf16x3 (~5e-6 per dot) and the port's plain FP32. The f32
+kernel's 3xTF32 products (``csrc/fused_gates.cu``, ``lane_u_mma``) cannot
+run here: a numpy model of them, reading the coefficient block that
+``encode_ops`` writes in the kernel's fragment order, is held to 1e-5 of
+the largest amplitude of the exact product, the limit the card check
+(``chip_smoke.py``) applies to the kernel.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quest_tpu.ops import pallas_gates as PG
+from quest_tpu_torch.interop import ops_from_reference, state_from_numpy
+from quest_tpu_torch.ops import fused_gates as FG
+
+LANES = 128
+
+
+def _haar(d, rng):
+    q, r = np.linalg.qr(rng.randn(d, d) + 1j * rng.randn(d, d))
+    return q * (np.diag(r) / np.abs(np.diag(r)))
+
+
+def _lane_ops(n):
+    """21 random one-qubit unitaries on the lane qubits, which fold into
+    one lane_u op, and a parity phase on a lane qubit and the top one."""
+    rng = np.random.RandomState(n)
+    ops = tuple(("matrix", q % 7, (), (), PG.HashableMatrix(_haar(2, rng)))
+                for q in range(21))
+    return ops + (("parity", (2, n - 1), (), 0.9),)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [8, 10, 11, 13])
+def test_lane_fold_matches_reference_at_tile_sizes(n, dtype):
+    """The plain lane_u fold at the port's tile (min(n, 13) in f32, min(n,
+    12) in f64: 2 to 64 rows of 128 lanes, fewer than one m16 tile of the
+    f32 kernel below n = 11) against the JAX kernel in interpret mode."""
+    ops = _lane_ops(n)
+    tb = FG.hopper_tile_bits(n, torch.float32 if dtype == np.float32 else torch.float64)
+    pops = ops_from_reference(ops)
+    assert [o[0] for o in FG._fold_zone_ops(pops, tb)] == ["lane_u", "parity"]
+    rng = np.random.RandomState(100 + n)
+    state = rng.randn(2, 1 << n).astype(dtype)
+    state /= np.linalg.norm(state)
+    ref = np.asarray(PG.fused_local_run(jnp.asarray(state), n=n, ops=ops, interpret=True))
+    got = FG.fused_run(state_from_numpy(state, "cpu"), n=n, ops=pops, tile_bits=tb).numpy()
+    assert got.dtype == dtype
+    tol = 2e-4 if dtype == np.float32 else 1e-10
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * max(np.abs(ref).max(), 1.0))
+
+
+def _lane_block(table, coeffs, i=0):
+    """(U^T real, U^T imaginary, split block) of the i-th op of an encoded
+    run, as the kernel reads them."""
+    off = int(table[i, 6])
+    wr = coeffs[off:off + LANES * LANES].reshape(LANES, LANES)
+    wi = coeffs[off + LANES * LANES:off + 2 * LANES * LANES].reshape(LANES, LANES)
+    split = coeffs[off + 2 * LANES * LANES:off + 6 * LANES * LANES]
+    return wr, wi, split.reshape(2, LANES, 8, 2, 4, 4)
+
+
+def test_lane_u_split_table_matches_encode_ops():
+    """The coefficient block of a lane_u op: U^T real and imaginary (what
+    the plain version and the f64 kernel read), then their TF32 split in
+    the f32 kernel's fragment order, each entry where ``lane_u_mma`` reads
+    it: hi + lo is the float32 value, hi has its low 13 bits clear and is
+    within half a TF32 unit of it."""
+    u = _haar(LANES, np.random.RandomState(5))
+    W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
+    table, coeffs = FG.encode_ops((("lane_u", FG.HashableMatrix(W)),))
+    wr, wi, split = _lane_block(table, coeffs)
+    np.testing.assert_array_equal(wr, W[0])
+    np.testing.assert_array_equal(wi, W[1])
+    np.testing.assert_array_equal(split, FG.lane_u_split_table(W[0], W[1]))
+    assert coeffs.size % 4 == 0  # blocks stay 16-byte aligned in f32
+    c = np.arange(LANES)
+    j, t, h, e = c // 16, (c % 16) // 4, (c % 4) // 2, c % 2
+    for p, w in enumerate((W[0], W[1])):
+        w32 = w.astype(np.float32)
+        # split[p, n, j, h, t, s] for U^T[c][n]: rows c, columns n
+        hi = split[p][:, j, h, t, e].T.astype(np.float32)
+        lo = split[p][:, j, h, t, 2 + e].T.astype(np.float32)
+        np.testing.assert_array_equal(hi + lo, w32)
+        assert not (hi.view(np.uint32) & 0x1fff).any()
+        assert (np.abs(lo) <= 2.0 ** -11 * np.abs(w32)).all()
+    # the same split as the kernel makes of its A operand
+    x = np.random.RandomState(6).randn(1000).astype(np.float32)
+    hi, lo = FG.tf32_split(x)
+    assert not (hi.view(np.uint32) & 0x1fff).any()
+    np.testing.assert_array_equal(hi + lo, x)
+
+
+def _tf32(v):
+    """v as the tensor core reads a float32 operand: its low 13 bits cleared."""
+    return (np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+            & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _kernel_model(xr, xi, split, three=True):
+    """The f32 kernel's lane_u arithmetic on rows (xr, xi) of a tile: the
+    k steps in its order (chunk j of 16 columns, then h), each step's A
+    fragment from columns 16 j + 4 t + 2 h (+1) split as the kernel splits
+    it, the B fragments from the host's split block, each mma.sync m16n8k8
+    as 8 exact products summed onto the FP32 accumulator and rounded once,
+    in the kernel's order: out_r += xr Ur^T + xi (-Ui^T), out_i += xr Ui^T +
+    xi Ur^T, each product lo*hi, hi*lo, hi*hi (3xTF32) or hi*hi alone."""
+    rows = xr.shape[0]
+    acc = {"r": np.zeros((rows, LANES), np.float32), "i": np.zeros((rows, LANES), np.float32)}
+
+    def mma(key, a, b):
+        acc[key] = (acc[key].astype(np.float64)
+                    + a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+    def product(key, a, b):
+        (ah, al), (bh, bl) = a, b
+        if three:
+            mma(key, al, bh)
+            mma(key, ah, bl)
+        mma(key, ah, bh)
+
+    for j in range(8):
+        for h in range(2):
+            cols = [16 * j + 4 * t + 2 * h + e for e in (0, 1) for t in range(4)]
+            sa = {}
+            for name, x in (("r", xr), ("i", xi)):
+                hi, lo = FG.tf32_split(x[:, cols])
+                sa[name] = (hi, _tf32(lo))
+            sb = {}
+            for p, name in enumerate("ri"):
+                blk = split[p][:, j, h]  # (n, t, 4): hi e0, hi e1, lo e0, lo e1
+                hi = np.concatenate([blk[:, :, 0].T, blk[:, :, 1].T]).astype(np.float32)
+                lo = np.concatenate([blk[:, :, 2].T, blk[:, :, 3].T]).astype(np.float32)
+                sb[name] = (hi, _tf32(lo))
+            sb["-i"] = (-sb["i"][0], -sb["i"][1])
+            product("r", sa["r"], sb["r"])
+            product("r", sa["i"], sb["-i"])
+            product("i", sa["r"], sb["i"])
+            product("i", sa["i"], sb["r"])
+    return acc["r"], acc["i"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tf32x3_model_within_card_limit(seed):
+    """The model of the f32 kernel on a Haar 128x128 unitary (the form
+    ``_fold_zone_ops`` and ``fusion.lane_u_run`` give the encoder) and a
+    normalised 64-row tile lands within 1e-5 of the largest amplitude of
+    the exact product; one TF32 pass alone does not, which is why the
+    kernel takes three."""
+    rng = np.random.RandomState(seed)
+    u = _haar(LANES, rng)
+    W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
+    table, coeffs = FG.encode_ops((("lane_u", FG.HashableMatrix(W)),))
+    _, _, split = _lane_block(table, coeffs)
+    x = rng.randn(2, 64, LANES).astype(np.float32)
+    x /= np.linalg.norm(x)
+    exact = (x[0].astype(np.float64) + 1j * x[1]) @ (W[0] + 1j * W[1])
+    scale = np.abs(exact).max()
+    out_r, out_i = _kernel_model(x[0], x[1], split)
+    err = max(np.abs(out_r - exact.real).max(), np.abs(out_i - exact.imag).max()) / scale
+    assert err < 1e-5, err
+    one_r, one_i = _kernel_model(x[0], x[1], split, three=False)
+    err1 = max(np.abs(one_r - exact.real).max(), np.abs(one_i - exact.imag).max()) / scale
+    assert err1 > 1e-5 > err, (err1, err)
