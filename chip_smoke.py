@@ -7,7 +7,12 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero, printing
 no result, without them. Phases, in order:
 
 1. build: compile every CUDA kernel of the port from ``csrc/`` (one nvcc
-   per source, started together) and print the toolchain and the card;
+   per source, started together) and print the toolchain and the card,
+   each kernel's registers and spills, the count of DMMA, HMMA and DFMA
+   instructions in each fused-run instantiation's SASS (``cuobjdump``:
+   the f64 one, which runs lane_u, must hold DMMA, the f32 lane_u one
+   HMMA) and the blocks per SM of each kind of run (an f64 run with
+   lane_u must fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
@@ -15,8 +20,8 @@ no result, without them. Phases, in order:
    and non-trace-preserving operators) and every folded swap form (load,
    store, both, asymmetric, the pair swap; each kraus kind with and
    without one), and lane_u on the small tiles of SMALL_TILE_QUBITS (2 to
-   32 rows: the f32 tensor-core fold below one m16 tile, and the f64 FMA
-   fold); limits 1e-5 (f32) and 1e-12 (f64) on the max error over the
+   32 rows: the tensor-core folds at one m16 tile and below it); limits
+   1e-5 (f32) and 1e-12 (f64) on the max error over the
    largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
    depth 8, f32) planned by ``Circuit.fused(max_qubits=5, pallas=True)``
@@ -27,11 +32,13 @@ no result, without them. Phases, in order:
    total probability must be within 1e-4 of 1 and the amplitudes within
    2e-4 of a plain per-gate replay; then gates/sec;
 4. yardstick: a full-state ``copy_``, which the port never calls; then the
-   lane_u phase: one-op lane_u passes at 26 qubits, f32 (a Haar 128x128
-   unitary, and a 3-qubit block folded by ``fusion.lane_u_run``), each
-   against the plain version and the exact complex128 product, timed
-   beside its bound (at the 3xTF32 rate) and one complex ``torch.matmul``
-   of the same product, which the port never calls;
+   lane_u phase: one-op lane_u passes at 26 qubits, f32 and f64 (a Haar
+   128x128 unitary, and a 3-qubit block folded by ``fusion.lane_u_run``),
+   each against the plain version and the exact complex128 product (f64:
+   within 1e-12 of the largest amplitude of both), timed beside its bound
+   (f32 at the 3xTF32 rate, f64 at the FP64 tensor-core rate) and one
+   complex ``torch.matmul`` (complex64 / complex128) of the same product,
+   which the port never calls;
 5. density path, f32 then f64: the bench's channel circuits ("r3", 10
    entries, and "r4", 11 with a 3-target Kraus map) on a 14-qubit density
    register (28 flattened qubits) from ``initPlusState``, planned by
@@ -165,17 +172,41 @@ def _ptxas_kernels(log: str) -> list[dict]:
         if m and rows and rows[-1]["registers"] is None:
             rows[-1]["registers"] = int(m.group(1))
     rows = [r for r in rows if r["registers"] is not None]
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
-                               capture_output=True, text=True, timeout=60,
-                               check=True).stdout.splitlines()
-    except (OSError, subprocess.SubprocessError):
-        names = []
-    if len(names) == len(rows):
-        for r, full in zip(rows, names):
-            full = full.replace("(anonymous namespace)::", "")
-            r["kernel"] = full.split("(")[0].removeprefix("void ")
+    for r, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        r["kernel"] = name
     return rows
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """Kernel names as ``fused_run_kernel<double, false>``, by ``c++filt``
+    where the host has it (else as given)."""
+    try:
+        full = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                              text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        full = []
+    if len(full) != len(names):
+        return names
+    return [f.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            for f in full]
+
+
+def _sass_counts(so, opcodes=("DMMA", "HMMA", "DFMA")) -> dict:
+    """{kernel: {opcode: count}}: how many instructions of each opcode the
+    SASS of each kernel in the built library ``so`` holds (``cuobjdump
+    -sass``, beside ``nvcc``)."""
+    import os
+    import re
+
+    from quest_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    parts = out.split("Function : ")[1:]
+    names = _demangle([part.partition("\n")[0].strip() for part in parts])
+    return {name: {op: len(re.findall(rf"\b{op}\b", part)) for op in opcodes}
+            for name, part in zip(names, parts)}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -485,14 +516,16 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
             for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
 
 
-def _lane_u_phase(dev, rng) -> dict:
-    """One-op lane_u passes at N_MAIN qubits, f32, through ``fused_run``:
+def _lane_u_phase(dev, rng, dt) -> dict:
+    """One-op lane_u passes at N_MAIN qubits in ``dt`` through ``fused_run``:
     a Haar 128x128 unitary, and a random 3-qubit unitary on [LANE_BLOCK_LO,
     LANE_BLOCK_LO + 3) folded into the lane zone by ``fusion.lane_u_run``.
     Each launch counted; the result against ``fused_run_plain`` (limit 1e-5
-    of the largest amplitude) and against the exact complex128 product;
-    then the pass's time (CUDA events) beside its bound, its share of the
-    bound, the plain version's time and one complex ``torch.matmul`` of the
+    of the largest amplitude in f32, 1e-12 in f64) and against the exact
+    complex128 product (f64: the same limit); then the pass's time (CUDA
+    events) beside its bound (f32: at the 3xTF32 rate; f64: at
+    PEAK_FP64_FLOPS), its share of the bound, the plain version's time and
+    one complex ``torch.matmul`` (complex64; complex128 in f64) of the
     (2^(N_MAIN-7), 128) state by the 128x128 matrix, the same product."""
     import numpy as np
     import torch
@@ -500,7 +533,9 @@ def _lane_u_phase(dev, rng) -> dict:
     from quest_tpu_torch import fusion
     from quest_tpu_torch.ops import fused_gates as FG
 
-    n, dt = N_MAIN, torch.float32
+    n = N_MAIN
+    f32 = dt == torch.float32
+    tol = 1e-5 if f32 else 1e-12
     tb = FG.hopper_tile_bits(n, dt)
 
     def haar(d):
@@ -535,18 +570,20 @@ def _lane_u_phase(dev, rng) -> dict:
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
         err, rel = _rel_err(x, ref)
-        _require(rel <= 1e-5, f"lane_u {name}: error {err} ({rel} relative) > 1e-5")
+        _require(rel <= tol, f"lane_u {name} {dt}: error {err} ({rel} relative) > {tol}")
         del ref
         wc = torch.as_tensor(w[0] + 1j * w[1], device=dev)
         exact = xc.to(torch.complex128) @ wc
         ex = torch.stack([exact.real.reshape(-1), exact.imag.reshape(-1)])
         rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
         del exact, ex
+        _require(f32 or rel_exact <= tol,
+                 f"lane_u {name} {dt}: {rel_exact} of the largest from the exact product")
         ms = _cuda_ms(lambda: FG.fused_run(x, n=n, ops=prep.ops, tile_bits=tb, prepared=prep),
                       20)
-        wc64 = wc.to(torch.complex64)
-        lib_ms = _cuda_ms(lambda: torch.matmul(xc, wc64), 20)
-        b_bytes, b_ops = _bound_ms(_pass_work(prep, n, 4), True)
+        wcl = wc.to(xc.dtype)
+        lib_ms = _cuda_ms(lambda: torch.matmul(xc, wcl), 20)
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, n, 4 if f32 else 8), f32)
         bound = max(b_bytes, b_ops)
         by = "operations" if b_ops > b_bytes else "bytes"
         worst = max(worst, err)
@@ -554,10 +591,11 @@ def _lane_u_phase(dev, rng) -> dict:
                      "share_of_bound": bound / ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "max_abs_err": err, "max_rel_err": rel,
                      "rel_err_vs_exact": rel_exact})
-        print(f"# lane_u {name} at {n}q f32: kernel {ms:.4f} ms ({bound / ms:.1%} of the "
-              f"bound), bound {bound:.4f} ms by {by}, torch.matmul {lib_ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms; max_abs_err {err:.3e} ({rel:.3e} of the largest, limit "
-              f"1e-5), {rel_exact:.3e} of the largest from the exact complex128 product")
+        print(f"# lane_u {name} at {n}q {str(dt)[6:]}: kernel {ms:.4f} ms ({bound / ms:.1%} "
+              f"of the bound), bound {bound:.4f} ms by {by}, torch.matmul {lib_ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms; max_abs_err {err:.3e} ({rel:.3e} of the largest, "
+              f"limit {tol:g}), {rel_exact:.3e} of the largest from the exact complex128 "
+              f"product")
         del x
         torch.cuda.empty_cache()
     del st, xc
@@ -1448,6 +1486,24 @@ def main() -> int:
             print(f"# ptxas {lib}: {k['kernel']}: {k['registers']} registers, "
                   f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes "
                   f"spill loads")
+    # the tensor cores in each fold: FP64 mma.sync is DMMA in SASS, TF32 HMMA
+    sass = _sass_counts(_build.library_path("fused_gates"))
+    for k, counts in sass.items():
+        print(f"# sass fused_gates: {k}: " + ", ".join(f"{c} {op}" for op, c in counts.items()))
+    _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 0,
+             "the f64 instantiation that runs lane_u holds no DMMA")
+    _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 0,
+             "the f32 lane_u instantiation holds no HMMA")
+    lib = _build.library("fused_gates")
+    occupancy = {}
+    for f64, ddt in ((0, torch.float32), (1, torch.float64)):
+        for has_lane in (0, 1):
+            k = f"{str(ddt)[6:]}{' lane_u' if has_lane else ''}"
+            occupancy[k] = lib.quest_fused_run_blocks_per_sm(
+                f64, FG.HOPPER_TILE_BITS[ddt], has_lane)
+            print(f"# occupancy fused_gates: a {k} run at tile_bits "
+                  f"{FG.HOPPER_TILE_BITS[ddt]}: {occupancy[k]} blocks per SM")
+    _require(occupancy["float64 lane_u"] == 2, "an f64 lane_u run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1476,8 +1532,9 @@ def main() -> int:
                          "kraus1", "kraus2", "krausn"}
         _require(seen == kinds_checked, f"kernel phase missed op kinds: {seen}")
         del st, out, ref
-        # lane_u on tiles below 2^13: fewer rows than the f32 kernel's 64
-        # (fewer than one m16 tile below 2^11), and the f64 fold unchanged
+        # lane_u on tiles below the largest: fewer rows than the f32
+        # kernel's 64 (fewer than one m16 tile below 2^11) and the f64
+        # kernel's 32 (one m16 tile at 2^11, fewer below)
         for n in SMALL_TILE_QUBITS:
             stb = FG.hopper_tile_bits(n, dt)
             ops = tuple(("matrix", q % 7, (), (),
@@ -1582,8 +1639,11 @@ def main() -> int:
     del y
     torch.cuda.empty_cache()
 
-    # -- lane_u phase: one-op passes of the f32 tensor-core fold -----------
-    lane = _lane_u_phase(dev, rng)
+    # -- lane_u phase: one-op passes of the tensor-core folds, f32 and f64 -
+    # (the f64 passes draw from a generator of their own, so the later
+    # phases see the same data as without them)
+    lane = {torch.float32: _lane_u_phase(dev, rng, torch.float32),
+            torch.float64: _lane_u_phase(dev, np.random.RandomState(29), torch.float64)}
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -1612,10 +1672,11 @@ def main() -> int:
                [e for (d, _), e in errs.items() if d == str(torch.float64)],
                density[(torch.float64, "r4")]["copy_ms"]),
     ]
-    entries[0].update(gates_per_sec=gps, lane_u_passes=lane["rows"],
-                      library_yardsticks_ms={"copy_": copy_ms,
-                                             "matmul_lane_u": lane["rows"][0]["library_ms"]})
-    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], lane["max_abs_err"])
+    entries[0]["gates_per_sec"] = gps
+    for e, ddt in zip(entries, (torch.float32, torch.float64)):
+        e["lane_u_passes"] = lane[ddt]["rows"]
+        e["library_yardsticks_ms"]["matmul_lane_u"] = lane[ddt]["rows"][0]["library_ms"]
+        e["max_abs_err"] = max(e["max_abs_err"], lane[ddt]["max_abs_err"])
     entries[1]["also_replaces"] = "quest_tpu/ops/pallas_df.py:255"
     for e, paths, ddt in zip(entries, (f32_paths, f64_paths), (torch.float32, torch.float64)):
         e["channel_ops_per_sec"] = {k: p["channel_ops_per_sec"] for k, p in paths.items()
@@ -1635,6 +1696,8 @@ def main() -> int:
                              sharded[torch.float64], shard_errs[torch.float64])]
     for e in entries:
         e["ptxas"] = ptxas["window_dot" if e["name"].startswith("window_dot") else "fused_gates"]
+    for e in entries[:2]:
+        e["sass"], e["blocks_per_sm"] = sass, occupancy
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))

@@ -132,6 +132,8 @@ SIGNATURES = {
                                  _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
         "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _CLL, _CI, _VP, _CI, _VP,
                                  _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+        # (f64, tile_bits, has_lane_u) -> thread blocks per SM, or -cudaError_t
+        "quest_fused_run_blocks_per_sm": ([_CI, _CI, _CI], _CI),
         "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "window_dot": {
@@ -141,6 +143,12 @@ SIGNATURES = {
         "quest_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
 }
+
+
+def library_path(name: str) -> Path:
+    """The file of the library ``name``, built first if needed."""
+    build_all([name])
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -53,8 +53,9 @@
 // pass of them is bound by bytes, and the design keeps the whole op list
 // between one load and one store of each tile. A lane_u op is 128 complex
 // multiply-adds per amplitude (about 6.9e10 flop at 26 qubits): 1.03 ms
-// at the 67 TFLOP/s FP32 rate, 0.42 ms as 3xTF32 on the tensor cores
-// (494.7/3 TFLOP/s), so passes that carry one are bound by operations.
+// at the 67 TFLOP/s FP32 rate (and at the FP64 tensor-core rate, the same
+// 67 TFLOP/s), 0.42 ms as 3xTF32 on the tensor cores (494.7/3 TFLOP/s), so
+// passes that carry one are bound by operations.
 //   f32: the tensor cores, mma.sync m16n8k8 in 3xTF32 (mma.cuh). The
 //     product is OUT (rows x 128) = X (rows x 128) U^T, four real
 //     products summed into two accumulators. U^T arrives split into TF32
@@ -64,9 +65,14 @@
 //     take 224 KiB: a run that carries a lane_u op launches an
 //     instantiation of its own with one block per SM (128 registers a
 //     thread); runs without one keep two blocks per SM.
-//   f64: plain FMA chains from shared memory, its 128x128 matrix (256 KiB:
-//     too big to sit beside the tile) streamed through a 32 KiB panel, so
-//     two blocks still fit an SM.
+//   f64: the tensor cores too, mma.sync m16n8k16 in FP64 (exact products;
+//     Hopper has no FP64 wgmma), the same four products, in two sweeps over
+//     the sum (half the output columns each, so that the sums fit 64
+//     registers). U^T (256 KiB: too big to sit beside the tile) arrives
+//     from the host in FP64 fragment order and streams through two 16 KiB
+//     buffers, so two blocks still fit an SM and each hides the
+//     other's tile load and store: f64 runs, with lane_u or without, share
+//     one instantiation.
 //
 // The kraus ops replace the kraus arms of _ops_body (pallas_gates.py:662,
 // which applies each term's K and conj(K) to a copy and accumulates). Here
@@ -174,31 +180,11 @@ __device__ __forceinline__ void ldg4(const float* p, float (&v)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void ldg4(const double* p, double (&v)[4]) {
-  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
 // two consecutive doubles (16-byte aligned) in one vector load
 __device__ __forceinline__ void ldg2(const double* p, double (&v)[2]) {
   const double2 q = __ldg(reinterpret_cast<const double2*>(p));
   v[0] = q.x; v[1] = q.y;
 }
-
-// four T as one storable value: float4, or a pair of double2 in a struct
-template <typename T> struct Vec4;
-template <> struct Vec4<float> {
-  using type = float4;
-  __device__ static type make(const float (&v)[4]) {
-    return make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec4<double> {
-  struct alignas(16) type { double2 a, b; };
-  __device__ static type make(const double (&v)[4]) {
-    return type{make_double2(v[0], v[1]), make_double2(v[2], v[3])};
-  }
-};
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -222,80 +208,6 @@ __device__ __forceinline__ void cmul_into(T& xr, T& xi, T fr, T fi) {
   const T i = xr * fi + xi * fr;
   xr = r;
   xi = i;
-}
-
-// lane_u in f64: out[row][c'] = sum_c U[c'][c] x[row][c] on every
-// 128-lane row of the tile. cf holds U^T real then U^T imaginary (128 x
-// 128 each). A warp owns rows {w, w + 16, ...} and a lane the columns
-// 4*lane..4*lane+3, so each broadcast x[row][c] feeds 16 FMAs. U^T (256
-// KiB) is too big for the L1 beside two tiles, so it is staged through
-// the shared buffer ``wbuf`` in panels of c: 32 KiB, so that two blocks
-// (2 x (64 + 32) KiB) still fit an SM and one stages while the other
-// computes.
-constexpr int kLaneStage = 32 * 1024;
-
-template <typename T>
-__device__ __forceinline__ void lane_u_op(T* sre, T* sim, T* wbuf,
-                                          uint32_t tile,
-                                          const T* __restrict__ cf, int tid) {
-  static_assert(sizeof(T) == 8, "the f32 lane_u op is lane_u_mma");
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kRows = 2;  // rows/warp at the max tile
-  constexpr int kPanel = kLaneStage / (2 * kLanes * sizeof(T));  // c per panel
-  const uint32_t rows = tile >> kLaneBits;
-  const int warp = tid >> 5;
-  const int c4 = (tid & 31) * 4;
-  T* pr = wbuf;                     // panel of U^T real, kPanel x 128
-  T* pi = wbuf + kPanel * kLanes;   // panel of U^T imaginary
-  T accr[kRows][4], acci[kRows][4];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) accr[j][v] = acci[j][v] = T(0);
-  for (int c0 = 0; c0 < kLanes; c0 += kPanel) {
-    if (c0 > 0) __syncthreads();  // the previous panel is consumed
-#pragma unroll 2
-    for (int i = tid * 4; i < kPanel * kLanes; i += kThreads * 4) {
-      T v4[4];
-      ldg4(cf + c0 * kLanes + i, v4);
-      *reinterpret_cast<typename Vec4<T>::type*>(pr + i) = Vec4<T>::make(v4);
-      ldg4(cf + (kLanes + c0) * kLanes + i, v4);
-      *reinterpret_cast<typename Vec4<T>::type*>(pi + i) = Vec4<T>::make(v4);
-    }
-    __syncthreads();
-    if (static_cast<uint32_t>(warp) < rows) {
-#pragma unroll 2
-      for (int c = 0; c < kPanel; ++c) {
-        T wr[4], wi[4];
-        load4(pr + c * kLanes + c4, wr);
-        load4(pi + c * kLanes + c4, wi);
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const uint32_t row = warp + kWarps * j;
-          if (row < rows) {
-            const T xr = sre[row * kLanes + c0 + c];
-            const T xi = sim[row * kLanes + c0 + c];
-#pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              cmac(accr[j][v], acci[j][v], wr[v], wi[v], xr, xi);
-            }
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const uint32_t row = warp + kWarps * j;
-    if (row < rows) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        sre[row * kLanes + c4 + v] = accr[j][v];
-        sim[row * kLanes + c4 + v] = acci[j][v];
-      }
-    }
-  }
 }
 
 // lane_u in f32, on the tensor cores: OUT = X U^T for the tile's rows
@@ -415,6 +327,153 @@ __device__ __forceinline__ void lane_u_mma(float* sre, float* sim, float* wbuf,
         *reinterpret_cast<float2*>(sre + row1 * kLanes + col) = make_float2(accr[j][2], accr[j][3]);
         *reinterpret_cast<float2*>(sim + row1 * kLanes + col) = make_float2(acci[j][2], acci[j][3]);
       }
+    }
+  }
+}
+
+// lane_u in f64, on the tensor cores: OUT = X U^T for the tile's rows
+// (rows = tile / 128 <= 32) as mma.sync in FP64 (exact products, FP64
+// sums: nothing split), in two sweeps over the sum, each for half of
+// the output columns (sweep q: 64 q .. 64 q + 63). In a sweep, warp w
+// takes the m16 tile of rows 16 (w & 1) and the n8 tile of columns 64 q +
+// 8 (w >> 1), and holds its real and imaginary sums (8 doubles a thread):
+// out_r = xr Ur^T + xi (-Ui^T), out_i = xr Ui^T + xi Ur^T. Rows past the
+// tile's are read as 0 and not stored (tiles of 2^7 to 2^11: 1 to 16
+// rows). One sweep over all 128 columns would hold 16 sums a thread; with
+// its operands that is more than the 64 registers two blocks an SM leave
+// (it spilled 148-192 bytes inside the k loop), so the sums of sweep 0
+// wait in thread-local memory (64 bytes a thread, written and read once)
+// until every read of the tile is done. A sweep streams only its half of
+// U^T, so U^T still crosses L2 once a tile; the tile's A values are read
+// twice.
+//
+// The k8 steps take the f32 fold's order of the sum over c: step s = 2 j +
+// h gives lane (g, t) the columns c0 = 16 j + 4 t + 2 h and c0 + 1 as its
+// A values k = t and t + 4, one 16-byte load from each of its two rows;
+// the two steps of a chunk j run as one m16n8k16 (k = t .. t + 12: the
+// columns 16 j + 4 t .. + 3), half the instructions of two m16n8k8.
+// The rows of lanes g = 2i and 2i + 1 of a quarter warp are 1 KiB apart,
+// in the same banks, so lanes of odd g load a chunk's two k steps in the
+// other order and swap them in registers. The host writes U^T in the
+// same order, one 8 KiB half panel per (sweep, k step) (after the TF32
+// split: per q, per s, per plane (real, imaginary), per output column 64
+// q + n, per t, U^T[c0][64 q + n] and U^T[c0 + 1][64 q + n]): lane (g,
+// t)'s B fragment for column n = g of its n8 tile is one 16-byte load,
+// and a quarter warp's 8 loads cover 128 consecutive bytes. U^T streams
+// from L2 by cp.async through kChunkRing buffers, kChunkRing - 1 chunks
+// ahead (a chunk: the half panels of k steps 2 j and 2 j + 1, 16 KiB), one
+// barrier a chunk. Two buffers measured faster than three (the smaller
+// stage leaves the SM more L1 for the local stash); 8 KiB buffers one step
+// ahead left the stream bound by L2's latency. The ring takes 32 KiB
+// beside the 64 KiB tile: two blocks share an SM, and one's tile load and
+// store overlap the other's products.
+constexpr int kLaneStepOff = kLaneSplitOff + 4 * kLanes * kLanes;  // after the split
+constexpr int kHalf = kLanes / 2;              // output columns a sweep
+constexpr int kHalfPanel = 2 * kHalf * 8;      // doubles: one (sweep, k step)
+constexpr int kChunkPanel = 2 * kHalfPanel;    // doubles: one (sweep, chunk)
+constexpr int kChunks = kLanes / 16;           // chunks a sweep
+constexpr int kChunkRing = 2;
+constexpr int kLaneDmmaStage = kChunkRing * kChunkPanel * 8;  // bytes
+
+// start copying chunk i = (sweep, chunk) of U^T (steps: the f64 block)
+// into buf: 32 bytes a thread
+__device__ __forceinline__ void stage_chunk(double* buf,
+                                            const double* __restrict__ steps,
+                                            int i, int tid) {
+  for (int v = tid; v < kChunkPanel / 2; v += kThreads) {
+    quest_mma::copy16_async(buf + 2 * v, steps + i * kChunkPanel + 2 * v);
+  }
+}
+
+__device__ __forceinline__ void lane_u_dmma(double* sre, double* sim,
+                                            double* wbuf, uint32_t tile,
+                                            const double* __restrict__ cf,
+                                            int tid) {
+  const double* steps = cf + kLaneStepOff;
+  const uint32_t rows = tile >> kLaneBits;
+  const int warp = tid >> 5;
+  const quest_mma::Lane l = quest_mma::lane_coords();
+  const uint32_t row0 = 16 * (warp & 1) + l.g, row1 = row0 + 8;
+  const int n8 = 8 * (warp >> 1);  // the n8 tile's first column in a sweep
+  const bool active = 16 * static_cast<uint32_t>(warp & 1) < rows;
+  const bool ok0 = row0 < rows, ok1 = row1 < rows;
+  double accr[4] = {0.0, 0.0, 0.0, 0.0}, acci[4] = {0.0, 0.0, 0.0, 0.0};
+  volatile double kept[8];  // sweep 0's sums, in local memory, not registers
+
+  constexpr int kN = 2 * kChunks;  // chunks of both sweeps
+#pragma unroll
+  for (int i = 0; i < kChunkRing - 1; ++i) {
+    stage_chunk(wbuf + i * kChunkPanel, steps, i, tid);
+    quest_mma::async_commit();
+  }
+  for (int i = 0; i < kN; ++i) {
+    quest_mma::async_wait<kChunkRing - 2>();  // chunk i, this thread's part
+    __syncthreads();  // every thread's part; chunk i - 1 consumed
+    if (i + kChunkRing - 1 < kN) {
+      stage_chunk(wbuf + (i + kChunkRing - 1) % kChunkRing * kChunkPanel, steps,
+                  i + kChunkRing - 1, tid);
+    }
+    quest_mma::async_commit();  // (empty at the end: keeps the wait uniform)
+    if (active) {
+      const double* b = wbuf + i % kChunkRing * kChunkPanel + (n8 + l.g) * 8 + 2 * l.t;
+      const int col0 = 16 * (i & (kChunks - 1)) + 4 * l.t;
+      const double2 z = make_double2(0.0, 0.0);
+      // odd rows g load the chunk's second k step first: rows g = 2i and
+      // 2i + 1 of a quarter warp then hit other banks
+      const int sw = 2 * (l.g & 1);
+      double ur[2][2], ui[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double2 vr = *reinterpret_cast<const double2*>(b + h * kHalfPanel);
+        const double2 vi = *reinterpret_cast<const double2*>(b + h * kHalfPanel + kHalf * 8);
+        ur[h][0] = vr.x; ur[h][1] = vr.y; ui[h][0] = vi.x; ui[h][1] = vi.y;
+      }
+      // the products of one plane of A at a time, each over both k steps
+      // as one m16n8k16: xr Ur^T, xr Ui^T, then xi Ur^T, xi (-Ui^T)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const double* x = p ? sim : sre;
+        const double2 a0 = ok0 ? *reinterpret_cast<const double2*>(x + row0 * kLanes + col0 + sw) : z;
+        const double2 a1 = ok0 ? *reinterpret_cast<const double2*>(x + row0 * kLanes + col0 + 2 - sw) : z;
+        const double2 b0 = ok1 ? *reinterpret_cast<const double2*>(x + row1 * kLanes + col0 + sw) : z;
+        const double2 b1 = ok1 ? *reinterpret_cast<const double2*>(x + row1 * kLanes + col0 + 2 - sw) : z;
+        const double2 r0[2] = {sw ? a1 : a0, sw ? a0 : a1};
+        const double2 r1[2] = {sw ? b1 : b0, sw ? b0 : b1};
+        // k = t, t + 4, t + 8, t + 12: the chunk's columns c0 .. c0 + 3
+        const double xa[8] = {r0[0].x, r1[0].x, r0[0].y, r1[0].y,
+                              r0[1].x, r1[1].x, r0[1].y, r1[1].y};
+        const double u4[4] = {ur[0][0], ur[0][1], ur[1][0], ur[1][1]};
+        const double sign = p ? -1.0 : 1.0;
+        const double v4[4] = {sign * ui[0][0], sign * ui[0][1], sign * ui[1][0],
+                              sign * ui[1][1]};
+        quest_mma::mma_f64_k16(p ? acci : accr, xa, u4);
+        quest_mma::mma_f64_k16(p ? accr : acci, xa, v4);
+      }
+      if (i == kChunks - 1) {  // sweep 0 done
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          kept[v] = accr[v];
+          kept[4 + v] = acci[v];
+          accr[v] = acci[v] = 0.0;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every read of the tile is done
+  if (active) {
+    // c[0] = C[g][2t], c[1] = C[g][2t+1], c[2] = C[g+8][2t], c[3] = C[g+8][2t+1]
+    const int col = n8 + 2 * l.t;
+    if (ok0) {
+      *reinterpret_cast<double2*>(sre + row0 * kLanes + col) = make_double2(kept[0], kept[1]);
+      *reinterpret_cast<double2*>(sim + row0 * kLanes + col) = make_double2(kept[4], kept[5]);
+      *reinterpret_cast<double2*>(sre + row0 * kLanes + kHalf + col) = make_double2(accr[0], accr[1]);
+      *reinterpret_cast<double2*>(sim + row0 * kLanes + kHalf + col) = make_double2(acci[0], acci[1]);
+    }
+    if (ok1) {
+      *reinterpret_cast<double2*>(sre + row1 * kLanes + col) = make_double2(kept[2], kept[3]);
+      *reinterpret_cast<double2*>(sim + row1 * kLanes + col) = make_double2(kept[6], kept[7]);
+      *reinterpret_cast<double2*>(sre + row1 * kLanes + kHalf + col) = make_double2(accr[2], accr[3]);
+      *reinterpret_cast<double2*>(sim + row1 * kLanes + kHalf + col) = make_double2(acci[2], acci[3]);
     }
   }
 }
@@ -571,9 +630,10 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
 
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
-// both planes of the tile, plus, for a run with lane_u, kLaneStage bytes
-// (f64) or kLaneMmaStage (f32, the kLaneMma instantiation: one block per
-// SM, which leaves the compiler 128 registers a thread).
+// both planes of the tile, plus, for a run with lane_u, kLaneDmmaStage
+// bytes (f64: two blocks per SM still) or kLaneMmaStage (f32, the kLaneMma
+// instantiation: one block per SM, which leaves the compiler 128 registers
+// a thread).
 template <typename T, bool kLaneMma>
 __global__ void __launch_bounds__(kThreads, kLaneMma ? 1 : 2)
 fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
@@ -705,7 +765,7 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
       }
     } else if (kind == kLaneU) {
       if constexpr (sizeof(T) == 8) {
-        lane_u_op<T>(sre, sim, sim + tile, tile, cf, tid);
+        lane_u_dmma(sre, sim, sim + tile, tile, cf, tid);
       } else if constexpr (kLaneMma) {
         lane_u_mma(sre, sim, sim + tile, tile, cf, tid);
       } else {
@@ -755,6 +815,35 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
   }
 }
 
+// The instantiation a run takes and its dynamic shared memory, chosen by
+// what the run holds: an f32 run with lane_u takes the one with one block
+// per SM; every other run, f64 runs with lane_u too, two blocks per SM.
+template <typename T>
+auto pick(int tile_bits, int has_lane_u, int* smem) {
+  auto kernel = fused_run_kernel<T, false>;
+  if constexpr (sizeof(T) == 4) {
+    if (has_lane_u) kernel = fused_run_kernel<T, true>;
+  }
+  *smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
+          (!has_lane_u ? 0 : sizeof(T) == 4 ? kLaneMmaStage : kLaneDmmaStage);
+  return kernel;
+}
+
+// How many thread blocks of a run fit one SM at once (the occupancy API,
+// for the instantiation and shared memory the run takes), or -(a
+// cudaError_t).
+template <typename T>
+int blocks_per_sm(int tile_bits, int has_lane_u) {
+  int smem = 0, blocks = 0;
+  const auto kernel = pick<T>(tile_bits, has_lane_u, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // n: the qubits of the whole state, which bound the ops' qubits; local_n:
 // those of the shard this launch runs on (its grid is 2^(local_n - T)
 // blocks), shard_index its place among the 2^(n - local_n) shards.
@@ -773,15 +862,8 @@ int launch(int max_bits, const T* src, T* dst, int n, int local_n,
                               pair_hi < tile_bits || pair_hi >= local_n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // an f32 run with lane_u: the tensor-core instantiation, chosen by what
-  // the run holds
-  const bool mma = sizeof(T) == 4 && has_lane_u;
-  auto kernel = fused_run_kernel<T, false>;
-  if constexpr (sizeof(T) == 4) {
-    if (mma) kernel = fused_run_kernel<T, true>;
-  }
-  const int smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
-                   (!has_lane_u ? 0 : mma ? kLaneMmaStage : kLaneStage);
+  int smem = 0;
+  const auto kernel = pick<T>(tile_bits, has_lane_u, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -823,6 +905,13 @@ int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
   return launch<double>(12, src, dst, n, local_n, shard_index, tile_bits,
                         ops, num_ops, coeffs, load_k, load_hi, store_k,
                         store_hi, pair_lo, pair_hi, has_lane_u, stream);
+}
+
+// thread blocks per SM of a run of float (f64 = 0) or double (f64 = 1)
+// at tile_bits, with or without a lane_u op; < 0: -(the cudaError_t)
+int quest_fused_run_blocks_per_sm(int f64, int tile_bits, int has_lane_u) {
+  return f64 ? blocks_per_sm<double>(tile_bits, has_lane_u)
+             : blocks_per_sm<float>(tile_bits, has_lane_u);
 }
 
 const char* quest_cuda_error_string(int code) {

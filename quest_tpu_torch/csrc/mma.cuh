@@ -1,7 +1,7 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a): the fragment
 // loads and stores of mma.sync m16n8k8, the 3xTF32 split, the mma.sync
-// wrappers for FP64 and TF32, and the cp.async copies that stage
-// operands into shared memory.
+// wrappers for FP64 (m16n8k8 and m16n8k16) and TF32, and the cp.async
+// copies that stage operands into shared memory.
 //
 // One shape serves both precisions: mma.sync.aligned.m16n8k8.row.col
 // with .f64 operands and accumulator (exact FP64 FMA arithmetic, PTX ISA
@@ -112,6 +112,18 @@ __device__ __forceinline__ void mma_f64(double c[4], const double a[4], const do
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// c += a b, FP64 m16n8k16 (sm_90): the m16n8k8 layout with k extended,
+// a[i] = A[g + 8 (i & 1)][t + 4 (i >> 1)], b[i] = B[t + 4 i][g]
+__device__ __forceinline__ void mma_f64_k16(double c[4], const double a[8], const double b[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+        "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // c += a b, TF32 operands, FP32 accumulator

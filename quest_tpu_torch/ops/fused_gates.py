@@ -336,16 +336,36 @@ def lane_u_split_table(wr, wi) -> np.ndarray:
     return np.stack(planes)
 
 
+def lane_u_f64_table(wr, wi) -> np.ndarray:
+    """The f64 kernel's form of a lane_u op's U^T (``wr``, ``wi``: U^T real
+    and imaginary, 128 x 128, [c][n]), in the order of its FP64 B fragments
+    (``csrc/fused_gates.cu``, ``lane_u_dmma``): per sweep q (output columns
+    64 q .. 64 q + 63), per k step s = 2 j + h, per plane, per output column
+    64 q + n, per t the two values U^T[c0][64 q + n], U^T[c0 + 1][64 q + n]
+    with c0 = 16 j + 4 t + 2 h, so that each (sweep, k step) is one
+    contiguous half panel. The same float64 values, permuted: (2, 16, 2,
+    64, 4, 2)."""
+    planes = []
+    for w in (wr, wi):
+        # c = 16 j + 4 t + 2 h + e, column 64 q + n:
+        # (j, t, h, e, q, n) -> (q, j, h, n, t, e)
+        w = np.asarray(w, dtype=np.float64).reshape(8, 4, 2, 2, 2, _LANES // 2)
+        planes.append(w.transpose(4, 0, 2, 5, 1, 3).reshape(2, 16, _LANES // 2, 4, 2))
+    return np.stack(planes, axis=2)
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
     ``coeffs``, flags -- and ``coeffs`` float64 holds each op's numbers,
     every block padded to a multiple of 4:
     matrix 8 (m00..m11, re/im), parity 2 (cos, sin of theta/2), diagw 2^t
-    interleaved re/im, lane_u U^T real then imaginary (128 x 128 each)
-    and then, for the f32 kernel, the same split into TF32 hi and lo in
-    its fragment order (``lane_u_split_table``, 2 x 128 x 256), window U
-    real then imaginary (D x D each).
+    interleaved re/im, lane_u U^T real then imaginary (128 x 128 each,
+    what the plain version reads), then for the f32 kernel the same split
+    into TF32 hi and lo in its fragment order (``lane_u_split_table``, 2 x
+    128 x 256), then for the f64 kernel the same in its fragment order
+    (``lane_u_f64_table``, 2 x 16 x 2 x 64 x 8); window U real then
+    imaginary (D x D each).
 
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
@@ -406,7 +426,8 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
         elif kind == "lane_u":
             W = _arr(op[1]).real
             rec[6] = put(np.concatenate([W[0].reshape(-1), W[1].reshape(-1),
-                                         lane_u_split_table(W[0], W[1]).reshape(-1)]))
+                                         lane_u_split_table(W[0], W[1]).reshape(-1),
+                                         lane_u_f64_table(W[0], W[1]).reshape(-1)]))
         elif kind in _KRAUS:
             rows, cols, terms = kraus_parts(op)
             t = len(rows)

@@ -1,18 +1,19 @@
 """The lane_u fold of the port's fused gate run (a dense 128x128 unitary on
 qubits [0, 7), ``quest_tpu_torch/ops/fused_gates.py``) against the JAX
 package's Pallas kernel (``quest_tpu/ops/pallas_gates.py``, the lane_u arm
-of ``_ops_body``), and the f32 kernel's tensor-core arithmetic modelled in
-numpy.
+of ``_ops_body``), and the tensor-core arithmetic of both kernel folds
+modelled in numpy.
 
 On the CPU the port's wrapper takes the kernel's plain PyTorch version and
 the JAX kernel runs in the Pallas interpreter. Tolerances, as in
 ``test_torch_fused_gates.py``: 1e-10 in f64; 2e-4 in f32, where the JAX
-zone dots are bf16x3 (~5e-6 per dot) and the port's plain FP32. The f32
-kernel's 3xTF32 products (``csrc/fused_gates.cu``, ``lane_u_mma``) cannot
-run here: a numpy model of them, reading the coefficient block that
-``encode_ops`` writes in the kernel's fragment order, is held to 1e-5 of
-the largest amplitude of the exact product, the limit the card check
-(``chip_smoke.py``) applies to the kernel.
+zone dots are bf16x3 (~5e-6 per dot) and the port's plain FP32. The
+kernel's folds (``csrc/fused_gates.cu``: ``lane_u_mma``, 3xTF32, and
+``lane_u_dmma``, FP64 ``mma.sync``) cannot run here: numpy models of them,
+reading the coefficient block that ``encode_ops`` writes in each fold's
+fragment order, are held to the exact product within the limits the card
+check (``chip_smoke.py``) applies to the kernel, 1e-5 of the largest
+amplitude in f32 and (tighter than its 1e-12) 1e-13 in f64.
 """
 
 import jax.numpy as jnp
@@ -23,6 +24,8 @@ import torch
 from quest_tpu.ops import pallas_gates as PG
 from quest_tpu_torch.interop import ops_from_reference, state_from_numpy
 from quest_tpu_torch.ops import fused_gates as FG
+
+from .helpers import assert_amps_close
 
 LANES = 128
 
@@ -73,10 +76,10 @@ def _lane_block(table, coeffs, i=0):
 
 def test_lane_u_split_table_matches_encode_ops():
     """The coefficient block of a lane_u op: U^T real and imaginary (what
-    the plain version and the f64 kernel read), then their TF32 split in
-    the f32 kernel's fragment order, each entry where ``lane_u_mma`` reads
-    it: hi + lo is the float32 value, hi has its low 13 bits clear and is
-    within half a TF32 unit of it."""
+    the plain version reads), then their TF32 split in the f32 kernel's
+    fragment order, each entry where ``lane_u_mma`` reads it: hi + lo is
+    the float32 value, hi has its low 13 bits clear and is within half a
+    TF32 unit of it."""
     u = _haar(LANES, np.random.RandomState(5))
     W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
     table, coeffs = FG.encode_ops((("lane_u", FG.HashableMatrix(W)),))
@@ -173,3 +176,146 @@ def test_tf32x3_model_within_card_limit(seed):
     one_r, one_i = _kernel_model(x[0], x[1], split, three=False)
     err1 = max(np.abs(one_r - exact.real).max(), np.abs(one_i - exact.imag).max()) / scale
     assert err1 > 1e-5 > err, (err1, err)
+
+
+# ---------------------------------------------------------------------------
+# the f64 fold: FP64 mma.sync m16n8k8 (lane_u_dmma)
+# ---------------------------------------------------------------------------
+
+def _f64_block(table, coeffs, i=0):
+    """The f64 kernel's part of the i-th op's lane_u block: U^T in its B
+    fragment order, after U^T and the TF32 split, (2, 16, 2, 64, 4, 2)."""
+    off = int(table[i, 6]) + 6 * LANES * LANES
+    return coeffs[off:off + 2 * LANES * LANES].reshape(2, 16, 2, LANES // 2, 4, 2)
+
+
+def test_lane_u_f64_table_matches_encode_ops():
+    """The f64 fragment-order table at the end of a lane_u block: what
+    ``lane_u_f64_table`` lays out, 16-byte aligned, each (sweep q, k step s
+    = 2 j + h) one contiguous half panel whose entry [plane, n, t, e] is
+    U^T[16 j + 4 t + 2 h + e][64 q + n] of that plane, exactly; every c once
+    across a sweep's steps."""
+    u = _haar(LANES, np.random.RandomState(7))
+    W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
+    table, coeffs = FG.encode_ops((("lane_u", FG.HashableMatrix(W)),))
+    steps = _f64_block(table, coeffs)
+    np.testing.assert_array_equal(steps, FG.lane_u_f64_table(W[0], W[1]))
+    assert (int(table[0, 6]) + 6 * LANES * LANES) % 2 == 0  # 16-byte loads in f64
+    assert coeffs.size == int(table[0, 6]) + 8 * LANES * LANES
+    for q in range(2):
+        for s in range(16):
+            j, h = divmod(s, 2)
+            for t in range(4):
+                for e in range(2):
+                    c = 16 * j + 4 * t + 2 * h + e
+                    for p in range(2):
+                        np.testing.assert_array_equal(steps[q, s, p, :, t, e],
+                                                      W[p][c, 64 * q:64 * q + 64])
+    cs = sorted(16 * (s // 2) + 4 * t + 2 * (s % 2) + e
+                for s in range(16) for t in range(4) for e in range(2))
+    assert cs == list(range(LANES))
+
+
+def _dmma_model(x, steps):
+    """The f64 kernel's walk on one tile (``lane_u_dmma``): x (2, rows, 128)
+    float64, rows <= 32. In sweep q, warp w takes the m16 tile of rows 16
+    (w & 1) (idle if it starts past the tile) and the n8 tile of columns 64
+    q + 8 (w >> 1); lane (g, t) = divmod(lane, 4). A chunk j (the table's
+    k steps 2 j and 2 j + 1) is one m16n8k16 per product: the lane's A
+    values from its rows g and g + 8 at columns 16 j + 4 t .. + 3 (0 where
+    the row is past the tile; lanes of odd g load the two steps in the
+    other order, which moves no value), its B fragments from the host's
+    table, fragment by fragment. The operands are rebuilt from the
+    fragments and the four real products added, A B in float64, in the
+    kernel's order: xr Ur^T, xr Ui^T, xi Ur^T, xi (-Ui^T). The C fragments
+    go to the rows that are in the tile. Returns (out, how often each
+    output was written)."""
+    rows = x.shape[1]
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.zeros_like(x)
+    written = np.zeros(x.shape[1:], dtype=int)
+    for q in range(2):
+        for warp in range(16):
+            m0, n8 = 16 * (warp & 1), 8 * (warp >> 1)
+            if m0 >= rows:
+                continue
+            row0, row1 = m0 + g, m0 + g + 8
+            ok0, ok1 = row0 < rows, row1 < rows
+            acc = np.zeros((2, 16, 8))  # real, imaginary
+            for j in range(8):
+                A, B = [], []
+                for p, plane in enumerate(x):
+                    # the chunk's columns c0 .. c0 + 3 of rows g and g + 8 (0 past
+                    # the tile), c0 = 16 j + 4 t: k steps 2 j and 2 j + 1
+                    col = 16 * j + 4 * t
+                    r0 = [np.where(ok0, plane[np.minimum(row0, rows - 1), col + e], 0.0)
+                          for e in range(4)]
+                    r1 = [np.where(ok1, plane[np.minimum(row1, rows - 1), col + e], 0.0)
+                          for e in range(4)]
+                    # a[i] = A[g + 8 (i & 1)][t + 4 (i >> 1)], k = t + 4 e <-> c0 + e
+                    m = np.zeros((16, 16))
+                    for e in range(4):
+                        m[g, t + 4 * e], m[g + 8, t + 4 * e] = r0[e], r1[e]
+                    A.append(m)
+                    # b[i] = B[t + 4 i][g]: the k steps' fragments from the table
+                    frag = np.concatenate([steps[q, 2 * j + h, p, n8 + g, t] for h in (0, 1)],
+                                          axis=1)  # (32 lanes, 4)
+                    m = np.zeros((16, 8))
+                    for e in range(4):
+                        m[t + 4 * e, g] = frag[:, e]
+                    B.append(m)
+                acc[0] += A[0] @ B[0]
+                acc[1] += A[0] @ B[1]
+                acc[1] += A[1] @ B[0]
+                acc[0] += A[1] @ -B[1]
+            for e in (0, 1):
+                cols = 64 * q + n8 + 2 * t + e
+                for r, ok, m in ((row0, ok0, g), (row1, ok1, g + 8)):
+                    out[:, r[ok], cols[ok]] = acc[:, m[ok], 2 * t[ok] + e]
+                    written[r[ok], cols[ok]] += 1
+    return out, written
+
+
+def _lane_state(rows, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, rows, LANES)
+    return x / np.linalg.norm(x)
+
+
+@pytest.mark.parametrize("rows", [2, 8, 16, 32])
+def test_dmma_model_matches_exact_product(rows):
+    """The f64 kernel's walk on tiles of 2, 8, 16 and 32 rows (2^8 to 2^12
+    amplitudes: below one m16 tile, one, and two), reading the table
+    ``encode_ops`` writes, writes every output of the tile once and lands
+    within 1e-13 of the largest amplitude of X U^T in complex128."""
+    u = _haar(LANES, np.random.RandomState(rows))
+    W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
+    table, coeffs = FG.encode_ops((("lane_u", FG.HashableMatrix(W)),))
+    x = _lane_state(rows, 40 + rows)
+    out, written = _dmma_model(x, _f64_block(table, coeffs))
+    assert (written == 1).all()
+    exact = (x[0] + 1j * x[1]) @ (W[0] + 1j * W[1])
+    err = max(np.abs(out[0] - exact.real).max(), np.abs(out[1] - exact.imag).max())
+    assert err <= 1e-13 * np.abs(exact).max(), err
+
+
+@pytest.mark.parametrize("rows", [2, 8, 16, 32])
+def test_dmma_model_matches_reference_kernel(rows):
+    """The same walk on the lane_u op that 21 one-qubit unitaries on the
+    lane qubits fold into (``_fold_zone_ops`` at the f64 tile) against the
+    JAX kernel on those gates in interpret mode, on an n-qubit state of
+    that many rows (the whole state one tile), at ``tests/helpers.py``'s
+    f64 tolerance."""
+    n = 7 + rows.bit_length() - 1
+    ops = _lane_ops(n)[:-1]
+    tb = FG.hopper_tile_bits(n, torch.float64)
+    assert 1 << (tb - 7) == rows
+    folded = FG._fold_zone_ops(ops_from_reference(ops), tb)
+    assert [o[0] for o in folded] == ["lane_u"]
+    table, coeffs = FG.encode_ops(folded)
+    x = _lane_state(rows, 60 + rows)
+    out, _ = _dmma_model(x, _f64_block(table, coeffs))
+    ref = np.asarray(PG.fused_local_run(jnp.asarray(x.reshape(2, -1)), n=n, ops=ops,
+                                        interpret=True))
+    assert_amps_close(out.reshape(2, -1), ref, tol=1e-10)
