@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the lane_u fold goes, on one CUDA card, f32 and f64.
+"""Where the time of the tensor-core folds goes, on one CUDA card: the
+lane_u fold in f32 and f64, and the f64 krausn arm.
 
-    python3 chip_lane_u_breakdown.py [--parent DIR] [--dtypes f32,f64]
+    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
-that each take one piece of the lane_u op away (or change it), and times a
-one-op lane_u pass (a Haar 128x128 unitary, 26 qubits, in place) with
-each, in turns on the same card, the unchanged kernel first and last.
-f32 (``lane_u_mma``, 3xTF32):
+that each take one piece of an op away (or change it), and times a one-op
+pass with each, in turns on the same card, the unchanged kernel first and
+last: ``f32`` and ``f64``, a lane_u pass (a Haar 128x128 unitary, 26
+qubits, in place); ``krausn``, a pass of the density path's 3-target
+channel alone (``chip_smoke.py``'s, 28 flattened qubits, f64, in
+place). f32 (``lane_u_mma``, 3xTF32):
 
 - ``no MMA``: the warps skip the A loads, splits and ``mma.sync`` (the
   tile's load and store, the panel staging and the barriers remain);
@@ -38,11 +41,32 @@ f64 (``lane_u_dmma``, FP64 ``mma.sync``):
   with one block per SM (``__launch_bounds__(512, 1)``: up to 128
   registers), as the f32 fold runs.
 
+krausn (``krausn_dmma``, FP64 ``mma.sync``), each also timed on the f64
+lane_u pass (the two arms share the instantiation's 64 registers):
+
+- ``krausn no MMA`` and ``krausn load and store``: as in f32 (the tile's
+  load and store, with and without the S^T stream and the barriers);
+- ``krausn no S^T stream``: nothing is copied into the chunk ring;
+- ``krausn no A loads``: the gathered A values replaced by their offsets
+  (the address arithmetic stays, the shared-memory loads go);
+- ``krausn no B loads``: the B fragments from registers;
+- ``krausn m16n8k16``: each step's product of a plane as one FP64
+  ``mma.sync`` m16n8k16, as lane_u_dmma takes it (all eight A values of a
+  plane, and their addresses, live at once);
+- ``krausn column sweeps``: the sweeps over the output columns, as
+  lane_u_dmma's (S^T streamed whole each sweep), the first sweep's sums
+  kept in registers until every read of the tile is done;
+  ``krausn column sweeps, local stash``: the same, kept in a ``volatile``
+  thread-local array, as lane_u_dmma keeps its own;
+- ``krausn out of line``: the arm as a function of its own
+  (``__noinline__``: its registers allocated apart from the kernel's).
+
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
-times its f64 pass beside this one's, first and last but one: its kernel
-reads the lane_u block's first part (U^T real and imaginary), which this
-checkout's ``encode_ops`` still writes first.
+times its f64 passes beside this one's, first and last but one: its
+kernel reads the first part of the lane_u and kraus blocks (U^T or S^T,
+real and imaginary), which this checkout's ``encode_ops`` still writes
+first, and takes no staging for a krausn run.
 
 The unchanged kernel's results are checked (against ``fused_run_plain``,
 1e-5 of the largest amplitude in f32, 1e-12 in f64), and so are the
@@ -72,7 +96,7 @@ _CHAIN = """            quest_mma::mma_3xtf32(accr[j], sr, ur);
 _LOADS = """            const quest_mma::SplitB ur = quest_mma::load_b_split(br + n * kPanelLd + boff);
             const quest_mma::SplitB ui = quest_mma::load_b_split(bi + n * kPanelLd + boff);
 """
-_ACTIVE32 = "const bool active = 16 * static_cast<uint32_t>(warp & 3)"
+_ACTIVE32 = "const bool active = 16 * static_cast<uint32_t>(warp & 3) < rows;"
 _ACTIVE64 = "const bool active = 16 * static_cast<uint32_t>(warp & 1)"
 _STAGE64 = "  for (int v = tid; v < kChunkPanel / 2; v += kThreads) {"
 #: the f64 fold's m16n8k16 product of a chunk and one plane of A, as the
@@ -105,17 +129,19 @@ _K8_PAIR = """#pragma unroll
 #: variant name -> (the dtype it is timed in, [(text in the source, its
 #: replacement), ...])
 VARIANTS = {
-    "no MMA": ("f32", [(_ACTIVE32, "const bool active = false && 16 * static_cast<uint32_t>(warp & 3)")]),
+    "no MMA": ("f32", [(_ACTIVE32, _ACTIVE32.replace("= 16", "= false && 16"))]),
     "load and store": ("f32", [
-        (_ACTIVE32, "const bool active = false && 16 * static_cast<uint32_t>(warp & 3)"),
+        (_ACTIVE32, _ACTIVE32.replace("= 16", "= false && 16")),
         ("constexpr int kPieces = 2 * kPanelK / 4;",
          "return;\n  constexpr int kPieces = 2 * kPanelK / 4;")]),
     "one TF32 term": ("f32", [(_CHAIN, _CHAIN.replace("mma_3xtf32(", "mma_tf32(")
                                .replace("sr, ", "sr.hi, ").replace("si, ", "si.hi, ")
                                .replace("ur);", "ur.hi);").replace("ui);", "ui.hi);")
                                .replace("negate(ui));", "negate(ui).hi);"))]),
-    "A broadcast": ("f32", [("const uint32_t row0 = 16 * (warp & 3) + l.g, row1 = row0 + 8;",
-                             "const uint32_t row0 = 16 * (warp & 3), row1 = row0;")]),
+    "A broadcast": ("f32", [("const uint32_t row0 = 16 * (warp & 3) + l.g, row1 = row0 + 8;\n"
+                             "  const int n0",
+                             "const uint32_t row0 = 16 * (warp & 3), row1 = row0;\n"
+                             "  const int n0")]),
     "interleaved": ("f32", [(_LOADS + _CHAIN, """          }
           quest_mma::SplitB ur[4], ui[4];
 #pragma unroll
@@ -151,8 +177,8 @@ VARIANTS = {
     "f64 unmasked": ("f64", [("const bool ok0 = row0 < rows, ok1 = row1 < rows;\n  double accr",
                               "const bool ok0 = true, ok1 = true;\n  double accr")]),
     "f64 MMA only": ("f64", [(
-        "        const double* x = p ? sim : sre;\n",
-        "        const double* x = p ? sim : sre;\n        if (x) {\n"
+        "\n        const double* x = p ? sim : sre;\n",
+        "\n        const double* x = p ? sim : sre;\n        if (x) {\n"
         "          const double v[8] = {x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7]};\n"
         "          const double u4[4] = {ur[0][0], ur[0][1], ur[1][0], ur[1][1]};\n"
         "          const double w4[4] = {ui[0][0], ui[0][1], ui[1][0], ui[1][1]};\n"
@@ -165,9 +191,9 @@ VARIANTS = {
     "f64 m16n8k8": ("f64", [(_K16, _K8_PAIR)]),
     "f64 ring of 3": ("f64", [("constexpr int kChunkRing = 2;", "constexpr int kChunkRing = 3;")]),
     "f64 one block per SM": ("f64", [
-        ("""  if constexpr (sizeof(T) == 4) {
-    if (has_lane_u) kernel = fused_run_kernel<T, true>;
-  }""", "  if (has_lane_u) kernel = fused_run_kernel<T, true>;"),
+        ("    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;\n",
+         "    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;\n"
+         "    if (staged & kStagedLaneU) kernel = fused_run_kernel<T, true>;\n"),
         ("  } else if constexpr (kLaneMma) {\n    // one block per SM",
          "  } else if constexpr (kLaneMma && sizeof(T) == 4) {\n    // one block per SM"),
         ("  } else if constexpr (kLaneMma) {\n    for (uint32_t i = 4 * tid;",
@@ -175,19 +201,140 @@ VARIANTS = {
 }
 
 
+_KACTIVE = ("const bool active = 32 * static_cast<uint32_t>(q) + 16 * static_cast<uint32_t>(warp & 1)"
+            " < groups;")
+_KSTAGE_OFF = [("  stage_chunk(wbuf, steps, 0, me);\n", ""),
+               ("      if (kk < 3 || q + 1 < nq) stage_chunk(", "      if (false) stage_chunk(")]
+_KA = ("""          const double xr[4] = {ok0 ? sre[a0 + p0] : 0.0, ok1 ? sre[a1 + p0] : 0.0,
+                                ok0 ? sre[a0 + p1] : 0.0, ok1 ? sre[a1 + p1] : 0.0};""",
+       """          const double xi[4] = {ok0 ? sim[a0 + p0] : 0.0, ok1 ? sim[a1 + p0] : 0.0,
+                                ok0 ? sim[a0 + p1] : 0.0, ok1 ? sim[a1 + p1] : 0.0};""")
+_KB = """          const double2 r = *reinterpret_cast<const double2*>(b + 2 * h * kKrausPlane);
+          const double2 im = *reinterpret_cast<const double2*>(b + (2 * h + 1) * kKrausPlane);
+"""
+#: the krausn arm's step, as the source has it: two m16n8k8 a plane
+_KSTEP_START = "#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          // b[0] = S^T"
+_KSTEP_END = "          quest_mma::mma_f64(accr, xi, w2);\n        }\n"
+#: the same step as one m16n8k16 a plane (all four values of m at once)
+_KK16 = """        const double2 r0 = *reinterpret_cast<const double2*>(b);
+        const double2 i0 = *reinterpret_cast<const double2*>(b + kKrausPlane);
+        const double2 r1 = *reinterpret_cast<const double2*>(b + 2 * kKrausPlane);
+        const double2 i1 = *reinterpret_cast<const double2*>(b + 3 * kKrausPlane);
+        const double u4[4] = {r0.x, r0.y, r1.x, r1.y}, v4[4] = {i0.x, i0.y, i1.x, i1.y};
+        const double w4[4] = {-i0.x, -i0.y, -i1.x, -i1.y};
+        const double xr[8] = {ok0 ? sre[a0 + o[0]] : 0.0, ok1 ? sre[a1 + o[0]] : 0.0,
+                              ok0 ? sre[a0 + o[1]] : 0.0, ok1 ? sre[a1 + o[1]] : 0.0,
+                              ok0 ? sre[a0 + o[2]] : 0.0, ok1 ? sre[a1 + o[2]] : 0.0,
+                              ok0 ? sre[a0 + o[3]] : 0.0, ok1 ? sre[a1 + o[3]] : 0.0};
+        quest_mma::mma_f64_k16(accr, xr, u4);
+        quest_mma::mma_f64_k16(acci, xr, v4);
+        const double xi[8] = {ok0 ? sim[a0 + o[0]] : 0.0, ok1 ? sim[a1 + o[0]] : 0.0,
+                              ok0 ? sim[a0 + o[1]] : 0.0, ok1 ? sim[a1 + o[1]] : 0.0,
+                              ok0 ? sim[a0 + o[2]] : 0.0, ok1 ? sim[a1 + o[2]] : 0.0,
+                              ok0 ? sim[a0 + o[3]] : 0.0, ok1 ? sim[a1 + o[3]] : 0.0};
+        quest_mma::mma_f64_k16(acci, xi, u4);
+        quest_mma::mma_f64_k16(accr, xi, w4);
+"""
+#: the sweep loop of the arm, as the source has it (groups split in two)
+_KSWEEPS_START = "  const int n8 = 8 * (warp >> 1);\n  const int nq = groups > 32 ? 2 : 1;"
+_KSWEEPS_END = "        quest_mma::mma_f64(accr, xi, w2);\n        }\n      }\n    }\n    __syncthreads();  // every read of the sweep's groups is done\n    if (active) store_sums(sre, sim, accr, acci, a0 - dt, a1 - dt, ok0, ok1, n8 + 2 * l.t, mask);\n  }\n"
+#: the sweeps as lane_u_dmma takes them: over the columns (32 a sweep,
+#: streaming all of S^T each time, as this checkout's table holds it), sweep
+#: 0's sums held until every read of the tile is done (KEPT: how)
+_KCOLUMNS = """  const uint32_t row0 = 16 * (warp & 3) + l.g;
+  const int n8 = 8 * (warp >> 2);
+  const bool active = 16 * static_cast<uint32_t>(warp & 3) < groups;
+  const bool ok0 = row0 < groups, ok1 = row0 + 8 < groups;
+  const uint32_t a0 = (ok0 ? insert_zeros(row0, mask) : 0u) + dt;
+  const uint32_t a1 = (ok1 ? insert_zeros(row0 + 8, mask) : 0u) + dt;
+  double accr[4] = {0.0, 0.0, 0.0, 0.0}, acci[4] = {0.0, 0.0, 0.0, 0.0};
+  KEPT double kept[8];
+  stage_chunk(wbuf, steps, 0, me);
+  quest_mma::async_commit();
+  for (int i = 0; i < 8; ++i) {
+    quest_mma::async_wait<0>();
+    __syncthreads();
+    if (i + 1 < 8) stage_chunk(wbuf + (i + 1) % 2 * kChunkPanel, steps, (i + 1) % 4, me);
+    quest_mma::async_commit();
+    if (active) {
+      const int kk = i % 4;
+      const uint32_t dk = (kk & 1 ? bit[4] : 0u) + (kk & 2 ? bit[5] : 0u);
+      const uint32_t o[4] = {dk, dk + bit[2], dk + bit[3], dk + bit[2] + bit[3]};
+      const double* b = wbuf + i % 2 * kChunkPanel + (32 * (i / 4) + n8 + l.g) * 8 + 2 * l.t;
+STEP      if (i == 3) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          kept[v] = accr[v];
+          kept[4 + v] = acci[v];
+          accr[v] = acci[v] = 0.0;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (active) {
+    const double kr[4] = {kept[0], kept[1], kept[2], kept[3]};
+    const double ki[4] = {kept[4], kept[5], kept[6], kept[7]};
+    store_sums(sre, sim, kr, ki, a0 - dt, a1 - dt, ok0, ok1, n8 + 2 * l.t, mask);
+    store_sums(sre, sim, accr, acci, a0 - dt, a1 - dt, ok0, ok1, 32 + n8 + 2 * l.t, mask);
+  }
+"""
+
+
+def _between(src: str, start: str, end: str) -> str:
+    """The text of ``src`` from ``start`` to the end of ``end`` (each once)."""
+    if src.count(start) != 1 or src.count(end) != 1:
+        raise RuntimeError("a krausn variant's anchor is not in the source once")
+    i = src.index(start)
+    return src[i:src.index(end, i) + len(end)]
+
+
+def _krausn_variants(src: str) -> dict:
+    """The krausn variants whose edits are cut from the source itself:
+    (the arm's step, and its sweep loop)."""
+    step = _between(src, _KSTEP_START, _KSTEP_END)
+    sweeps = _between(src, _KSWEEPS_START, _KSWEEPS_END)
+    return {
+        "krausn m16n8k16": ("krausn", [(step, _KK16)]),
+        "krausn column sweeps": ("krausn", [(sweeps, _KCOLUMNS.replace("KEPT ", "").replace("STEP", step))]),
+        "krausn column sweeps, local stash": ("krausn", [(sweeps, _KCOLUMNS.replace(
+            "KEPT ", "volatile ").replace("STEP", step))]),
+    }
+
+
+VARIANTS.update({
+    "krausn no MMA": ("krausn", [(_KACTIVE, _KACTIVE.replace("= 32", "= false && 32"))]),
+    "krausn load and store": ("krausn", [(_KACTIVE, _KACTIVE.replace("= 32", "= false && 32")),
+                                         *_KSTAGE_OFF]),
+    "krausn no S^T stream": ("krausn", _KSTAGE_OFF),
+    "krausn no A loads": ("krausn", [
+        (_KA[0], """          const double xr[4] = {static_cast<double>(a0 + p0), static_cast<double>(a1 + p0),
+                                static_cast<double>(a0 + p1), static_cast<double>(a1 + p1)};"""),
+        (_KA[1], """          const double xi[4] = {static_cast<double>(a0 + p1), static_cast<double>(a1 + p1),
+                                static_cast<double>(a0 + p0), static_cast<double>(a1 + p0)};""")]),
+    "krausn no B loads": ("krausn", [(_KB, """          const double2 r = make_double2(0.5 * kk, 0.25 * h);
+          const double2 im = make_double2(0.75 * h, 0.0625 * kk);
+""")]),
+    "krausn out of line": ("krausn", [("__device__ __forceinline__ void krausn_dmma(",
+                                       "__device__ __noinline__ void krausn_dmma(")]),
+})
+
 #: the variants that compute the same as the kernel (checked like it)
-RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM"}
+RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
+         "krausn m16n8k16", "krausn out of line", "krausn column sweeps",
+         "krausn column sweeps, local stash"}
 
 
 def _variant_sources(src: str) -> dict:
+    """{variant: (the pass it is timed on, its source)}."""
     out = {}
-    for name, (_, edits) in VARIANTS.items():
+    for name, (pn, edits) in (VARIANTS | _krausn_variants(src)).items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name!r}: its anchor is not in the source once")
             text = text.replace(old, new)
-        out[name] = text
+        out[name] = (pn, text)
     return out
 
 
@@ -202,10 +349,22 @@ def _load(so: str):
     return lib
 
 
+def _krausn_pass(FG, tb):
+    """The density path's 3-target channel alone, as ``chip_smoke.py``'s
+    kraus phase runs it: rows (2, 3, 4), columns at the top of the tile."""
+    import numpy as np
+
+    HM = FG.HashableMatrix
+    xxx = np.kron(np.kron([[0, 1], [1, 0]], [[0, 1], [1, 0]]), [[0, 1], [1, 0]])
+    return FG.PreparedRun((("krausn", (2, 3, 4), (tb - 3, tb - 2, tb - 1),
+                            ((1.0, HM(0.8 * xxx)), (1.0, HM(0.6j * np.eye(8))))),), tb)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="another checkout whose f64 fold to time beside")
-    ap.add_argument("--dtypes", default="f32,f64", help="which folds to time (default: both)")
+    ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
+    ap.add_argument("--passes", default="f32,f64,krausn",
+                    help="which passes to time: f32, f64 (lane_u), krausn (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -217,9 +376,10 @@ def main() -> int:
     from quest_tpu_torch import _build
     from quest_tpu_torch.ops import fused_gates as FG
 
+    passes = args.passes.split(",")
     csrc = _build._PKG / _build.CSRC
-    sources = {name: (text, csrc) for name, text in
-               _variant_sources((csrc / "fused_gates.cu").read_text()).items()}
+    variants = _variant_sources((csrc / "fused_gates.cu").read_text())
+    sources = {name: (text, csrc) for name, (pn, text) in variants.items() if pn in passes}
     if args.parent:
         pc = Path(args.parent).resolve() / "quest_tpu_torch" / "csrc"
         sources["parent"] = ((pc / "fused_gates.cu").read_text(), pc)
@@ -247,44 +407,53 @@ def main() -> int:
         q, r = np.linalg.qr(rng.randn(128, 128) + 1j * rng.randn(128, 128))
         u = q * (np.diag(r) / np.abs(np.diag(r)))
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
-        for dtn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12)):
-            if dtn not in args.dtypes.split(","):
+        for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
+                            ("krausn", torch.float64, 1e-12)):
+            if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
-            prep = FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb)
+            n = 2 * CS.N_DENSITY if pn == "krausn" else N_QUBITS
+            prep = (_krausn_pass(FG, tb) if pn == "krausn" else
+                    FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
             table, coeffs = prep.device_tables(dev, dt)
-            st = torch.as_tensor(rng.randn(2, 1 << N_QUBITS), dtype=dt, device=dev)
+            st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
             st /= st.norm()
             x = st.clone()
 
-            def run(lib):
-                fn = lib.quest_fused_run_f32 if dt == torch.float32 else lib.quest_fused_run_f64
-                err = fn(x.data_ptr(), x.data_ptr(), N_QUBITS, N_QUBITS, 0, tb,
-                         table.data_ptr(), 1, coeffs.data_ptr(), 0, tb, 0, tb, 0, 0,
-                         1, torch.cuda.current_stream().cuda_stream)
+            def run(name):
+                fn = (libs[name].quest_fused_run_f32 if dt == torch.float32
+                      else libs[name].quest_fused_run_f64)
+                # the parent's kernel stages nothing for a krausn run
+                staged = 0 if name == "parent" and pn == "krausn" else prep.staged
+                err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(), 1,
+                         coeffs.data_ptr(), 0, tb, 0, tb, 0, 0, staged,
+                         torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed ({err})")
 
-            ref = FG.fused_run_plain(st, prep, n=N_QUBITS, tile_bits=tb)
-            checked = (["kernel"] + (["parent"] if dtn == "f64" and "parent" in libs else [])
-                       + [n for n in RIGHT if VARIANTS[n][0] == dtn])
+            ref = FG.fused_run_plain(st, prep, n=n, tile_bits=tb)
+            parent = ["parent"] if dt == torch.float64 and "parent" in libs else []
+            checked = ["kernel", *parent] + [v for v in RIGHT if v in libs and variants[v][0] == pn]
             for name in checked:
                 x.copy_(st)
-                run(libs[name])
+                run(name)
                 torch.cuda.synchronize()
                 err, rel = CS._rel_err(x, ref)
-                CS._require(rel <= tol, f"{dtn} {name} against plain: {err} ({rel} relative)")
-                print(f"# {dtn} {name} against plain: max_abs_err {err:.3e} ({rel:.3e} of "
+                CS._require(rel <= tol, f"{pn} {name} against plain: {err} ({rel} relative)")
+                print(f"# {pn} {name} against plain: max_abs_err {err:.3e} ({rel:.3e} of "
                       f"the largest, limit {tol:g})")
             del ref
-            bound = CS._bound_ms(CS._pass_work(prep, N_QUBITS, 8 if dtn == "f64" else 4),
-                                 dtn == "f32")
-            mine = [n for n, (d, _) in VARIANTS.items() if d == dtn]
-            parent = ["parent"] if dtn == "f64" and "parent" in libs else []
+            bound = max(CS._bound_ms(CS._pass_work(prep, n, 4 if dt == torch.float32 else 8),
+                                     dt == torch.float32))
+            # the f64 lane_u pass also under each krausn variant: the two
+            # arms share the instantiation's registers
+            mine = [v for v, (d, _) in variants.items() if v in libs
+                    and (d == pn or (pn, d) == ("f64", "krausn"))]
+            what = "krausn" if pn == "krausn" else "lane_u"
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
-                ms = CS._cuda_ms(lambda: run(libs[name]), REPS)
-                print(f"# one-op lane_u pass, {N_QUBITS}q {dtn}, {name}: {ms:.4f} ms "
-                      f"(bound {max(bound):.4f} ms, {max(bound) / ms:.1%} of it)")
+                ms = CS._cuda_ms(lambda: run(name), REPS)
+                print(f"# one-op {what} pass, {n}q {str(dt)[6:]}, {name}: {ms:.4f} ms "
+                      f"(bound {bound:.4f} ms, {bound / ms:.1%} of it)")
             del st, x
             torch.cuda.empty_cache()
     print(CS._card_line())

@@ -10,17 +10,19 @@ no result, without them. Phases, in order:
    per source, started together) and print the toolchain and the card,
    each kernel's registers and spills, the count of DMMA, HMMA and DFMA
    instructions in each fused-run instantiation's SASS (``cuobjdump``:
-   the f64 one, which runs lane_u, must hold DMMA, the f32 lane_u one
-   HMMA) and the blocks per SM of each kind of run (an f64 run with
-   lane_u must fit two);
+   the f64 one, which runs lane_u and krausn, must hold more DMMA than
+   the lane_u fold's 4, the f32 lane_u one HMMA) and the blocks per SM of
+   each kind of run (an f64 run with lane_u or krausn must fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
    channel ops kraus1, kraus2, krausn with signed terms, unsorted targets
    and non-trace-preserving operators) and every folded swap form (load,
    store, both, asymmetric, the pair swap; each kraus kind with and
-   without one), and lane_u on the small tiles of SMALL_TILE_QUBITS (2 to
-   32 rows: the tensor-core folds at one m16 tile and below it); limits
+   without one), lane_u on the small tiles of SMALL_TILE_QUBITS (2 to
+   32 rows: the tensor-core folds at one m16 tile and below it) and
+   krausn on random unsorted qubits at KRAUS_TILE_BITS (2 to 32 groups:
+   the f64 tensor-core arm at one sweep and masked m16 tiles); limits
    1e-5 (f32) and 1e-12 (f64) on the max error over the
    largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
@@ -53,7 +55,12 @@ no result, without them. Phases, in order:
    1e-4 (f32) or 1e-10 (f64) of 1 and the amplitudes within 2e-4 (f32) or
    1e-10 (f64) of a per-gate replay of the unfused tape with every Kraus
    channel on the per-term engine; then channel-ops/sec, the barrier
-   channel's own time, and a full-state ``copy_``;
+   channel's own time, and a full-state ``copy_``; then each kraus kind
+   alone in one pass at 28 flattened qubits: against the plain version
+   and the exact superoperator product in complex128 (f64: both within
+   1e-12 of the largest amplitude), timed beside its bound and one complex
+   ``torch.matmul`` (complex64 / complex128) of a (2^(28-2t), 4^t) state
+   by a (4^t, 4^t) matrix, which the port never calls;
 6. window: ``ops.window_dot.window_dot`` at 26 qubits, f32 and f64, on
    the windows [7, 11], [12, 17] (the widest, span 6) and [21, 25], and
    on [7, 7], [8, 9], [13, 15], [20, 23] (spans 1-4: the FMA path and the
@@ -137,6 +144,9 @@ LANE_BLOCK_LO = 2
 #: states below the 2^13 tile whose lane_u ops the kernel phase checks:
 #: tiles of 2, 8, 16 and 32 rows of 128 lanes
 SMALL_TILE_QUBITS = (8, 10, 11, 12)
+#: tiles below the f64 2^12 whose krausn ops the kernel phase checks (2 to
+#: 32 groups of 64 amplitudes), on a KRAUS_TILE_QUBITS-qubit state
+KRAUS_TILE_BITS, KRAUS_TILE_QUBITS = (7, 8, 9, 10, 11), 14
 
 
 def _require(cond: bool, what: str) -> None:
@@ -480,10 +490,49 @@ def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
     return res
 
 
+def _superop_exact(st, op, prep, n: int):
+    """The exact product of a kraus op's superoperator on the planar state
+    ``st`` in complex128 (OUT[g] = X[g] S^T, X[g][e] = x[base(g) + dep(e)]
+    over the groups g of the n-qubit index, S^T from ``prep``'s table),
+    the amplitudes as a (2, 2^n) float64 tensor."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.ops.fused_gates import kraus_parts
+
+    rows, cols, _ = kraus_parts(op)
+    qubits = sorted(rows + cols)
+    G = 1 << len(qubits)
+    off = int(prep.table[0, 6])
+    stt = torch.as_tensor(prep.coeffs[off:off + G * G].reshape(G, G)
+                          + 1j * prep.coeffs[off + G * G:off + 2 * G * G].reshape(G, G),
+                          device=st.device)
+    free = [q for q in range(n) if q not in qubits]
+
+    def deposit(v, bits):
+        out = torch.zeros_like(v)
+        for j, q in enumerate(bits):
+            out |= ((v >> j) & 1) << q
+        return out
+
+    idx = (deposit(torch.arange(1 << (n - len(qubits)), device=st.device), free)[:, None]
+           + deposit(torch.arange(G, device=st.device), qubits)[None, :])
+    psi = torch.complex(st[0].double(), st[1].double())
+    out = torch.empty_like(psi)
+    out[idx] = psi[idx] @ stt
+    del idx, psi
+    return torch.stack([out.real, out.imag])
+
+
 def _kraus_ops_at_width(dt, dev, rng) -> dict:
     """Each kraus kind alone in one pass over the 28-qubit flattened state
     of the density path (no swap; the column qubits at the top of the
-    tile): kernel against plain, timed, with its bound."""
+    tile): kernel against plain, timed, with its bound; against the exact
+    superoperator product in complex128 (f64: within 1e-12 of the largest
+    amplitude, as against plain); and the yardstick, one complex
+    ``torch.matmul`` (complex64 / complex128) of the (2^(28 - 2t), 4^t)
+    state by a (4^t, 4^t) matrix: the same product with the channel's
+    qubits taken as the lowest 2t, which the port never calls."""
     import numpy as np
     import torch
 
@@ -508,12 +557,40 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
     }
 
     tol = 1e-5 if dt == torch.float32 else 1e-12
-    res = _passes([_run_item(PallasRun((op,), tb)) for op in runs.values()], n, dt,
-                  dev, rng, tol, f"kraus ops alone {str(dt)[6:]}")
-    return {kind: {"ms": res["ms"][i], "bound_ms": res["bound_ms"][i],
-                   "plain_ms": res["plain_ms"][i],
-                   "bound_by": "operations" if res["by_ops"][i] else "bytes"}
-            for i, kind in enumerate(runs)} | {"max_abs_err": res["max_abs_err"]}
+    label = f"kraus ops alone {str(dt)[6:]}"
+    items = [_run_item(PallasRun((op,), tb)) for op in runs.values()]
+    res = _passes(items, n, dt, dev, rng, tol, label)
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    out = {"max_abs_err": res["max_abs_err"]}
+    for i, (kind, op) in enumerate(runs.items()):
+        _, prep, kw = items[i]
+        x = st.clone()
+        FG.fused_run(x, n=n, ops=prep.ops, prepared=prep, **kw)
+        ex = _superop_exact(st, op, prep, n)
+        rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
+        del x, ex
+        _require(dt == torch.float32 or rel_exact <= tol,
+                 f"{label} {kind}: {rel_exact} of the largest from the exact product")
+        G = 1 << (2 * len(FG.kraus_parts(op)[0]))
+        xc = torch.complex(st[0], st[1]).reshape(-1, G)
+        S = torch.as_tensor(rng.randn(G, G) + 1j * rng.randn(G, G), dtype=xc.dtype, device=dev)
+        lib_ms = _cuda_ms(lambda: torch.matmul(xc, S), 10)
+        call = f"torch.matmul {str(xc.dtype)[6:]} ({xc.shape[0]} x {G} by {G} x {G})"
+        del xc
+        torch.cuda.empty_cache()
+        ms, bound = res["ms"][i], res["bound_ms"][i]
+        out[kind] = {"ms": ms, "bound_ms": bound, "plain_ms": res["plain_ms"][i],
+                     "bound_by": "operations" if res["by_ops"][i] else "bytes",
+                     "share_of_bound": bound / ms, "library_ms": lib_ms, "library_call": call,
+                     "rel_err_vs_exact": rel_exact}
+        print(f"# {label} {kind} at {n}q: kernel {ms:.4f} ms ({bound / ms:.1%} of the bound), "
+              f"bound {bound:.4f} ms by {out[kind]['bound_by']}, {call} {lib_ms:.4f} ms "
+              f"(kernel / matmul {ms / lib_ms:.2f}), plain {res['plain_ms'][i]:.2f} ms; "
+              f"{rel_exact:.3e} of the largest from the exact superoperator product")
+    del st
+    torch.cuda.empty_cache()
+    return out
 
 
 def _lane_u_phase(dev, rng, dt) -> dict:
@@ -601,6 +678,36 @@ def _lane_u_phase(dev, rng, dt) -> dict:
     del st, xc
     torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "max_abs_err": worst}
+
+
+def _window_fold_pass(dev, rng, runs) -> dict:
+    """The fused-run kernel's window fold (``window_op``) alone: one pass at
+    N_MAIN qubits in f32 of the window op that 25 random one-qubit gates on
+    qubits [7, 11] fold into at the Hopper tile, against the plain version
+    (1e-5 of the largest amplitude) and timed beside its bound; and the
+    folds the main path's ``runs`` execute (one launch each run)."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n, dt = N_MAIN, torch.float32
+    tb = FG.hopper_tile_bits(n, dt)
+    gates = tuple(("matrix", 7 + q % 5, (), (),
+                   FG.HashableMatrix(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0]))
+                  for q in range(25))
+    prep = FG.PreparedRun(gates, tb)
+    _require([o[0] for o in prep.ops] == ["window"], "window fold pass: no single window op")
+    folds = sum(o[0] == "window" for r in runs for o in r.prepare().ops)
+    res = _passes([(len(gates), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng, 1e-5,
+                  "window fold alone f32")
+    ms = res["ms"][0]
+    print(f"# window fold alone at {n}q f32: kernel {ms:.4f} ms, bound {res['bound_ms'][0]:.4f} "
+          f"ms by {'operations' if res['by_ops'][0] else 'bytes'}; window folds on the main "
+          f"path: {folds} (one launch each run)")
+    return {"ms": ms, "bound_ms": res["bound_ms"][0], "plain_ms": res["plain_ms"][0],
+            "bound_by": "operations" if res["by_ops"][0] else "bytes",
+            "main_path_folds": folds, "max_abs_err": res["max_abs_err"]}
 
 
 #: the operators that left-multiply a density register (M rho, no
@@ -1490,20 +1597,23 @@ def main() -> int:
     sass = _sass_counts(_build.library_path("fused_gates"))
     for k, counts in sass.items():
         print(f"# sass fused_gates: {k}: " + ", ".join(f"{c} {op}" for op, c in counts.items()))
-    _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 0,
-             "the f64 instantiation that runs lane_u holds no DMMA")
+    # the f64 instantiation runs lane_u (PR 9: 4 DMMA) and krausn on DMMA
+    _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 4,
+             "the f64 instantiation holds no DMMA beyond the lane_u fold's")
     _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 0,
              "the f32 lane_u instantiation holds no HMMA")
     lib = _build.library("fused_gates")
     occupancy = {}
     for f64, ddt in ((0, torch.float32), (1, torch.float64)):
-        for has_lane in (0, 1):
-            k = f"{str(ddt)[6:]}{' lane_u' if has_lane else ''}"
+        # the launch's staged flags: 1 a lane_u op, 2 a krausn op
+        for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn")):
+            k = f"{str(ddt)[6:]}{what}"
             occupancy[k] = lib.quest_fused_run_blocks_per_sm(
-                f64, FG.HOPPER_TILE_BITS[ddt], has_lane)
+                f64, FG.HOPPER_TILE_BITS[ddt], staged)
             print(f"# occupancy fused_gates: a {k} run at tile_bits "
                   f"{FG.HOPPER_TILE_BITS[ddt]}: {occupancy[k]} blocks per SM")
     _require(occupancy["float64 lane_u"] == 2, "an f64 lane_u run does not fit two blocks an SM")
+    _require(occupancy["float64 krausn"] == 2, "an f64 krausn run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1554,6 +1664,27 @@ def main() -> int:
                   f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
             _require(rel <= tol, f"{dt} lane_u {n}q error {err} ({rel} relative) > {tol}")
             errs[(str(dt), f"lane_u {n}q")] = err
+        # krausn on tiles below the largest, at KRAUS_TILE_BITS (2 to 32
+        # groups of 64: the f64 tensor-core arm at one sweep, masked m16
+        # tiles below 16 groups), on random unsorted qubits of the tile
+        for ktb in KRAUS_TILE_BITS:
+            q = [int(v) for v in rng.permutation(ktb)[:6]]
+            op = ("krausn", tuple(q[:3]), tuple(q[3:]),
+                  tuple((s, FG.HashableMatrix(0.3 * (rng.randn(8, 8) + 1j * rng.randn(8, 8))))
+                        for s in (1.0, -1.0)))
+            prep = FG.PreparedRun((op,), ktb)
+            st = torch.as_tensor(rng.randn(2, 1 << KRAUS_TILE_QUBITS), dtype=dt, device=dev)
+            st /= st.norm()
+            ref = FG.fused_run_plain(st, prep, n=KRAUS_TILE_QUBITS, tile_bits=ktb)
+            x = st.clone()
+            FG.fused_run(x, n=KRAUS_TILE_QUBITS, ops=prep.ops, tile_bits=ktb, prepared=prep)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(x, ref)
+            print(f"# kernel {str(dt)[6:]} krausn small tile: {KRAUS_TILE_QUBITS}q, tile_bits "
+                  f"{ktb} ({1 << (ktb - 6)} groups), rows {q[:3]} columns {q[3:]}, max_abs_err "
+                  f"{err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
+            _require(rel <= tol, f"{dt} krausn tile_bits {ktb} error {err} ({rel} relative) > {tol}")
+            errs[(str(dt), f"krausn tile_bits {ktb}")] = err
         del st, x, ref
     shard_errs = _shard_kernel_phase(dev, rng)
 
@@ -1644,6 +1775,8 @@ def main() -> int:
     # phases see the same data as without them)
     lane = {torch.float32: _lane_u_phase(dev, rng, torch.float32),
             torch.float64: _lane_u_phase(dev, np.random.RandomState(29), torch.float64)}
+    # the window fold alone (its own generator, as the f64 lane_u passes)
+    window_fold = _window_fold_pass(dev, np.random.RandomState(31), runs)
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -1682,8 +1815,10 @@ def main() -> int:
         e["channel_ops_per_sec"] = {k: p["channel_ops_per_sec"] for k, p in paths.items()
                                     if "channel_ops_per_sec" in p}
         e["kraus_op_passes_28q"] = kraus_alone[ddt]
+        e["library_yardsticks_ms"]["matmul_krausn"] = kraus_alone[ddt]["krausn"]["library_ms"]
         e["max_abs_err"] = max(e["max_abs_err"], kraus_alone[ddt]["max_abs_err"])
         e["kernel_phase_op_kinds"] = sorted(kinds_checked)
+    entries[0]["window_fold_pass"] = window_fold
     entries[0]["gate_surface"] = {k: surface[k] for k in (
         "fused_launches", "dense_launches", "density_launches", "circuit_ms",
         "ms_by_item")}

@@ -78,12 +78,18 @@
 // which applies each term's K and conj(K) to a copy and accumulates). Here
 // every arity takes one design, the superoperator: the host builds
 // S = sum_k s_k conj(K_k) (x) K_k (4^t x 4^t) in double and the kernel
-// applies it as one dense op on the 2t in-tile qubits, in place, with no
-// extra shared memory (the per-term form would need a second tile-sized
-// buffer, one block per SM). That is 4^t complex multiply-adds per
-// amplitude: 4 (kraus1) and 16 (kraus2) keep the pass bound by bytes; 64
-// (krausn) makes it bound by operations. A thread holds 16 (f32) or 2
-// (f64) outputs at a time.
+// applies it as one dense op on the 2t in-tile qubits, in place (the
+// per-term form would need a second tile-sized buffer, one block per SM).
+// That is 4^t complex multiply-adds per amplitude: 4 (kraus1) and 16
+// (kraus2) keep the pass bound by bytes; at 64 (t = 3, krausn) the FP32
+// FMA work (and, in f64, the FP64 tensor-core work) is about as long as
+// the pass's bytes. Which arm runs where:
+//   f32, every t: kraus_op<float, 4, 4>, FMA, 16 outputs a thread;
+//   f64, t = 1, 2: kraus_op<double, 2, 1>, FMA, 2 outputs a thread;
+//   f64, t = 3: krausn_dmma, OUT (groups x 64) = X S^T on FP64 mma.sync
+//     m16n8k8, X gathered from the tile by deposits into the qubit mask,
+//     S^T streamed from the host's FP64 fragment-order table through the
+//     lane_u fold's two 16 KiB chunk buffers (two blocks per SM still).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (quest_tpu_torch/_build.py does this at first use)
@@ -478,6 +484,151 @@ __device__ __forceinline__ void lane_u_dmma(double* sre, double* sim,
   }
 }
 
+// krausn (t = 3) in f64, on the tensor cores: for every group base b(g) of
+// the tile (g < groups = tile / 64, b = the tile index with the 6 mask
+// bits clear), OUT[g][d] = sum_e X[g][e] S^T[e][d] with X[g][e] =
+// x[b(g) + dep(e)], dep = deposit into mask, written back in place. The
+// shape of lane_u_dmma's product with half its K and N and a gathered A:
+// FP64 mma.sync (exact products), the same four real products into two
+// accumulators, 8 sums a thread in two sweeps. Where lane_u_dmma's sweeps
+// split the columns, these split the groups (sweep q: groups 32 q .. 32 q
+// + 31, warp w taking the m16 tile of groups 32 q + 16 (w & 1) and the n8
+// tile of columns 8 (w >> 1)): a sweep reads its own groups only, so its
+// sums go back to the tile after one barrier at its end, and none wait
+// for the other sweep. Sweeps over the columns, with the first sweep's
+// sums held (in registers, or in thread-local memory as lane_u_dmma holds
+// its own), spilled 60-92 bytes here and took a 28-qubit pass 6.4-6.5 ms
+// against 4.65 (chip_lane_u_breakdown.py). S^T crosses L2 once a sweep.
+// Groups past the tile's are read as 0 and not stored; a tile of 32
+// groups or fewer (2^11 and below) takes one sweep, and below 16 groups
+// (2^7 to 2^9) its m16 tiles are masked. What bounds it: a 28-qubit pass
+// moves 4 GiB (2.56 ms at 3.35 TB/s) and its products take 2.05 ms at 67
+// TFLOP/s; the pass takes 4.65 ms, the tile's load and store alone 2.83:
+// the two blocks of an SM do not hide one's products under the other's
+// load and store.
+//
+// Each step of 16 values of e is two m16n8k8 a plane, not one m16n8k16:
+// half the gathered operands, and their addresses, live at once in the 64
+// registers that two blocks an SM allow (one m16n8k16 a plane: 6.44 ms
+// against 4.65). The four steps of a sweep are unrolled, so their offsets
+// fold.
+//
+// The gathered A operand. Step kk gives lane (g, t) the values e = 16 kk +
+// t + 4 m, m = 0..3 (k = t + 4 m, the fragments' own order; half h of the
+// step takes m = 2 h, 2 h + 1), whose offsets dep(16 kk) + dep(4 m) +
+// dep(t) are sums of single mask bits (dep of a sum of disjoint bits is the
+// sum of their deposits): per thread, two row bases with dep(t) added and
+// the bits of e 2 to 5 in registers. A warp's loads then put lanes t apart
+// by the two lowest mask bits and lanes g by the lowest two others, which
+// for the density path's masks (row qubits low, column qubits at the top
+// of the tile) lands a half warp's 16 loads in 16 different 8-byte banks.
+//
+// S^T (64 KiB) does not fit beside the tile with two blocks an SM; it
+// arrives from the host in FP64 fragment order after the f32 block (S^T
+// real, imaginary): per step kk, per h, per plane, per column n, per t,
+// S^T[16 kk + t + 8 h][n] and S^T[16 kk + t + 8 h + 4][n], lane (g, t)'s B
+// values of one h for column n = g of its n8 tile in one 16-byte load, a
+// quarter warp's 8 loads on 128 consecutive bytes. A step is a 16 KiB
+// chunk, streamed through the lane_u fold's two cp.async buffers, one
+// ahead: four chunks a sweep, one barrier each.
+constexpr int kKrausG = 64;                      // S's side for t = 3
+constexpr int kKrausPlane = kKrausG * 8;         // doubles: one (step, h, plane)
+constexpr int kKrausStepOff = 2 * kKrausG * kKrausG;  // after S^T re, im
+static_assert(4 * kKrausPlane == kChunkPanel, "a chunk is one k16 step");
+
+// krausn_dmma's sums of one m16n8 tile back into the tile: c[0] = C[g][2t],
+// c[1] = C[g][2t+1] at base0 + dep(d) for d = d0, d0 + 1, c[2], c[3] the
+// same for group g + 8 at base1
+__device__ __forceinline__ void store_sums(double* sre, double* sim,
+                                           const double (&accr)[4],
+                                           const double (&acci)[4], uint32_t base0,
+                                           uint32_t base1, bool ok0, bool ok1,
+                                           uint32_t d0, uint32_t mask) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const uint32_t off = deposit(d0 + e, mask);
+    if (ok0) {
+      sre[base0 + off] = accr[e];
+      sim[base0 + off] = acci[e];
+    }
+    if (ok1) {
+      sre[base1 + off] = accr[2 + e];
+      sim[base1 + off] = acci[2 + e];
+    }
+  }
+}
+
+__device__ __forceinline__ void krausn_dmma(double* sre, double* sim,
+                                            double* wbuf, uint32_t tile,
+                                            const double* __restrict__ cf,
+                                            uint32_t mask, int tid) {
+  const double* steps = cf + kKrausStepOff;
+  const uint32_t groups = tile >> 6;
+  // the thread index through an opaque move: what the arm derives from it
+  // is then computed here, not hoisted out of the kernel's op loop, where
+  // it would hold registers through every other op
+  int me;
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int warp = me >> 5;
+  const quest_mma::Lane l = {(me & 31) >> 2, me & 3};
+  // the mask's bits, lowest first: dep(e) is the sum of those of e's bits
+  uint32_t bit[6];
+  uint32_t m = mask;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    bit[j] = m & (0u - m);
+    m ^= bit[j];
+  }
+  const uint32_t dt = (l.t & 1 ? bit[0] : 0u) + (l.t & 2 ? bit[1] : 0u);
+  const int n8 = 8 * (warp >> 1);
+  const int nq = groups > 32 ? 2 : 1;  // sweeps of 32 groups
+  stage_chunk(wbuf, steps, 0, me);
+  quest_mma::async_commit();
+  for (int q = 0; q < nq; ++q) {
+    const uint32_t row0 = 32 * q + 16 * (warp & 1) + l.g;
+    const bool active = 32 * static_cast<uint32_t>(q) + 16 * static_cast<uint32_t>(warp & 1) < groups;
+    const bool ok0 = row0 < groups, ok1 = row0 + 8 < groups;
+    const uint32_t a0 = (ok0 ? insert_zeros(row0, mask) : 0u) + dt;
+    const uint32_t a1 = (ok1 ? insert_zeros(row0 + 8, mask) : 0u) + dt;
+    double accr[4] = {0.0, 0.0, 0.0, 0.0}, acci[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      quest_mma::async_wait<0>();  // step kk, this thread's part
+      __syncthreads();             // every thread's part; the step before consumed
+      if (kk < 3 || q + 1 < nq) stage_chunk(wbuf + (kk + 1) % 2 * kChunkPanel, steps, (kk + 1) % 4, me);
+      quest_mma::async_commit();   // (empty at the end: keeps the wait uniform)
+      if (active) {
+        const uint32_t dk = (kk & 1 ? bit[4] : 0u) + (kk & 2 ? bit[5] : 0u);
+        const uint32_t o[4] = {dk, dk + bit[2], dk + bit[3], dk + bit[2] + bit[3]};
+        const double* b = wbuf + kk % 2 * kChunkPanel + (n8 + l.g) * 8 + 2 * l.t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // b[0] = S^T[16 kk + t + 8 h][n], b[1] = S^T[.. + 4][n], real and imaginary
+          const double2 r = *reinterpret_cast<const double2*>(b + 2 * h * kKrausPlane);
+          const double2 im = *reinterpret_cast<const double2*>(b + (2 * h + 1) * kKrausPlane);
+          const double u2[2] = {r.x, r.y}, v2[2] = {im.x, im.y}, w2[2] = {-im.x, -im.y};
+          // a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]
+          // of the half: e = 16 kk + t + 8 h (+ 4); each plane's products
+          // into named accumulators (a pointer choosing between the two
+          // arrays kept them out of registers): xr Sr^T, xr Si^T, then xi
+          // Sr^T, xi (-Si^T)
+          const uint32_t p0 = o[2 * h], p1 = o[2 * h + 1];
+          const double xr[4] = {ok0 ? sre[a0 + p0] : 0.0, ok1 ? sre[a1 + p0] : 0.0,
+                                ok0 ? sre[a0 + p1] : 0.0, ok1 ? sre[a1 + p1] : 0.0};
+          quest_mma::mma_f64(accr, xr, u2);
+          quest_mma::mma_f64(acci, xr, v2);
+          const double xi[4] = {ok0 ? sim[a0 + p0] : 0.0, ok1 ? sim[a1 + p0] : 0.0,
+                                ok0 ? sim[a0 + p1] : 0.0, ok1 ? sim[a1 + p1] : 0.0};
+          quest_mma::mma_f64(acci, xi, u2);
+          quest_mma::mma_f64(accr, xi, w2);
+        }
+      }
+    }
+    __syncthreads();  // every read of the sweep's groups is done
+    if (active) store_sums(sre, sim, accr, acci, a0 - dt, a1 - dt, ok0, ok1, n8 + 2 * l.t, mask);
+  }
+}
+
 // window: out[a][d][b] = sum_e U[d][e] x[a][e][b] on the index bits
 // [lo, lo+span) (D = 2^span, B = 2^lo >= 128). cf holds U real then U
 // imaginary (D x D each). A work item is kDg values of d by 4 consecutive
@@ -543,7 +694,8 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
   }
 }
 
-// kraus1/kraus2/krausn as the superoperator S (G x G complex, G = 4^t) on
+// kraus ops (every t in f32; t = 1, 2 in f64, whose t = 3 takes
+// krausn_dmma) as the superoperator S (G x G complex, G = 4^t) on
 // the 2t in-tile qubits of ``mask``, whose bit j of S's index is the j-th
 // lowest qubit of mask (the host orders S so): for every group base g (the
 // tile index with the mask bits clear), out[g + dep(d)] = sum_e S[d][e]
@@ -554,8 +706,8 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
 // one group are consecutive items, so the threads that read a group share
 // its x reads (broadcasts) and finish them in the same round, before the
 // barrier after which they write. A round holds kR * kB outputs per
-// thread: 16 in f32 (one round at the largest tile), 2 in f64 (four
-// rounds). The op is kept out of line: inlined into the kernel it raised
+// thread: 16 in f32 (one round at the largest tile, t = 3), 2 in f64. The
+// op is kept out of line: inlined into the kernel it raised
 // the f64 instantiation's register spills from 8 to 84 bytes, which the
 // kernel's other ops then pay for.
 template <typename T, int kR, int kB>
@@ -630,10 +782,10 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
 
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
-// both planes of the tile, plus, for a run with lane_u, kLaneDmmaStage
-// bytes (f64: two blocks per SM still) or kLaneMmaStage (f32, the kLaneMma
-// instantiation: one block per SM, which leaves the compiler 128 registers
-// a thread).
+// both planes of the tile, plus, for an f64 run with lane_u or a t = 3
+// kraus op, kLaneDmmaStage bytes (two blocks per SM still), and for an f32
+// run with lane_u kLaneMmaStage (the kLaneMma instantiation: one block per
+// SM, which leaves the compiler 128 registers a thread).
 template <typename T, bool kLaneMma>
 __global__ void __launch_bounds__(kThreads, kLaneMma ? 1 : 2)
 fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
@@ -786,7 +938,11 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
       const int t = static_cast<int>(r[1]);
       const uint32_t mask = static_cast<uint32_t>(r[5]);
       if constexpr (sizeof(T) == 8) {
-        kraus_op<T, 2, 1>(sre, sim, tile, cf, t, mask, tid);
+        if (t == 3) {
+          krausn_dmma(sre, sim, sim + tile, tile, cf, mask, tid);
+        } else {
+          kraus_op<T, 2, 1>(sre, sim, tile, cf, t, mask, tid);
+        }
       } else {
         kraus_op<T, 4, 4>(sre, sim, tile, cf, t, mask, tid);
       }
@@ -815,17 +971,29 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
   }
 }
 
+// What a run's ops stage through shared memory beyond the tile (the
+// ``staged`` flags of the launch): bit 0, a lane_u op; bit 1, a kraus op on
+// t = 3 row qubits (staged in f64 only).
+constexpr int kStagedLaneU = 1;
+constexpr int kStagedKrausN = 2;
+
 // The instantiation a run takes and its dynamic shared memory, chosen by
 // what the run holds: an f32 run with lane_u takes the one with one block
-// per SM; every other run, f64 runs with lane_u too, two blocks per SM.
+// per SM; every other run, f64 runs with lane_u or krausn too, two blocks
+// per SM.
 template <typename T>
-auto pick(int tile_bits, int has_lane_u, int* smem) {
+auto pick(int tile_bits, int staged, int* smem) {
   auto kernel = fused_run_kernel<T, false>;
+  int stage = 0;
   if constexpr (sizeof(T) == 4) {
-    if (has_lane_u) kernel = fused_run_kernel<T, true>;
+    if (staged & kStagedLaneU) {
+      kernel = fused_run_kernel<T, true>;
+      stage = kLaneMmaStage;
+    }
+  } else {
+    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;
   }
-  *smem = static_cast<int>(2 * sizeof(T) << tile_bits) +
-          (!has_lane_u ? 0 : sizeof(T) == 4 ? kLaneMmaStage : kLaneDmmaStage);
+  *smem = static_cast<int>(2 * sizeof(T) << tile_bits) + stage;
   return kernel;
 }
 
@@ -833,9 +1001,9 @@ auto pick(int tile_bits, int has_lane_u, int* smem) {
 // for the instantiation and shared memory the run takes), or -(a
 // cudaError_t).
 template <typename T>
-int blocks_per_sm(int tile_bits, int has_lane_u) {
+int blocks_per_sm(int tile_bits, int staged) {
   int smem = 0, blocks = 0;
-  const auto kernel = pick<T>(tile_bits, has_lane_u, &smem);
+  const auto kernel = pick<T>(tile_bits, staged, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) {
@@ -852,7 +1020,7 @@ int launch(int max_bits, const T* src, T* dst, int n, int local_n,
            long long shard_index, int tile_bits, const long long* ops,
            int num_ops, const T* coeffs, int load_k, int load_hi,
            int store_k, int store_hi, int pair_lo, int pair_hi,
-           int has_lane_u, void* stream) {
+           int staged, void* stream) {
   if (tile_bits < kLaneBits || tile_bits > max_bits ||
       local_n < tile_bits || n < local_n || n > 40 || num_ops < 0 ||
       shard_index < 0 || shard_index >= (1ll << (n - local_n)) ||
@@ -863,7 +1031,7 @@ int launch(int max_bits, const T* src, T* dst, int n, int local_n,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int smem = 0;
-  const auto kernel = pick<T>(tile_bits, has_lane_u, &smem);
+  const auto kernel = pick<T>(tile_bits, staged, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -883,17 +1051,19 @@ extern "C" {
 // hold one shard, (2, 2^local_n), of an n-qubit state: shard shard_index
 // (local_n = n, shard_index = 0 for a state on one device). pair_lo <
 // tile_bits <= pair_hi: bits exchanged on load and on store (pair_lo ==
-// pair_hi: none). has_lane_u: the op table holds a lane_u op (its matrix
-// needs the staging buffer; in f32, the tensor-core instantiation).
+// pair_hi: none). staged: what the op table holds that streams its matrix
+// through shared memory, bit 0 a lane_u op (in f32, the tensor-core
+// instantiation), bit 1 a kraus op on 3 row qubits (in f64, krausn_dmma).
+// A run whose flags miss such an op writes past its shared memory.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,
                         const long long* ops, int num_ops,
                         const float* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
-                        int has_lane_u, void* stream) {
+                        int staged, void* stream) {
   return launch<float>(13, src, dst, n, local_n, shard_index, tile_bits, ops,
                        num_ops, coeffs, load_k, load_hi, store_k, store_hi,
-                       pair_lo, pair_hi, has_lane_u, stream);
+                       pair_lo, pair_hi, staged, stream);
 }
 
 int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
@@ -901,17 +1071,17 @@ int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
                         const long long* ops, int num_ops,
                         const double* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
-                        int has_lane_u, void* stream) {
+                        int staged, void* stream) {
   return launch<double>(12, src, dst, n, local_n, shard_index, tile_bits,
                         ops, num_ops, coeffs, load_k, load_hi, store_k,
-                        store_hi, pair_lo, pair_hi, has_lane_u, stream);
+                        store_hi, pair_lo, pair_hi, staged, stream);
 }
 
 // thread blocks per SM of a run of float (f64 = 0) or double (f64 = 1)
-// at tile_bits, with or without a lane_u op; < 0: -(the cudaError_t)
-int quest_fused_run_blocks_per_sm(int f64, int tile_bits, int has_lane_u) {
-  return f64 ? blocks_per_sm<double>(tile_bits, has_lane_u)
-             : blocks_per_sm<float>(tile_bits, has_lane_u);
+// at tile_bits with the staged flags of the launch; < 0: -(the cudaError_t)
+int quest_fused_run_blocks_per_sm(int f64, int tile_bits, int staged) {
+  return f64 ? blocks_per_sm<double>(tile_bits, staged)
+             : blocks_per_sm<float>(tile_bits, staged);
 }
 
 const char* quest_cuda_error_string(int code) {

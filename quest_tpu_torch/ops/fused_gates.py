@@ -354,6 +354,24 @@ def lane_u_f64_table(wr, wi) -> np.ndarray:
     return np.stack(planes, axis=2)
 
 
+def kraus_superop_f64_table(St) -> np.ndarray:
+    """The f64 kernel's form of a 3-qubit kraus op's S^T (``St``: the 64 x
+    64 complex ``kraus_superop_table``, [e][d]), in the order of its FP64 B
+    fragments (``csrc/fused_gates.cu``, ``krausn_dmma``): per k16 step kk,
+    per h, per plane (real, imaginary), per output column n, per t the two
+    values S^T[16 kk + t + 8 h][n] and S^T[16 kk + t + 8 h + 4][n], so that
+    each step is one contiguous 16 KiB chunk (the kernel streams the four
+    once per sweep of 32 groups) and each lane's B values of one h one
+    16-byte load. The same float64 values, permuted: (4, 2, 2, 64, 4, 2)."""
+    St = np.asarray(St)
+    planes = []
+    for w in (St.real, St.imag):
+        # e = 16 kk + 8 h + 4 e' + t: (kk, h, e', t, n) -> (kk, h, n, t, e')
+        w = np.asarray(w, dtype=np.float64).reshape(4, 2, 2, 4, 64)
+        planes.append(w.transpose(0, 1, 4, 3, 2))
+    return np.stack(planes, axis=2)
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
@@ -370,8 +388,12 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
     its block is ``kraus_superop_table`` (G x G, real then imaginary; built
-    in float64 and rounded once to the state's type). The plain version
-    applies the op's terms, which stay on the host in the op tuple."""
+    in float64 and rounded once to the state's type), what the f32 kernel
+    and the f64 kernel's t = 1, 2 arm read; at t = 3 it is followed by the
+    same S^T in the f64 kernel's FP64 fragment order
+    (``kraus_superop_f64_table``, 4 x 2 x 2 x 64 x 8), which
+    ``krausn_dmma`` streams. The plain version applies the op's terms,
+    which stay on the host in the op tuple."""
     table = np.zeros((len(ops), _REC), dtype=np.int64)
     coeffs: list[np.ndarray] = []
     off = 0
@@ -442,7 +464,10 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             rec[1] = t
             rec[2] = sum(int(q) << (6 * j) for j, q in enumerate(qubits))
             rec[5] = _mask(qubits)
-            rec[6] = put(np.concatenate([St.real.reshape(-1), St.imag.reshape(-1)]))
+            parts = [St.real.reshape(-1), St.imag.reshape(-1)]
+            if t == 3:
+                parts.append(kraus_superop_f64_table(St).reshape(-1))
+            rec[6] = put(np.concatenate(parts))
         else:  # window
             _, lo, span, W = op
             W = _arr(W).real
@@ -463,8 +488,12 @@ class PreparedRun:
         self.tile_bits = tile_bits
         self.ops = _fold_zone_ops(tuple(ops), tile_bits)
         self.table, self.coeffs = encode_ops(self.ops)
-        #: the kernel stages a lane_u matrix through extra shared memory
         self.has_lane_u = any(o[0] == "lane_u" for o in self.ops)
+        #: what the kernel stages through extra shared memory, the launch's
+        #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
+        #: matrix, bit 1 a 3-qubit kraus op's S^T (in f64)
+        self.staged = int(self.has_lane_u) | 2 * any(
+            o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3 for o in self.ops)
         self._device: dict = {}
 
     def device_tables(self, device, dtype):
@@ -589,7 +618,7 @@ def _launch(src, dst, n, local_n, shard_index, tile_bits, prepared, lk, lh, sk,
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(src.data_ptr(), dst.data_ptr(), n, local_n, shard_index, tile_bits,
                  table.data_ptr(), int(table.shape[0]), coeffs.data_ptr(),
-                 lk, lh, sk, sh, *pair, int(prepared.has_lane_u), stream)
+                 lk, lh, sk, sh, *pair, prepared.staged, stream)
     if err != 0:
         msg = lib.quest_cuda_error_string(err).decode()
         raise RuntimeError(f"fused-run kernel launch failed: {msg} ({err})")
