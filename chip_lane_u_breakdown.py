@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core folds goes, on one CUDA card: the
-lane_u fold in f32 and f64, and the f64 krausn arm.
+lane_u fold in f32 and f64, and the krausn arm in f64 and f32.
 
-    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn]
+    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn,krausn32]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
 that each take one piece of an op away (or change it), and times a one-op
@@ -10,7 +10,7 @@ pass with each, in turns on the same card, the unchanged kernel first and
 last: ``f32`` and ``f64``, a lane_u pass (a Haar 128x128 unitary, 26
 qubits, in place); ``krausn``, a pass of the density path's 3-target
 channel alone (``chip_smoke.py``'s, 28 flattened qubits, f64, in
-place). f32 (``lane_u_mma``, 3xTF32):
+place); ``krausn32``, the same pass in f32. f32 (``lane_u_mma``, 3xTF32):
 
 - ``no MMA``: the warps skip the A loads, splits and ``mma.sync`` (the
   tile's load and store, the panel staging and the barriers remain);
@@ -61,12 +61,36 @@ lane_u pass (the two arms share the instantiation's 64 registers):
 - ``krausn out of line``: the arm as a function of its own
   (``__noinline__``: its registers allocated apart from the kernel's).
 
+krausn32 (``krausn_mma``, 3xTF32 ``mma.sync`` in ``fused_run_kernel<float,
+false>``):
+
+- ``krausn32 no MMA``, ``krausn32 load and store`` and ``krausn32 no S^T
+  stream``: as for krausn;
+- ``krausn32 no A split``: A rounded to TF32 only (hi), so each product is
+  hi*hi + hi*lo, two ``mma.sync`` instead of three, and the split of A
+  goes (what the split and its third product cost; less accurate, timing
+  only);
+- ``krausn32 A swap``: lanes of groups g & 4 load the two A values of a k
+  step in the other order and swap them in registers (for the density
+  path's mask, rows 2-4 low and columns at the top of the tile, a warp's
+  loads then hit 32 banks, not 16 twice);
+- ``krausn32 8 sums``: one n8 tile a warp, sweeps of 32 groups, as
+  krausn_dmma takes them (``kKrausN8 = 1``);
+- ``krausn32 mask held``: the mask's bits and what derives from them
+  found once, not again each sweep through an opaque move;
+- ``krausn32 resident S^T``: S^T not split by the host but the f64
+  kernel's fragment-order table cast to float (32 KiB) staged once an op,
+  its B fragments split into TF32 hi and lo in registers (no chunk ring);
+- ``krausn32 one block per SM``: krausn runs launch the f32 lane_u
+  instantiation (``__launch_bounds__(512, 1)``: up to 128 registers), the
+  arm's shape unchanged.
+
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
-times its f64 passes beside this one's, first and last but one: its
-kernel reads the first part of the lane_u and kraus blocks (U^T or S^T,
-real and imaginary), which this checkout's ``encode_ops`` still writes
-first, and takes no staging for a krausn run.
+times its passes beside this one's, first and last but one: its kernel
+reads the parts of the lane_u and kraus blocks that it knows (U^T or S^T,
+real and imaginary, the lane_u split and f64 tables, the kraus f64 table),
+which this checkout's ``encode_ops`` still writes where they were.
 
 The unchanged kernel's results are checked (against ``fused_run_plain``,
 1e-5 of the largest amplitude in f32, 1e-12 in f64), and so are the
@@ -319,10 +343,91 @@ VARIANTS.update({
                                        "__device__ __noinline__ void krausn_dmma(")]),
 })
 
+_K32ACTIVE = "    const bool active = m16 < groups;\n"
+_K32STAGE_OFF = [("  stage_chunk(ring, split, 0, me);\n", ""),
+                 ("      if (kk < 3 || q + 1 < sweeps) {\n", "      if (false) {\n")]
+_K32A = ("""          const float xr[4] = {ok0 ? sre[a0 + e0] : 0.f, ok1 ? sre[a1 + e0] : 0.f,
+                               ok0 ? sre[a0 + e4] : 0.f, ok1 ? sre[a1 + e4] : 0.f};""",
+         """          const float xi[4] = {ok0 ? sim[a0 + e0] : 0.f, ok1 ? sim[a1 + e0] : 0.f,
+                               ok0 ? sim[a0 + e4] : 0.f, ok1 ? sim[a1 + e4] : 0.f};""")
+#: the f32 arm's products, as the source has them
+_K32MMA = """            quest_mma::mma_3xtf32(accr[j], sr, ur[j]);
+            quest_mma::mma_3xtf32(acci[j], sr, ui[j]);"""
+_K32MMA_I = """            quest_mma::mma_3xtf32(acci[j], si, ur[j]);
+            quest_mma::mma_3xtf32(accr[j], si, quest_mma::negate(ui[j]));"""
+
+
+def _hi_only(text: str) -> str:
+    """mma_3xtf32(c, a, b) as hi(a) lo(b) + hi(a) hi(b): A not split."""
+    out = []
+    for line in text.splitlines():
+        c, a, b = line.strip()[len("quest_mma::mma_3xtf32("):-2].split(", ", 2)
+        ind = line[:len(line) - len(line.lstrip())]
+        out.append(f"{ind}{{ const quest_mma::SplitB bb = {b};\n"
+                   f"{ind}  quest_mma::mma_tf32({c}, {a}.hi, bb.lo);\n"
+                   f"{ind}  quest_mma::mma_tf32({c}, {a}.hi, bb.hi); }}")
+    return "\n".join(out)
+
+
+def _swapped(plane: str, text: str) -> str:
+    """The A loads of ``text`` (one plane) with lanes of g & 4 loading e4 first."""
+    x = plane[1]
+    return (f"          const uint32_t f0{x} = (l.g & 4) ? e4 : e0, f1{x} = (l.g & 4) ? e0 : e4;\n"
+            f"          const float u0{x} = ok0 ? {plane}[a0 + f0{x}] : 0.f, "
+            f"u1{x} = ok1 ? {plane}[a1 + f0{x}] : 0.f;\n"
+            f"          const float v0{x} = ok0 ? {plane}[a0 + f1{x}] : 0.f, "
+            f"v1{x} = ok1 ? {plane}[a1 + f1{x}] : 0.f;\n"
+            + text.split("{")[0] + f"{{(l.g & 4) ? v0{x} : u0{x}, (l.g & 4) ? v1{x} : u1{x}, "
+            f"(l.g & 4) ? u0{x} : v0{x}, (l.g & 4) ? u1{x} : v1{x}}};")
+
+
+VARIANTS.update({
+    "krausn32 no MMA": ("krausn32", [(_K32ACTIVE, _K32ACTIVE.replace("= m16", "= false && m16"))]),
+    "krausn32 load and store": ("krausn32", [
+        (_K32ACTIVE, _K32ACTIVE.replace("= m16", "= false && m16")), *_K32STAGE_OFF]),
+    "krausn32 no S^T stream": ("krausn32", _K32STAGE_OFF),
+    "krausn32 no A split": ("krausn32", [(_K32MMA, _hi_only(_K32MMA)),
+                                          (_K32MMA_I, _hi_only(_K32MMA_I))]),
+    "krausn32 A swap": ("krausn32", [(_K32A[0], _swapped("sre", _K32A[0])),
+                                      (_K32A[1], _swapped("sim", _K32A[1]))]),
+    "krausn32 8 sums": ("krausn32", [("constexpr int kKrausN8 = 2;", "constexpr int kKrausN8 = 1;")]),
+    "krausn32 mask held": ("krausn32", [(
+        '    asm volatile("mov.b32 %0, %1;" : "=r"(m) : "r"(mask));\n', "    m = mask;\n")]),
+    "krausn32 resident S^T": ("krausn32", [
+        ("  stage_chunk(ring, split, 0, me);\n  quest_mma::async_commit();\n",
+         "  for (int v = me; v < 2048; v += kThreads) {\n"
+         "    quest_mma::copy16_async(wbuf + 4 * v, cf + kKrausStepOff + 4 * v);\n  }\n"
+         "  quest_mma::async_commit();\n  quest_mma::async_wait<0>();\n  __syncthreads();\n"),
+        ("""      quest_mma::async_wait<0>();  // step kk, this thread's part
+      __syncthreads();             // every thread's part; the step before consumed
+      if (kk < 3 || q + 1 < sweeps) {
+        stage_chunk(ring + (kk + 1) % 2 * kChunkPanel, split, (kk + 1) % 4, me);
+      }
+      quest_mma::async_commit();  // (empty at the end: keeps the wait uniform)
+""", ""),
+        ("const float* b = wbuf + kk % 2 * (2 * kChunkPanel) + (n0 + l.g) * 16 + 4 * l.t;",
+         "const float* b = wbuf + kk * 2048 + (n0 + l.g) * 8 + 2 * l.t;"),
+        ("""            ur[j] = quest_mma::load_b_split(b + 2 * h * kKrausSplitPlane + 128 * j);
+            ui[j] = quest_mma::load_b_split(b + (2 * h + 1) * kKrausSplitPlane + 128 * j);
+""", """            const float2 r = *reinterpret_cast<const float2*>(b + 2 * h * 512 + 64 * j);
+            const float2 im = *reinterpret_cast<const float2*>(b + (2 * h + 1) * 512 + 64 * j);
+            quest_mma::split_tf32(r.x, ur[j].hi[0], ur[j].lo[0]);
+            quest_mma::split_tf32(r.y, ur[j].hi[1], ur[j].lo[1]);
+            quest_mma::split_tf32(im.x, ui[j].hi[0], ui[j].lo[0]);
+            quest_mma::split_tf32(im.y, ui[j].hi[1], ui[j].lo[1]);
+""")]),
+    "krausn32 one block per SM": ("krausn32", [
+        ("    } else if (staged & kStagedKrausN) {\n      stage = kLaneDmmaStage;\n",
+         "    } else if (staged & kStagedKrausN) {\n      kernel = fused_run_kernel<T, true>;\n"
+         "      stage = kLaneDmmaStage;\n"),
+        ("krausn_mma<kLaneMma ? 1 : kKrausN8>(", "krausn_mma<kKrausN8>(")]),
+})
+
 #: the variants that compute the same as the kernel (checked like it)
 RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "krausn m16n8k16", "krausn out of line", "krausn column sweeps",
-         "krausn column sweeps, local stash"}
+         "krausn column sweeps, local stash", "krausn32 A swap", "krausn32 8 sums",
+         "krausn32 mask held", "krausn32 resident S^T", "krausn32 one block per SM"}
 
 
 def _variant_sources(src: str) -> dict:
@@ -363,8 +468,9 @@ def _krausn_pass(FG, tb):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
-    ap.add_argument("--passes", default="f32,f64,krausn",
-                    help="which passes to time: f32, f64 (lane_u), krausn (default: all)")
+    ap.add_argument("--passes", default="f32,f64,krausn,krausn32",
+                    help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32 "
+                         "(default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -408,12 +514,13 @@ def main() -> int:
         u = q * (np.diag(r) / np.abs(np.diag(r)))
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
-                            ("krausn", torch.float64, 1e-12)):
+                            ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5)):
             if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
-            n = 2 * CS.N_DENSITY if pn == "krausn" else N_QUBITS
-            prep = (_krausn_pass(FG, tb) if pn == "krausn" else
+            kraus = pn.startswith("krausn")
+            n = 2 * CS.N_DENSITY if kraus else N_QUBITS
+            prep = (_krausn_pass(FG, tb) if kraus else
                     FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
             table, coeffs = prep.device_tables(dev, dt)
             st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
@@ -423,16 +530,14 @@ def main() -> int:
             def run(name):
                 fn = (libs[name].quest_fused_run_f32 if dt == torch.float32
                       else libs[name].quest_fused_run_f64)
-                # the parent's kernel stages nothing for a krausn run
-                staged = 0 if name == "parent" and pn == "krausn" else prep.staged
                 err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(), 1,
-                         coeffs.data_ptr(), 0, tb, 0, tb, 0, 0, staged,
+                         coeffs.data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed ({err})")
 
             ref = FG.fused_run_plain(st, prep, n=n, tile_bits=tb)
-            parent = ["parent"] if dt == torch.float64 and "parent" in libs else []
+            parent = ["parent"] if "parent" in libs else []
             checked = ["kernel", *parent] + [v for v in RIGHT if v in libs and variants[v][0] == pn]
             for name in checked:
                 x.copy_(st)
@@ -449,7 +554,7 @@ def main() -> int:
             # arms share the instantiation's registers
             mine = [v for v, (d, _) in variants.items() if v in libs
                     and (d == pn or (pn, d) == ("f64", "krausn"))]
-            what = "krausn" if pn == "krausn" else "lane_u"
+            what = "krausn" if kraus else "lane_u"
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
                 ms = CS._cuda_ms(lambda: run(name), REPS)
                 print(f"# one-op {what} pass, {n}q {str(dt)[6:]}, {name}: {ms:.4f} ms "

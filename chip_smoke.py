@@ -11,18 +11,22 @@ no result, without them. Phases, in order:
    each kernel's registers and spills, the count of DMMA, HMMA and DFMA
    instructions in each fused-run instantiation's SASS (``cuobjdump``:
    the f64 one, which runs lane_u and krausn, must hold more DMMA than
-   the lane_u fold's 4, the f32 lane_u one HMMA) and the blocks per SM of
-   each kind of run (an f64 run with lane_u or krausn must fit two);
+   the lane_u fold's 4, the f32 lane_u one HMMA, and the other f32 one,
+   which runs krausn on 3xTF32, HMMA too) and the blocks per SM of each
+   kind of run (an f64 run with lane_u or krausn, and an f32 run with
+   krausn, must fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
    channel ops kraus1, kraus2, krausn with signed terms, unsorted targets
    and non-trace-preserving operators) and every folded swap form (load,
    store, both, asymmetric, the pair swap; each kraus kind with and
-   without one), lane_u on the small tiles of SMALL_TILE_QUBITS (2 to
-   32 rows: the tensor-core folds at one m16 tile and below it) and
-   krausn on random unsorted qubits at KRAUS_TILE_BITS (2 to 32 groups:
-   the f64 tensor-core arm at one sweep and masked m16 tiles); limits
+   without one; a run holding lane_u folds and krausn), lane_u on the
+   small tiles of SMALL_TILE_QUBITS (2 to 32 rows: the tensor-core folds
+   at one m16 tile and below it) and krausn on random unsorted qubits at
+   KRAUS_TILE_BITS (2 to 32 groups: the tensor-core arms at one sweep,
+   idle warps and masked m16 tiles; in f32 also 64 groups, one full sweep
+   of the f32 arm, whose 2^13 tile takes two); limits
    1e-5 (f32) and 1e-12 (f64) on the max error over the
    largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
@@ -40,7 +44,9 @@ no result, without them. Phases, in order:
    within 1e-12 of the largest amplitude of both), timed beside its bound
    (f32 at the 3xTF32 rate, f64 at the FP64 tensor-core rate) and one
    complex ``torch.matmul`` (complex64 / complex128) of the same product,
-   which the port never calls;
+   which the port never calls; then the window fold alone: a one-op
+   window pass on [7, 11] at 26 qubits, f32 and f64, against the plain
+   version and timed beside its bound, and the main path's fold count;
 5. density path, f32 then f64: the bench's channel circuits ("r3", 10
    entries, and "r4", 11 with a 3-target Kraus map) on a 14-qubit density
    register (28 flattened qubits) from ``initPlusState``, planned by
@@ -57,10 +63,11 @@ no result, without them. Phases, in order:
    channel on the per-term engine; then channel-ops/sec, the barrier
    channel's own time, and a full-state ``copy_``; then each kraus kind
    alone in one pass at 28 flattened qubits: against the plain version
-   and the exact superoperator product in complex128 (f64: both within
-   1e-12 of the largest amplitude), timed beside its bound and one complex
-   ``torch.matmul`` (complex64 / complex128) of a (2^(28-2t), 4^t) state
-   by a (4^t, 4^t) matrix, which the port never calls;
+   and the exact superoperator product in complex128 (both within 1e-5
+   of the largest amplitude in f32, 1e-12 in f64), timed beside its bound
+   and one complex ``torch.matmul`` (complex64 / complex128) of a
+   (2^(28-2t), 4^t) state by a (4^t, 4^t) matrix, which the port never
+   calls;
 6. window: ``ops.window_dot.window_dot`` at 26 qubits, f32 and f64, on
    the windows [7, 11], [12, 17] (the widest, span 6) and [21, 25], and
    on [7, 7], [8, 9], [13, 15], [20, 23] (spans 1-4: the FMA path and the
@@ -145,8 +152,10 @@ LANE_BLOCK_LO = 2
 #: tiles of 2, 8, 16 and 32 rows of 128 lanes
 SMALL_TILE_QUBITS = (8, 10, 11, 12)
 #: tiles below the f64 2^12 whose krausn ops the kernel phase checks (2 to
-#: 32 groups of 64 amplitudes), on a KRAUS_TILE_QUBITS-qubit state
+#: 32 groups of 64 amplitudes), on a KRAUS_TILE_QUBITS-qubit state; in f32
+#: also 2^12 (64 groups: one full sweep of the f32 arm)
 KRAUS_TILE_BITS, KRAUS_TILE_QUBITS = (7, 8, 9, 10, 11), 14
+KRAUS_TILE_BITS_F32 = KRAUS_TILE_BITS + (12,)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -336,6 +345,9 @@ def _kernel_cases(n: int, tb: int, rng):
                   _swaps(1, n - 1, 1, n - 1, (1, n - 2))))
     cases.append(("lane_u+pair_swap bit 3", lane[:9] + parity,
                   _swaps(0, None, 0, None, (3, n - 3))))
+    # lane_u folds before and after a krausn op (its rows in the lane
+    # zone): in f32 the lane_u instantiation runs the krausn arm too
+    cases.append(("lane_u+krausn", lane[:9] + kraus[2:] + lane[9:18], _swaps()))
     return cases + [
             ("load_swap", mixed, _swaps(2, None, 0, None)),
             ("store_swap", mixed, _swaps(0, None, 3, None)),
@@ -528,11 +540,12 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
     """Each kraus kind alone in one pass over the 28-qubit flattened state
     of the density path (no swap; the column qubits at the top of the
     tile): kernel against plain, timed, with its bound; against the exact
-    superoperator product in complex128 (f64: within 1e-12 of the largest
-    amplitude, as against plain); and the yardstick, one complex
-    ``torch.matmul`` (complex64 / complex128) of the (2^(28 - 2t), 4^t)
-    state by a (4^t, 4^t) matrix: the same product with the channel's
-    qubits taken as the lowest 2t, which the port never calls."""
+    superoperator product in complex128 (within the limit against plain,
+    1e-5 of the largest amplitude in f32, 1e-12 in f64); and the
+    yardstick, one complex ``torch.matmul`` (complex64 / complex128) of
+    the (2^(28 - 2t), 4^t) state by a (4^t, 4^t) matrix: the same product
+    with the channel's qubits taken as the lowest 2t, which the port never
+    calls."""
     import numpy as np
     import torch
 
@@ -570,7 +583,7 @@ def _kraus_ops_at_width(dt, dev, rng) -> dict:
         ex = _superop_exact(st, op, prep, n)
         rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
         del x, ex
-        _require(dt == torch.float32 or rel_exact <= tol,
+        _require(rel_exact <= tol,
                  f"{label} {kind}: {rel_exact} of the largest from the exact product")
         G = 1 << (2 * len(FG.kraus_parts(op)[0]))
         xc = torch.complex(st[0], st[1]).reshape(-1, G)
@@ -680,18 +693,21 @@ def _lane_u_phase(dev, rng, dt) -> dict:
     return {"rows": rows, "launches": launches, "max_abs_err": worst}
 
 
-def _window_fold_pass(dev, rng, runs) -> dict:
+def _window_fold_pass(dev, rng, runs, dt) -> dict:
     """The fused-run kernel's window fold (``window_op``) alone: one pass at
-    N_MAIN qubits in f32 of the window op that 25 random one-qubit gates on
-    qubits [7, 11] fold into at the Hopper tile, against the plain version
-    (1e-5 of the largest amplitude) and timed beside its bound; and the
-    folds the main path's ``runs`` execute (one launch each run)."""
+    N_MAIN qubits in ``dt`` of the window op that 25 random one-qubit gates
+    on qubits [7, 11] fold into at the Hopper tile (2^13 in f32, 2^12 in
+    f64: the same zone), against the plain version (1e-5 of the largest
+    amplitude in f32, 1e-12 in f64) and timed beside its bound; and the
+    folds that ``runs``, the main path's circuit planned at ``dt``'s tile,
+    execute (one launch each run)."""
     import numpy as np
     import torch
 
     from quest_tpu_torch.ops import fused_gates as FG
 
-    n, dt = N_MAIN, torch.float32
+    n = N_MAIN
+    name = str(dt)[6:]
     tb = FG.hopper_tile_bits(n, dt)
     gates = tuple(("matrix", 7 + q % 5, (), (),
                    FG.HashableMatrix(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0]))
@@ -699,12 +715,12 @@ def _window_fold_pass(dev, rng, runs) -> dict:
     prep = FG.PreparedRun(gates, tb)
     _require([o[0] for o in prep.ops] == ["window"], "window fold pass: no single window op")
     folds = sum(o[0] == "window" for r in runs for o in r.prepare().ops)
-    res = _passes([(len(gates), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng, 1e-5,
-                  "window fold alone f32")
+    res = _passes([(len(gates), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng,
+                  1e-5 if dt == torch.float32 else 1e-12, f"window fold alone {name}")
     ms = res["ms"][0]
-    print(f"# window fold alone at {n}q f32: kernel {ms:.4f} ms, bound {res['bound_ms'][0]:.4f} "
-          f"ms by {'operations' if res['by_ops'][0] else 'bytes'}; window folds on the main "
-          f"path: {folds} (one launch each run)")
+    print(f"# window fold alone at {n}q {name}: kernel {ms:.4f} ms, bound {res['bound_ms'][0]:.4f} "
+          f"ms by {'operations' if res['by_ops'][0] else 'bytes'}; window folds in the main "
+          f"path's plan at tile_bits {tb}: {folds} (one launch each run)")
     return {"ms": ms, "bound_ms": res["bound_ms"][0], "plain_ms": res["plain_ms"][0],
             "bound_by": "operations" if res["by_ops"][0] else "bytes",
             "main_path_folds": folds, "max_abs_err": res["max_abs_err"]}
@@ -1602,11 +1618,14 @@ def main() -> int:
              "the f64 instantiation holds no DMMA beyond the lane_u fold's")
     _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 0,
              "the f32 lane_u instantiation holds no HMMA")
+    # the other f32 instantiation runs krausn_mma (3xTF32) for runs without lane_u
+    _require(sass.get("fused_run_kernel<float, false>", {}).get("HMMA", 0) > 0,
+             "the f32 instantiation of krausn runs holds no HMMA")
     lib = _build.library("fused_gates")
     occupancy = {}
     for f64, ddt in ((0, torch.float32), (1, torch.float64)):
         # the launch's staged flags: 1 a lane_u op, 2 a krausn op
-        for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn")):
+        for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn"), (3, " lane_u+krausn")):
             k = f"{str(ddt)[6:]}{what}"
             occupancy[k] = lib.quest_fused_run_blocks_per_sm(
                 f64, FG.HOPPER_TILE_BITS[ddt], staged)
@@ -1614,6 +1633,7 @@ def main() -> int:
                   f"{FG.HOPPER_TILE_BITS[ddt]}: {occupancy[k]} blocks per SM")
     _require(occupancy["float64 lane_u"] == 2, "an f64 lane_u run does not fit two blocks an SM")
     _require(occupancy["float64 krausn"] == 2, "an f64 krausn run does not fit two blocks an SM")
+    _require(occupancy["float32 krausn"] == 2, "an f32 krausn run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1665,9 +1685,10 @@ def main() -> int:
             _require(rel <= tol, f"{dt} lane_u {n}q error {err} ({rel} relative) > {tol}")
             errs[(str(dt), f"lane_u {n}q")] = err
         # krausn on tiles below the largest, at KRAUS_TILE_BITS (2 to 32
-        # groups of 64: the f64 tensor-core arm at one sweep, masked m16
-        # tiles below 16 groups), on random unsorted qubits of the tile
-        for ktb in KRAUS_TILE_BITS:
+        # groups of 64: the tensor-core arms at one sweep, masked m16 tiles
+        # below 16 groups; in f32 also 64 groups, one full sweep), on
+        # random unsorted qubits of the tile
+        for ktb in KRAUS_TILE_BITS_F32 if dt == torch.float32 else KRAUS_TILE_BITS:
             q = [int(v) for v in rng.permutation(ktb)[:6]]
             op = ("krausn", tuple(q[:3]), tuple(q[3:]),
                   tuple((s, FG.HashableMatrix(0.3 * (rng.randn(8, 8) + 1j * rng.randn(8, 8))))
@@ -1776,7 +1797,11 @@ def main() -> int:
     lane = {torch.float32: _lane_u_phase(dev, rng, torch.float32),
             torch.float64: _lane_u_phase(dev, np.random.RandomState(29), torch.float64)}
     # the window fold alone (its own generator, as the f64 lane_u passes)
-    window_fold = _window_fold_pass(dev, np.random.RandomState(31), runs)
+    runs64 = [a[0] for f, a, _ in circ.fused(max_qubits=5, pallas=True,
+                                              dtype=torch.float64)._tape
+              if f is fusion._apply_pallas_run]
+    window_fold = {ddt: _window_fold_pass(dev, np.random.RandomState(31), r, ddt)
+                   for ddt, r in ((torch.float32, runs), (torch.float64, runs64))}
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -1818,7 +1843,9 @@ def main() -> int:
         e["library_yardsticks_ms"]["matmul_krausn"] = kraus_alone[ddt]["krausn"]["library_ms"]
         e["max_abs_err"] = max(e["max_abs_err"], kraus_alone[ddt]["max_abs_err"])
         e["kernel_phase_op_kinds"] = sorted(kinds_checked)
-    entries[0]["window_fold_pass"] = window_fold
+    for e, ddt in zip(entries, (torch.float32, torch.float64)):
+        e["window_fold_pass"] = window_fold[ddt]
+        e["max_abs_err"] = max(e["max_abs_err"], window_fold[ddt]["max_abs_err"])
     entries[0]["gate_surface"] = {k: surface[k] for k in (
         "fused_launches", "dense_launches", "density_launches", "circuit_ms",
         "ms_by_item")}

@@ -84,12 +84,13 @@
 // (kraus2) keep the pass bound by bytes; at 64 (t = 3, krausn) the FP32
 // FMA work (and, in f64, the FP64 tensor-core work) is about as long as
 // the pass's bytes. Which arm runs where:
-//   f32, every t: kraus_op<float, 4, 4>, FMA, 16 outputs a thread;
-//   f64, t = 1, 2: kraus_op<double, 2, 1>, FMA, 2 outputs a thread;
-//   f64, t = 3: krausn_dmma, OUT (groups x 64) = X S^T on FP64 mma.sync
-//     m16n8k8, X gathered from the tile by deposits into the qubit mask,
-//     S^T streamed from the host's FP64 fragment-order table through the
-//     lane_u fold's two 16 KiB chunk buffers (two blocks per SM still).
+//   t = 1, 2: kraus_op, FMA: <float, 4, 4> (16 outputs a thread) in f32,
+//     <double, 2, 1> (2 outputs a thread) in f64;
+//   t = 3: OUT (groups x 64) = X S^T on mma.sync m16n8k8, X gathered from
+//     the tile by deposits into the qubit mask, S^T streamed from the
+//     host's fragment-order table through the lane_u fold's two 16 KiB
+//     chunk buffers (two blocks per SM still): krausn_dmma in FP64,
+//     krausn_mma in 3xTF32 (S^T split into TF32 hi and lo by the host).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (quest_tpu_torch/_build.py does this at first use)
@@ -536,12 +537,12 @@ constexpr int kKrausPlane = kKrausG * 8;         // doubles: one (step, h, plane
 constexpr int kKrausStepOff = 2 * kKrausG * kKrausG;  // after S^T re, im
 static_assert(4 * kKrausPlane == kChunkPanel, "a chunk is one k16 step");
 
-// krausn_dmma's sums of one m16n8 tile back into the tile: c[0] = C[g][2t],
-// c[1] = C[g][2t+1] at base0 + dep(d) for d = d0, d0 + 1, c[2], c[3] the
-// same for group g + 8 at base1
-__device__ __forceinline__ void store_sums(double* sre, double* sim,
-                                           const double (&accr)[4],
-                                           const double (&acci)[4], uint32_t base0,
+// krausn_dmma's and krausn_mma's sums of one m16n8 tile back into the
+// tile: c[0] = C[g][2t], c[1] = C[g][2t+1] at base0 + dep(d) for d = d0,
+// d0 + 1, c[2], c[3] the same for group g + 8 at base1
+template <typename T>
+__device__ __forceinline__ void store_sums(T* sre, T* sim, const T (&accr)[4],
+                                           const T (&acci)[4], uint32_t base0,
                                            uint32_t base1, bool ok0, bool ok1,
                                            uint32_t d0, uint32_t mask) {
 #pragma unroll
@@ -629,6 +630,138 @@ __device__ __forceinline__ void krausn_dmma(double* sre, double* sim,
   }
 }
 
+// krausn (t = 3) in f32, on the tensor cores: krausn_dmma's product, as
+// mma.sync m16n8k8 in 3xTF32 (mma.cuh) with FP32 sums. S^T arrives split
+// from the host (``kraus_superop_tf32_table``, after the f64 table): per
+// step kk, per h, per plane, per column n, per t, hi(S^T[e0][n]),
+// hi(S^T[e0 + 4][n]), lo(S^T[e0][n]), lo(S^T[e0 + 4][n]) with e0 = 16 kk +
+// 8 h + t: lane (g, t)'s split B fragment of one plane in one 16-byte
+// load, a quarter warp's 8 loads on 128 consecutive bytes. A step is again
+// one 16 KiB chunk of the same two-buffer ring, so S^T crosses L2 once a
+// sweep. The A operand is gathered as krausn_dmma gathers it (k step h of
+// step kk: e = 16 kk + 8 h + t (+ 4), offsets summed from single mask
+// bits) and split into TF32 hi and lo in registers, one plane at a time.
+//
+// A warp takes one m16 tile of groups and kN8 n8 tiles of columns (8 kN8
+// sums a thread): the warps split a sweep's groups 2 kN8 ways and the
+// columns 8 / kN8 ways, so a sweep is 32 kN8 groups, each written back
+// after its own barrier; warps past a small tile's groups idle, and below
+// 16 groups the m16 tiles are masked. fused_run_kernel<float, false> (two
+// blocks per SM, every f32 run with krausn and without lane_u) takes kN8 =
+// kKrausN8 = 2: 16 sums, two sweeps at the 2^13 tile. Each gathered and
+// split A fragment then feeds two n8 tiles, which halves the tile's
+// shared-memory reads of A and the sweeps' S^T stream beside krausn_dmma's
+// shape (kN8 = 1: 8 sums, four sweeps; 4.1 ms a 28-qubit pass against
+// 3.2-3.3, chip_lane_u_breakdown.py). The 16 sums fit its 64 registers
+// only if what derives from the mask is not held across sweeps: the mask
+// passes through an opaque move at each sweep and its bits are found again
+// there (held, they spilled 12 bytes). The lane_u instantiation (a run
+// with both, which no planner path makes) takes kN8 = 1: with 2 that
+// instantiation spilled 4 bytes.
+// What bounds it: a 28-qubit pass reads and writes a 2 GiB state (1.28 ms
+// at 3.35 TB/s); its products, 1.37e11 flop, take 0.83 ms at the 3xTF32
+// rate.
+constexpr int kKrausSplitOff = kKrausStepOff + 2 * kKrausG * kKrausG;  // after the f64 table
+constexpr int kKrausSplitPlane = kKrausG * 16;  // floats: one (step, h, plane)
+static_assert(4 * kKrausSplitPlane == 2 * kChunkPanel, "a chunk is one k16 step");
+constexpr int kKrausN8 = 2;  // n8 tiles a warp in fused_run_kernel<float, false>
+
+template <int kN8>
+__device__ __forceinline__ void krausn_mma(float* sre, float* sim, float* wbuf,
+                                           uint32_t tile,
+                                           const float* __restrict__ cf,
+                                           uint32_t mask, int tid) {
+  constexpr int kWm = 2 * kN8;       // warps across a sweep's groups
+  constexpr int kSweep = 16 * kWm;   // groups a sweep
+  // the chunk ring moves bytes: the split table in 16 KiB chunks
+  const double* split = reinterpret_cast<const double*>(cf + kKrausSplitOff);
+  double* ring = reinterpret_cast<double*>(wbuf);
+  const uint32_t groups = tile >> 6;
+  int me;  // the thread index through an opaque move, as in krausn_dmma
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int warp = me >> 5;
+  const quest_mma::Lane l = {(me & 31) >> 2, me & 3};
+  const int n0 = 8 * kN8 * (warp / kWm);  // the warp's first column
+  const int sweeps = (groups + kSweep - 1) / kSweep;
+  // dep(t) for the lane's k index t: the mask's two lowest bits
+  const uint32_t lo0 = mask & (0u - mask), lo1 = (mask ^ lo0) & (0u - (mask ^ lo0));
+  const uint32_t dt = (l.t & 1 ? lo0 : 0u) + (l.t & 2 ? lo1 : 0u);
+  stage_chunk(ring, split, 0, me);
+  quest_mma::async_commit();
+  for (int q = 0; q < sweeps; ++q) {
+    // the mask's bits, lowest first (dep(e) is the sum of those of e's
+    // bits), found again each sweep from an opaque copy of the mask
+    uint32_t bit[6];
+    uint32_t m;
+    asm volatile("mov.b32 %0, %1;" : "=r"(m) : "r"(mask));
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      bit[j] = m & (0u - m);
+      m ^= bit[j];
+    }
+    const uint32_t m16 = kSweep * q + 16 * (warp % kWm);  // the warp's first group
+    const uint32_t row0 = m16 + l.g;
+    const bool active = m16 < groups;
+    const bool ok0 = row0 < groups, ok1 = row0 + 8 < groups;
+    const uint32_t a0 = (ok0 ? insert_zeros(row0, mask) : 0u) + dt;
+    const uint32_t a1 = (ok1 ? insert_zeros(row0 + 8, mask) : 0u) + dt;
+    float accr[kN8][4], acci[kN8][4];
+#pragma unroll
+    for (int j = 0; j < kN8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      quest_mma::async_wait<0>();  // step kk, this thread's part
+      __syncthreads();             // every thread's part; the step before consumed
+      if (kk < 3 || q + 1 < sweeps) {
+        stage_chunk(ring + (kk + 1) % 2 * kChunkPanel, split, (kk + 1) % 4, me);
+      }
+      quest_mma::async_commit();  // (empty at the end: keeps the wait uniform)
+      if (active) {
+        const uint32_t dk = (kk & 1 ? bit[4] : 0u) + (kk & 2 ? bit[5] : 0u);
+        const float* b = wbuf + kk % 2 * (2 * kChunkPanel) + (n0 + l.g) * 16 + 4 * l.t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          quest_mma::SplitB ur[kN8], ui[kN8];
+#pragma unroll
+          for (int j = 0; j < kN8; ++j) {  // columns n0 + 8 j + g
+            ur[j] = quest_mma::load_b_split(b + 2 * h * kKrausSplitPlane + 128 * j);
+            ui[j] = quest_mma::load_b_split(b + (2 * h + 1) * kKrausSplitPlane + 128 * j);
+          }
+          // a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]:
+          // e = 16 kk + 8 h + t (+ 4); xr Sr^T, xr Si^T, then xi Sr^T, xi (-Si^T)
+          const uint32_t e0 = dk + (h ? bit[3] : 0u), e4 = e0 + bit[2];
+          const float xr[4] = {ok0 ? sre[a0 + e0] : 0.f, ok1 ? sre[a1 + e0] : 0.f,
+                               ok0 ? sre[a0 + e4] : 0.f, ok1 ? sre[a1 + e4] : 0.f};
+          const quest_mma::SplitA sr = quest_mma::split_a(xr);
+#pragma unroll
+          for (int j = 0; j < kN8; ++j) {
+            quest_mma::mma_3xtf32(accr[j], sr, ur[j]);
+            quest_mma::mma_3xtf32(acci[j], sr, ui[j]);
+          }
+          const float xi[4] = {ok0 ? sim[a0 + e0] : 0.f, ok1 ? sim[a1 + e0] : 0.f,
+                               ok0 ? sim[a0 + e4] : 0.f, ok1 ? sim[a1 + e4] : 0.f};
+          const quest_mma::SplitA si = quest_mma::split_a(xi);
+#pragma unroll
+          for (int j = 0; j < kN8; ++j) {
+            quest_mma::mma_3xtf32(acci[j], si, ur[j]);
+            quest_mma::mma_3xtf32(accr[j], si, quest_mma::negate(ui[j]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of this sweep's groups is done
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kN8; ++j) {
+        store_sums(sre, sim, accr[j], acci[j], a0 - dt, a1 - dt, ok0, ok1, n0 + 8 * j + 2 * l.t,
+                   mask);
+      }
+    }
+  }
+}
+
 // window: out[a][d][b] = sum_e U[d][e] x[a][e][b] on the index bits
 // [lo, lo+span) (D = 2^span, B = 2^lo >= 128). cf holds U real then U
 // imaginary (D x D each). A work item is kDg values of d by 4 consecutive
@@ -694,8 +827,8 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
   }
 }
 
-// kraus ops (every t in f32; t = 1, 2 in f64, whose t = 3 takes
-// krausn_dmma) as the superoperator S (G x G complex, G = 4^t) on
+// kraus ops on t = 1 or 2 row qubits (t = 3 takes krausn_dmma in f64,
+// krausn_mma in f32) as the superoperator S (G x G complex, G = 4^t) on
 // the 2t in-tile qubits of ``mask``, whose bit j of S's index is the j-th
 // lowest qubit of mask (the host orders S so): for every group base g (the
 // tile index with the mask bits clear), out[g + dep(d)] = sum_e S[d][e]
@@ -706,10 +839,9 @@ __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
 // one group are consecutive items, so the threads that read a group share
 // its x reads (broadcasts) and finish them in the same round, before the
 // barrier after which they write. A round holds kR * kB outputs per
-// thread: 16 in f32 (one round at the largest tile, t = 3), 2 in f64. The
-// op is kept out of line: inlined into the kernel it raised
-// the f64 instantiation's register spills from 8 to 84 bytes, which the
-// kernel's other ops then pay for.
+// thread: 16 in f32, 2 in f64. The op is kept out of line: inlined into
+// the kernel it raised the f64 instantiation's register spills from 8 to
+// 84 bytes, which the kernel's other ops then pay for.
 template <typename T, int kR, int kB>
 __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
                                       const T* __restrict__ cf, int t,
@@ -782,10 +914,11 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
 
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
-// both planes of the tile, plus, for an f64 run with lane_u or a t = 3
-// kraus op, kLaneDmmaStage bytes (two blocks per SM still), and for an f32
-// run with lane_u kLaneMmaStage (the kLaneMma instantiation: one block per
-// SM, which leaves the compiler 128 registers a thread).
+// both planes of the tile, plus, for a run with a t = 3 kraus op or an
+// f64 run with lane_u, kLaneDmmaStage bytes (two blocks per SM still), and
+// for an f32 run with lane_u kLaneMmaStage (the kLaneMma instantiation: one
+// block per SM, which leaves the compiler 128 registers a thread; a t = 3
+// kraus op in it streams S^T through the first 32 KiB of its panels).
 template <typename T, bool kLaneMma>
 __global__ void __launch_bounds__(kThreads, kLaneMma ? 1 : 2)
 fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
@@ -944,7 +1077,11 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
           kraus_op<T, 2, 1>(sre, sim, tile, cf, t, mask, tid);
         }
       } else {
-        kraus_op<T, 4, 4>(sre, sim, tile, cf, t, mask, tid);
+        if (t == 3) {  // in either f32 instantiation: a lane_u run may hold one
+          krausn_mma<kLaneMma ? 1 : kKrausN8>(sre, sim, sim + tile, tile, cf, mask, tid);
+        } else {
+          kraus_op<T, 4, 4>(sre, sim, tile, cf, t, mask, tid);
+        }
       }
     }
     __syncthreads();
@@ -973,14 +1110,14 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
 
 // What a run's ops stage through shared memory beyond the tile (the
 // ``staged`` flags of the launch): bit 0, a lane_u op; bit 1, a kraus op on
-// t = 3 row qubits (staged in f64 only).
+// t = 3 row qubits.
 constexpr int kStagedLaneU = 1;
 constexpr int kStagedKrausN = 2;
 
 // The instantiation a run takes and its dynamic shared memory, chosen by
-// what the run holds: an f32 run with lane_u takes the one with one block
-// per SM; every other run, f64 runs with lane_u or krausn too, two blocks
-// per SM.
+// what the run holds: an f32 run with lane_u (and krausn or not) takes the
+// one with one block per SM; every other run, runs with krausn and f64 runs
+// with lane_u too, two blocks per SM.
 template <typename T>
 auto pick(int tile_bits, int staged, int* smem) {
   auto kernel = fused_run_kernel<T, false>;
@@ -988,7 +1125,9 @@ auto pick(int tile_bits, int staged, int* smem) {
   if constexpr (sizeof(T) == 4) {
     if (staged & kStagedLaneU) {
       kernel = fused_run_kernel<T, true>;
-      stage = kLaneMmaStage;
+      stage = kLaneMmaStage;  // holds krausn_mma's chunk ring too
+    } else if (staged & kStagedKrausN) {
+      stage = kLaneDmmaStage;
     }
   } else {
     if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;
@@ -1053,7 +1192,8 @@ extern "C" {
 // tile_bits <= pair_hi: bits exchanged on load and on store (pair_lo ==
 // pair_hi: none). staged: what the op table holds that streams its matrix
 // through shared memory, bit 0 a lane_u op (in f32, the tensor-core
-// instantiation), bit 1 a kraus op on 3 row qubits (in f64, krausn_dmma).
+// instantiation), bit 1 a kraus op on 3 row qubits (krausn_dmma,
+// krausn_mma).
 // A run whose flags miss such an op writes past its shared memory.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,

@@ -372,6 +372,26 @@ def kraus_superop_f64_table(St) -> np.ndarray:
     return np.stack(planes, axis=2)
 
 
+def kraus_superop_tf32_table(St) -> np.ndarray:
+    """The f32 kernel's form of a 3-qubit kraus op's S^T (``St``: the 64 x
+    64 complex ``kraus_superop_table``, [e][d]): each plane rounded to
+    float32 and split by :func:`tf32_split`, in the order of its split B
+    fragments (``csrc/fused_gates.cu``, ``krausn_mma``): per k16 step kk,
+    per k8 step h, per plane (real, imaginary), per output column n, per t
+    the four values hi(S^T[e0][n]), hi(S^T[e0 + 4][n]), lo(S^T[e0][n]),
+    lo(S^T[e0 + 4][n]) with e0 = 16 kk + 8 h + t, so that each step kk is
+    one contiguous 16 KiB chunk and each lane's split B values of one h and
+    plane one 16-byte load. Float32, (4, 2, 2, 64, 4, 4)."""
+    St = np.asarray(St)
+    planes = []
+    for w in (St.real, St.imag):
+        hi, lo = tf32_split(w)
+        # e = 16 kk + 8 h + 4 e' + t: ([hi, lo], kk, h, e', t, n) -> (kk, h, n, t, [hi, lo], e')
+        hl = np.stack([hi, lo]).reshape(2, 4, 2, 2, 4, 64)
+        planes.append(hl.transpose(1, 2, 5, 4, 0, 3).reshape(4, 2, 64, 4, 4))
+    return np.stack(planes, axis=2)
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
@@ -388,12 +408,14 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
     its block is ``kraus_superop_table`` (G x G, real then imaginary; built
-    in float64 and rounded once to the state's type), what the f32 kernel
-    and the f64 kernel's t = 1, 2 arm read; at t = 3 it is followed by the
-    same S^T in the f64 kernel's FP64 fragment order
-    (``kraus_superop_f64_table``, 4 x 2 x 2 x 64 x 8), which
-    ``krausn_dmma`` streams. The plain version applies the op's terms,
-    which stay on the host in the op tuple."""
+    in float64 and rounded once to the state's type), what the kernel's t
+    = 1, 2 arms read; at t = 3 it is followed by the same S^T in the f64
+    kernel's FP64 fragment order (``kraus_superop_f64_table``, 4 x 2 x 2 x
+    64 x 8), which ``krausn_dmma`` streams, then by its TF32 split in the
+    f32 kernel's fragment order (``kraus_superop_tf32_table``, 4 x 2 x 2 x
+    64 x 16, float32 values: exact in the f32 device copy), which
+    ``krausn_mma`` streams. The plain version applies the op's terms, which
+    stay on the host in the op tuple."""
     table = np.zeros((len(ops), _REC), dtype=np.int64)
     coeffs: list[np.ndarray] = []
     off = 0
@@ -466,7 +488,8 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             rec[5] = _mask(qubits)
             parts = [St.real.reshape(-1), St.imag.reshape(-1)]
             if t == 3:
-                parts.append(kraus_superop_f64_table(St).reshape(-1))
+                parts += [kraus_superop_f64_table(St).reshape(-1),
+                          kraus_superop_tf32_table(St).reshape(-1)]
             rec[6] = put(np.concatenate(parts))
         else:  # window
             _, lo, span, W = op
@@ -491,7 +514,7 @@ class PreparedRun:
         self.has_lane_u = any(o[0] == "lane_u" for o in self.ops)
         #: what the kernel stages through extra shared memory, the launch's
         #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
-        #: matrix, bit 1 a 3-qubit kraus op's S^T (in f64)
+        #: matrix, bit 1 a 3-qubit kraus op's S^T
         self.staged = int(self.has_lane_u) | 2 * any(
             o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3 for o in self.ops)
         self._device: dict = {}

@@ -152,10 +152,12 @@ def _exact(x, st, mask):
 
 @pytest.mark.parametrize("kind", ["sorted", "unsorted", "interleaved"])
 def test_krausn_f64_table_matches_encode_ops(kind):
-    """The kraus block of a 3-qubit op: S^T real and imaginary (what the
-    f32 kernel reads), then ``kraus_superop_f64_table`` of it, 16-byte
-    aligned; entry [kk, h, plane, n, t, e'] is S^T[16 kk + t + 4 (2 h +
-    e')][n] of that plane, exactly, and every (e, d) appears once."""
+    """The kraus block of a 3-qubit op: S^T real and imaginary (the
+    superoperator itself), then ``kraus_superop_f64_table`` of it, 16-byte
+    aligned, then the f32 kernel's TF32 split (4 G^2 float32 entries,
+    ``test_torch_kraus_tf32.py``); entry [kk, h, plane, n, t, e'] of the
+    f64 table is S^T[16 kk + t + 4 (2 h + e')][n] of that plane, exactly,
+    and every (e, d) appears once."""
     rng = np.random.RandomState(3)
     rows, cols = _masks(12)[kind]
     terms = _kraus_terms(rng)
@@ -165,7 +167,7 @@ def test_krausn_f64_table_matches_encode_ops(kind):
     np.testing.assert_array_equal(st, FG.kraus_superop_table(ks, rows + cols))
     np.testing.assert_array_equal(steps, FG.kraus_superop_f64_table(st))
     assert (int(table[0, 6]) + 2 * G * G) % 2 == 0  # 16-byte loads in f64
-    assert coeffs.size == int(table[0, 6]) + 4 * G * G
+    assert coeffs.size == int(table[0, 6]) + 8 * G * G
     seen = np.zeros((G, G), dtype=int)
     for kk in range(4):
         for h in range(2):
@@ -229,9 +231,10 @@ def test_krausn_model_matches_reference_kernel(nq, rows):
 @pytest.mark.parametrize("kind", ["kraus1", "kraus2", "krausn"])
 def test_f32_kraus_block_unchanged(kind):
     """The first part of every kraus block is S^T real then imaginary, as
-    before (the f32 kernel reads it, and the f64 kernel at t = 1, 2); only
-    a 3-qubit op's block carries the f64 fragment-order table after it,
-    and only a run with one asks the launch to stage it."""
+    before (the kernel's t = 1, 2 arms read it in both precisions); only a
+    3-qubit op's block carries the fragment-order tables after it (FP64,
+    then the TF32 split: 2 + 2 + 4 times G^2 entries), and only a run with
+    one asks the launch to stage them."""
     rng = np.random.RandomState(9)
     t = {"kraus1": 1, "kraus2": 2, "krausn": 3}[kind]
     d = 1 << t
@@ -246,6 +249,6 @@ def test_f32_kraus_block_unchanged(kind):
     off = int(table[0, 6])
     np.testing.assert_array_equal(coeffs[off:off + g2], st.real.reshape(-1))
     np.testing.assert_array_equal(coeffs[off + g2:off + 2 * g2], st.imag.reshape(-1))
-    assert coeffs.size == off + (4 if t == 3 else 2) * g2
+    assert coeffs.size == off + (8 if t == 3 else 2) * g2
     prep = FG.PreparedRun((op,), 9)
     assert prep.staged == (2 if t == 3 else 0)
