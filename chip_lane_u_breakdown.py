@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core folds goes, on one CUDA card: the
-lane_u fold in f32 and f64, and the krausn arm in f64 and f32.
+lane_u fold in f32 and f64, the krausn arm in f64 and f32, and the f64
+window fold.
 
-    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn,krausn32]
+    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn,krausn32,window64]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
 that each take one piece of an op away (or change it), and times a one-op
@@ -85,12 +86,44 @@ false>``):
   instantiation (``__launch_bounds__(512, 1)``: up to 128 registers), the
   arm's shape unchanged.
 
+window64 (``window_dmma``, FP64 ``mma.sync`` in ``fused_run_kernel<double,
+false>``; a one-op pass of a Haar 32x32 unitary on the zone [7, 12), 26
+qubits, in place):
+
+- ``window64 no MMA``: no k steps (the tile's load and store, the table's
+  stage and the barriers remain; zeros are stored);
+- ``window64 load and store``: ``no MMA`` without the stage either;
+- ``window64 no U stage``: the A fragments read with ``__ldg`` from the
+  coefficient buffer, nothing staged;
+- ``window64 X through padded rows``: each k step the warp copies its 8
+  rows x 8 columns, both planes, into its 1 KiB of the second chunk
+  buffer (halves swapped in rows with bit 1 set) and reads its B
+  fragments from there, free of the 4-way bank conflicts;
+- ``window64 U^T as B``: the other layout, as window_dot.cu takes it: X^T
+  as the A operand (warp w: the m16 tile of columns 16 (w & 7)), U^T as B
+  (n8 tiles w >> 3 and (w >> 3) + 2), U staged unpermuted with rows padded
+  to D + 4; two warps read each column, so the writes wait for a block
+  barrier;
+- ``window64 out of line``: the arm as a function of its own
+  (``__noinline__``);
+- ``window64 offset left to the compiler``: the lane's output offset not
+  ``volatile`` (the compiler keeps it where it likes);
+- ``window64 offset found again``: the offset computed again from the
+  thread index (an opaque move) after the k loop, nothing in thread-local
+  memory;
+- ``window64 k loop unrolled``: the k loop left to the compiler's
+  unrolling;
+- ``window64 without the FMA arm``: f64 windows of spans 1-2 trap instead
+  of running ``window_op<double, 2, 1>`` (whose registers and spills the
+  instantiation then sheds; this pass never takes that arm).
+
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
 times its passes beside this one's, first and last but one: its kernel
-reads the parts of the lane_u and kraus blocks that it knows (U^T or S^T,
-real and imaginary, the lane_u split and f64 tables, the kraus f64 table),
-which this checkout's ``encode_ops`` still writes where they were.
+reads the parts of the lane_u, kraus and window blocks that it knows (U^T,
+S^T or U, real and imaginary, the lane_u split and f64 tables, the kraus
+f64 table), which this checkout's ``encode_ops`` still writes where they
+were.
 
 The unchanged kernel's results are checked (against ``fused_run_plain``,
 1e-5 of the largest amplitude in f32, 1e-12 in f64), and so are the
@@ -215,8 +248,8 @@ VARIANTS = {
     "f64 m16n8k8": ("f64", [(_K16, _K8_PAIR)]),
     "f64 ring of 3": ("f64", [("constexpr int kChunkRing = 2;", "constexpr int kChunkRing = 3;")]),
     "f64 one block per SM": ("f64", [
-        ("    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;\n",
-         "    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;\n"
+        ("    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;\n",
+         "    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;\n"
          "    if (staged & kStagedLaneU) kernel = fused_run_kernel<T, true>;\n"),
         ("  } else if constexpr (kLaneMma) {\n    // one block per SM",
          "  } else if constexpr (kLaneMma && sizeof(T) == 4) {\n    // one block per SM"),
@@ -423,17 +456,154 @@ VARIANTS.update({
         ("krausn_mma<kLaneMma ? 1 : kKrausN8>(", "krausn_mma<kKrausN8>(")]),
 })
 
+_WSTEPS = "  for (int ks = 0; ks < ksteps; ++ks) {\n    // b[0] = X"
+_WSTAGE = "  for (int v = tid; v < 16 * D * mtiles; v += kThreads) {"
+_WA = """        const double* a = wbuf + (mt * ksteps + ks) * 256 + 2 * lane;
+        const double2 r0 = *reinterpret_cast<const double2*>(a);
+        const double2 r1 = *reinterpret_cast<const double2*>(a + 64);
+"""
+_WAI = """        const double2 i0 = *reinterpret_cast<const double2*>(a + 128);
+        const double2 i1 = *reinterpret_cast<const double2*>(a + 192);
+"""
+_WB = """    const int e0 = ((8 * ks + l.t) << kLaneBits) + col;
+    const double xr[2] = {sre[e0], sre[e0 + (4 << kLaneBits)]};
+    const double xi[2] = {sim[e0], sim[e0 + (4 << kLaneBits)]};
+"""
+#: the warp's 8 rows x 8 columns of a k step, both planes, copied into its
+#: 1 KiB of the second chunk buffer (rows of 8, the columns' halves swapped
+#: in rows with bit 1 set: the B loads then hit 16 different bank pairs a
+#: half warp), then the B fragments read from there
+_WB_PADDED = """    double* pad = wbuf + kChunkPanel + 128 * (me >> 5);
+    __syncwarp();  // the step before read its copy
+    {
+      const int r = lane >> 2, c = 2 * (lane & 3);
+      const int src = ((8 * ks + r) << kLaneBits) + 8 * (me >> 5) + c;
+      const int dst = 8 * r + (c ^ (r & 2 ? 4 : 0));
+      *reinterpret_cast<double2*>(pad + dst) = *reinterpret_cast<const double2*>(sre + src);
+      *reinterpret_cast<double2*>(pad + 64 + dst) = *reinterpret_cast<const double2*>(sim + src);
+    }
+    __syncwarp();
+    const int p0 = 8 * l.t + (l.g ^ (l.t & 2 ? 4 : 0));
+    const double xr[2] = {pad[p0], pad[p0 + 32]};
+    const double xi[2] = {pad[64 + p0], pad[96 + p0]};
+"""
+#: the arm with U^T as the B operand and X as A (window_dot.cu's layout):
+#: out^T = X^T U^T, M = b (warp w: the m16 tile of columns 16 (w & 7)), N =
+#: d (n8 tiles w >> 3 and (w >> 3) + 2), U staged unpermuted from the
+#: op's block with rows padded to D + 4; two warps read each column, so
+#: the writes wait for a block barrier
+_WINDOW_UT = """__device__ __forceinline__ void window_dmma(double* sre, double* sim, double* wbuf,
+                                            const double* __restrict__ cf, int span,
+                                            int tid) {
+  const int D = 1 << span, ld = D + 4;
+  for (int v = tid; v < 2 * D * D; v += kThreads) {
+    const int p = v / (D * D), e = v % (D * D);
+    wbuf[(p * D + e / D) * ld + e % D] = cf[v];
+  }
+  __syncthreads();
+  const int warp = tid >> 5;
+  const quest_mma::Lane l = quest_mma::lane_coords();
+  const int m0 = 16 * (warp & 7), half = warp >> 3;
+  const int nj = D > 16 ? 2 : 1;
+  const bool active = D > 8 || half == 0;
+  double accr[2][4], acci[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = 0.0;
+  if (active) {
+    for (int ks = 0; ks < D / 8; ++ks) {
+      double ar[4], ai[4];
+      quest_mma::load_a_pairs(sre + ((8 * ks) << kLaneBits) + m0, kLanes, l, ar);
+      quest_mma::load_a_pairs(sim + ((8 * ks) << kLaneBits) + m0, kLanes, l, ai);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j < nj) {
+          const int n0 = 8 * (half + 2 * j);
+          double br[2], bi[2];
+          quest_mma::load_b_nmajor(wbuf + n0 * ld + 8 * ks, ld, l, br);
+          quest_mma::load_b_nmajor(wbuf + (D + n0) * ld + 8 * ks, ld, l, bi);
+          const double nbi[2] = {-bi[0], -bi[1]};
+          quest_mma::mma_f64(accr[j], ar, br);
+          quest_mma::mma_f64(accr[j], ai, nbi);
+          quest_mma::mma_f64(acci[j], ar, bi);
+          quest_mma::mma_f64(acci[j], ai, br);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every read of the tile is done
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j < nj) {
+        const int n0 = 8 * (half + 2 * j);
+        quest_mma::store_c_pairs(sre + (n0 << kLaneBits) + m0, kLanes, l, accr[j]);
+        quest_mma::store_c_pairs(sim + (n0 << kLaneBits) + m0, kLanes, l, acci[j]);
+      }
+    }
+  }
+}
+"""
+_WDMMA_START = "__device__ __forceinline__ void window_dmma("
+
+
+def _window_variants(src: str) -> dict:
+    """The window64 variant that replaces the whole arm (cut from the
+    source itself: from its signature to the end of its body)."""
+    if src.count(_WDMMA_START) != 1:
+        raise RuntimeError("the window arm's anchor is not in the source once")
+    i = src.index(_WDMMA_START)
+    arm = src[i:src.index("\n}\n", i) + 2]
+    return {"window64 U^T as B": ("window64", [(arm, _WINDOW_UT.rstrip("\n"))])}
+
+
+VARIANTS.update({
+    "window64 no MMA": ("window64", [(_WSTEPS, _WSTEPS.replace("ks < ksteps", "ks < 0"))]),
+    "window64 load and store": ("window64", [
+        (_WSTEPS, _WSTEPS.replace("ks < ksteps", "ks < 0")),
+        (_WSTAGE, _WSTAGE.replace("v < 16 * D * mtiles", "v < 0"))]),
+    "window64 no U stage": ("window64", [
+        (_WSTAGE, _WSTAGE.replace("v < 16 * D * mtiles", "v < 0")),
+        (_WA, _WA.replace("wbuf + (mt", "table + (mt").replace(
+            "*reinterpret_cast<const double2*>(", "__ldg(reinterpret_cast<const double2*>(")
+         .replace("(a);", "(a));").replace("(a + 64);", "(a + 64));")),
+        (_WAI, _WAI.replace("*reinterpret_cast<const double2*>(",
+                            "__ldg(reinterpret_cast<const double2*>(")
+         .replace("(a + 128);", "(a + 128));").replace("(a + 192);", "(a + 192));"))]),
+    "window64 X through padded rows": ("window64", [(_WB, _WB_PADDED)]),
+    "window64 out of line": ("window64", [(_WDMMA_START,
+                                           "__device__ __noinline__ void window_dmma(")]),
+    "window64 offset left to the compiler": ("window64", [("  volatile int out0[1];\n",
+                                                           "  int out0[1];\n")]),
+    "window64 k loop unrolled": ("window64", [("#pragma unroll 1\n  for (int ks = 0;",
+                                               "  for (int ks = 0;")]),
+    "window64 without the FMA arm": ("window64", [(
+        "          window_op<T, 2, 1>(sre, sim, tile, cf, lo, span, tid);\n",
+        "          __trap();\n")]),
+    "window64 offset found again": ("window64", [
+        ("  volatile int out0[1];\n"
+         "  out0[0] = (((me & 31) >> 2) << kLaneBits) + 8 * (me >> 5) + 2 * (me & 3);\n", ""),
+        ("  const int o = out0[0];\n",
+         "  asm volatile(\"mov.b32 %0, %1;\" : \"=r\"(me) : \"r\"(tid));\n"
+         "  const int o = (((me & 31) >> 2) << kLaneBits) + 8 * (me >> 5) + 2 * (me & 3);\n")]),
+})
+
 #: the variants that compute the same as the kernel (checked like it)
 RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "krausn m16n8k16", "krausn out of line", "krausn column sweeps",
          "krausn column sweeps, local stash", "krausn32 A swap", "krausn32 8 sums",
-         "krausn32 mask held", "krausn32 resident S^T", "krausn32 one block per SM"}
+         "krausn32 mask held", "krausn32 resident S^T", "krausn32 one block per SM",
+         "window64 no U stage", "window64 X through padded rows", "window64 U^T as B",
+         "window64 out of line", "window64 offset left to the compiler",
+         "window64 offset found again", "window64 without the FMA arm",
+         "window64 k loop unrolled"}
 
 
 def _variant_sources(src: str) -> dict:
     """{variant: (the pass it is timed on, its source)}."""
     out = {}
-    for name, (pn, edits) in (VARIANTS | _krausn_variants(src)).items():
+    for name, (pn, edits) in (VARIANTS | _krausn_variants(src) | _window_variants(src)).items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
@@ -465,12 +635,23 @@ def _krausn_pass(FG, tb):
                             ((1.0, HM(0.8 * xxx)), (1.0, HM(0.6j * np.eye(8))))),), tb)
 
 
+def _window_pass(FG, tb):
+    """A one-op f64 window pass: a Haar 32x32 unitary on the zone [7, 12)."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    q, r = np.linalg.qr(rng.randn(32, 32) + 1j * rng.randn(32, 32))
+    u = q * (np.diag(r) / np.abs(np.diag(r)))
+    W = np.block([[u.real, -u.imag], [u.imag, u.real]])
+    return FG.PreparedRun((("window", 7, tb - 7, FG.HashableMatrix(W)),), tb)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
-    ap.add_argument("--passes", default="f32,f64,krausn,krausn32",
-                    help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32 "
-                         "(default: all)")
+    ap.add_argument("--passes", default="f32,f64,krausn,krausn32,window64",
+                    help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32, "
+                         "window64 (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -514,14 +695,15 @@ def main() -> int:
         u = q * (np.diag(r) / np.abs(np.diag(r)))
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
-                            ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5)):
+                            ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5),
+                            ("window64", torch.float64, 1e-12)):
             if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
             kraus = pn.startswith("krausn")
             n = 2 * CS.N_DENSITY if kraus else N_QUBITS
-            prep = (_krausn_pass(FG, tb) if kraus else
-                    FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
+            prep = (_krausn_pass(FG, tb) if kraus else _window_pass(FG, tb) if pn == "window64"
+                    else FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
             table, coeffs = prep.device_tables(dev, dt)
             st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
             st /= st.norm()
@@ -554,7 +736,7 @@ def main() -> int:
             # arms share the instantiation's registers
             mine = [v for v, (d, _) in variants.items() if v in libs
                     and (d == pn or (pn, d) == ("f64", "krausn"))]
-            what = "krausn" if kraus else "lane_u"
+            what = "krausn" if kraus else "window" if pn == "window64" else "lane_u"
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
                 ms = CS._cuda_ms(lambda: run(name), REPS)
                 print(f"# one-op {what} pass, {n}q {str(dt)[6:]}, {name}: {ms:.4f} ms "

@@ -10,11 +10,12 @@ no result, without them. Phases, in order:
    per source, started together) and print the toolchain and the card,
    each kernel's registers and spills, the count of DMMA, HMMA and DFMA
    instructions in each fused-run instantiation's SASS (``cuobjdump``:
-   the f64 one, which runs lane_u and krausn, must hold more DMMA than
-   the lane_u fold's 4, the f32 lane_u one HMMA, and the other f32 one,
-   which runs krausn on 3xTF32, HMMA too) and the blocks per SM of each
-   kind of run (an f64 run with lane_u or krausn, and an f32 run with
-   krausn, must fit two);
+   the f64 one, which runs lane_u, krausn and windows of span 3 or more,
+   must hold more DMMA than the lane_u and krausn arms' 36, the f32 lane_u
+   one HMMA, and the other f32 one, which runs krausn on 3xTF32, HMMA too)
+   and the blocks per SM of each kind of run (an f64 run with lane_u,
+   krausn or a window of span 3 or more, and an f32 run with krausn, must
+   fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
@@ -26,7 +27,9 @@ no result, without them. Phases, in order:
    at one m16 tile and below it) and krausn on random unsorted qubits at
    KRAUS_TILE_BITS (2 to 32 groups: the tensor-core arms at one sweep,
    idle warps and masked m16 tiles; in f32 also 64 groups, one full sweep
-   of the f32 arm, whose 2^13 tile takes two); limits
+   of the f32 arm, whose 2^13 tile takes two), and in f64 the window fold
+   on the tensor cores at WINDOW_TILE_BITS (D = 8, 16, 32), alone, after a
+   lane_u fold, and before a controlled 2x2 and a lane_u fold; limits
    1e-5 (f32) and 1e-12 (f64) on the max error over the
    largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
@@ -46,7 +49,16 @@ no result, without them. Phases, in order:
    complex ``torch.matmul`` (complex64 / complex128) of the same product,
    which the port never calls; then the window fold alone: a one-op
    window pass on [7, 11] at 26 qubits, f32 and f64, against the plain
-   version and timed beside its bound, and the main path's fold count;
+   version and the exact complex128 product (f64: both within 1e-12 of
+   the largest amplitude), timed beside its bound (its share) and one
+   complex ``torch.matmul`` of the same product, and the main path's fold
+   count; then the main path in f64 on one device: the same circuit
+   planned at the f64 tile, each run's pass against the plain version
+   (1e-12) and timed, then ``Circuit.run`` on an f64 register with the
+   counts reset just before it (launches = runs, zero fallbacks, total
+   probability within 1e-10 of 1, amplitudes within 1e-10 of the largest
+   of an f64 per-gate replay), its time, gates/sec and the share of its
+   passes' summed bound;
 5. density path, f32 then f64: the bench's channel circuits ("r3", 10
    entries, and "r4", 11 with a 3-target Kraus map) on a 14-qubit density
    register (28 flattened qubits) from ``initPlusState``, planned by
@@ -156,6 +168,10 @@ SMALL_TILE_QUBITS = (8, 10, 11, 12)
 #: also 2^12 (64 groups: one full sweep of the f32 arm)
 KRAUS_TILE_BITS, KRAUS_TILE_QUBITS = (7, 8, 9, 10, 11), 14
 KRAUS_TILE_BITS_F32 = KRAUS_TILE_BITS + (12,)
+#: f64 tiles whose window folds (the zone [7, tile_bits): spans 3-5, D = 8,
+#: 16, 32) the kernel phase checks on the FP64 tensor cores, alone and in
+#: runs with lane_u folds, on a KRAUS_TILE_QUBITS-qubit state
+WINDOW_TILE_BITS = (10, 11, 12)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -388,6 +404,24 @@ def _shard_kernel_cases(n: int, nl: int, rng):
             ("sharded diagw and parity", diag + swap, _swaps()),
             ("mixed, shard-local folded swaps", roles + diag + swap + folds,
              _swaps(2, nl - 2, 1, None))]
+
+
+def _window_runs(tb: int, rng):
+    """(name, ops) of the f64 window checks at tile bits tb: 25 random
+    one-qubit gates on [7, tb), which fold into one window op; the same
+    after 21 on the lane qubits (a lane_u fold, then the window); and the
+    window, a 2x2 controlled from the window's zone, then the lane_u fold."""
+    import numpy as np
+
+    from quest_tpu_torch.ops.fused_gates import HashableMatrix as HM
+
+    def ru():
+        return HM(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0])
+
+    window = tuple(("matrix", 7 + q % (tb - 7), (), (), ru()) for q in range(25))
+    lane = tuple(("matrix", q % 7, (), (), ru()) for q in range(21))
+    return [("window", window), ("window+lane_u", lane + window),
+            ("window+matrix+lane_u", window + (("matrix", 3, (8,), (1,), ru()),) + lane)]
 
 
 def _shard_kernel_phase(dev, rng) -> dict:
@@ -694,13 +728,17 @@ def _lane_u_phase(dev, rng, dt) -> dict:
 
 
 def _window_fold_pass(dev, rng, runs, dt) -> dict:
-    """The fused-run kernel's window fold (``window_op``) alone: one pass at
-    N_MAIN qubits in ``dt`` of the window op that 25 random one-qubit gates
-    on qubits [7, 11] fold into at the Hopper tile (2^13 in f32, 2^12 in
-    f64: the same zone), against the plain version (1e-5 of the largest
-    amplitude in f32, 1e-12 in f64) and timed beside its bound; and the
-    folds that ``runs``, the main path's circuit planned at ``dt``'s tile,
-    execute (one launch each run)."""
+    """The fused-run kernel's window fold alone: one pass at N_MAIN qubits
+    in ``dt`` of the window op that 25 random one-qubit gates on qubits [7,
+    11] fold into at the Hopper tile (2^13 in f32, 2^12 in f64: the same
+    zone; ``window_op`` in f32, ``window_dmma`` in f64), against the plain
+    version (1e-5 of the largest amplitude in f32, 1e-12 in f64) and timed
+    beside its bound; against the exact complex128 product (f64: within
+    1e-12 of the largest amplitude); one complex ``torch.matmul``
+    (complex64 / complex128) of the 32 x 32 matrix with a complex (2^(N_MAIN
+    - 12), 32, 128) copy of the state, the same product, which the port
+    never calls; and the folds that ``runs``, the main path's circuit
+    planned at ``dt``'s tile, execute (one launch each run)."""
     import numpy as np
     import torch
 
@@ -708,6 +746,8 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
 
     n = N_MAIN
     name = str(dt)[6:]
+    f32 = dt == torch.float32
+    tol = 1e-5 if f32 else 1e-12
     tb = FG.hopper_tile_bits(n, dt)
     gates = tuple(("matrix", 7 + q % 5, (), (),
                    FG.HashableMatrix(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0]))
@@ -716,14 +756,110 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
     _require([o[0] for o in prep.ops] == ["window"], "window fold pass: no single window op")
     folds = sum(o[0] == "window" for r in runs for o in r.prepare().ops)
     res = _passes([(len(gates), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng,
-                  1e-5 if dt == torch.float32 else 1e-12, f"window fold alone {name}")
-    ms = res["ms"][0]
-    print(f"# window fold alone at {n}q {name}: kernel {ms:.4f} ms, bound {res['bound_ms'][0]:.4f} "
-          f"ms by {'operations' if res['by_ops'][0] else 'bytes'}; window folds in the main "
-          f"path's plan at tile_bits {tb}: {folds} (one launch each run)")
-    return {"ms": ms, "bound_ms": res["bound_ms"][0], "plain_ms": res["plain_ms"][0],
-            "bound_by": "operations" if res["by_ops"][0] else "bytes",
-            "main_path_folds": folds, "max_abs_err": res["max_abs_err"]}
+                  tol, f"window fold alone {name}")
+    ms, bound = res["ms"][0], res["bound_ms"][0]
+    # against the exact product, and the yardstick
+    D, off = 32, int(prep.table[0, 6])
+    u = torch.as_tensor(prep.coeffs[off:off + D * D].reshape(D, D)
+                        + 1j * prep.coeffs[off + D * D:off + 2 * D * D].reshape(D, D), device=dev)
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    x = st.clone()
+    FG.fused_run(x, n=n, ops=prep.ops, tile_bits=tb, prepared=prep)
+    xc = torch.complex(st[0], st[1]).reshape(-1, D, 1 << 7)
+    exact = torch.matmul(u, xc.to(torch.complex128)).reshape(-1)
+    ex = torch.stack([exact.real, exact.imag])
+    del exact
+    rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
+    del x, ex
+    _require(f32 or rel_exact <= tol,
+             f"window fold alone {name}: {rel_exact} of the largest from the exact product")
+    ul = u.to(xc.dtype)
+    lib_ms = _cuda_ms(lambda: torch.matmul(ul, xc), 20)
+    call = f"torch.matmul {str(xc.dtype)[6:]} (32 x 32 by {xc.shape[0]} x 32 x 128)"
+    del st, xc
+    torch.cuda.empty_cache()
+    by = "operations" if res["by_ops"][0] else "bytes"
+    print(f"# window fold alone at {n}q {name}: kernel {ms:.4f} ms ({bound / ms:.1%} of the "
+          f"bound), bound {bound:.4f} ms by {by}; {call} {lib_ms:.4f} ms (kernel / matmul "
+          f"{ms / lib_ms:.3f}); {rel_exact:.3e} of the largest from the exact complex128 "
+          f"product; window folds in the main path's plan at tile_bits {tb}: {folds} (one "
+          f"launch each run)")
+    return {"ms": ms, "bound_ms": bound, "plain_ms": res["plain_ms"][0], "bound_by": by,
+            "share_of_bound": bound / ms, "library_ms": lib_ms, "library_call": call,
+            "rel_err_vs_exact": rel_exact, "main_path_folds": folds,
+            "max_abs_err": res["max_abs_err"]}
+
+
+def _main_path_f64(qt, env, circ, fz, dev) -> dict:
+    """The main path's circuit planned at f64 on one device (``fz``:
+    ``Circuit.fused(max_qubits=5, pallas=True, dtype=float64)`` at the f64
+    tile, 2^12): each run's pass through the kernel against the plain
+    version (1e-12 of the largest amplitude; timed), then the circuit
+    through ``Circuit.run`` on an f64 register with the counts reset just
+    before it: launches must equal the runs, ``engine_fallback_total``
+    must read 0, the total probability must be within 1e-10 of 1 and the
+    amplitudes within 1e-10 of the largest of an f64 per-gate replay;
+    then the circuit's time, gates/sec and the share of its passes' summed
+    bound. The passes draw from a generator of their own."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    dt, label = torch.float64, "main path f64"
+    runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    other = [f.__name__ for f, _, _ in fz._tape if f is not fusion._apply_pallas_run]
+    _require(runs and not other, f"{label}: plan is not all fused runs")
+    res = _passes([_run_item(r) for r in runs], N_MAIN, dt, dev, np.random.RandomState(37),
+                  1e-12, label)
+    torch.cuda.empty_cache()
+    q = qt.createQureg(N_MAIN, env, 2)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    fz.run(q)
+    torch.cuda.synchronize()
+    launches = FG.fused_run.launches
+    fallbacks = telemetry.counter_total("engine_fallback_total")
+    passes = telemetry.counter_value("pallas_pass_total", kind="fused_run")
+    _require(launches == len(runs) == passes, f"{label}: launches {launches} != runs {len(runs)}")
+    _require(fallbacks == 0, f"{label}: engine fallback")
+    res["launches"] = launches
+    total = qt.calcTotalProb(q)
+    ref_q = qt.createQureg(N_MAIN, env, 2)
+    circ.run(ref_q)  # the plain replay: one gate at a time, per-gate engine
+    torch.cuda.synchronize()
+    diff = (q.amps - ref_q.amps).abs().max().item()
+    rel = diff / ref_q.amps.abs().max().item()
+    qt.destroyQureg(ref_q)
+    torch.cuda.empty_cache()
+    _require(abs(total - 1) <= 1e-10, f"{label}: total probability {total}")
+    _require(rel <= 1e-10, f"{label}: fused vs per-gate replay {diff} ({rel} of the largest)")
+    reps = 5
+    fz.run(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fz.run(q)
+    torch.cuda.synchronize()
+    circuit_ms = (time.perf_counter() - t0) / reps * 1e3
+    _require(abs(qt.calcTotalProb(q) - 1) <= 1e-10, f"{label}: norm after timed reps")
+    qt.destroyQureg(q)
+    torch.cuda.empty_cache()
+    gps = len(circ) * 1e3 / circuit_ms
+    bound = sum(res["bound_ms"])
+    folds = sum(k == "window" for r in runs for k in (o[0] for o in r.prepare().ops))
+    print(f"# {label}: {N_MAIN}q depth {DEPTH_MAIN}, {len(circ)} gates -> {len(runs)} fused "
+          f"runs at tile_bits {runs[0].tile_bits} ({folds} window folds); launches "
+          f"{launches}, pallas_pass_total{{fused_run}} {passes:g}, engine_fallback_total "
+          f"{fallbacks:g}; calcTotalProb {total:.12f}, max |fused - per-gate replay| "
+          f"{diff:.3e} ({rel:.3e} of the largest, limit 1e-10); circuit {circuit_ms:.3f} ms "
+          f"({gps:.1f} gates/sec; {sum(res['ms']):.3f} ms of kernel passes against a summed "
+          f"bound of {bound:.3f} ms: {bound / circuit_ms:.1%} of the circuit)")
+    res.update(gates_per_sec=gps, circuit_ms=circuit_ms, runs=len(runs), window_folds=folds,
+               share_of_bound=bound / circuit_ms, max_rel_diff_vs_replay=rel)
+    return res
 
 
 #: the operators that left-multiply a density register (M rho, no
@@ -1613,9 +1749,10 @@ def main() -> int:
     sass = _sass_counts(_build.library_path("fused_gates"))
     for k, counts in sass.items():
         print(f"# sass fused_gates: {k}: " + ", ".join(f"{c} {op}" for op, c in counts.items()))
-    # the f64 instantiation runs lane_u (PR 9: 4 DMMA) and krausn on DMMA
-    _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 4,
-             "the f64 instantiation holds no DMMA beyond the lane_u fold's")
+    # the f64 instantiation runs lane_u (4 DMMA), krausn (32 more: 36) and,
+    # from span 3, the window fold on DMMA
+    _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 36,
+             "the f64 instantiation holds no DMMA beyond the lane_u and krausn arms'")
     _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 0,
              "the f32 lane_u instantiation holds no HMMA")
     # the other f32 instantiation runs krausn_mma (3xTF32) for runs without lane_u
@@ -1624,8 +1761,10 @@ def main() -> int:
     lib = _build.library("fused_gates")
     occupancy = {}
     for f64, ddt in ((0, torch.float32), (1, torch.float64)):
-        # the launch's staged flags: 1 a lane_u op, 2 a krausn op
-        for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn"), (3, " lane_u+krausn")):
+        # the launch's staged flags: 1 a lane_u op, 2 a krausn op, 4 a
+        # window op of span 3 or more (staged in f64 only)
+        for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn"), (3, " lane_u+krausn"),
+                             (4, " window")):
             k = f"{str(ddt)[6:]}{what}"
             occupancy[k] = lib.quest_fused_run_blocks_per_sm(
                 f64, FG.HOPPER_TILE_BITS[ddt], staged)
@@ -1634,6 +1773,7 @@ def main() -> int:
     _require(occupancy["float64 lane_u"] == 2, "an f64 lane_u run does not fit two blocks an SM")
     _require(occupancy["float64 krausn"] == 2, "an f64 krausn run does not fit two blocks an SM")
     _require(occupancy["float32 krausn"] == 2, "an f32 krausn run does not fit two blocks an SM")
+    _require(occupancy["float64 window"] == 2, "an f64 window run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1706,6 +1846,31 @@ def main() -> int:
                   f"{err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
             _require(rel <= tol, f"{dt} krausn tile_bits {ktb} error {err} ({rel} relative) > {tol}")
             errs[(str(dt), f"krausn tile_bits {ktb}")] = err
+        if dt == torch.float64:
+            # f64 window folds on the tensor cores at D = 8, 16, 32, alone and
+            # beside lane_u folds (its generator of its own: the later phases
+            # see the same data as without it)
+            wrng = np.random.RandomState(41)
+            for wtb in WINDOW_TILE_BITS:
+                for name, ops in _window_runs(wtb, wrng):
+                    prep = FG.PreparedRun(ops, wtb)
+                    st = torch.as_tensor(wrng.randn(2, 1 << KRAUS_TILE_QUBITS), dtype=dt,
+                                         device=dev)
+                    st /= st.norm()
+                    ref = FG.fused_run_plain(st, prep, n=KRAUS_TILE_QUBITS, tile_bits=wtb)
+                    x = st.clone()
+                    FG.fused_run(x, n=KRAUS_TILE_QUBITS, ops=ops, tile_bits=wtb, prepared=prep)
+                    torch.cuda.synchronize()
+                    err, rel = _rel_err(x, ref)
+                    kinds = [o[0] for o in prep.ops]
+                    print(f"# kernel float64 {name}: {KRAUS_TILE_QUBITS}q, tile_bits {wtb} (D "
+                          f"{1 << (wtb - 7)}), folded kinds {kinds}, staged {prep.staged}, "
+                          f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
+                    _require("window" in kinds and prep.staged & 4,
+                             f"f64 {name} tile_bits {wtb}: no staged window fold")
+                    _require(rel <= tol, f"f64 {name} tile_bits {wtb} error {err} ({rel} "
+                                         f"relative) > {tol}")
+                    errs[(str(dt), f"{name} tile_bits {wtb}")] = err
         del st, x, ref
     shard_errs = _shard_kernel_phase(dev, rng)
 
@@ -1797,11 +1962,12 @@ def main() -> int:
     lane = {torch.float32: _lane_u_phase(dev, rng, torch.float32),
             torch.float64: _lane_u_phase(dev, np.random.RandomState(29), torch.float64)}
     # the window fold alone (its own generator, as the f64 lane_u passes)
-    runs64 = [a[0] for f, a, _ in circ.fused(max_qubits=5, pallas=True,
-                                              dtype=torch.float64)._tape
-              if f is fusion._apply_pallas_run]
+    fz64 = circ.fused(max_qubits=5, pallas=True, dtype=torch.float64)
+    runs64 = [a[0] for f, a, _ in fz64._tape if f is fusion._apply_pallas_run]
     window_fold = {ddt: _window_fold_pass(dev, np.random.RandomState(31), r, ddt)
                    for ddt, r in ((torch.float32, runs), (torch.float64, runs64))}
+    # -- main path f64: the same circuit planned at f64 on one device -----
+    main64 = _main_path_f64(qt, env, circ, fz64, dev)
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -1822,7 +1988,8 @@ def main() -> int:
 
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
-    f64_paths = {f"density_14q_{t}": density[(torch.float64, t)] for t in ("r3", "r4")}
+    f64_paths = {"statevec_26q_depth8_f64": main64}
+    f64_paths.update({f"density_14q_{t}": density[(torch.float64, t)] for t in ("r3", "r4")})
     entries = [
         _entry("fused_gate_run", "quest_tpu/ops/pallas_gates.py:1141", f32_paths,
                [e for (d, _), e in errs.items() if d == str(torch.float32)], copy_ms),
@@ -1831,6 +1998,9 @@ def main() -> int:
                density[(torch.float64, "r4")]["copy_ms"]),
     ]
     entries[0]["gates_per_sec"] = gps
+    entries[1]["gates_per_sec"] = main64["gates_per_sec"]
+    entries[1]["statevec_f64"] = {k: main64[k] for k in (
+        "circuit_ms", "runs", "window_folds", "share_of_bound", "max_rel_diff_vs_replay")}
     for e, ddt in zip(entries, (torch.float32, torch.float64)):
         e["lane_u_passes"] = lane[ddt]["rows"]
         e["library_yardsticks_ms"]["matmul_lane_u"] = lane[ddt]["rows"][0]["library_ms"]

@@ -73,6 +73,12 @@
 //     buffers, so two blocks still fit an SM and each hides the
 //     other's tile load and store: f64 runs, with lane_u or without, share
 //     one instantiation.
+// A window op is 2^span complex multiply-adds per amplitude, 32 at most: a
+// pass that carries one is bound by bytes once its products run on the
+// tensor cores. In f64 (spans 3-5: window_dmma) they do, FP64 mma.sync
+// with U from the host in fragment order, staged in one chunk buffer; f64
+// spans 1-2 (tiles below 2^10) and every f32 window keep the FMA
+// window_op.
 //
 // The kraus ops replace the kraus arms of _ops_body (pallas_gates.py:662,
 // which applies each term's K and conj(K) to a copy and accumulates). Here
@@ -762,13 +768,120 @@ __device__ __forceinline__ void krausn_mma(float* sre, float* sim, float* wbuf,
   }
 }
 
+// window in f64, spans 3-5, on the tensor cores. An f64 window is always
+// the zone [7, tile_bits) (the host checks it): lo = 7, B = 128 columns, D =
+// 2^span = tile / 128 rows, and OUT[d][b] = sum_e U[d][e] X[e][b] with
+// X[e][b] = x[(e << 7) | b], in place. FP64 mma.sync m16n8k8 (exact
+// products) with U as the A operand (M = d, K = e) and X as the B operand
+// (N = b), the four real products into two accumulators: out_r = Ur xr +
+// Ui (-xi), out_i = Ur xi + Ui xr. Warp w owns the n8 block of columns 8 w
+// .. 8 w + 7 (16 warps: all 128) and every d of it: D / 16 m16 tiles (one
+// at D = 8, whose rows 8-15 are zero in the table and are not stored), 8
+// sums each, 16 a thread at D = 32. A warp reads and writes only its own
+// columns, so no other warp waits on it: no barrier between its reads and
+// its writes (the op loop's barrier follows), and each x is read from
+// shared memory once a tile (the FMA arm below reads each 16 times).
+//
+// U arrives from the host in A-fragment order (``window_f64_table``, after
+// U real and imaginary in the op's block): per m16 tile mt, per k8 step
+// ks, per plane, per half h, per lane (g, t), U[16 mt + g][8 ks + t + 4 h]
+// and U[16 mt + g + 8][8 ks + t + 4 h] (0 past D): a lane's A values of one
+// half in one 16-byte load, a quarter warp's 8 loads on 128 consecutive
+// bytes. The table, 32 D doubles a m16 tile (16 KiB at D = 32: one chunk
+// buffer of the lane_u fold's ring), is staged by cp.async, one wait and
+// one barrier an op (the ring's arms wait for all of their groups).
+//
+// The B loads: lane (g, t) reads X[8 ks + t][8 w + g] and X[8 ks + t +
+// 4][8 w + g]. The rows are 1 KiB apart, so the four lanes t of a column
+// fall on the same banks (4-way conflicts); copying a warp's columns into
+// padded rows first, and the other layout (U^T as the B operand, X as A,
+// as window_dot.cu takes it), are timed by chip_lane_u_breakdown.py.
+// What bounds it: a 26-qubit pass moves 2 GiB (0.64 ms at 3.35 TB/s); its
+// products, 1.72e10 flop, take 0.26 ms at 67 TFLOP/s.
+__device__ __forceinline__ void window_dmma(double* sre, double* sim, double* wbuf,
+                                            const double* __restrict__ cf, int span,
+                                            int tid) {
+  const int D = 1 << span;
+  const int ksteps = D >> 3, mtiles = D > 16 ? 2 : 1;
+  const double* table = cf + 2 * D * D;  // after U real, imaginary
+  for (int v = tid; v < 16 * D * mtiles; v += kThreads) {
+    quest_mma::copy16_async(wbuf + 2 * v, table + 2 * v);
+  }
+  quest_mma::async_commit();
+  quest_mma::async_wait<0>();
+  __syncthreads();  // every thread's part of the table
+  // the thread index through an opaque move, as in krausn_dmma: what the
+  // arm derives from it is not hoisted out of the kernel's op loop
+  int me;
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int lane = me & 31;
+  const quest_mma::Lane l = {lane >> 2, lane & 3};
+  const int col = 8 * (me >> 5) + l.g;  // the lane's column of B
+  double accr[2][4], acci[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accr[mt][i] = acci[mt][i] = 0.0;
+  // c[0] = C[g][2t], c[1] = C[g][2t+1], c[2] = C[g+8][2t], c[3] = C[g+8][2t+1]:
+  // the offset of the lane's first output (row g, column 8 w + 2t) waits
+  // out the k loop in thread-local memory (4 bytes a thread, written and
+  // read once an op). Found again from tid after the loop instead, it
+  // left a 26-qubit pass at 0.82 ms against 0.77; left to the compiler,
+  // its parts are spilled to the same place (8 bytes) at the stash's
+  // speed (chip_lane_u_breakdown.py, "window64 offset ...")
+  volatile int out0[1];
+  out0[0] = (((me & 31) >> 2) << kLaneBits) + 8 * (me >> 5) + 2 * (me & 3);
+  // not unrolled: the loads of later steps, hoisted, would spill
+#pragma unroll 1
+  for (int ks = 0; ks < ksteps; ++ks) {
+    // b[0] = X[8 ks + t][col], b[1] = X[8 ks + t + 4][col]
+    const int e0 = ((8 * ks + l.t) << kLaneBits) + col;
+    const double xr[2] = {sre[e0], sre[e0 + (4 << kLaneBits)]};
+    const double xi[2] = {sim[e0], sim[e0 + (4 << kLaneBits)]};
+    const double nxi[2] = {-xi[0], -xi[1]};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt < mtiles) {
+        // a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]
+        const double* a = wbuf + (mt * ksteps + ks) * 256 + 2 * lane;
+        const double2 r0 = *reinterpret_cast<const double2*>(a);
+        const double2 r1 = *reinterpret_cast<const double2*>(a + 64);
+        const double ur[4] = {r0.x, r0.y, r1.x, r1.y};
+        quest_mma::mma_f64(accr[mt], ur, xr);
+        quest_mma::mma_f64(acci[mt], ur, xi);
+        const double2 i0 = *reinterpret_cast<const double2*>(a + 128);
+        const double2 i1 = *reinterpret_cast<const double2*>(a + 192);
+        const double ui[4] = {i0.x, i0.y, i1.x, i1.y};
+        quest_mma::mma_f64(acci[mt], ui, xr);
+        quest_mma::mma_f64(accr[mt], ui, nxi);
+      }
+    }
+  }
+  __syncwarp();  // the warp's reads of its columns are done
+  const int o = out0[0];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (mt < mtiles) {
+      const int o0 = o + (16 * mt << kLaneBits), o1 = o0 + (8 << kLaneBits);
+      *reinterpret_cast<double2*>(sre + o0) = make_double2(accr[mt][0], accr[mt][1]);
+      *reinterpret_cast<double2*>(sim + o0) = make_double2(acci[mt][0], acci[mt][1]);
+      if (D > 8) {
+        *reinterpret_cast<double2*>(sre + o1) = make_double2(accr[mt][2], accr[mt][3]);
+        *reinterpret_cast<double2*>(sim + o1) = make_double2(acci[mt][2], acci[mt][3]);
+      }
+    }
+  }
+}
+static_assert(2 * 4 * 256 == kChunkPanel, "the D = 32 table is one chunk buffer");
+
 // window: out[a][d][b] = sum_e U[d][e] x[a][e][b] on the index bits
-// [lo, lo+span) (D = 2^span, B = 2^lo >= 128). cf holds U real then U
-// imaginary (D x D each). A work item is kDg values of d by 4 consecutive
-// b: each vector load of x[a][e][b..b+3] feeds 4 * kDg complex FMAs, and
-// a warp's threads share d, so U[d][e] is a broadcast. A thread holds
-// kReps items until every read of the op is done: kDg * kReps * 4 outputs
-// (16 in f32, 8 in f64, whose tile is at most 2^12).
+// [lo, lo+span) (D = 2^span, B = 2^lo >= 128): every f32 window, and f64
+// spans 1 and 2 (tiles of 2^8 and 2^9, below an m16 tile). cf holds U real
+// then U imaginary (D x D each). A work item is kDg values of d by 4
+// consecutive b: each vector load of x[a][e][b..b+3] feeds 4 * kDg complex
+// FMAs, and a warp's threads share d, so U[d][e] is a broadcast. A thread
+// holds kReps items until every read of the op is done: kDg * kReps * 4
+// outputs (16 in f32, 8 in f64, whose tile is at most 2^12).
 template <typename T, int kDg, int kReps>
 __device__ __forceinline__ void window_op(T* sre, T* sim, uint32_t tile,
                                           const T* __restrict__ cf, int lo,
@@ -1059,7 +1172,13 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
     } else if (kind == kWindow) {
       const int lo = static_cast<int>(r[1]), span = static_cast<int>(r[2]);
       if constexpr (sizeof(T) == 8) {
-        window_op<T, 2, 1>(sre, sim, tile, cf, lo, span, tid);
+        if (span >= 3) {
+          // lo = 7, lo + span = tile_bits: the host refuses any other f64 window
+          if (lo != kLaneBits || tile != (static_cast<uint32_t>(kLanes) << span)) __trap();
+          window_dmma(sre, sim, sim + tile, cf, span, tid);
+        } else {
+          window_op<T, 2, 1>(sre, sim, tile, cf, lo, span, tid);
+        }
       } else {
         if (span >= 2) {
           window_op<T, 4, 1>(sre, sim, tile, cf, lo, span, tid);
@@ -1110,14 +1229,16 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
 
 // What a run's ops stage through shared memory beyond the tile (the
 // ``staged`` flags of the launch): bit 0, a lane_u op; bit 1, a kraus op on
-// t = 3 row qubits.
+// t = 3 row qubits; bit 2, a window op of span 3 or more (staged in f64
+// only: the f32 window arm reads U from the coefficient buffer).
 constexpr int kStagedLaneU = 1;
 constexpr int kStagedKrausN = 2;
+constexpr int kStagedWindow = 4;
 
 // The instantiation a run takes and its dynamic shared memory, chosen by
 // what the run holds: an f32 run with lane_u (and krausn or not) takes the
 // one with one block per SM; every other run, runs with krausn and f64 runs
-// with lane_u too, two blocks per SM.
+// with lane_u or a window of span 3 or more too, two blocks per SM.
 template <typename T>
 auto pick(int tile_bits, int staged, int* smem) {
   auto kernel = fused_run_kernel<T, false>;
@@ -1130,7 +1251,7 @@ auto pick(int tile_bits, int staged, int* smem) {
       stage = kLaneDmmaStage;
     }
   } else {
-    if (staged & (kStagedLaneU | kStagedKrausN)) stage = kLaneDmmaStage;
+    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;
   }
   *smem = static_cast<int>(2 * sizeof(T) << tile_bits) + stage;
   return kernel;
@@ -1193,7 +1314,7 @@ extern "C" {
 // pair_hi: none). staged: what the op table holds that streams its matrix
 // through shared memory, bit 0 a lane_u op (in f32, the tensor-core
 // instantiation), bit 1 a kraus op on 3 row qubits (krausn_dmma,
-// krausn_mma).
+// krausn_mma), bit 2 a window op of span 3 or more (window_dmma; f64).
 // A run whose flags miss such an op writes past its shared memory.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,

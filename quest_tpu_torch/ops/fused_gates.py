@@ -392,6 +392,29 @@ def kraus_superop_tf32_table(St) -> np.ndarray:
     return np.stack(planes, axis=2)
 
 
+def window_f64_table(W, span: int) -> np.ndarray:
+    """The f64 kernel's form of a window op's U (``W``: the op's real block
+    [[Ur, -Ui], [Ui, Ur]], 2D x 2D, D = 2^span, span 3 to 5), in the order
+    of its FP64 A fragments (``csrc/fused_gates.cu``, ``window_dmma``): per
+    m16 tile mt (D / 16 of them, one at D = 8), per k8 step ks (D / 8), per
+    plane (real, imaginary), per half h, per lane (g, t) = divmod(lane, 4),
+    the two values U[16 mt + g][8 ks + t + 4 h] and U[16 mt + g + 8][8 ks +
+    t + 4 h], 0 where the row is past D: a lane's A values of one half in
+    one 16-byte load. Float64, (max(D / 16, 1), D / 8, 2, 2, 32, 2)."""
+    D = 1 << span
+    if not 3 <= span <= 5:
+        raise ValueError(f"the f64 window table takes spans 3 to 5, got {span}")
+    W = np.asarray(W, dtype=np.float64)
+    mt = max(D // 16, 1)
+    planes = []
+    for u in (W[:D, :D], W[D:, :D]):
+        # rows 16 mt + 8 j + g (zero-padded to 16 mt rows), columns 8 ks + 4 h + t:
+        # (mt, j, g, ks, h, t) -> (mt, ks, h, g, t, j)
+        u = np.concatenate([u, np.zeros((16 * mt - D, D))]).reshape(mt, 2, 8, D // 8, 2, 4)
+        planes.append(u.transpose(0, 3, 4, 2, 5, 1).reshape(mt, D // 8, 2, 32, 2))
+    return np.stack(planes, axis=2)
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
@@ -403,7 +426,10 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     into TF32 hi and lo in its fragment order (``lane_u_split_table``, 2 x
     128 x 256), then for the f64 kernel the same in its fragment order
     (``lane_u_f64_table``, 2 x 16 x 2 x 64 x 8); window U real then
-    imaginary (D x D each).
+    imaginary (D x D each, what the plain version and the f32 kernel read),
+    then for spans 3 to 5 the same in the f64 kernel's A-fragment order
+    (``window_f64_table``, max(D / 16, 1) x D / 8 x 2 x 2 x 32 x 2), which
+    ``window_dmma`` stages.
 
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
@@ -496,8 +522,10 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             W = _arr(W).real
             D = 1 << span
             rec[1], rec[2] = lo, span
-            rec[6] = put(np.concatenate([W[:D, :D].reshape(-1),
-                                         W[D:, :D].reshape(-1)]))
+            parts = [W[:D, :D].reshape(-1), W[D:, :D].reshape(-1)]
+            if span >= 3:
+                parts.append(window_f64_table(W, span).reshape(-1))
+            rec[6] = put(np.concatenate(parts))
     flat = np.concatenate(coeffs) if coeffs else np.zeros(1)
     return table, flat
 
@@ -514,9 +542,12 @@ class PreparedRun:
         self.has_lane_u = any(o[0] == "lane_u" for o in self.ops)
         #: what the kernel stages through extra shared memory, the launch's
         #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
-        #: matrix, bit 1 a 3-qubit kraus op's S^T
-        self.staged = int(self.has_lane_u) | 2 * any(
-            o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3 for o in self.ops)
+        #: matrix, bit 1 a 3-qubit kraus op's S^T, bit 2 the U of a window op
+        #: of span 3 or more (staged in f64 only)
+        self.staged = (int(self.has_lane_u)
+                       | 2 * any(o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3
+                                 for o in self.ops)
+                       | 4 * any(o[0] == "window" and o[2] >= 3 for o in self.ops))
         self._device: dict = {}
 
     def device_tables(self, device, dtype):
@@ -526,6 +557,20 @@ class PreparedRun:
                 torch.as_tensor(self.table, device=device).contiguous(),
                 torch.as_tensor(self.coeffs, dtype=dtype, device=device).contiguous())
         return self._device[key]
+
+
+def _check_windows(prepared: PreparedRun, dtype) -> None:
+    """An f64 window op must be the zone [7, tile_bits) that
+    ``_fold_zone_ops`` makes at the f64 tile (at most 2^12): the kernel's
+    f64 window arm (``window_dmma``) takes lo = 7 and lo + span =
+    tile_bits, and no other f64 window reaches it."""
+    if dtype != torch.float64:
+        return
+    for o in prepared.ops:
+        if o[0] == "window" and (o[1] != LANE_BITS or o[1] + o[2] != prepared.tile_bits):
+            raise ValueError(
+                f"an f64 window op must cover the qubits [{LANE_BITS}, tile_bits="
+                f"{prepared.tile_bits}), got lo={o[1]}, span={o[2]}")
 
 
 def _check(amps: torch.Tensor, n: int, local_n: int, shard_index: int, ops,
@@ -601,6 +646,7 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
         prepared = PreparedRun(ops, tile_bits)
     elif prepared.tile_bits != tile_bits:
         raise ValueError("prepared run was folded for another tile geometry")
+    _check_windows(prepared, amps.dtype)
     dst = amps if out is None else out
     if dst is not amps and (dst.shape != amps.shape or dst.dtype != amps.dtype
                             or dst.device != amps.device):
