@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core folds goes, on one CUDA card: the
-lane_u fold in f32 and f64, the krausn arm in f64 and f32, and the f64
-window fold.
+lane_u fold in f32 and f64, the krausn arm in f64 and f32, and the window
+fold in f64 and f32.
 
-    python3 chip_lane_u_breakdown.py [--parent DIR] [--passes f32,f64,krausn,krausn32,window64]
+    python3 chip_lane_u_breakdown.py [--parent DIR]
+        [--passes f32,f64,krausn,krausn32,window64,window32]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
 that each take one piece of an op away (or change it), and times a one-op
@@ -116,6 +117,36 @@ qubits, in place):
 - ``window64 without the FMA arm``: f64 windows of spans 1-2 trap instead
   of running ``window_op<double, 2, 1>`` (whose registers and spills the
   instantiation then sheds; this pass never takes that arm).
+
+window32 (``window_mma``, 3xTF32 ``mma.sync`` in ``fused_run_kernel<float,
+false>``; the same unitary on the zone [7, 12) of the 2^13 tile, two slabs
+of 128 columns, 26 qubits, in place):
+
+- ``window32 no MMA`` and ``window32 load and store``: as for window64 (the
+  stage here is the kernel's split of U into the table);
+- ``window32 no A loads``: the split A fragments from registers, not the
+  staged table (wrong results, timing only);
+- ``window32 X through padded rows``: each k step the warp copies its 8
+  rows x 8 columns, both planes, into 512 bytes of its own after the
+  table (rows of 8 floats: the B loads then hit 32 banks) and reads its B
+  fragments from there;
+- ``window32 U^T as B``: the other layout, as window_dot.cu and krausn_mma
+  take it: X^T as the A operand, split in registers (warp: one slab's m16
+  block of 16 columns, all of D: 32 sums a thread at D = 32), U^T as B,
+  split by the kernel into a B-fragment table as it stages it;
+- ``window32 U split by the host``: the table built on the host (the same
+  values in the same order, after U in the variant's own coefficient
+  buffer) and copied in by cp.async, not split by the kernel as it stages;
+- ``window32 k loop unrolled``: the k loop left to the compiler's
+  unrolling;
+- ``window32 no B loads``, ``window32 no stage``: the X values from
+  registers (their offsets), or no table staged (wrong results, timing
+  only); ``window32 one TF32 term``: hi*hi alone, a third of the HMMA;
+- ``window32 B prefetch``: the next k step's X values loaded before this
+  step's products; ``window32 two items at once``: both of a warp's slabs
+  in one k loop, each A fragment feeding both (32 sums a thread);
+  ``window32 three products``: Ur xr, Ui xi and (Ur + Ui)(xr + xi)
+  (Gauss's), out_i from the third less the others (24 sums a thread).
 
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
@@ -341,7 +372,7 @@ STEP      if (i == 3) {
 def _between(src: str, start: str, end: str) -> str:
     """The text of ``src`` from ``start`` to the end of ``end`` (each once)."""
     if src.count(start) != 1 or src.count(end) != 1:
-        raise RuntimeError("a krausn variant's anchor is not in the source once")
+        raise RuntimeError("a variant's anchor is not in the source once")
     i = src.index(start)
     return src[i:src.index(end, i) + len(end)]
 
@@ -450,9 +481,9 @@ VARIANTS.update({
             quest_mma::split_tf32(im.y, ui[j].hi[1], ui[j].lo[1]);
 """)]),
     "krausn32 one block per SM": ("krausn32", [
-        ("    } else if (staged & kStagedKrausN) {\n      stage = kLaneDmmaStage;\n",
-         "    } else if (staged & kStagedKrausN) {\n      kernel = fused_run_kernel<T, true>;\n"
-         "      stage = kLaneDmmaStage;\n"),
+        ("    } else if (staged & (kStagedKrausN | kStagedWindow)) {\n      stage = kLaneDmmaStage;\n",
+         "    } else if (staged & (kStagedKrausN | kStagedWindow)) {\n"
+         "      kernel = fused_run_kernel<T, true>;\n      stage = kLaneDmmaStage;\n"),
         ("krausn_mma<kLaneMma ? 1 : kKrausN8>(", "krausn_mma<kKrausN8>(")]),
 })
 
@@ -589,6 +620,361 @@ VARIANTS.update({
          "  const int o = (((me & 31) >> 2) << kLaneBits) + 8 * (me >> 5) + 2 * (me & 3);\n")]),
 })
 
+_W32STEPS = "    for (int ks = 0; ks < ksteps; ++ks) {\n      // b[0] = X[8 ks + t][b0 + g]"
+_W32STAGE = "  for (int v = tid; v < 64 * mtiles * ksteps; v += kThreads) {"
+_W32B = """      const uint32_t e = x0 + (static_cast<uint32_t>(8 * ks) << lo);
+      const quest_mma::SplitB br = quest_mma::split_b(sre[e], sre[e + (4u << lo)]);
+      const quest_mma::SplitB bi = quest_mma::split_b(sim[e], sim[e + (4u << lo)]);
+"""
+#: the warp's 8 rows x 8 columns of a k step, both planes, copied into its
+#: 512 bytes after the table (rows of 8 floats: lane (g, t)'s B values then
+#: sit at 8 t + g and 8 (t + 4) + g, 32 banks), then read from there
+_W32B_PADDED = """      float* pad = wbuf + 4096 + 128 * (me >> 5);
+      __syncwarp();  // the step before read its copy
+      {
+        const int q = lane & 15, r = q >> 1, c = 4 * (q & 1);
+        const float* src = (lane < 16 ? sre : sim) + base + ((8 * ks + r) << lo) + c;
+        *reinterpret_cast<float4*>(pad + 64 * (lane >> 4) + 8 * r + c) =
+            *reinterpret_cast<const float4*>(src);
+      }
+      __syncwarp();
+      const int p0 = 8 * l.t + l.g;
+      const quest_mma::SplitB br = quest_mma::split_b(pad[p0], pad[p0 + 32]);
+      const quest_mma::SplitB bi = quest_mma::split_b(pad[64 + p0], pad[96 + p0]);
+"""
+_W32KLOOP = ("#pragma unroll 1\n    for (int ks = 0; ks < ksteps; ++ks) {\n"
+             "      // b[0] = X[8 ks + t][b0 + g], b[1] = X[8 ks + t + 4][b0 + g]\n" + _W32B)
+#: the next k step's B values loaded before this step's products
+_W32KLOOP_PREFETCH = """    float r0 = sre[x0], r1 = sre[x0 + (4u << lo)], i0 = sim[x0], i1 = sim[x0 + (4u << lo)];
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const quest_mma::SplitB br = quest_mma::split_b(r0, r1);
+      const quest_mma::SplitB bi = quest_mma::split_b(i0, i1);
+      if (ks + 1 < ksteps) {
+        const uint32_t e = x0 + (static_cast<uint32_t>(8 * ks + 8) << lo);
+        r0 = sre[e];
+        r1 = sre[e + (4u << lo)];
+        i0 = sim[e];
+        i1 = sim[e + (4u << lo)];
+      }
+"""
+_W32STAGE_START = "  // one thread a (mt, ks, plane, lane): its four values, split\n"
+_W32STAGE_END = "  __syncthreads();  // every thread's part of the split table\n"
+#: the table copied from the host's (after U in the variant's coefficients)
+_W32STAGE_HOST = """  for (int v = tid; v < 128 * mtiles * ksteps; v += kThreads) {
+    quest_mma::copy16_async(wbuf + 4 * v, cf + 2 * D * D + 4 * v);
+  }
+  quest_mma::async_commit();
+  quest_mma::async_wait<0>();
+  __syncthreads();
+"""
+#: the arm with U^T as the B operand and X^T as A (window_dot.cu's and
+#: krausn_mma's layout): out^T = X^T U^T, M = b (a warp: one slab's m16
+#: block of 16 columns), N = d (all D / 8 n8 tiles: 32 sums a thread at D =
+#: 32), X^T split in registers, U^T split by the kernel as it stages it
+#: into B-fragment order (per n8 tile j, per k8 step, per plane, per lane
+#: hi(U[8 j + g][8 ks + t]), hi(U[..][.. + 4]), lo(..), lo(..))
+_WINDOW32_UT = """__device__ __forceinline__ void window_mma(float* sre, float* sim, float* wbuf, uint32_t tile,
+                                           const float* __restrict__ cf, int lo, int span,
+                                           int tid) {
+  const int D = 1 << span;
+  const int ksteps = D >> 3;
+  quest_mma::async_wait<0>();
+  for (int v = tid; v < 64 * ksteps * ksteps; v += kThreads) {
+    const int lane = v & 31, plane = (v >> 5) & 1, jk = v >> 6;
+    const int d = 8 * (jk >> (span - 3)) + (lane >> 2);
+    const int e = 8 * (jk & (ksteps - 1)) + (lane & 3);
+    const float* u = cf + plane * D * D + d * D + e;
+    uint32_t h0, l0, h1, l1;
+    quest_mma::split_tf32(__ldg(u), h0, l0);
+    quest_mma::split_tf32(__ldg(u + 4), h1, l1);
+    *reinterpret_cast<uint4*>(wbuf + jk * 256 + plane * 128 + 4 * lane) = make_uint4(h0, h1, l0, l1);
+  }
+  __syncthreads();
+  int me;
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int lane = me & 31;
+  const quest_mma::Lane l = {lane >> 2, lane & 3};
+  const uint32_t items = tile >> (span + 4);
+  const int nb = lo - 4, nj = D >> 3;
+#pragma unroll 1
+  for (uint32_t it = me >> 5; it < items; it += kThreads / 32) {
+    const uint32_t base = ((it >> nb) << (lo + span)) | ((it & ((1u << nb) - 1)) << 4);
+    const uint32_t x0 = base + (static_cast<uint32_t>(l.t) << lo) + l.g;
+    float accr[4][4], acci[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const uint32_t e = x0 + (static_cast<uint32_t>(8 * ks) << lo), e4 = e + (4u << lo);
+      const float ar[4] = {sre[e], sre[e + 8], sre[e4], sre[e4 + 8]};
+      const float ai[4] = {sim[e], sim[e + 8], sim[e4], sim[e4 + 8]};
+      const quest_mma::SplitA sr = quest_mma::split_a(ar);
+      const quest_mma::SplitA si = quest_mma::split_a(ai);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < nj) {
+          const float* b = wbuf + (j * ksteps + ks) * 256 + 4 * lane;
+          const quest_mma::SplitB ur = quest_mma::load_b_split(b);
+          const quest_mma::SplitB ui = quest_mma::load_b_split(b + 128);
+          quest_mma::mma_3xtf32(accr[j], sr, ur);
+          quest_mma::mma_3xtf32(accr[j], si, quest_mma::negate(ui));
+          quest_mma::mma_3xtf32(acci[j], sr, ui);
+          quest_mma::mma_3xtf32(acci[j], si, ur);
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nj) {
+        const uint32_t o = base + (static_cast<uint32_t>(8 * j + 2 * l.t) << lo) + l.g;
+        sre[o] = accr[j][0];
+        sre[o + (1u << lo)] = accr[j][1];
+        sre[o + 8] = accr[j][2];
+        sre[o + (1u << lo) + 8] = accr[j][3];
+        sim[o] = acci[j][0];
+        sim[o + (1u << lo)] = acci[j][1];
+        sim[o + 8] = acci[j][2];
+        sim[o + (1u << lo) + 8] = acci[j][3];
+      }
+    }
+  }
+}"""
+_W32_START = "__device__ __forceinline__ void window_mma("
+#: the arm's item loop, as the source has it
+_W32ITEMS_START = "#pragma unroll 1\n  for (uint32_t it = me >> 5; it < items; it += kThreads / 32) {\n"
+_W32ITEMS_END = """          *reinterpret_cast<float2*>(sim + o1) = make_float2(acci[mt][2], acci[mt][3]);
+        }
+      }
+    }
+  }
+"""
+#: both of a warp's items (slabs, at the 2^13 tile) in one k loop: each A
+#: fragment feeds both, 32 sums a thread at D = 32
+_W32TWO_ITEMS = """#pragma unroll 1
+  for (uint32_t it0 = me >> 5; it0 < items; it0 += 2 * (kThreads / 32)) {
+    const bool two = it0 + kThreads / 32 < items;
+    uint32_t base[2], x0[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t it = it0 + q * (kThreads / 32);
+      base[q] = ((it >> nb) << (lo + span)) | ((it & ((1u << nb) - 1)) << 3);
+      x0[q] = base[q] + (static_cast<uint32_t>(l.t) << lo) + l.g;
+    }
+    float accr[2][2][4], acci[2][2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) accr[q][mt][i] = acci[q][mt][i] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      quest_mma::SplitB br[2], bi[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t e = (two || q == 0 ? x0[q] : x0[0]) + (static_cast<uint32_t>(8 * ks) << lo);
+        br[q] = quest_mma::split_b(sre[e], sre[e + (4u << lo)]);
+        bi[q] = quest_mma::split_b(sim[e], sim[e + (4u << lo)]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < mtiles) {
+          const float* a = table + (mt * ksteps + ks) * kWinStep;
+          const quest_mma::SplitA ur = quest_mma::load_a_split(a, a + 128);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            quest_mma::mma_3xtf32(accr[q][mt], ur, br[q]);
+            quest_mma::mma_3xtf32(acci[q][mt], ur, bi[q]);
+          }
+          const quest_mma::SplitA ui = quest_mma::load_a_split(a + 256, a + 384);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            quest_mma::mma_3xtf32(acci[q][mt], ui, br[q]);
+            quest_mma::mma_3xtf32(accr[q][mt], ui, quest_mma::negate(bi[q]));
+          }
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q == 0 || two) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < mtiles) {
+            const uint32_t o0 = base[q] + (static_cast<uint32_t>(16 * mt + l.g) << lo) + 2 * l.t;
+            const uint32_t o1 = o0 + (8u << lo);
+            *reinterpret_cast<float2*>(sre + o0) = make_float2(accr[q][mt][0], accr[q][mt][1]);
+            *reinterpret_cast<float2*>(sim + o0) = make_float2(acci[q][mt][0], acci[q][mt][1]);
+            if (D > 8) {
+              *reinterpret_cast<float2*>(sre + o1) = make_float2(accr[q][mt][2], accr[q][mt][3]);
+              *reinterpret_cast<float2*>(sim + o1) = make_float2(acci[q][mt][2], acci[q][mt][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+"""
+#: the arm's products of an (mt, ks), as the source has them
+_W32MMA = """          quest_mma::mma_3xtf32(accr[mt], ur, br);
+          quest_mma::mma_3xtf32(acci[mt], ur, bi);
+          const quest_mma::SplitA ui = quest_mma::load_a_split(a + 256, a + 384);
+          quest_mma::mma_3xtf32(acci[mt], ui, br);
+          quest_mma::mma_3xtf32(accr[mt], ui, quest_mma::negate(bi));
+"""
+#: the arm with three real products, not four (Gauss's: Ur xr, Ui xi and
+#: (Ur + Ui)(xr + xi), out_r = the first less the second, out_i = the
+#: third less both): the table holds Ur, Ui and Ur + Ui split (24 KiB at D
+#: = 32), B is xr, xi and xr + xi split in registers, 24 sums a thread
+_WINDOW32_GAUSS = """__device__ __forceinline__ void window_mma(float* sre, float* sim, float* wbuf, uint32_t tile,
+                                           const float* __restrict__ cf, int lo, int span,
+                                           int tid) {
+  const int D = 1 << span;
+  const int ksteps = D >> 3, mtiles = D > 16 ? 2 : 1;
+  quest_mma::async_wait<0>();
+  for (int v = tid; v < 96 * mtiles * ksteps; v += kThreads) {
+    const int lane = v & 31, plane = (v >> 5) % 3, mk = v / 96;
+    const int d0 = 16 * (mk >> (span - 3)) + (lane >> 2);
+    const int e0 = 8 * (mk & (ksteps - 1)) + (lane & 3);
+    const bool pad = d0 + 8 >= D;
+    float a[4];
+    for (int i = 0; i < 4; ++i) {
+      const int at = (d0 + 8 * (i & 1)) * D + e0 + 4 * (i >> 1);
+      const float r = __ldg(cf + at), im = __ldg(cf + D * D + at);
+      a[i] = (pad && (i & 1)) ? 0.f : plane == 0 ? r : plane == 1 ? im : r + im;
+    }
+    const quest_mma::SplitA s = quest_mma::split_a(a);
+    float* p = wbuf + mk * 768 + plane * 256 + 4 * lane;
+    *reinterpret_cast<uint4*>(p) = make_uint4(s.hi[0], s.hi[1], s.hi[2], s.hi[3]);
+    *reinterpret_cast<uint4*>(p + 128) = make_uint4(s.lo[0], s.lo[1], s.lo[2], s.lo[3]);
+  }
+  __syncthreads();
+  int me;
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int lane = me & 31;
+  const quest_mma::Lane l = {lane >> 2, lane & 3};
+  const uint32_t items = tile >> (span + 3);
+  const int nb = lo - 3;
+  const float* table = wbuf + 4 * lane;
+#pragma unroll 1
+  for (uint32_t it = me >> 5; it < items; it += kThreads / 32) {
+    const uint32_t base = ((it >> nb) << (lo + span)) | ((it & ((1u << nb) - 1)) << 3);
+    const uint32_t x0 = base + (static_cast<uint32_t>(l.t) << lo) + l.g;
+    float c1[2][4], c2[2][4], c3[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c1[mt][i] = c2[mt][i] = c3[mt][i] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const uint32_t e = x0 + (static_cast<uint32_t>(8 * ks) << lo);
+      const float r0 = sre[e], r1 = sre[e + (4u << lo)], i0 = sim[e], i1 = sim[e + (4u << lo)];
+      const quest_mma::SplitB br = quest_mma::split_b(r0, r1);
+      const quest_mma::SplitB bi = quest_mma::split_b(i0, i1);
+      const quest_mma::SplitB bs = quest_mma::split_b(r0 + i0, r1 + i1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < mtiles) {
+          const float* a = table + (mt * ksteps + ks) * 768;
+          quest_mma::mma_3xtf32(c1[mt], quest_mma::load_a_split(a, a + 128), br);
+          quest_mma::mma_3xtf32(c2[mt], quest_mma::load_a_split(a + 256, a + 384), bi);
+          quest_mma::mma_3xtf32(c3[mt], quest_mma::load_a_split(a + 512, a + 640), bs);
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt < mtiles) {
+        const uint32_t o0 = base + (static_cast<uint32_t>(16 * mt + l.g) << lo) + 2 * l.t;
+        const uint32_t o1 = o0 + (8u << lo);
+        *reinterpret_cast<float2*>(sre + o0) = make_float2(c1[mt][0] - c2[mt][0], c1[mt][1] - c2[mt][1]);
+        *reinterpret_cast<float2*>(sim + o0) = make_float2(c3[mt][0] - c1[mt][0] - c2[mt][0],
+                                                           c3[mt][1] - c1[mt][1] - c2[mt][1]);
+        if (D > 8) {
+          *reinterpret_cast<float2*>(sre + o1) = make_float2(c1[mt][2] - c2[mt][2], c1[mt][3] - c2[mt][3]);
+          *reinterpret_cast<float2*>(sim + o1) = make_float2(c3[mt][2] - c1[mt][2] - c2[mt][2],
+                                                             c3[mt][3] - c1[mt][3] - c2[mt][3]);
+        }
+      }
+    }
+  }
+}"""
+
+
+def window_split_table(u_block, span: int):
+    """The table ``window_mma`` stages (``csrc/fused_gates.cu``), built on
+    the host (the ``window32 U split by the host`` variant's, and the CPU
+    tests' model of the kernel's): U (``u_block``: U real then imaginary,
+    D x D each, D = 2^span, span 3 to 5) rounded to float32 and split by
+    ``tf32_split``, per m16 tile mt, per k8 step ks, per plane, hi then lo,
+    per lane (g, t) = divmod(lane, 4) the four A values U[16 mt + g + 8 (i
+    & 1)][8 ks + t + 4 (i >> 1)], i = 0..3, 0 past D. Float32, (max(D /
+    16, 1), D / 8, 2, 2, 32, 4)."""
+    import numpy as np
+
+    from quest_tpu_torch.ops.fused_gates import tf32_split
+
+    D = 1 << span
+    mt = max(D // 16, 1)
+    u = np.asarray(u_block, dtype=np.float32).reshape(2, D, D)
+    u = np.concatenate([u, np.zeros((2, 16 * mt - D, D), np.float32)], axis=1)
+    # rows 16 mt + 8 j + g, columns 8 ks + 4 h + t, i = 2 h + j:
+    # (plane, mt, j, g, ks, h, t) -> (mt, ks, plane, g, t, h, j)
+    a = u.reshape(2, mt, 2, 8, D // 8, 2, 4).transpose(1, 4, 0, 3, 6, 5, 2)
+    hi, lo = tf32_split(a.reshape(mt, D // 8, 2, 32, 4))
+    return np.stack([hi, lo], axis=3)
+
+
+VARIANTS.update({
+    "window32 no MMA": ("window32", [(_W32STEPS, _W32STEPS.replace("ks < ksteps", "ks < 0"))]),
+    "window32 load and store": ("window32", [
+        (_W32STEPS, _W32STEPS.replace("ks < ksteps", "ks < 0")),
+        (_W32STAGE, _W32STAGE.replace("v < 64 * mtiles * ksteps", "v < 0"))]),
+    "window32 no A loads": ("window32", [
+        ("quest_mma::load_a_split(a, a + 128)",
+         "quest_mma::SplitA{{1u * ks, 2u, 3u, 4u}, {5u, 6u, 7u, 8u * mt}}"),
+        ("quest_mma::load_a_split(a + 256, a + 384)",
+         "quest_mma::SplitA{{2u * ks, 3u, 4u, 5u}, {6u, 7u, 8u, 9u * mt}}")]),
+    "window32 X through padded rows": ("window32", [(_W32B, _W32B_PADDED)]),
+    "window32 k loop unrolled": ("window32", [("#pragma unroll 1\n    for (int ks = 0;",
+                                               "    for (int ks = 0;")]),
+    "window32 one TF32 term": ("window32", [(_W32MMA, _W32MMA.replace(
+        "mma_3xtf32(accr[mt], ur, br)", "mma_tf32(accr[mt], ur.hi, br.hi)").replace(
+        "mma_3xtf32(acci[mt], ur, bi)", "mma_tf32(acci[mt], ur.hi, bi.hi)").replace(
+        "mma_3xtf32(acci[mt], ui, br)", "mma_tf32(acci[mt], ui.hi, br.hi)").replace(
+        "mma_3xtf32(accr[mt], ui, quest_mma::negate(bi))",
+        "mma_tf32(accr[mt], ui.hi, quest_mma::negate(bi).hi)"))]),
+    "window32 no B loads": ("window32", [(_W32B, _W32B.replace(
+        "split_b(sre[e], sre[e + (4u << lo)])", "split_b(__uint_as_float(e), __uint_as_float(e + 1))")
+        .replace("split_b(sim[e], sim[e + (4u << lo)])",
+                 "split_b(__uint_as_float(e + 2), __uint_as_float(e + 3))"))]),
+    "window32 B prefetch": ("window32", [(_W32KLOOP, _W32KLOOP_PREFETCH)]),
+    "window32 no stage": ("window32", [
+        (_W32STAGE, _W32STAGE.replace("v < 64 * mtiles * ksteps", "v < 0"))]),
+})
+
+
+def _window32_variants(src: str) -> dict:
+    """The window32 variants cut from the source itself: the whole arm, and
+    its stage."""
+    if src.count(_W32_START) != 1:
+        raise RuntimeError("the f32 window arm's anchor is not in the source once")
+    i = src.index(_W32_START)
+    arm = src[i:src.index("\n}\n", i) + 2]
+    stage = _between(src, _W32STAGE_START, _W32STAGE_END)
+    return {"window32 U^T as B": ("window32", [(arm, _WINDOW32_UT)]),
+            "window32 three products": ("window32", [(arm, _WINDOW32_GAUSS)]),
+            "window32 two items at once": ("window32", [
+                (_between(src, _W32ITEMS_START, _W32ITEMS_END), _W32TWO_ITEMS)]),
+            "window32 U split by the host": ("window32", [(stage, _W32STAGE_HOST)])}
+
+
 #: the variants that compute the same as the kernel (checked like it)
 RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "krausn m16n8k16", "krausn out of line", "krausn column sweeps",
@@ -597,13 +983,16 @@ RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "window64 no U stage", "window64 X through padded rows", "window64 U^T as B",
          "window64 out of line", "window64 offset left to the compiler",
          "window64 offset found again", "window64 without the FMA arm",
-         "window64 k loop unrolled"}
+         "window64 k loop unrolled", "window32 X through padded rows", "window32 U^T as B",
+         "window32 U split by the host", "window32 k loop unrolled", "window32 three products",
+         "window32 two items at once", "window32 B prefetch"}
 
 
 def _variant_sources(src: str) -> dict:
     """{variant: (the pass it is timed on, its source)}."""
     out = {}
-    for name, (pn, edits) in (VARIANTS | _krausn_variants(src) | _window_variants(src)).items():
+    for name, (pn, edits) in (VARIANTS | _krausn_variants(src) | _window_variants(src)
+                              | _window32_variants(src)).items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
@@ -636,22 +1025,22 @@ def _krausn_pass(FG, tb):
 
 
 def _window_pass(FG, tb):
-    """A one-op f64 window pass: a Haar 32x32 unitary on the zone [7, 12)."""
+    """A one-op window pass: a Haar 32x32 unitary on the zone [7, 12)."""
     import numpy as np
 
     rng = np.random.RandomState(7)
     q, r = np.linalg.qr(rng.randn(32, 32) + 1j * rng.randn(32, 32))
     u = q * (np.diag(r) / np.abs(np.diag(r)))
     W = np.block([[u.real, -u.imag], [u.imag, u.real]])
-    return FG.PreparedRun((("window", 7, tb - 7, FG.HashableMatrix(W)),), tb)
+    return FG.PreparedRun((("window", 7, 5, FG.HashableMatrix(W)),), tb)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
-    ap.add_argument("--passes", default="f32,f64,krausn,krausn32,window64",
+    ap.add_argument("--passes", default="f32,f64,krausn,krausn32,window64,window32",
                     help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32, "
-                         "window64 (default: all)")
+                         "window64, window32 (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -696,15 +1085,20 @@ def main() -> int:
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
                             ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5),
-                            ("window64", torch.float64, 1e-12)):
+                            ("window64", torch.float64, 1e-12), ("window32", torch.float32, 1e-5)):
             if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
             kraus = pn.startswith("krausn")
             n = 2 * CS.N_DENSITY if kraus else N_QUBITS
-            prep = (_krausn_pass(FG, tb) if kraus else _window_pass(FG, tb) if pn == "window64"
+            window = pn.startswith("window")
+            prep = (_krausn_pass(FG, tb) if kraus else _window_pass(FG, tb) if window
                     else FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
             table, coeffs = prep.device_tables(dev, dt)
+            # the host-split variant's own coefficients: U, then its table
+            own = {"window32 U split by the host": torch.as_tensor(np.concatenate(
+                [prep.coeffs[:2 * 32 * 32], window_split_table(prep.coeffs[:2 * 32 * 32], 5)
+                 .reshape(-1)]), dtype=dt, device=dev)} if pn == "window32" else {}
             st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
             st /= st.norm()
             x = st.clone()
@@ -713,7 +1107,7 @@ def main() -> int:
                 fn = (libs[name].quest_fused_run_f32 if dt == torch.float32
                       else libs[name].quest_fused_run_f64)
                 err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(), 1,
-                         coeffs.data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
+                         own.get(name, coeffs).data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed ({err})")
@@ -736,7 +1130,7 @@ def main() -> int:
             # arms share the instantiation's registers
             mine = [v for v, (d, _) in variants.items() if v in libs
                     and (d == pn or (pn, d) == ("f64", "krausn"))]
-            what = "krausn" if kraus else "window" if pn == "window64" else "lane_u"
+            what = "krausn" if kraus else "window" if window else "lane_u"
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
                 ms = CS._cuda_ms(lambda: run(name), REPS)
                 print(f"# one-op {what} pass, {n}q {str(dt)[6:]}, {name}: {ms:.4f} ms "

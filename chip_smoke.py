@@ -11,11 +11,13 @@ no result, without them. Phases, in order:
    each kernel's registers and spills, the count of DMMA, HMMA and DFMA
    instructions in each fused-run instantiation's SASS (``cuobjdump``:
    the f64 one, which runs lane_u, krausn and windows of span 3 or more,
-   must hold more DMMA than the lane_u and krausn arms' 36, the f32 lane_u
-   one HMMA, and the other f32 one, which runs krausn on 3xTF32, HMMA too)
-   and the blocks per SM of each kind of run (an f64 run with lane_u,
-   krausn or a window of span 3 or more, and an f32 run with krausn, must
-   fit two);
+   must hold more DMMA than the lane_u and krausn arms' 36; the f32 ones,
+   whose krausn arm, windows of span 3 or more and (the lane_u one)
+   lane_u fold run on 3xTF32, more HMMA than those arms took before the
+   window's: 192 in the other f32 one, 288 in the lane_u one) and the
+   blocks per SM of each kind of run (an f64 run with lane_u, krausn or a
+   window of span 3 or more, and an f32 run with krausn or such a window,
+   must fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
@@ -27,9 +29,11 @@ no result, without them. Phases, in order:
    at one m16 tile and below it) and krausn on random unsorted qubits at
    KRAUS_TILE_BITS (2 to 32 groups: the tensor-core arms at one sweep,
    idle warps and masked m16 tiles; in f32 also 64 groups, one full sweep
-   of the f32 arm, whose 2^13 tile takes two), and in f64 the window fold
-   on the tensor cores at WINDOW_TILE_BITS (D = 8, 16, 32), alone, after a
-   lane_u fold, and before a controlled 2x2 and a lane_u fold; limits
+   of the f32 arm, whose 2^13 tile takes two), and the window fold on the
+   tensor cores at WINDOW_TILE_BITS (f64: D = 8, 16, 32; f32 also 2^13,
+   D = 32 over two slabs), alone, after a lane_u fold (in f32 the lane_u
+   instantiation), and before a controlled 2x2 and a lane_u fold, and in
+   f32 a window [8, 11) at tile bits 12 (a slab of 256 columns); limits
    1e-5 (f32) and 1e-12 (f64) on the max error over the
    largest amplitude, here and in every kernel-vs-plain check below;
 3. main path: the bench circuit (random Clifford+T layers, 26 qubits,
@@ -49,10 +53,11 @@ no result, without them. Phases, in order:
    complex ``torch.matmul`` (complex64 / complex128) of the same product,
    which the port never calls; then the window fold alone: a one-op
    window pass on [7, 11] at 26 qubits, f32 and f64, against the plain
-   version and the exact complex128 product (f64: both within 1e-12 of
-   the largest amplitude), timed beside its bound (its share) and one
-   complex ``torch.matmul`` of the same product, and the main path's fold
-   count; then the main path in f64 on one device: the same circuit
+   version and the exact complex128 product (both within 1e-5 of the
+   largest amplitude in f32, 1e-12 in f64), timed beside its bound (its
+   share) and one complex ``torch.matmul`` of the same product, and the
+   main path's fold count (in f32, split by the instantiation its runs
+   launch); then the main path in f64 on one device: the same circuit
    planned at the f64 tile, each run's pass against the plain version
    (1e-12) and timed, then ``Circuit.run`` on an f64 register with the
    counts reset just before it (launches = runs, zero fallbacks, total
@@ -170,8 +175,10 @@ KRAUS_TILE_BITS, KRAUS_TILE_QUBITS = (7, 8, 9, 10, 11), 14
 KRAUS_TILE_BITS_F32 = KRAUS_TILE_BITS + (12,)
 #: f64 tiles whose window folds (the zone [7, tile_bits): spans 3-5, D = 8,
 #: 16, 32) the kernel phase checks on the FP64 tensor cores, alone and in
-#: runs with lane_u folds, on a KRAUS_TILE_QUBITS-qubit state
+#: runs with lane_u folds, on a KRAUS_TILE_QUBITS-qubit state; in f32 also
+#: the 2^13 tile (the zone [7, 12): D = 32 over two slabs), on 3xTF32
 WINDOW_TILE_BITS = (10, 11, 12)
+WINDOW_TILE_BITS_F32 = WINDOW_TILE_BITS + (13,)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -261,13 +268,14 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float, float]:
-    """(bytes, flops, lane_u flops) one pass of ``prepared`` needs on an
-    n-qubit state: each amplitude of both planes read once and written
+    """(bytes, flops, tensor-core flops) one pass of ``prepared`` needs on
+    an n-qubit state: each amplitude of both planes read once and written
     once; flops per control-satisfied amplitude: 2x2 matrix 16, diagonal 6,
     swap 0, window 8 * 2^span, a kraus op on t row qubits with m terms 8 *
     min(4^t, 2 m 2^t): the fewer complex multiply-adds of its superoperator
-    form and its per-term form; and apart, lane_u 1024 (128 complex
-    multiply-adds), whose f32 products run on the tensor cores."""
+    form and its per-term form; and apart, the ops whose f32 products run
+    on the tensor cores: lane_u 1024 (128 complex multiply-adds), a window
+    of span 3 or more 8 * 2^span."""
     from quest_tpu_torch.ops.fused_gates import _KRAUS, _op_is_diag, kraus_parts
 
     N = 1 << n
@@ -279,6 +287,8 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float, float]:
             flops += 8.0 * min(4 ** len(rows), 2 * len(terms) * 2 ** len(rows)) * N
         elif kind == "lane_u":
             lane += 1024.0 * N
+        elif kind == "window" and op[2] >= 3:
+            lane += 8.0 * (1 << op[2]) * N
         elif kind == "window":
             flops += 8.0 * (1 << op[2]) * N
         elif kind == "matrix":
@@ -291,8 +301,9 @@ def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float, float]:
 def _bound_ms(work: tuple, f32: bool) -> tuple[float, float]:
     """(bytes ms, operations ms) of ``_pass_work``'s work on the card: the
     bytes at HBM_BYTES_PER_S; the flops at the rate each product runs at:
-    in f32 the lane_u products at TF32X3_FLOPS (3xTF32 on the tensor
-    cores), the rest at PEAK_FP32_FLOPS; in f64 all at PEAK_FP64_FLOPS."""
+    in f32 the lane_u products and those of windows of span 3 or more at
+    TF32X3_FLOPS (3xTF32 on the tensor cores), the rest at
+    PEAK_FP32_FLOPS; in f64 all at PEAK_FP64_FLOPS."""
     nbytes, flops, lane = work
     if f32:
         ops_s = flops / PEAK_FP32_FLOPS + lane / TF32X3_FLOPS
@@ -407,10 +418,11 @@ def _shard_kernel_cases(n: int, nl: int, rng):
 
 
 def _window_runs(tb: int, rng):
-    """(name, ops) of the f64 window checks at tile bits tb: 25 random
-    one-qubit gates on [7, tb), which fold into one window op; the same
-    after 21 on the lane qubits (a lane_u fold, then the window); and the
-    window, a 2x2 controlled from the window's zone, then the lane_u fold."""
+    """(name, ops) of the window checks at tile bits tb: 25 random
+    one-qubit gates on [7, min(tb, 12)), which fold into one window op; the
+    same after 21 on the lane qubits (a lane_u fold, then the window); and
+    the window, a 2x2 controlled from the window's zone, then the lane_u
+    fold."""
     import numpy as np
 
     from quest_tpu_torch.ops.fused_gates import HashableMatrix as HM
@@ -418,7 +430,7 @@ def _window_runs(tb: int, rng):
     def ru():
         return HM(np.linalg.qr(rng.randn(2, 2) + 1j * rng.randn(2, 2))[0])
 
-    window = tuple(("matrix", 7 + q % (tb - 7), (), (), ru()) for q in range(25))
+    window = tuple(("matrix", 7 + q % (min(tb, 12) - 7), (), (), ru()) for q in range(25))
     lane = tuple(("matrix", q % 7, (), (), ru()) for q in range(21))
     return [("window", window), ("window+lane_u", lane + window),
             ("window+matrix+lane_u", window + (("matrix", 3, (8,), (1,), ru()),) + lane)]
@@ -731,14 +743,16 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
     """The fused-run kernel's window fold alone: one pass at N_MAIN qubits
     in ``dt`` of the window op that 25 random one-qubit gates on qubits [7,
     11] fold into at the Hopper tile (2^13 in f32, 2^12 in f64: the same
-    zone; ``window_op`` in f32, ``window_dmma`` in f64), against the plain
+    zone; ``window_mma`` in f32, ``window_dmma`` in f64), against the plain
     version (1e-5 of the largest amplitude in f32, 1e-12 in f64) and timed
-    beside its bound; against the exact complex128 product (f64: within
-    1e-12 of the largest amplitude); one complex ``torch.matmul``
+    beside its bound; against the exact complex128 product (within the
+    same limit); one complex ``torch.matmul``
     (complex64 / complex128) of the 32 x 32 matrix with a complex (2^(N_MAIN
     - 12), 32, 128) copy of the state, the same product, which the port
     never calls; and the folds that ``runs``, the main path's circuit
-    planned at ``dt``'s tile, execute (one launch each run)."""
+    planned at ``dt``'s tile, execute (one launch each run; in f32 how many
+    in runs with a lane_u fold, which launch ``fused_run_kernel<float,
+    true>``)."""
     import numpy as np
     import torch
 
@@ -755,6 +769,9 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
     prep = FG.PreparedRun(gates, tb)
     _require([o[0] for o in prep.ops] == ["window"], "window fold pass: no single window op")
     folds = sum(o[0] == "window" for r in runs for o in r.prepare().ops)
+    # the f32 runs with a lane_u fold launch fused_run_kernel<float, true>
+    in_lane = sum(o[0] == "window" for r in runs if r.prepare().has_lane_u
+                  for o in r.prepare().ops)
     res = _passes([(len(gates), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng,
                   tol, f"window fold alone {name}")
     ms, bound = res["ms"][0], res["bound_ms"][0]
@@ -772,7 +789,7 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
     del exact
     rel_exact = ((x.double() - ex).abs().max() / ex.abs().max()).item()
     del x, ex
-    _require(f32 or rel_exact <= tol,
+    _require(rel_exact <= tol,
              f"window fold alone {name}: {rel_exact} of the largest from the exact product")
     ul = u.to(xc.dtype)
     lib_ms = _cuda_ms(lambda: torch.matmul(ul, xc), 20)
@@ -784,10 +801,12 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
           f"bound), bound {bound:.4f} ms by {by}; {call} {lib_ms:.4f} ms (kernel / matmul "
           f"{ms / lib_ms:.3f}); {rel_exact:.3e} of the largest from the exact complex128 "
           f"product; window folds in the main path's plan at tile_bits {tb}: {folds} (one "
-          f"launch each run)")
+          f"launch each run" + (f"; {in_lane} in <float, true>, {folds - in_lane} in "
+                                f"<float, false>)" if f32 else ")"))
     return {"ms": ms, "bound_ms": bound, "plain_ms": res["plain_ms"][0], "bound_by": by,
             "share_of_bound": bound / ms, "library_ms": lib_ms, "library_call": call,
             "rel_err_vs_exact": rel_exact, "main_path_folds": folds,
+            "main_path_folds_in_lane_u_runs": in_lane,
             "max_abs_err": res["max_abs_err"]}
 
 
@@ -1512,7 +1531,14 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     _require(abs(total - 1) <= tol_read, f"{label}: total probability {total}")
     _require(abs(p0 - p0_ref) <= tol_read and abs(pt - pt_ref) <= tol_read,
              f"{label}: outcome probabilities")
-    _require(a == a_gathered and abs(a - a_ref) <= diff, f"{label}: getAmp({last})")
+    # the read-back amplitude is the gathered one, and no further from the
+    # reference in either component than the gathered state's largest
+    # difference (taken over components: its modulus may exceed it by up to
+    # a factor of sqrt 2)
+    d_amp = max(abs(a.real - a_ref.real), abs(a.imag - a_ref.imag))
+    _require(a == a_gathered and d_amp <= diff,
+             f"{label}: getAmp({last}): {a} (gathered {a_gathered}), {d_amp} from the "
+             f"reference against {diff}")
     del ref
     torch.cuda.empty_cache()
 
@@ -1753,16 +1779,18 @@ def main() -> int:
     # from span 3, the window fold on DMMA
     _require(sass.get("fused_run_kernel<double, false>", {}).get("DMMA", 0) > 36,
              "the f64 instantiation holds no DMMA beyond the lane_u and krausn arms'")
-    _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 0,
-             "the f32 lane_u instantiation holds no HMMA")
-    # the other f32 instantiation runs krausn_mma (3xTF32) for runs without lane_u
-    _require(sass.get("fused_run_kernel<float, false>", {}).get("HMMA", 0) > 0,
-             "the f32 instantiation of krausn runs holds no HMMA")
+    # the f32 ones: lane_u (192 HMMA) and krausn_mma<1> (96 more: 288) in
+    # the lane_u one, krausn_mma<2> (192) in the other, and in both the
+    # window fold from span 3
+    _require(sass.get("fused_run_kernel<float, true>", {}).get("HMMA", 0) > 288,
+             "the f32 lane_u instantiation holds no HMMA beyond the lane_u and krausn arms'")
+    _require(sass.get("fused_run_kernel<float, false>", {}).get("HMMA", 0) > 192,
+             "the other f32 instantiation holds no HMMA beyond the krausn arm's")
     lib = _build.library("fused_gates")
     occupancy = {}
     for f64, ddt in ((0, torch.float32), (1, torch.float64)):
         # the launch's staged flags: 1 a lane_u op, 2 a krausn op, 4 a
-        # window op of span 3 or more (staged in f64 only)
+        # window op of span 3 or more (its U, in either precision)
         for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn"), (3, " lane_u+krausn"),
                              (4, " window")):
             k = f"{str(ddt)[6:]}{what}"
@@ -1774,6 +1802,7 @@ def main() -> int:
     _require(occupancy["float64 krausn"] == 2, "an f64 krausn run does not fit two blocks an SM")
     _require(occupancy["float32 krausn"] == 2, "an f32 krausn run does not fit two blocks an SM")
     _require(occupancy["float64 window"] == 2, "an f64 window run does not fit two blocks an SM")
+    _require(occupancy["float32 window"] == 2, "an f32 window run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -1846,31 +1875,38 @@ def main() -> int:
                   f"{err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
             _require(rel <= tol, f"{dt} krausn tile_bits {ktb} error {err} ({rel} relative) > {tol}")
             errs[(str(dt), f"krausn tile_bits {ktb}")] = err
-        if dt == torch.float64:
-            # f64 window folds on the tensor cores at D = 8, 16, 32, alone and
-            # beside lane_u folds (its generator of its own: the later phases
-            # see the same data as without it)
-            wrng = np.random.RandomState(41)
-            for wtb in WINDOW_TILE_BITS:
-                for name, ops in _window_runs(wtb, wrng):
-                    prep = FG.PreparedRun(ops, wtb)
-                    st = torch.as_tensor(wrng.randn(2, 1 << KRAUS_TILE_QUBITS), dtype=dt,
-                                         device=dev)
-                    st /= st.norm()
-                    ref = FG.fused_run_plain(st, prep, n=KRAUS_TILE_QUBITS, tile_bits=wtb)
-                    x = st.clone()
-                    FG.fused_run(x, n=KRAUS_TILE_QUBITS, ops=ops, tile_bits=wtb, prepared=prep)
-                    torch.cuda.synchronize()
-                    err, rel = _rel_err(x, ref)
-                    kinds = [o[0] for o in prep.ops]
-                    print(f"# kernel float64 {name}: {KRAUS_TILE_QUBITS}q, tile_bits {wtb} (D "
-                          f"{1 << (wtb - 7)}), folded kinds {kinds}, staged {prep.staged}, "
-                          f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
-                    _require("window" in kinds and prep.staged & 4,
-                             f"f64 {name} tile_bits {wtb}: no staged window fold")
-                    _require(rel <= tol, f"f64 {name} tile_bits {wtb} error {err} ({rel} "
-                                         f"relative) > {tol}")
-                    errs[(str(dt), f"{name} tile_bits {wtb}")] = err
+        # window folds on the tensor cores at D = 8, 16, 32 (in f32 also
+        # over the two slabs of the 2^13 tile), alone and beside lane_u
+        # folds, and in f32 a hand-built window [8, 11) at tile bits 12
+        # (generators of their own: the later phases see the same data as
+        # without them)
+        f32 = dt == torch.float32
+        wrng = np.random.RandomState(43 if f32 else 41)
+        wruns = [(wtb, name, ops) for wtb in (WINDOW_TILE_BITS_F32 if f32 else WINDOW_TILE_BITS)
+                 for name, ops in _window_runs(wtb, wrng)]
+        if f32:
+            u = np.linalg.qr(wrng.randn(8, 8) + 1j * wrng.randn(8, 8))[0]
+            wruns.append((12, "window [8, 11)", (("window", 8, 3, FG.HashableMatrix(
+                np.block([[u.real, -u.imag], [u.imag, u.real]]))),)))
+        for wtb, name, ops in wruns:
+            prep = FG.PreparedRun(ops, wtb)
+            st = torch.as_tensor(wrng.randn(2, 1 << KRAUS_TILE_QUBITS), dtype=dt, device=dev)
+            st /= st.norm()
+            ref = FG.fused_run_plain(st, prep, n=KRAUS_TILE_QUBITS, tile_bits=wtb)
+            x = st.clone()
+            FG.fused_run(x, n=KRAUS_TILE_QUBITS, ops=ops, tile_bits=wtb, prepared=prep)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(x, ref)
+            kinds = [o[0] for o in prep.ops]
+            zones = [o[1:3] for o in prep.ops if o[0] == "window"]
+            print(f"# kernel {str(dt)[6:]} {name}: {KRAUS_TILE_QUBITS}q, tile_bits {wtb}, "
+                  f"windows (lo, span) {zones}, folded kinds {kinds}, staged {prep.staged}, "
+                  f"max_abs_err {err:.3e}, {rel:.3e} of the largest (limit {tol:g})")
+            _require(any(s >= 3 for _, s in zones) and prep.staged & 4,
+                     f"{dt} {name} tile_bits {wtb}: no staged window fold")
+            _require(rel <= tol, f"{dt} {name} tile_bits {wtb} error {err} ({rel} "
+                                 f"relative) > {tol}")
+            errs[(str(dt), f"{name} tile_bits {wtb}")] = err
         del st, x, ref
     shard_errs = _shard_kernel_phase(dev, rng)
 

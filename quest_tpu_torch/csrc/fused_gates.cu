@@ -75,10 +75,11 @@
 //     one instantiation.
 // A window op is 2^span complex multiply-adds per amplitude, 32 at most: a
 // pass that carries one is bound by bytes once its products run on the
-// tensor cores. In f64 (spans 3-5: window_dmma) they do, FP64 mma.sync
-// with U from the host in fragment order, staged in one chunk buffer; f64
-// spans 1-2 (tiles below 2^10) and every f32 window keep the FMA
-// window_op.
+// tensor cores. From span 3 they do: in f64 window_dmma, FP64 mma.sync
+// with U from the host in fragment order, staged in one chunk buffer; in
+// f32 window_mma, 3xTF32 mma.sync with U split into TF32 hi and lo as the
+// kernel stages it. Spans 1-2 (f64 tiles below 2^10, the f32 zone [12,
+// 13) of the 2^13 tile) keep the FMA window_op.
 //
 // The kraus ops replace the kraus arms of _ops_body (pallas_gates.py:662,
 // which applies each term's K and conj(K) to a copy and accumulates). Here
@@ -874,9 +875,124 @@ __device__ __forceinline__ void window_dmma(double* sre, double* sim, double* wb
 }
 static_assert(2 * 4 * 256 == kChunkPanel, "the D = 32 table is one chunk buffer");
 
+// window in f32, spans 3-5, on the tensor cores: out[a][d][b] = sum_e
+// U[d][e] x[a][e][b] on the index bits [lo, lo + span) (D = 2^span, B =
+// 2^lo >= 128; a, the slab, the bits above lo + span: tile >> (lo + span)
+// of them), in place. window_dmma's shape in 3xTF32 (mma.sync m16n8k8,
+// mma.cuh; FP32 sums): U the A operand (M = d, K = e), X the B operand (N
+// = b), out_r = Ur xr + Ui (-xi), out_i = Ur xi + Ui xr. A work item is one
+// slab's n8 block of columns and every d of it: tile / (8 D) items, at
+// least 16 (lo >= 7), warp w taking items w, w + 16, ... in turn; D / 16
+// m16 tiles an item (one at D = 8, whose rows 8-15 are zero in the table
+// and are not stored), 16 sums a thread at D = 32. A warp reads and writes
+// only its item's columns, so its writes follow its reads after a
+// __syncwarp(), with no block barrier; at the 2^13 tile (the zone [7, 12):
+// two slabs) each warp takes two items and never holds more than 16 sums.
+//
+// U is split into TF32 hi and lo as it is staged, once an op, by the kernel
+// itself, from U real and imaginary at the head of the op's block (what
+// window_op and the plain version read): per (m16 tile mt, k8 step ks), per
+// plane, hi then lo, per lane (g, t) its A values U[16 mt + g][8 ks + t],
+// U[16 mt + g + 8][8 ks + t], U[16 mt + g][8 ks + t + 4], U[16 mt + g +
+// 8][8 ks + t + 4] (0 past D): a lane's split fragment of a plane in two
+// 16-byte loads, a warp's on 512 consecutive bytes (no bank conflicts).
+// 2 KiB an (mt, ks), 16 KiB at D = 32, in the stage memory that the
+// launch reserves for bit 2 (after the tile; the first 16 KiB of the
+// lane_u panels in fused_run_kernel<float, true>). X is split in registers
+// (split_b), two values a plane a k step.
+//
+// The B loads: lane (g, t) reads X[8 ks + t][b0 + g] and X[8 ks + t +
+// 4][b0 + g], rows 2^lo floats apart: the four lanes t of a column hit one
+// bank (4-way conflicts), as in window_dmma. chip_lane_u_breakdown.py
+// (window32) times the pass without them and in the other layout.
+// What bounds it: a 26-qubit pass moves 1 GiB (0.32 ms at 3.35 TB/s); its
+// products, 1.72e10 flop, take 0.10 ms at the 3xTF32 rate.
+constexpr int kWinStep = 512;  // floats of the staged table an (mt, ks)
+static_assert(2 * 4 * kWinStep * 4 <= kLaneDmmaStage, "the D = 32 table fits the stage");
+
+__device__ __forceinline__ void window_mma(float* sre, float* sim, float* wbuf, uint32_t tile,
+                                           const float* __restrict__ cf, int lo, int span,
+                                           int tid) {
+  const int D = 1 << span;
+  const int ksteps = D >> 3, mtiles = D > 16 ? 2 : 1;
+  // (an arm before this one in the op list, lane_u_mma or krausn_mma, has
+  // waited for every copy it staged into wbuf; this keeps it so)
+  quest_mma::async_wait<0>();
+  // one thread a (mt, ks, plane, lane): its four values, split
+  for (int v = tid; v < 64 * mtiles * ksteps; v += kThreads) {
+    const int lane = v & 31, plane = (v >> 5) & 1, mk = v >> 6;  // mk = mt * ksteps + ks
+    const int d0 = 16 * (mk >> (span - 3)) + (lane >> 2);
+    const int e0 = 8 * (mk & (ksteps - 1)) + (lane & 3);
+    const float* u = cf + plane * D * D + d0 * D + e0;
+    const bool pad = d0 + 8 >= D;  // rows g + 8 of the one m16 tile at D = 8
+    const float a[4] = {__ldg(u), pad ? 0.f : __ldg(u + 8 * D), __ldg(u + 4),
+                        pad ? 0.f : __ldg(u + 8 * D + 4)};
+    const quest_mma::SplitA s = quest_mma::split_a(a);
+    float* p = wbuf + mk * kWinStep + plane * 256 + 4 * lane;
+    *reinterpret_cast<uint4*>(p) = make_uint4(s.hi[0], s.hi[1], s.hi[2], s.hi[3]);
+    *reinterpret_cast<uint4*>(p + 128) = make_uint4(s.lo[0], s.lo[1], s.lo[2], s.lo[3]);
+  }
+  __syncthreads();  // every thread's part of the split table
+  // the thread index through an opaque move, as in krausn_dmma: what the
+  // arm derives from it is not hoisted out of the kernel's op loop
+  int me;
+  asm volatile("mov.b32 %0, %1;" : "=r"(me) : "r"(tid));
+  const int lane = me & 31;
+  const quest_mma::Lane l = {lane >> 2, lane & 3};
+  const uint32_t items = tile >> (span + 3);
+  const int nb = lo - 3;  // a slab's n8 blocks: 2^nb
+  const float* table = wbuf + 4 * lane;
+#pragma unroll 1
+  for (uint32_t it = me >> 5; it < items; it += kThreads / 32) {
+    // the item's first amplitude: its slab's, plus its n8 block's columns
+    const uint32_t base = ((it >> nb) << (lo + span)) | ((it & ((1u << nb) - 1)) << 3);
+    const uint32_t x0 = base + (static_cast<uint32_t>(l.t) << lo) + l.g;
+    float accr[2][4], acci[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accr[mt][i] = acci[mt][i] = 0.f;
+    // not unrolled: the loads of later steps, hoisted, would spill
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      // b[0] = X[8 ks + t][b0 + g], b[1] = X[8 ks + t + 4][b0 + g]
+      const uint32_t e = x0 + (static_cast<uint32_t>(8 * ks) << lo);
+      const quest_mma::SplitB br = quest_mma::split_b(sre[e], sre[e + (4u << lo)]);
+      const quest_mma::SplitB bi = quest_mma::split_b(sim[e], sim[e + (4u << lo)]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < mtiles) {
+          const float* a = table + (mt * ksteps + ks) * kWinStep;
+          const quest_mma::SplitA ur = quest_mma::load_a_split(a, a + 128);
+          quest_mma::mma_3xtf32(accr[mt], ur, br);
+          quest_mma::mma_3xtf32(acci[mt], ur, bi);
+          const quest_mma::SplitA ui = quest_mma::load_a_split(a + 256, a + 384);
+          quest_mma::mma_3xtf32(acci[mt], ui, br);
+          quest_mma::mma_3xtf32(accr[mt], ui, quest_mma::negate(bi));
+        }
+      }
+    }
+    __syncwarp();  // the warp's reads of its columns are done
+    // c[0] = C[g][2t], c[1] = C[g][2t+1], c[2] = C[g+8][2t], c[3] = C[g+8][2t+1]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt < mtiles) {
+        const uint32_t o0 = base + (static_cast<uint32_t>(16 * mt + l.g) << lo) + 2 * l.t;
+        const uint32_t o1 = o0 + (8u << lo);
+        *reinterpret_cast<float2*>(sre + o0) = make_float2(accr[mt][0], accr[mt][1]);
+        *reinterpret_cast<float2*>(sim + o0) = make_float2(acci[mt][0], acci[mt][1]);
+        if (D > 8) {
+          *reinterpret_cast<float2*>(sre + o1) = make_float2(accr[mt][2], accr[mt][3]);
+          *reinterpret_cast<float2*>(sim + o1) = make_float2(acci[mt][2], acci[mt][3]);
+        }
+      }
+    }
+  }
+}
+
 // window: out[a][d][b] = sum_e U[d][e] x[a][e][b] on the index bits
-// [lo, lo+span) (D = 2^span, B = 2^lo >= 128): every f32 window, and f64
-// spans 1 and 2 (tiles of 2^8 and 2^9, below an m16 tile). cf holds U real
+// [lo, lo+span) (D = 2^span, B = 2^lo >= 128): spans 1 and 2 (below an
+// m16 tile), in f32 and f64. cf holds U real
 // then U imaginary (D x D each). A work item is kDg values of d by 4
 // consecutive b: each vector load of x[a][e][b..b+3] feeds 4 * kDg complex
 // FMAs, and a warp's threads share d, so U[d][e] is a broadcast. A thread
@@ -1179,8 +1295,10 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
         } else {
           window_op<T, 2, 1>(sre, sim, tile, cf, lo, span, tid);
         }
-      } else {
-        if (span >= 2) {
+      } else {  // in either f32 instantiation: a lane_u run may hold a window
+        if (span >= 3) {
+          window_mma(sre, sim, sim + tile, tile, cf, lo, span, tid);
+        } else if (span == 2) {
           window_op<T, 4, 1>(sre, sim, tile, cf, lo, span, tid);
         } else {  // a span-1 zone (D = 2): two items per thread
           window_op<T, 2, 2>(sre, sim, tile, cf, lo, span, tid);
@@ -1229,16 +1347,17 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
 
 // What a run's ops stage through shared memory beyond the tile (the
 // ``staged`` flags of the launch): bit 0, a lane_u op; bit 1, a kraus op on
-// t = 3 row qubits; bit 2, a window op of span 3 or more (staged in f64
-// only: the f32 window arm reads U from the coefficient buffer).
+// t = 3 row qubits; bit 2, a window op of span 3 or more (its U, in either
+// precision: window_dmma's table, window_mma's split table).
 constexpr int kStagedLaneU = 1;
 constexpr int kStagedKrausN = 2;
 constexpr int kStagedWindow = 4;
 
 // The instantiation a run takes and its dynamic shared memory, chosen by
-// what the run holds: an f32 run with lane_u (and krausn or not) takes the
-// one with one block per SM; every other run, runs with krausn and f64 runs
-// with lane_u or a window of span 3 or more too, two blocks per SM.
+// what the run holds: an f32 run with lane_u (and krausn or windows or
+// not) takes the one with one block per SM; every other run, runs with
+// krausn or a window of span 3 or more and f64 runs with lane_u too, two
+// blocks per SM.
 template <typename T>
 auto pick(int tile_bits, int staged, int* smem) {
   auto kernel = fused_run_kernel<T, false>;
@@ -1246,8 +1365,8 @@ auto pick(int tile_bits, int staged, int* smem) {
   if constexpr (sizeof(T) == 4) {
     if (staged & kStagedLaneU) {
       kernel = fused_run_kernel<T, true>;
-      stage = kLaneMmaStage;  // holds krausn_mma's chunk ring too
-    } else if (staged & kStagedKrausN) {
+      stage = kLaneMmaStage;  // holds krausn_mma's chunk ring and window_mma's table too
+    } else if (staged & (kStagedKrausN | kStagedWindow)) {
       stage = kLaneDmmaStage;
     }
   } else {
@@ -1314,7 +1433,8 @@ extern "C" {
 // pair_hi: none). staged: what the op table holds that streams its matrix
 // through shared memory, bit 0 a lane_u op (in f32, the tensor-core
 // instantiation), bit 1 a kraus op on 3 row qubits (krausn_dmma,
-// krausn_mma), bit 2 a window op of span 3 or more (window_dmma; f64).
+// krausn_mma), bit 2 a window op of span 3 or more (window_dmma,
+// window_mma).
 // A run whose flags miss such an op writes past its shared memory.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,

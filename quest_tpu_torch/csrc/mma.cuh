@@ -150,6 +150,22 @@ __device__ __forceinline__ SplitA split_a(const float a[4]) {
   return s;
 }
 
+// a B fragment's two values split in registers
+__device__ __forceinline__ SplitB split_b(float b0, float b1) {
+  SplitB s;
+  split_tf32(b0, s.hi[0], s.lo[0]);
+  split_tf32(b1, s.hi[1], s.lo[1]);
+  return s;
+}
+
+// an A fragment split ahead of time: hi[0..3] at hi, lo[0..3] at lo, one
+// 16-byte load each (both 16-byte aligned)
+__device__ __forceinline__ SplitA load_a_split(const float* hi, const float* lo) {
+  const uint4 h = *reinterpret_cast<const uint4*>(hi);
+  const uint4 l = *reinterpret_cast<const uint4*>(lo);
+  return SplitA{{h.x, h.y, h.z, h.w}, {l.x, l.y, l.z, l.w}};
+}
+
 // -b, exactly: the split of -x is the split of x with both signs flipped
 __device__ __forceinline__ SplitB negate(const SplitB& b) {
   return SplitB{{b.hi[0] ^ 0x80000000u, b.hi[1] ^ 0x80000000u},

@@ -426,10 +426,11 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     into TF32 hi and lo in its fragment order (``lane_u_split_table``, 2 x
     128 x 256), then for the f64 kernel the same in its fragment order
     (``lane_u_f64_table``, 2 x 16 x 2 x 64 x 8); window U real then
-    imaginary (D x D each, what the plain version and the f32 kernel read),
-    then for spans 3 to 5 the same in the f64 kernel's A-fragment order
-    (``window_f64_table``, max(D / 16, 1) x D / 8 x 2 x 2 x 32 x 2), which
-    ``window_dmma`` stages.
+    imaginary (D x D each, what the plain version and the f32 kernel read:
+    its spans 3 to 5 split them into TF32 hi and lo as ``window_mma``
+    stages them), then for spans 3 to 5 the same in the f64 kernel's
+    A-fragment order (``window_f64_table``, max(D / 16, 1) x D / 8 x 2 x 2
+    x 32 x 2), which ``window_dmma`` stages.
 
     A kraus op on t row and t column qubits (d = 2^t, G = d^2) records t,
     the 2t qubits packed 6 bits each (rows then columns) and their mask;
@@ -543,7 +544,8 @@ class PreparedRun:
         #: what the kernel stages through extra shared memory, the launch's
         #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
         #: matrix, bit 1 a 3-qubit kraus op's S^T, bit 2 the U of a window op
-        #: of span 3 or more (staged in f64 only)
+        #: of span 3 or more (in either precision: the f64 fragment table, or
+        #: U split into TF32 hi and lo by the f32 kernel as it stages it)
         self.staged = (int(self.has_lane_u)
                        | 2 * any(o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3
                                  for o in self.ops)
