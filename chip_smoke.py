@@ -127,7 +127,24 @@ no result, without them. Phases, in order:
    gates/sec,
    each collective permute's time beside its bound, and one run's time
    on the card's clock split into the shard passes, the permutes and the
-   rest (CUDA events around each launch and permute).
+   rest (CUDA events around each launch and permute);
+9. readouts, on the states the phases above made, f32 and f64: the main
+   path's final state at N_MAIN qubits on one device and the sharded
+   phase's over N_SHARDS shards (with a ``createCloneQureg`` of it run
+   through two more ``random_layers`` as the second state: inner product,
+   fidelity, outcome distributions on 4 and 8 unsorted targets,
+   ``getProbAmp``, a Pauli product, a 26-qubit transverse-field Ising
+   Hamiltonian through ``calcExpecPauliHamil`` and ``calcExpecPauliSum``,
+   the clone, ``syncQuESTEnv``; the sharded values also against the same
+   states on one device, and three calls on mixed layouts), and the
+   density phase's r4 and r3 states (inner product, Hilbert-Schmidt
+   distance, fidelity with a pure state, outcome distribution, a Pauli
+   product, ``mixDensityMatrix`` at p = 0.3 and the trace and purity
+   after it): each value against an evaluation from its definition in
+   complex128 of the gathered state (1e-4 f32 / 1e-10 f64; a Pauli sum's
+   error relative to sum |c_t|), each call timed beside its bytes bound
+   and one PyTorch call computing the same function (``# readout``
+   lines).
 
 The earlier phases pin ``createQuESTEnv(device="cuda:0")``, so that a host
 with more cards does not shard them. Lines starting with ``#`` carry the
@@ -252,11 +269,20 @@ def _sass_counts(so, opcodes=("DMMA", "HMMA", "DFMA")) -> dict:
 
 
 def _cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` over ``reps`` back-to-back calls, CUDA events."""
+    """Mean ms of ``fn()`` over ``reps`` back-to-back calls, CUDA events,
+    after one call that warms up."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    return _clock_ms(fn, reps)
+
+
+def _clock_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` over ``reps`` back-to-back calls, CUDA events,
+    with no warm-up call."""
+    import torch
+
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -864,7 +890,7 @@ def _main_path_f64(qt, env, circ, fz, dev) -> dict:
     torch.cuda.synchronize()
     circuit_ms = (time.perf_counter() - t0) / reps * 1e3
     _require(abs(qt.calcTotalProb(q) - 1) <= 1e-10, f"{label}: norm after timed reps")
-    qt.destroyQureg(q)
+    q.spare = None  # the final state stays for the readout phase
     torch.cuda.empty_cache()
     gps = len(circ) * 1e3 / circuit_ms
     bound = sum(res["bound_ms"])
@@ -877,7 +903,7 @@ def _main_path_f64(qt, env, circ, fz, dev) -> dict:
           f"({gps:.1f} gates/sec; {sum(res['ms']):.3f} ms of kernel passes against a summed "
           f"bound of {bound:.3f} ms: {bound / circuit_ms:.1%} of the circuit)")
     res.update(gates_per_sec=gps, circuit_ms=circuit_ms, runs=len(runs), window_folds=folds,
-               share_of_bound=bound / circuit_ms, max_rel_diff_vs_replay=rel)
+               share_of_bound=bound / circuit_ms, max_rel_diff_vs_replay=rel, qureg=q)
     return res
 
 
@@ -1121,12 +1147,12 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
           f"barrier channels {[round(b, 3) for b in barrier_ms]} ms = "
           f"{sum(barrier_ms) / (circuit_s * 1e3):.1%} of the circuit); full-state "
           f"copy_ {copy_ms:.4f} ms")
-    qt.destroyQureg(rho)
+    rho.spare = None  # the final state stays for the readout phase
     del y
     torch.cuda.empty_cache()
     res.update(launches=launches, passes=len(items), channel_ops_per_sec=cops,
                circuit_ms=circuit_s * 1e3, barrier_ms=barrier_ms, copy_ms=copy_ms,
-               trace=trace, purity=purity, max_abs_diff_vs_engine=diff)
+               trace=trace, purity=purity, max_abs_diff_vs_engine=diff, qureg=rho)
     return res
 
 
@@ -1672,7 +1698,7 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     _require(len(spans["kernel"]) == len(runs) * N_SHARDS
              and len(spans["permute"]) == ts["collective_transposes"],
              f"{label}: the timed run's launches and permutes")
-    qt.destroyQureg(q)
+    q.shard_spares = None  # the final state stays for the readout phase
     torch.cuda.empty_cache()
     res.update(in_circuit_ms={"total": total_ms, "shard_passes": split["kernel"],
                               "collective_permutes": split["permute"], "rest": rest_ms})
@@ -1680,8 +1706,381 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
                copy_ms=copy_ms, replay_gates_per_sec=len(circ) / replay_s,
                collective_transposes=ts["collective_transposes"],
                local_transposes=ts["local_transposes"], runs=len(runs),
-               max_abs_diff_vs_one_device=diff)
+               max_abs_diff_vs_one_device=diff, qureg=q)
     return res
+
+
+#: the readout phase's Pauli product at N_MAIN qubits: Y on the qubits 25
+#: and 24, sharded over N_SHARDS shards, and an identity code (most
+#: products of X, Y and Z read 0 to 1e-18 on the bench circuit's states,
+#: this one does not; the Hamiltonian's terms take X and Z), its outcome
+#: targets (unsorted; 24 and 25 sharded), and the density register's
+#: product and targets. The density phase leaves its r4 state with qubits
+#: 0 and 1 fully mixed, X on 13 about 0.54, Z on 2 about 0.08 and X on 7
+#: at 1 (and, the state being real, any one Y at 0): X13 Z2 X7 is not 0
+READ_PROD = ((25, 13, 24), (2, 0, 2))
+READ_TARGETS = ((13, 0, 25, 7), (25, 3, 18, 0, 24, 7, 22, 14))
+READ_PROD_DENSITY = ((13, 2, 7), (1, 3, 1))
+READ_TARGETS_DENSITY = (13, 0, 7, 3)
+
+
+def tfim_hamil(qt, n: int, seed: int):
+    """A transverse-field Ising Hamiltonian on n qubits as a PauliHamil,
+    built by ``createPauliHamil`` + ``initPauliHamil``: the n - 1 couplings
+    J_i Z_i Z_{i+1} (J_i in [0.5, 1.5)) and the n fields h_i X_i (h_i in
+    [0.3, 1.0)), drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    codes = np.zeros((2 * n - 1, n), dtype=np.int32)
+    for i in range(n - 1):
+        codes[i, i] = codes[i, i + 1] = 3
+    for i in range(n):
+        codes[n - 1 + i, i] = 1
+    coeffs = np.concatenate([rng.uniform(0.5, 1.5, n - 1), rng.uniform(0.3, 1.0, n)])
+    hamil = qt.createPauliHamil(n, 2 * n - 1)
+    qt.initPauliHamil(hamil, coeffs, codes)
+    return hamil
+
+
+def _c128(pieces) -> "torch.Tensor":
+    """The gathered state of planar pieces (one tensor or the shards) as a
+    complex128 vector: the independent reference's input."""
+    import torch
+
+    flat = torch.cat(list(pieces), dim=1).double()
+    return torch.complex(flat[0], flat[1])
+
+
+def _pauli_action(k, targets, codes):
+    """A Pauli product from its definition: P|k> = c_k |k ^ f>, with f the
+    X and Y targets' mask and c_k = i^(number of Y) (-1)^(parity of k's Y
+    and Z target bits). Returns (f, c as complex128 over the indices k)."""
+    import torch
+
+    f = sum(1 << t for t, c in zip(targets, codes) if c in (1, 2))
+    par = torch.zeros_like(k)
+    for t, c in zip(targets, codes):
+        if c in (2, 3):
+            par ^= (k >> t) & 1
+    return f, (1 - 2 * par).to(torch.complex128) * (1j ** sum(c == 2 for c in codes))
+
+
+def _pauli_ref(psi, k, targets, codes):
+    """P psi from the definition, in complex128: (P psi)[m] = c_(m^f)
+    psi[m ^ f] (:func:`_pauli_action`)."""
+    f, coef = _pauli_action(k, targets, codes)
+    return coef[k ^ f] * psi[k ^ f]
+
+
+def _pauli_trace_ref(flat, dim, k, targets, codes):
+    """Re Tr(P rho) from the definition, in complex128: the flat layout is
+    [col, row], so rho(r, c) = flat[c dim + r], and Tr(P rho) = sum_k c_k
+    rho(k, k ^ f) (:func:`_pauli_action`)."""
+    f, coef = _pauli_action(k, targets, codes)
+    return float((coef * flat[(k ^ f) * dim + k]).sum().real)
+
+
+def _outcomes_ref(p, k, targets):
+    """The outcome distribution from the definition: each basis state's
+    probability added at the index its target bits make (targets[0] the
+    least significant), in float64."""
+    import torch
+
+    o = torch.zeros_like(k)
+    for j, t in enumerate(targets):
+        o |= ((k >> t) & 1) << j
+    return torch.bincount(o, weights=p, minlength=1 << len(targets))
+
+
+def _grouped_letters(n: int, targets):
+    """(shape, bra letters, ket letters, one 'uv' pair per target) of the
+    grouped view over ``targets`` (``ops.layout.grouped_axes``: one axis per
+    target bit, fused segments between them) for a one-call
+    ``torch.einsum`` yardstick."""
+    from quest_tpu_torch.ops.layout import grouped_axes
+
+    shape, axis_of = grouped_axes(n, targets)
+    letters = iter("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    bra, ket = [], []
+    for i in range(len(shape)):
+        u = next(letters)
+        v = next(letters) if i % 2 else u  # a segment: one letter for both
+        bra.append(u)
+        ket.append(v)
+    return (list(shape), "".join(bra), "".join(ket),
+            [bra[axis_of[t]] + ket[axis_of[t]] for t in targets])
+
+
+def _density_einsum(ca, nd: int, targets, codes, mats):
+    """Tr(P rho) as one torch.einsum over the flat matrix ``ca`` ([col,
+    row]: mat[a, b] = rho(b, a), so Tr(P rho) = sum_ab P[a, b] mat[a, b]):
+    both index groups viewed over the targets, each non-target bit a
+    repeated letter (the trace), each target a 2x2 Pauli."""
+    import torch
+
+    shape, bra, ket, pairs = _grouped_letters(nd, targets)
+    return torch.einsum(f"{bra}{ket},{','.join(pairs)}->", ca.view(shape + shape),
+                        *[mats[x] for x in codes])
+
+
+def _readout_phase(qt, dev, sv: dict, dens: dict, shard: dict) -> list:
+    """The readout rows on states the earlier phases made: ``sv`` the main
+    path's final registers (N_MAIN qubits, one device), ``dens`` the density
+    phase's (r4, r3) registers (N_DENSITY qubits), ``shard`` the sharded
+    phase's registers (N_MAIN qubits over N_SHARDS shards), each by dtype.
+    Every value against an evaluation from its definition in complex128 of
+    the gathered state (limits 1e-4 f32 / 1e-10 f64 on quantities bounded
+    by 2; a Pauli sum's relative to sum |c_t|), the sharded values also
+    against the one-device values of the same states; each call timed on
+    the card's clock beside its bytes bound (the state bytes it must read
+    and write over 3.35 TB/s) and one PyTorch call computing the same
+    function (the yardstick, named on the line). One ``# readout`` line per
+    call; returns the rows."""
+    import numpy as np
+    import torch
+
+    rows = []
+
+    def row(fn, dt, width, call, ref, limit, nbytes, yname, yard, reps=3, scale=1.0,
+            value_of=None, timed=None):
+        """Call ``call`` once and hold its value (``value_of`` its result)
+        against ``ref``, then time ``timed`` (default ``call``) and the
+        yardstick (a number: its ms, measured before). Returns the call's
+        result."""
+        result = call()
+        torch.cuda.synchronize()
+        value = value_of(result) if value_of else result
+        err = float(np.max(np.abs(np.asarray(value) - np.asarray(ref)))) / scale
+        _require(err <= limit, f"readout {fn} {dt} {width}: {value} against {ref}, error "
+                               f"{err} > {limit}")
+        ms = _clock_ms(timed or call, reps)  # the call above warmed it up
+        yms = yard if isinstance(yard, float) else _cuda_ms(yard, reps)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        arr = np.asarray(value).ravel()
+        shown = (f"{value:.10g}" if arr.size == 1 else
+                 "[" + ", ".join(f"{v:.6g}" for v in arr[:4]) + (", ...]" if arr.size > 4
+                                                                else "]"))
+        rel = " of sum |c_t|" if scale != 1.0 else ""
+        print(f"# readout {fn} {dt} {width}: value {shown}, error {err:.3e}{rel} (limit "
+              f"{limit:g}), {ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 2**20:.1f} MiB), "
+              f"yardstick {yname} {yms:.4f} ms")
+        rows.append({"function": fn, "dtype": dt, "width": width, "error": err,
+                     "limit": limit, "ms": ms, "bound_ms": bound, "yardstick": yname,
+                     "yardstick_ms": yms})
+        return result
+
+    def pieces(x):
+        return x.shards or [x.amps]
+
+    def same(x, y) -> float:
+        """max |x - y| over two registers' gathered states."""
+        return float((_c128(pieces(x)) - _c128(pieces(y))).abs().max())
+
+    hamil = tfim_hamil(qt, N_MAIN, seed=61)
+    hcoeffs, hcodes = hamil.term_coeffs, hamil.pauli_codes
+    hscale = float(np.abs(hcoeffs).sum())
+    hname = f"{len(hcoeffs)} one-term torch.einsum calls, summed"
+    terms = [([t for t in range(N_MAIN) if cd[t]], [int(x) for x in cd if x]) for cd in hcodes]
+    layers = qt.Circuit(N_MAIN)
+    qt.random_layers(layers, N_MAIN, 2, seed=7)
+    k = torch.arange(1 << N_MAIN, device=dev)
+    t0 = time.perf_counter()
+    for dt in (torch.float32, torch.float64):
+        f32 = dt == torch.float32
+        name, prec, lim = str(dt)[6:], (1 if f32 else 2), (1e-4 if f32 else 1e-10)
+        cdt = torch.complex64 if f32 else torch.complex128
+        mats = {c: torch.tensor(m, dtype=cdt, device=dev)
+                for c, m in ((0, [[1, 0], [0, 1]]), (1, [[0, 1], [1, 0]]),
+                             (2, [[0, -1j], [1j, 0]]), (3, [[1, 0], [0, -1]]))}
+        item = torch.finfo(dt).bits // 8
+        S = 2 * (1 << N_MAIN) * item  # bytes of one N_MAIN-qubit state
+
+        def einsum_expec(c, targets, codes):
+            """<c| P |c> as one torch.einsum over the grouped view (the
+            yardstick of a Pauli product's expectation)."""
+            shape, bra, ket, pairs = _grouped_letters(N_MAIN, targets)
+            v = c.view(shape)
+            return torch.einsum(f"{bra},{','.join(pairs)},{ket}->", v.conj(),
+                                *[mats[x] for x in codes], v)
+
+        for layout in ("one device", f"{N_SHARDS} shards"):
+            sharded = layout != "one device"
+            q = shard[dt] if sharded else sv[dt]
+            env = q.env
+            width = f"{N_MAIN}q {layout}"
+            q2 = row("createCloneQureg", name, width, lambda: qt.createCloneQureg(q, env),
+                     0.0, 0.0, 2 * S, "Tensor.clone", lambda: [x.clone() for x in pieces(q)],
+                     value_of=lambda r: same(r, q))
+            layers.run(q2)  # the second state: the clone, two more layers
+            psi, phi = _c128(pieces(q)), _c128(pieces(q2))
+            _require(float((psi - phi).abs().max()) > 0.1 * float(psi.abs().max()),
+                     "readout: the two states are equal")
+            c, c2 = (torch.complex(*torch.cat(pieces(x), dim=1)) for x in (q, q2))
+            ip_ref = complex((psi.conj() * phi).sum())
+            got = {}
+            got["calcInnerProduct"] = row(
+                "calcInnerProduct", name, width, lambda: qt.calcInnerProduct(q, q2), ip_ref,
+                lim, 2 * S, "torch.vdot", lambda: torch.vdot(c, c2))
+            got["calcFidelity"] = row(
+                "calcFidelity", name, width, lambda: qt.calcFidelity(q, q2), abs(ip_ref) ** 2,
+                lim, 2 * S, "torch.vdot", lambda: torch.vdot(c, c2))
+            p, pd = psi.real ** 2 + psi.imag ** 2, c.real ** 2 + c.imag ** 2
+            for targets in READ_TARGETS:
+                shape = _grouped_letters(N_MAIN, targets)[0]
+                rest = tuple(range(0, len(shape), 2))
+                got[f"calcProbOfAllOutcomes {targets}"] = row(
+                    "calcProbOfAllOutcomes", name, f"{width} targets {targets}",
+                    lambda: qt.calcProbOfAllOutcomes(q, targets),
+                    _outcomes_ref(p, k, targets).cpu().numpy(), lim, S,
+                    "torch.sum over the grouped |amp|^2",
+                    lambda: torch.sum(pd.view(shape), dim=rest))
+            idx = int(p.argmax())
+            csz = pieces(q)[0].shape[1]
+            amp = pieces(q)[idx // csz][:, idx % csz]
+            got["getProbAmp"] = row(
+                "getProbAmp", name, width, lambda: qt.getProbAmp(q, idx), float(p[idx]), lim,
+                2 * item, "torch.linalg.vector_norm", lambda: torch.linalg.vector_norm(amp))
+            work = qt.createQureg(N_MAIN, env, prec)
+            ppsi = _pauli_ref(psi, k, *READ_PROD)
+            got["calcExpecPauliProd"] = row(
+                "calcExpecPauliProd", name, width,
+                lambda: qt.calcExpecPauliProd(q, *READ_PROD, work),
+                float((psi.conj() * ppsi).sum().real), lim, 2 * S, "torch.einsum",
+                lambda: einsum_expec(c, *READ_PROD))
+            werr = float((_c128(pieces(work)) - ppsi).abs().max())
+            _require(werr <= lim, f"readout calcExpecPauliProd {name} {width}: workspace "
+                                  f"{werr} from P|psi>")
+            del ppsi
+            h_ref = sum(float(co) * float((psi.conj() * _pauli_ref(psi, k, *tc)).sum().real)
+                        for co, tc in zip(hcoeffs, terms))
+            hsum = lambda: sum(float(co) * einsum_expec(c, *tc).real  # noqa: E731
+                               for co, tc in zip(hcoeffs, terms))
+            before = [x.clone() for x in pieces(work)]
+            hwidth = f"{width} TFIM {len(hcoeffs)} terms"
+            got["calcExpecPauliHamil"] = row(
+                "calcExpecPauliHamil", name, hwidth,
+                lambda: qt.calcExpecPauliHamil(q, hamil, work), h_ref, lim, S, hname, hsum,
+                reps=1, scale=hscale)
+            got["calcExpecPauliSum"] = row(
+                "calcExpecPauliSum", name, hwidth,
+                lambda: qt.calcExpecPauliSum(q, hcodes.ravel(), hcoeffs, work), h_ref, lim,
+                S, hname, rows[-1]["yardstick_ms"], reps=1, scale=hscale)
+            _require(all(torch.equal(x, y) for x, y in zip(before, pieces(work))),
+                     f"readout {name} {width}: calcExpecPauliSum wrote its workspace")
+            del before
+            row("syncQuESTEnv", name, width, lambda: qt.syncQuESTEnv(env), 0.0, 0.0, 0,
+                "torch.cuda.synchronize", torch.cuda.synchronize, value_of=lambda r: 0.0)
+            if sharded:
+                # the same states on one device (re-cut across layouts by
+                # cloneQureg): the sharded values against the one-device ones
+                one = qt.createQuESTEnv(device=dev)
+                q1, q12, w1 = (qt.createQureg(N_MAIN, one, prec) for _ in range(3))
+                qt.cloneQureg(q1, q)
+                qt.cloneQureg(q12, q2)
+                ones = {"calcInnerProduct": qt.calcInnerProduct(q1, q12),
+                        "calcFidelity": qt.calcFidelity(q1, q12),
+                        "getProbAmp": qt.getProbAmp(q1, idx),
+                        "calcExpecPauliProd": qt.calcExpecPauliProd(q1, *READ_PROD, w1),
+                        "calcExpecPauliHamil": qt.calcExpecPauliHamil(q1, hamil, w1),
+                        "calcExpecPauliSum": qt.calcExpecPauliSum(q1, hcodes.ravel(), hcoeffs,
+                                                                  w1)}
+                ones.update({f"calcProbOfAllOutcomes {t}": qt.calcProbOfAllOutcomes(q1, t)
+                             for t in READ_TARGETS})
+                worst = 0.0
+                for fn, b in ones.items():
+                    sc = hscale if "Pauli" in fn and "Prod" not in fn else 1.0
+                    e = float(np.max(np.abs(np.asarray(got[fn]) - np.asarray(b)))) / sc
+                    _require(e <= lim, f"readout {fn} {name}: sharded {got[fn]} against one "
+                                       f"device {b}, {e} > {lim}")
+                    worst = max(worst, e)
+                # mixed layouts: a sharded register beside a one-device one
+                mwidth = f"{N_MAIN}q mixed layouts ({N_SHARDS} shards, one device)"
+                row("calcInnerProduct", name, mwidth, lambda: qt.calcInnerProduct(q, q12),
+                    ip_ref, lim, 2 * S, "torch.vdot", lambda: torch.vdot(c, c2))
+                row("calcFidelity", name, mwidth, lambda: qt.calcFidelity(q1, q2),
+                    abs(ip_ref) ** 2, lim, 2 * S, "torch.vdot", lambda: torch.vdot(c, c2))
+                row("calcExpecPauliProd", name, mwidth,
+                    lambda: qt.calcExpecPauliProd(q, *READ_PROD, w1),
+                    got["calcExpecPauliProd"], lim, 2 * S, "torch.einsum",
+                    lambda: einsum_expec(c, *READ_PROD))
+                print(f"# readout {name} {N_SHARDS} shards against one device: {len(ones)} "
+                      f"values, largest difference {worst:.3e} (limit {lim:g})")
+                for x in (q1, q12, w1):
+                    qt.destroyQureg(x)
+            for x in (q2, work):
+                qt.destroyQureg(x)
+            del psi, phi, p, pd, c, c2, amp
+            torch.cuda.empty_cache()
+
+        # -- density: the r4 and r3 states of the density phase -------------
+        r4, r3 = dens[dt]
+        nd = N_DENSITY
+        dim, SD = 1 << nd, 2 * (1 << 2 * nd) * item
+        width = f"{nd}q density ({2 * nd} flattened)"
+        a, b = _c128([r4.amps]), _c128([r3.amps])
+        ca, cb = torch.complex(r4.amps[0], r4.amps[1]), torch.complex(r3.amps[0], r3.amps[1])
+        row("calcDensityInnerProduct", name, width, lambda: qt.calcDensityInnerProduct(r4, r3),
+            float((a.conj() * b).sum().real), lim, 2 * SD, "torch.vdot",
+            lambda: torch.vdot(ca, cb))
+        del cb
+        row("calcHilbertSchmidtDistance", name, width,
+            lambda: qt.calcHilbertSchmidtDistance(r4, r3),
+            float((a - b).abs().square().sum().sqrt()), lim, 2 * SD, "torch.dist",
+            lambda: torch.dist(r4.amps, r3.amps))
+        pure = qt.createQureg(nd, r4.env, prec)
+        prng = np.random.RandomState(67)
+        v = prng.randn(dim) + 1j * prng.randn(dim)
+        v /= np.linalg.norm(v)
+        qt.initStateFromAmps(pure, v.real, v.imag)
+        psi = _c128([pure.amps])
+        cp = torch.complex(pure.amps[0], pure.amps[1])
+        kd = torch.arange(dim, device=dev)
+        # every reference of the rows below, before the complex128 copies go
+        # mat[c, r] = rho(r, c): <psi|rho|psi> = sum_r conj(psi_r) (mat^T psi)_r
+        fid_ref = float((psi.conj() * (a.view(dim, dim).T @ psi)).sum().real)
+        out_ref = _outcomes_ref(a[kd * dim + kd].real, kd, READ_TARGETS_DENSITY).cpu().numpy()
+        prod_ref = _pauli_trace_ref(a, dim, kd, *READ_PROD_DENSITY)
+        mixed = 0.7 * a + 0.3 * b
+        del a, b, psi
+        trace_ref = float(mixed[kd * dim + kd].real.sum())
+        purity_ref = float(mixed.abs().square().sum())
+        torch.cuda.empty_cache()
+        row("calcFidelity", name, f"{width} with a {nd}q pure state",
+            lambda: qt.calcFidelity(r4, pure), fid_ref, lim, SD + 2 * dim * item,
+            "torch.einsum", lambda: torch.einsum("r,cr,c->", cp.conj(), ca.view(dim, dim), cp))
+        dd = r4.amps[0].view(dim, dim).diagonal()
+        shape = _grouped_letters(nd, READ_TARGETS_DENSITY)[0]
+        rest = tuple(range(0, len(shape), 2))
+        row("calcProbOfAllOutcomes", name, f"{width} targets {READ_TARGETS_DENSITY}",
+            lambda: qt.calcProbOfAllOutcomes(r4, READ_TARGETS_DENSITY), out_ref, lim,
+            dim * item, "torch.sum over the grouped diagonal",
+            lambda: torch.sum(dd.reshape(shape), dim=rest))
+        dwork = qt.createDensityQureg(nd, r4.env, prec)
+        row("calcExpecPauliProd", name, width,
+            lambda: qt.calcExpecPauliProd(r4, *READ_PROD_DENSITY, dwork), prod_ref, lim,
+            2 * SD, "torch.einsum", lambda: _density_einsum(ca, nd, *READ_PROD_DENSITY, mats))
+        qt.destroyQureg(dwork)
+        qt.destroyQureg(pure)
+        del ca, cp
+        torch.cuda.empty_cache()
+        # checked on r4 <- 0.7 r4 + 0.3 r3; timed as mixDensityMatrix(r3, 0,
+        # r4), the same work, which leaves both registers as they are
+        row("mixDensityMatrix", name, f"{width} p 0.3",
+            lambda: qt.mixDensityMatrix(r4, 0.3, r3), 0.0, lim, 3 * SD, "torch.lerp",
+            lambda: torch.lerp(r4.amps, r3.amps, 0.3),
+            value_of=lambda r: float((_c128([r4.amps]) - mixed).abs().max()),
+            timed=lambda: qt.mixDensityMatrix(r3, 0.0, r4))
+        del mixed
+        row("calcTotalProb", name, f"{width} after the mix", lambda: qt.calcTotalProb(r4),
+            trace_ref, lim, dim * item, "torch.sum of the diagonal",
+            lambda: torch.sum(r4.amps[0].view(dim, dim).diagonal()))
+        row("calcPurity", name, f"{width} after the mix", lambda: qt.calcPurity(r4),
+            purity_ref, lim, SD, "torch.linalg.vector_norm",
+            lambda: torch.linalg.vector_norm(r4.amps))
+        torch.cuda.empty_cache()
+    print(f"# readout phase: {len(rows)} calls in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
@@ -1988,7 +2387,7 @@ def main() -> int:
           f"{(sum(lane_ms) / max(len(lane_ms), 1)):.4f} ms mean), bound "
           f"{sum(main['bound_ms']) / npass:.4f} ms mean, plain "
           f"{sum(main['plain_ms']) / npass:.2f} ms mean")
-    qt.destroyQureg(q)
+    q.spare = None  # the final state stays for the readout phase
     del y
     torch.cuda.empty_cache()
 
@@ -2021,6 +2420,18 @@ def main() -> int:
 
     # -- sharded phase: the main path's circuit over 4 shards, f32 and f64 -
     sharded = {ddt: _sharded_path(qt, dev, rng, ddt) for ddt in (torch.float32, torch.float64)}
+
+    # -- readout phase: the readouts on the states the phases above made ---
+    kept = ({torch.float32: q, torch.float64: main64.pop("qureg")},
+            {ddt: (density[(ddt, "r4")].pop("qureg"), density[(ddt, "r3")].pop("qureg"))
+             for ddt in (torch.float32, torch.float64)},
+            {ddt: sharded[ddt].pop("qureg") for ddt in (torch.float32, torch.float64)})
+    _readout_phase(qt, dev, *kept)
+    for regs in kept:
+        for r in regs.values():
+            for x in (r if isinstance(r, tuple) else (r,)):
+                qt.destroyQureg(x)
+    torch.cuda.empty_cache()
 
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})

@@ -13,31 +13,38 @@ contiguous qubit window through ``csrc/window_dot.cu``
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
 
-from .calculations import (calcProbOfOutcome, calcPurity, calcTotalProb,
-                           getAmp, getDensityAmp, getImagAmp, getRealAmp)
+from .calculations import *  # noqa: F401,F403
+from .calculations import __all__ as _calculations_all
 from .circuits import Circuit, density_circuit, random_layers
 from .datatypes import *  # noqa: F401,F403
 from .datatypes import __all__ as _datatypes_all
 from .decoherence import *  # noqa: F401,F403
 from .decoherence import __all__ as _decoherence_all
-from .environment import (QuESTEnv, createQuESTEnv, seedQuEST,
-                          seedQuESTDefault)
+from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
+                          getEnvironmentString, getQuESTSeeds, reportQuESTEnv,
+                          seedQuEST, seedQuESTDefault, syncQuESTEnv,
+                          syncQuESTSuccess)
 from .gates import *  # noqa: F401,F403
 from .gates import __all__ as _gates_all
 from .operators import *  # noqa: F401,F403
 from .operators import __all__ as _operators_all
-from .registers import (Qureg, createDensityQureg, createQureg, destroyQureg,
-                        get_np)
+from .registers import (Qureg, createCloneQureg, createDensityQureg, createQureg,
+                        destroyQureg, get_np)
+from .reporting import *  # noqa: F401,F403
+from .reporting import __all__ as _reporting_all
 from .state_init import *  # noqa: F401,F403
 from .state_init import __all__ as _state_init_all
-from .validation import QuESTError
+from .validation import (QuESTError, invalid_quest_input_error,
+                         invalidQuESTInputError, set_input_error_handler)
 
 __all__ = [
-    "QuESTEnv", "createQuESTEnv", "seedQuEST", "seedQuESTDefault",
-    "Qureg", "createQureg", "createDensityQureg", "destroyQureg", "get_np",
+    "QuESTEnv", "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv",
+    "syncQuESTSuccess", "reportQuESTEnv", "getEnvironmentString", "seedQuEST",
+    "seedQuESTDefault", "getQuESTSeeds",
+    "Qureg", "createQureg", "createDensityQureg", "createCloneQureg",
+    "destroyQureg", "get_np",
     *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
-    *_decoherence_all,
-    "calcTotalProb", "calcProbOfOutcome", "calcPurity", "getAmp",
-    "getRealAmp", "getImagAmp", "getDensityAmp",
+    *_decoherence_all, *_calculations_all, *_reporting_all,
     "Circuit", "random_layers", "density_circuit", "QuESTError",
+    "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
 ]

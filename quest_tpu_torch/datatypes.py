@@ -9,16 +9,19 @@ time.
   - ComplexMatrixN helpers      (QuEST.h:154-208; create/destroy keep the
                                  reference's names, Python collects)
   - Vector                      (QuEST.h:215-218)
+  - PauliHamil                  (QuEST.h:296-307, createPauliHamilFromFile
+                                 QuEST.h:914), host-side numpy codes and
+                                 coefficients
   - SubDiagonalOp               (QuEST.h:340-351), a small diagonal on <= N
                                  targets
 
-``PauliHamil`` and ``DiagonalOp`` wait for the operators slice.
+``DiagonalOp`` waits for the operators slice.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -29,6 +32,8 @@ __all__ = [
     "createComplexMatrixN", "destroyComplexMatrixN", "initComplexMatrixN",
     "bindArraysToStackComplexMatrixN", "getStaticComplexMatrixN",
     "SubDiagonalOp", "createSubDiagonalOp", "destroySubDiagonalOp",
+    "PauliHamil", "createPauliHamil", "destroyPauliHamil", "initPauliHamil",
+    "createPauliHamilFromFile",
 ]
 
 
@@ -45,6 +50,14 @@ PAULI_I = pauliOpType.PAULI_I
 PAULI_X = pauliOpType.PAULI_X
 PAULI_Y = pauliOpType.PAULI_Y
 PAULI_Z = pauliOpType.PAULI_Z
+
+#: the Pauli matrices by code
+PAULI_MATRICES = {
+    0: np.eye(2, dtype=np.complex128),
+    1: np.array([[0, 1], [1, 0]], dtype=np.complex128),
+    2: np.array([[0, -1j], [1j, 0]], dtype=np.complex128),
+    3: np.array([[1, 0], [0, -1]], dtype=np.complex128),
+}
 
 
 @dataclass
@@ -136,6 +149,108 @@ def getStaticComplexMatrixN(real, imag=None, _imag=None) -> np.ndarray:
     validation._assert(_imag is None and imag is not None,
                        "Both real and imaginary matrix components must be given.", func)
     return np.asarray(real) + 1j * np.asarray(imag)
+
+
+# ---------------------------------------------------------------------------
+# PauliHamil
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PauliHamil:
+    """Real-weighted sum of Pauli products (QuEST.h:296-307).
+
+    ``pauli_codes`` has shape (num_sum_terms, num_qubits): codes[t, q] is the
+    Pauli acting on qubit q in term t (the reference flattens this to a single
+    array of length numSumTerms*numQubits with the same ordering).
+    """
+
+    num_qubits: int
+    num_sum_terms: int
+    pauli_codes: np.ndarray = field(default=None)
+    term_coeffs: np.ndarray = field(default=None)
+
+    def __post_init__(self):
+        if self.pauli_codes is None:
+            self.pauli_codes = np.zeros((self.num_sum_terms, self.num_qubits), dtype=np.int32)
+        else:
+            self.pauli_codes = np.asarray(self.pauli_codes, dtype=np.int32).reshape(
+                self.num_sum_terms, self.num_qubits)
+        if self.term_coeffs is None:
+            self.term_coeffs = np.zeros((self.num_sum_terms,), dtype=np.float64)
+        else:
+            self.term_coeffs = np.asarray(self.term_coeffs, dtype=np.float64).reshape(
+                self.num_sum_terms)
+
+
+def createPauliHamil(num_qubits: int, num_sum_terms: int) -> PauliHamil:
+    """Blank Hamiltonian (createPauliHamil, QuEST.h:858)."""
+    func = "createPauliHamil"
+    validation.validate_num_qubits(num_qubits, func)
+    validation._assert(num_sum_terms > 0, "Invalid number of terms in the PauliHamil. The number of terms must be strictly positive.", func)
+    return PauliHamil(num_qubits, num_sum_terms)
+
+
+def destroyPauliHamil(hamil: PauliHamil) -> None:
+    """Nothing to free (Python collects); kept for API parity."""
+
+
+def initPauliHamil(hamil: PauliHamil, coeffs, codes) -> None:
+    """Overwrite a Hamiltonian in place (initPauliHamil, QuEST.h:953)."""
+    func = "initPauliHamil"
+    codes = np.asarray(codes, dtype=np.int32).reshape(hamil.num_sum_terms, hamil.num_qubits)
+    validation.validate_pauli_codes(codes.ravel(), func)
+    hamil.term_coeffs[...] = np.asarray(coeffs, dtype=np.float64)
+    hamil.pauli_codes[...] = codes
+
+
+def createPauliHamilFromFile(path: str) -> PauliHamil:
+    """Parse the reference's Hamiltonian file format (createPauliHamilFromFile,
+    QuEST.h:914): each line is ``coeff code code ... code`` with one code per
+    qubit; the qubit count is inferred from the first line."""
+    func = "createPauliHamilFromFile"
+    try:
+        f = open(path)
+    except OSError:
+        validation.validate_file_opened(False, path, func)
+    coeffs, codes = [], []
+    with f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            try:
+                coeffs.append(float(parts[0]))
+            except ValueError:
+                validation.validate_hamil_file_coeff_parsed(False, path, func)
+            row = []
+            for c in parts[1:]:
+                try:
+                    v = float(c)
+                except ValueError:
+                    validation.validate_hamil_file_pauli_parsed(False, path, func)
+                validation._assert(v == int(v), "Failed to parse the next "
+                                   f"expected Pauli code in PauliHamil file ({path}).",
+                                   func)
+                validation.validate_hamil_file_pauli_code(int(v), path, func)
+                row.append(int(v))
+            codes.append(row)
+    num_qubits = len(codes[0]) if codes else 0
+    validation.validate_hamil_file_params(num_qubits, len(coeffs), path, func)
+    validation._assert(all(len(c) == num_qubits for c in codes),
+                       "Failed to parse the next expected Pauli code in "
+                       f"PauliHamil file ({path}).", func)
+    hamil = PauliHamil(num_qubits, len(coeffs), np.asarray(codes), np.asarray(coeffs))
+    validation.validate_pauli_hamil(hamil, func)
+    return hamil
+
+
+def pauli_term_matrix(codes_row) -> np.ndarray:
+    """Dense 2^N matrix of one Pauli product term; qubit 0 = least-significant
+    index bit, so it is the *last* factor of the Kronecker product."""
+    m = np.eye(1, dtype=np.complex128)
+    for code in reversed(list(codes_row)):
+        m = np.kron(m, PAULI_MATRICES[int(code)])
+    return m
 
 
 # ---------------------------------------------------------------------------

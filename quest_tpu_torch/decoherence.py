@@ -4,21 +4,22 @@
 Every channel is either a factor diagonal (dephasing) or one superoperator
 on qubits (T, T+n) of the flattened state, routed by
 ``ops.density.apply_channel``. The Kraus operators of the built-in channels
-come from the canonical table ``channels.py``. ``mixDensityMatrix`` is not
-ported yet.
+come from the canonical table ``channels.py``. ``mixDensityMatrix`` is a
+weighted sum of two registers (``ops.init.weighted_sum``).
 """
 
 from __future__ import annotations
 
 from . import validation as V
 from .ops import density as DN
+from .ops import init as I
 from .registers import Qureg
 
 __all__ = [
     "mixDephasing", "mixTwoQubitDephasing", "mixDepolarising", "mixDamping",
     "mixTwoQubitDepolarising", "mixPauli", "mixKrausMap",
     "mixTwoQubitKrausMap", "mixMultiQubitKrausMap", "mixNonTPKrausMap",
-    "mixNonTPTwoQubitKrausMap", "mixNonTPMultiQubitKrausMap",
+    "mixNonTPTwoQubitKrausMap", "mixNonTPMultiQubitKrausMap", "mixDensityMatrix",
 ]
 
 
@@ -92,6 +93,19 @@ def mixPauli(qureg: Qureg, target: int, px: float, py: float, pz: float) -> None
     V.validate_pauli_probs(px, py, pz, func)
     _channel(qureg, DN.kraus_superoperator(DN.pauli_kraus(px, py, pz)), (target,))
     _record(qureg, f"mixPauli({px:g},{py:g},{pz:g}) on q[{target}]")
+
+
+def mixDensityMatrix(combine: Qureg, prob: float, other: Qureg) -> None:
+    """combine = (1-p) combine + p other (QuEST.h:4219)."""
+    func = "mixDensityMatrix"
+    V.validate_density_matr(combine, func)
+    V.validate_density_matr(other, func)
+    V.validate_matching_qureg_dims(combine, other, func)
+    V.validate_probability(prob, 1.0, func)
+    combine.put(I.weighted_sum(1 - prob, combine.amps, prob,
+                               other.amps.to(combine.device, combine.dtype),
+                               0.0, combine.amps))
+    _record(combine, f"mixDensityMatrix({prob:g})")
 
 
 def _mix_kraus(qureg, targets, ops, func, check_cptp):

@@ -94,6 +94,48 @@ def createQuESTEnv(device: str | torch.device | None = None,
     return env
 
 
+def destroyQuESTEnv(env: QuESTEnv) -> None:
+    """Nothing to release (no MPI_Finalize); kept for API parity."""
+
+
+def syncQuESTEnv(env: QuESTEnv) -> None:
+    """Barrier analogue (MPI_Barrier, QuEST_cpu_distributed.c:166-168): wait
+    for the work queued on every CUDA device of the env's mesh; nothing to
+    wait for on the CPU."""
+    for d in dict.fromkeys(env.devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def syncQuESTSuccess(success_code: int) -> int:
+    """All-ranks success agreement (MPI_LAND allreduce in the reference,
+    QuEST_cpu_distributed.c:170-174). One controlling process: identity."""
+    return success_code
+
+
+def reportQuESTEnv(env: QuESTEnv) -> None:
+    """Print deployment info (reportQuESTEnv; the JAX package's line layout,
+    with this package's backend line: torch and CUDA versions, device
+    names)."""
+    names = sorted({torch.cuda.get_device_name(d) if d.type == "cuda" else "cpu"
+                    for d in env.devices})
+    print("EXECUTION ENVIRONMENT:")
+    print(f"Backend: PyTorch {torch.__version__}, CUDA {torch.version.cuda or 'none'}, "
+          f"devices {', '.join(names)}")
+    print(f"Number of devices: {env.num_ranks}")
+    plats = {d.type for d in env.devices}
+    print(f"Device platform(s): {', '.join(sorted(plats)) or 'none'}")
+    print(f"Precision default: {os.environ.get('QUEST_PRECISION', '1')}")
+
+
+def getEnvironmentString(env: QuESTEnv) -> str:
+    """The execution-environment summary (getEnvironmentString, QuEST.h:123):
+    ``CUDA=1`` when the mesh is on cards, ``CUDA=0`` on the CPU."""
+    n = env.num_ranks
+    cuda = int(any(d.type == "cuda" for d in env.devices))
+    return f"CUDA={cuda} OpenMP=0 MPI=0 TPU=0 threads=1 ranks={n} devices={n}"
+
+
 def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
     """Seed the measurement RNG from a user key array (numpy's MT19937
     init_by_array, as the reference, QuEST_common.c:209-217)."""
@@ -105,3 +147,8 @@ def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
 def seedQuESTDefault(env: QuESTEnv) -> None:
     """Default seeding from time + pid (QuEST_common.c:195-207)."""
     seedQuEST(env, [int(time.time()) & 0xFFFFFFFF, os.getpid() & 0xFFFFFFFF])
+
+
+def getQuESTSeeds(env: QuESTEnv) -> list[int]:
+    """The seeds the env's RNG was last seeded with (QuEST.h:126)."""
+    return list(env.seeds)

@@ -1,4 +1,5 @@
-"""Outcome probabilities and collapse (``quest_tpu/ops/measure.py``).
+"""Outcome probabilities, outcome distributions and collapse
+(``quest_tpu/ops/measure.py``).
 
 Reference: statevec_collapseToKnownProbOutcome and
 densmatr_collapseToKnownProbOutcome (``QuEST_cpu.c:3695-3848``). Row bits
@@ -15,7 +16,63 @@ import torch
 
 from ..parallel.mesh import local_qubit_count
 from .layout import grouped_axes
-from .reduce import _csum
+from .reduce import _csum, csum_rows, total_prob_statevec
+
+
+def _group_outcome_probs(p: torch.Tensor, n: int, targets) -> torch.Tensor:
+    """Reorder a real 2^n tensor so that the target bits lead (targets[0]
+    the least significant: the target axes go most significant first), then
+    sum the rest of each group by the compensated rowwise cascade
+    (``csum_rows``); returns (2^t,)."""
+    t = len(targets)
+    shape, axis_of = grouped_axes(n, targets)
+    p = p.reshape(shape)
+    targ_axes = [axis_of[q] for q in reversed(targets)]  # MSB first
+    rest = [ax for ax in range(len(shape)) if ax not in targ_axes]
+    p = p.permute(targ_axes + rest)
+    return csum_rows(p.reshape(1 << t, -1))
+
+
+def prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets) -> torch.Tensor:
+    """2^t vector of outcome probabilities; outcome index o has targets[0] as
+    its least-significant bit (calcProbOfAllOutcomes, QuEST.h:3633;
+    calcProbOfAllOutcomesLocal, QuEST_cpu.c:3477)."""
+    return _group_outcome_probs(amps[0] * amps[0] + amps[1] * amps[1], n, tuple(targets))
+
+
+def density_prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets) -> torch.Tensor:
+    """The outcome distribution of a density matrix: its diagonal's real
+    parts grouped as :func:`prob_of_all_outcomes` groups |amp|^2."""
+    diag = torch.diagonal(amps[0].reshape(1 << n, 1 << n))
+    return _group_outcome_probs(diag, n, tuple(targets))
+
+
+def prob_of_all_outcomes_shards(shards, *, n: int, targets) -> torch.Tensor:
+    """:func:`prob_of_all_outcomes` of a sharded state vector. Each shard
+    groups its local targets (a per-shard marginal, on its device); its
+    index gives the bits of the sharded targets, as in
+    ``ops.reduce.prob_of_outcome_shards``. Each shard's marginal is placed
+    at the outcomes its index selects, and the D vectors are cascaded in
+    shard order. Returns (2^t,) on the first shard's device."""
+    nl = local_qubit_count(n, shards)
+    targets = tuple(targets)
+    local = [(k, q) for k, q in enumerate(targets) if q < nl]
+    dev = shards[0].device
+    # outcome index of each local outcome, before the sharded targets' bits
+    ol = torch.arange(1 << len(local), device=dev)
+    base = torch.zeros_like(ol)
+    for j, (k, _) in enumerate(local):
+        base |= ((ol >> j) & 1) << k
+    full = []
+    for r, s in enumerate(shards):
+        if local:
+            m = prob_of_all_outcomes(s, n=nl, targets=tuple(q for _, q in local))
+        else:
+            m = total_prob_statevec(s).reshape(1)
+        hi = sum(((r >> (q - nl)) & 1) << k for k, q in enumerate(targets) if q >= nl)
+        full.append(torch.zeros(1 << len(targets), dtype=m.dtype, device=dev)
+                    .index_copy(0, base | hi, m.to(dev)))
+    return csum_rows(torch.stack(full).T.contiguous())
 
 
 def density_prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,

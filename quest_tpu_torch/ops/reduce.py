@@ -1,4 +1,5 @@
-"""Scalar reductions over planar states.
+"""Scalar reductions over planar states: norms, purity, outcome
+probabilities, inner products, fidelity and distances.
 
 The reference protects its norm accumulations with Kahan summation
 (statevec_calcTotalProb, QuEST_cpu_distributed.c:62-119) because low
@@ -13,6 +14,8 @@ whole state's cascade.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -66,6 +69,56 @@ def prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
     return _csum(sub[0] * sub[0] + sub[1] * sub[1])
 
 
+def inner_product(bra: torch.Tensor, ket: torch.Tensor):
+    """<bra|ket> with bra conjugated (statevec_calcInnerProduct); returns a
+    (re, im) pair of 0-d tensors."""
+    re = _csum(bra[0] * ket[0] + bra[1] * ket[1])
+    im = _csum(bra[0] * ket[1] - bra[1] * ket[0])
+    return re, im
+
+
+def density_inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re(Tr(a^dagger b)) = sum Re(conj(a_i) b_i)
+    (densmatr_calcInnerProductLocal, QuEST_cpu.c:975-1003)."""
+    return _csum(a[0] * b[0] + a[1] * b[1])
+
+
+def hilbert_schmidt_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum |a_ij - b_ij|^2) (densmatr_calcHilbertSchmidtDistance)."""
+    d = a - b
+    return torch.sqrt(_csum(d[0] * d[0] + d[1] * d[1]))
+
+
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """Float32 products in full FP32 for the block, never TF32, whatever the
+    process-wide flag says; the flag is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def density_fidelity(rho_amps: torch.Tensor, pure_amps: torch.Tensor, *,
+                     n: int) -> torch.Tensor:
+    """<psi| rho |psi>, real part (densmatr_calcFidelityLocal, QuEST_cpu.c:1007).
+
+    The flat layout is [col, row], so as a matrix mat[c, r] = rho(r, c) and
+    <psi|rho|psi> = sum_r conj(psi_r) (mat^T psi)_r. The products run in
+    full FP32 (f32) or FP64, as the JAX package's at Precision.HIGHEST.
+    """
+    dim = 1 << n
+    m = rho_amps.reshape(2, dim, dim)
+    mr, mi = m[0].T, m[1].T
+    pr, pi = pure_amps[0], pure_amps[1]
+    with _full_fp32_matmul():
+        vr = mr @ pr - mi @ pi
+        vi = mr @ pi + mi @ pr
+    return _csum(pr * vr + pi * vi)
+
+
 def _csum_parts(parts) -> torch.Tensor:
     """The per-shard partial sums (0-d tensors), cascaded in shard order on
     the first shard's device."""
@@ -75,6 +128,13 @@ def _csum_parts(parts) -> torch.Tensor:
 def total_prob_shards(shards) -> torch.Tensor:
     """sum |amp|^2 of a sharded state vector."""
     return _csum_parts([total_prob_statevec(s) for s in shards])
+
+
+def inner_product_shards(bra_shards, ket_shards):
+    """<bra|ket> of two sharded state vectors of one layout: each shard
+    pair's partial (re, im) on its device, cascaded in shard order."""
+    parts = [inner_product(b, k) for b, k in zip(bra_shards, ket_shards)]
+    return _csum_parts([p[0] for p in parts]), _csum_parts([p[1] for p in parts])
 
 
 def prob_of_outcome_shards(shards, *, n: int, target: int,

@@ -82,8 +82,15 @@ class QASMLogger:
     def stop(self):
         self.recording = False
 
+    def clear(self):
+        self._write_header()
+
     def printed(self) -> str:
         return "\n".join(self._lines) + "\n"
+
+    def write_to_file(self, filename: str):
+        with open(filename, "w") as f:
+            f.write(self.printed())
 
     def _num(self, p) -> str:
         return self._fmt % float(p)

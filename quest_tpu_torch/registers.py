@@ -177,6 +177,23 @@ def createDensityQureg(num_qubits: int, env: QuESTEnv,
     return q
 
 
+def createCloneQureg(qureg: Qureg, env: QuESTEnv) -> Qureg:
+    """Deep copy (createCloneQureg, QuEST.h:694): new tensors on the
+    source's devices (every shard of a sharded register), no spare buffer
+    shared with the source, and a fresh QASM log."""
+    func = "createCloneQureg"
+    if qureg.shards is not None:
+        shards = validation.validate_qureg_allocation(
+            lambda: [s.clone() for s in qureg.shards], func)
+        q = Qureg(qureg.num_qubits_represented, qureg.is_density_matrix, None, env,
+                  shards=shards)
+    else:
+        amps = validation.validate_qureg_allocation(lambda: qureg.amps.clone(), func)
+        q = Qureg(qureg.num_qubits_represented, qureg.is_density_matrix, amps, env)
+    q.qasm_log = QASMLogger(qureg.num_qubits_represented, qureg.dtype)
+    return q
+
+
 def destroyQureg(qureg: Qureg, env: QuESTEnv | None = None) -> None:
     """Release the device buffers (destroyQureg, QuEST.h:716)."""
     qureg.amps = None

@@ -3,19 +3,21 @@
 They cover targets and controls, unitarity of 2x2, 4x4 and N-qubit
 matrices and of compact pairs, Pauli codes, outcomes and measurement
 probabilities, amplitude ranges, matching registers, Kraus maps and the
-channel probabilities.
+channel probabilities, Pauli Hamiltonians and their files.
 
 A copy of the matching functions of ``quest_tpu/validation.py`` (itself the
 counterpart of the reference's ``QuEST_validation.c``), with the messages
 verbatim so that ``pytest.raises(match=...)`` cases carry over. A failure
-raises :class:`QuESTError` (the JAX package's default hook); the
-overridable hook waits for the rest of the API.
+goes through one overridable hook, as the reference's user-overridable
+``invalidQuESTInputError`` (QuEST.h:6160-6188): by default it raises
+:class:`QuESTError`; :func:`set_input_error_handler` replaces it, and so
+does rebinding ``invalidQuESTInputError`` in this module.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -29,7 +31,34 @@ class QuESTError(Exception):
         super().__init__(message if not func else f"{func}: {message}")
 
 
+def _default_handler(err_msg: str, err_func: str) -> None:
+    raise QuESTError(err_msg, err_func)
+
+
+#: the overridable hook, mirroring invalidQuESTInputError (QuEST.h:6160-6188)
+invalid_quest_input_error: Callable[[str, str], None] = _default_handler
+
+
+def invalidQuESTInputError(errMsg: str, errFunc: str) -> None:
+    """Reference-named error hook (invalidQuESTInputError, QuEST.h:6160-6188):
+    dispatches through the current handler, so :func:`set_input_error_handler`
+    overrides it as redefining the C symbol overrides the reference's weak
+    default."""
+    invalid_quest_input_error(errMsg, errFunc)
+
+
+def set_input_error_handler(handler: Callable[[str, str], None] | None) -> None:
+    """Override the validation failure hook (None restores the default)."""
+    global invalid_quest_input_error
+    invalid_quest_input_error = handler if handler is not None else _default_handler
+
+
 def _fail(msg: str, func: str) -> None:
+    # through the module's reference-named symbol, so that both ways of
+    # overriding work: set_input_error_handler and rebinding the symbol
+    invalidQuESTInputError(msg, func)
+    # a hook that returns must not let invalid input through (the reference
+    # documents returning as undefined behaviour)
     raise QuESTError(msg, func)
 
 
@@ -197,6 +226,54 @@ def validate_num_pauli_codes(codes, expected: int, func: str) -> None:
     validate_pauli_codes(codes, func)
 
 
+def validate_pauli_hamil(hamil, func: str) -> None:
+    _assert(
+        hamil.num_qubits > 0 and hamil.num_sum_terms > 0,
+        "Invalid PauliHamil parameters. The number of qubits and terms must be strictly positive.",
+        func,
+    )
+    validate_pauli_codes(hamil.pauli_codes.ravel(), func)
+
+
+def validate_hamil_matches_qureg(qureg, hamil, func: str) -> None:
+    _assert(
+        hamil.num_qubits == qureg.num_qubits_represented,
+        "The PauliHamil must act on the same number of qubits as the register.",
+        func,
+    )
+
+
+def validate_file_opened(opened: bool, path: str, func: str) -> None:
+    _assert(opened, f"Could not open file ({path}).", func)
+
+
+def validate_hamil_file_params(num_qubits: int, num_terms: int, path: str,
+                               func: str) -> None:
+    _assert(num_qubits > 0 and num_terms > 0,
+            f"The number of qubits and terms in the PauliHamil file ({path}) "
+            "must be strictly positive.", func)
+
+
+def validate_hamil_file_coeff_parsed(parsed: bool, path: str, func: str) -> None:
+    _assert(parsed,
+            "Failed to parse the next expected term coefficient in PauliHamil "
+            f"file ({path}).", func)
+
+
+def validate_hamil_file_pauli_parsed(parsed: bool, path: str, func: str) -> None:
+    _assert(parsed,
+            "Failed to parse the next expected Pauli code in PauliHamil "
+            f"file ({path}).", func)
+
+
+def validate_hamil_file_pauli_code(code: int, path: str, func: str) -> None:
+    _assert(int(code) in (0, 1, 2, 3),
+            f"The PauliHamil file ({path}) contained an invalid pauli code "
+            f"({int(code)}). Codes must be 0 (or PAULI_I), 1 (PAULI_X), "
+            "2 (PAULI_Y) or 3 (PAULI_Z) to indicate the identity, X, Y and Z "
+            "operators respectively.", func)
+
+
 def validate_measurement_prob(prob: float, eps: float, func: str) -> None:
     """The outcome to collapse to must have probability above REAL_EPS."""
     _assert(prob > eps, "Can't collapse to state with zero probability.", func)
@@ -222,6 +299,10 @@ def validate_kraus_ops(ops, num_targets: int, eps: float, func: str, check_cptp:
             "The specified Kraus map is not completely positive and trace preserving (CPTP).",
             func,
         )
+
+
+def validate_probability(prob: float, max_prob: float, func: str) -> None:
+    _assert(0 <= prob <= max_prob + 1e-30, "Probabilities must be in [0, 1].", func)
 
 
 def validate_one_qubit_dephase_prob(prob: float, func: str) -> None:
