@@ -144,7 +144,20 @@ no result, without them. Phases, in order:
    complex128 of the gathered state (1e-4 f32 / 1e-10 f64; a Pauli sum's
    error relative to sum |c_t|), each call timed beside its bytes bound
    and one PyTorch call computing the same function (``# readout``
-   lines).
+   lines);
+10. operators, on the main path's final states and fresh registers
+   (``_operators_phase``, ``# operators`` lines): the QFT at N_MAIN qubits
+   in f32 and f64 planned into fused runs (each pass against the plain
+   version, launches = kernel passes, zero fallbacks; against the closed
+   form on a basis state and against sqrt(N) ``torch.fft.ifft`` of the
+   main path's state; the eager QFT and ``applyQFT`` on a subset against
+   the same references; ``torch.fft.fft`` as the yardstick), a Trotter
+   circuit of the readout phase's Hamiltonian fused against eager, the
+   phase functions (one device, f32 also over N_SHARDS shards; a density
+   register), ``DiagonalOp``, projectors, sub-diagonal operators,
+   ``setQuregToPauliHamil``, ``applyPauliHamil`` and the copyState*GPU
+   host mirror, each against its definition in float64/complex128 and
+   timed beside its bytes bound; then the phase's time and the script's.
 
 The earlier phases pin ``createQuESTEnv(device="cuda:0")``, so that a host
 with more cards does not shard them. Lines starting with ``#`` carry the
@@ -1258,15 +1271,17 @@ def _window_entry(name: str, phase: dict) -> dict:
 
 
 def _surface_names() -> set:
-    """Every function of gates.py and operators.py beyond the bench gate
-    set that a tape records (measurement is not recorded)."""
+    """Every function of gates.py beyond the bench gate set that a tape
+    records (measurement is not recorded), and the applyMatrix* operators
+    (the rest of operators.py is the operators phase's)."""
     from quest_tpu_torch import gates, operators
 
     bench = {"hadamard", "tGate", "rotateZ", "rotateX", "controlledNot",
              "controlledPhaseFlip", "unitary", "multiRotateZ", "swapGate",
              "multiStateControlledUnitary", "pauliX"}
     measuring = {"measure", "measureWithStats", "collapseToOutcome"}
-    return (set(gates.__all__) | set(operators.__all__)) - bench - measuring
+    matrix_ops = {f for f in operators.__all__ if "Matrix" in f}
+    return (set(gates.__all__) | matrix_ops) - bench - measuring
 
 
 def _gate_surface_path(qt, env, dev, rng) -> dict:
@@ -2083,6 +2098,553 @@ def _readout_phase(qt, dev, sv: dict, dens: dict, shard: dict) -> list:
     return rows
 
 
+
+#: the operators phase at N_MAIN qubits (25 and 24 sharded over N_SHARDS
+#: shards): applyQFT's unsorted qubit subset; the Trotter circuit's order,
+#: repetitions and time; the phase functions' registers: the overrides'
+#: (TWOS_COMPLEMENT), the multi-variable function's two,
+#: SCALED_INVERSE_SHIFTED_DISTANCE's four and NORM's three; the
+#: projector's targets; on the N_DENSITY-qubit density register, the phase
+#: function's qubits and the sub-diagonal operators' targets
+QFT_SUBSET = (17, 3, 25, 9, 0, 12)
+TROTTER = (2, 2, 0.1)
+PF_OVERRIDE_QUBITS = (25, 3, 17, 24, 8, 11)
+PF_MULTI_REGS = ((2, 7, 13, 19, 23), (25, 1, 9, 16))
+PF_DIST_REGS = ((0, 5, 10, 15), (20, 24, 2, 7), (12, 25, 3, 18), (22, 8, 14, 1))
+PF_NORM_REGS = ((4, 9, 14, 19, 24), (6, 11, 16, 21, 25), (0, 13, 18, 23, 5))
+PROJECTOR_TARGETS = (3, 25)
+DENSITY_PF_QUBITS = (11, 2, 7, 0)
+DENSITY_SUBDIAG_TARGETS = ((13, 4, 9), (1, 12))
+
+
+def _bits_value(k, qubits, twos: bool = False):
+    """Each index's sub-register value (qubits[0] the least significant bit;
+    ``twos``: the last qubit weighs -2^(m-1)), float64 on k's device."""
+    import torch
+
+    m = len(qubits)
+    v = torch.zeros(k.shape, dtype=torch.float64, device=k.device)
+    for j, q in enumerate(qubits):
+        w = -float(1 << (m - 1)) if twos and j == m - 1 else float(1 << j)
+        v += ((k >> q) & 1).to(torch.float64) * w
+    return v
+
+
+def _subset_qft_ref(psi, n: int, qubits):
+    """The QFT of the sub-register ``qubits`` (qubits[0] the least
+    significant) from its definition in complex128: sqrt(M) ifft along the
+    sub-register's index, the other qubits untouched."""
+    import torch
+
+    m = len(qubits)
+    axes = [n - 1 - q for q in reversed(qubits)]  # most significant first
+    t = psi.view([2] * n)
+    rest = [a for a in range(n) if a not in axes]
+    perm = axes + rest
+    x = t.permute(perm).reshape(1 << m, -1)
+    y = torch.fft.ifft(x, dim=0) * (1 << m) ** 0.5
+    inv = [perm.index(a) for a in range(n)]
+    return y.reshape([2] * n).permute(inv).reshape(-1)
+
+
+def _operators_phase(qt, dev, sv: dict) -> dict:
+    """The operators slice on the card (``# operators ...`` lines): ``sv``
+    holds the main path's final N_MAIN-qubit registers by dtype, which this
+    phase reads and then destroys. Every value against an evaluation from
+    its definition in complex128 or float64 on the card:
+
+    - QFT, f32 and f64: ``Circuit(N_MAIN).applyFullQFT()`` planned by
+      ``Circuit.fused(max_qubits=5, pallas=True)`` at the Hopper tile, each
+      run's pass against the plain version (1e-5 / 1e-12 of the largest
+      amplitude; timed), then run with the counts reset (launches = runs,
+      no fallback): on ``initClassicalState(k)`` against e^{2 pi i jk/N} /
+      sqrt(N), on the main path's final state against sqrt(N)
+      ``torch.fft.ifft`` of it (2e-4 / 1e-10 of the largest amplitude);
+      the eager ``applyFullQFT`` (per-gate engine) and ``applyQFT`` on
+      QFT_SUBSET against the same references; passes, fused and eager ms,
+      the passes' summed bound and one ``torch.fft.fft`` (the yardstick,
+      never called by the port);
+    - Trotter, f32 and f64: the readout phase's 51-term transverse-field
+      Ising Hamiltonian, TROTTER's order, repetitions and time, on a tape
+      (fused, each pass against the plain version, launches = runs) against
+      the eager per-gate run, total probability within 1e-4 / 1e-10 of 1;
+    - phase functions, f32 and f64 on one device and f32 over N_SHARDS
+      shards (also against one device), TWOS_COMPLEMENT overrides on
+      unsorted qubits with the sharded 24 and 25, a two-register
+      multi-variable function, SCALED_INVERSE_SHIFTED_DISTANCE on four
+      registers, NORM on three; |phase| < 100; and on a 14-qubit f32
+      density register with its conj shadow;
+    - DiagonalOp, f32 and f64 and f32 over N_SHARDS shards: random
+      unit-modulus elements, ``applyDiagonalOp`` and
+      ``calcExpecDiagonalOp`` (beside 3 x state bytes and one complex
+      ``torch.mul``);
+    - ``applyProjector`` on qubit 3 and the sharded qubit 25,
+      ``applySubDiagonalOp`` / ``applyGateSubDiagonalOp`` and
+      ``setQuregToPauliHamil`` (a 14-qubit TFIM, against a host-built
+      sparse reference) on 14-qubit f32 density registers,
+      ``applyPauliHamil`` with the 26-qubit TFIM (Re <psi|out> against
+      ``calcExpecPauliHamil``, ``in_qureg`` unchanged), and the
+      copyState*GPU round trip at N_MAIN qubits and a substate across a
+      shard boundary over N_SHARDS shards.
+
+    Each call is timed on the card's clock beside its bytes bound (the
+    state bytes it must read and write / 3.35 TB/s). Returns each fused
+    path's launches, passes and per-pass stats for the ``kernels`` line."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    t_phase = time.perf_counter()
+    n = N_MAIN
+    N = 1 << n
+    k = torch.arange(N, device=dev)
+    env1 = qt.createQuESTEnv(device=dev)
+    env4 = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    out = {}
+
+    def line(what: str) -> None:
+        print(f"# operators {what}")
+
+    def pieces(q):
+        return q.shards or [q.amps]
+
+    def rel(got, ref) -> float:
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    hamil = tfim_hamil(qt, n, seed=61)
+    # the DiagonalOp's random unit-modulus elements, host arrays as a user
+    # passes them to initDiagonalOp
+    theta = np.random.RandomState(79).uniform(0, 2 * np.pi, N)
+    re_h, im_h = np.cos(theta), np.sin(theta)
+    del theta
+    for dt in (torch.float32, torch.float64):
+        f32 = dt == torch.float32
+        name, prec = str(dt)[6:], (1 if f32 else 2)
+        tol_k, tol = (1e-5, 2e-4) if f32 else (1e-12, 1e-10)
+        item = 4 if f32 else 8
+        S = 2 * N * item
+        src = sv[dt]
+        psi = _c128(pieces(src))
+        cdt = torch.complex64 if f32 else torch.complex128
+
+        # -- QFT: plan, passes, the fused run with the counts reset --------
+        circ = qt.Circuit(n)
+        circ.applyFullQFT()
+        t0 = time.perf_counter()
+        fz = circ.fused(max_qubits=5, pallas=True, dtype=dt)
+        plan_s = time.perf_counter() - t0
+        runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+        blocks = [a[0] for f, a, _ in fz._tape if f is fusion._apply_dense_block]
+        other = [f.__name__ for f, _, _ in fz._tape
+                 if f not in (fusion._apply_pallas_run, fusion._apply_dense_block)]
+        _require(runs and not other, f"operators qft {name}: plan holds {other}")
+        # a dense block below the lane boundary is one more kernel pass
+        lane = [b for b in blocks if fusion.dense_block_route(n, False, b.qubits, True)
+                == "lane_u"]
+        tb = FG.hopper_tile_bits(n, dt)
+        gates = n + n * (n - 1) // 2 + n // 2
+        line(f"qft {name}: applyFullQFT at {n}q ({gates} gates) -> {len(runs)} fused runs "
+             f"at tile_bits {runs[0].tile_bits} and dense blocks on "
+             f"{[b.qubits for b in blocks]} ({len(lane)} through the kernel as lane_u, the "
+             f"rest on the per-gate engine), planned in {plan_s:.2f} s")
+        res = _passes([_run_item(r) for r in runs] +
+                      [(1, fusion.lane_u_run(b, tb), dict(tile_bits=tb, **_swaps()))
+                       for b in lane], n, dt, dev,
+                      np.random.RandomState(71), tol_k, f"operators qft {name}")
+        kernel_passes = len(runs) + len(lane)
+        torch.cuda.empty_cache()
+        q = qt.createQureg(n, env1, prec)
+        kc = 12345 % N
+        qt.initClassicalState(q, kc)
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        fz.run(q)
+        torch.cuda.synchronize()
+        launches = FG.fused_run.launches
+        fallbacks = telemetry.counter_total("engine_fallback_total")
+        _require(launches == kernel_passes, f"operators qft {name}: launches {launches} != "
+                                            f"kernel passes {kernel_passes}")
+        _require(fallbacks == 0, f"operators qft {name}: engine fallback")
+        phase = 2 * np.pi * ((k * kc) % N).to(torch.float64) / N
+        closed = torch.polar(torch.full_like(phase, N ** -0.5), phase)
+        e_closed = rel(_c128(pieces(q)), closed)
+        del phase, closed
+        _require(e_closed <= tol, f"operators qft {name}: |k> against the closed form "
+                                  f"{e_closed} > {tol}")
+        qt.cloneQureg(q, src)
+        FG.fused_run.launches = 0
+        fz.run(q)
+        torch.cuda.synchronize()
+        _require(FG.fused_run.launches == kernel_passes, f"operators qft {name}: launches")
+        ref = torch.fft.ifft(psi) * N ** 0.5
+        e_fused = rel(_c128(pieces(q)), ref)
+        _require(e_fused <= tol, f"operators qft {name}: fused against sqrt(N) ifft "
+                                 f"{e_fused} > {tol}")
+        fused_ms = _clock_ms(lambda: fz.run(q), 3)  # warmed up by the checked runs
+        qe = qt.createQureg(n, env1, prec)
+        qt.cloneQureg(qe, src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FG.fused_run.launches = 0
+        qt.applyFullQFT(qe)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        _require(FG.fused_run.launches == 0, "operators: the eager QFT launched the kernel")
+        e_eager = rel(_c128(pieces(qe)), ref)
+        _require(e_eager <= tol, f"operators qft {name}: eager against sqrt(N) ifft "
+                                 f"{e_eager} > {tol}")
+        qt.cloneQureg(qe, src)
+        t0 = time.perf_counter()
+        qt.applyQFT(qe, list(QFT_SUBSET))
+        torch.cuda.synchronize()
+        sub_ms = (time.perf_counter() - t0) * 1e3
+        e_sub = rel(_c128(pieces(qe)), _subset_qft_ref(psi, n, QFT_SUBSET))
+        _require(e_sub <= tol, f"operators applyQFT {name}: against its definition "
+                               f"{e_sub} > {tol}")
+        c = psi.to(cdt)
+        fft_ms = _cuda_ms(lambda: torch.fft.fft(c), 3)
+        del c, ref
+        bound = sum(res["bound_ms"])
+        line(f"qft {name}: launches {launches} (runs {len(runs)} + lane_u blocks "
+             f"{len(lane)}), engine_fallback_total "
+             f"{fallbacks:g}; |{kc}> against the closed form {e_closed:.3e}, the main "
+             f"path's state against sqrt(N) ifft {e_fused:.3e} fused, {e_eager:.3e} eager "
+             f"(of the largest amplitude, limit {tol:g}); fused {fused_ms:.4f} ms "
+             f"({sum(res['ms']):.4f} ms of kernel passes, summed bound {bound:.4f} ms: "
+             f"{bound / fused_ms:.1%}), eager {eager_ms:.1f} ms, yardstick torch.fft.fft "
+             f"({str(cdt)[6:]}) {fft_ms:.4f} ms ({fused_ms / fft_ms:.2f}x)")
+        line(f"applyQFT {name}: qubits {list(QFT_SUBSET)} eager {sub_ms:.1f} ms, against its "
+             f"definition {e_sub:.3e} (limit {tol:g})")
+        res.update(launches=launches, runs=kernel_passes, fused_ms=fused_ms, eager_ms=eager_ms,
+                   fft_ms=fft_ms, summed_bound_ms=bound)
+        out[("qft", dt)] = res
+        qt.destroyQureg(qe)
+
+        # -- Trotter: the TFIM on a tape, fused against eager -------------
+        order, reps, t_evol = TROTTER
+        tc = qt.Circuit(n)
+        tc.applyTrotterCircuit(hamil, t_evol, order, reps)
+        tz = tc.fused(max_qubits=5, pallas=True, dtype=dt)
+        truns = [a[0] for f, a, _ in tz._tape if f is fusion._apply_pallas_run]
+        _require(truns and len(truns) == len(tz._tape),
+                 f"operators trotter {name}: plan is not all fused runs")
+        tres = _passes([_run_item(r) for r in truns], n, dt, dev,
+                       np.random.RandomState(73), tol_k, f"operators trotter {name}")
+        qt.cloneQureg(q, src)
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        tz.run(q)
+        torch.cuda.synchronize()
+        tl = FG.fused_run.launches
+        _require(tl == len(truns) and telemetry.counter_total("engine_fallback_total") == 0,
+                 f"operators trotter {name}: launches {tl} != runs {len(truns)}")
+        total = qt.calcTotalProb(q)
+        _require(abs(total - 1) <= (1e-4 if f32 else 1e-10),
+                 f"operators trotter {name}: total probability {total}")
+        qe = qt.createQureg(n, env1, prec)
+        qt.cloneQureg(qe, src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qt.applyTrotterCircuit(qe, hamil, t_evol, order, reps)
+        torch.cuda.synchronize()
+        t_eager = (time.perf_counter() - t0) * 1e3
+        e_tr = rel(_c128(pieces(q)), _c128(pieces(qe)))
+        _require(e_tr <= tol, f"operators trotter {name}: fused against eager {e_tr} > {tol}")
+        t_fused = _clock_ms(lambda: tz.run(q), 2)
+        line(f"trotter {name}: {len(hamil.term_coeffs)}-term TFIM, order {order}, reps {reps}, "
+             f"t {t_evol}: {len(truns)} fused runs, launches {tl}; calcTotalProb {total:.12f}; "
+             f"fused against eager {e_tr:.3e} of the largest (limit {tol:g}); fused "
+             f"{t_fused:.4f} ms ({sum(tres['ms']):.4f} ms of kernel passes, summed bound "
+             f"{sum(tres['bound_ms']):.4f} ms), eager {t_eager:.1f} ms")
+        tres.update(launches=tl, runs=len(truns), fused_ms=t_fused, eager_ms=t_eager)
+        out[("trotter", dt)] = tres
+        qt.destroyQureg(qe)
+
+        # -- phase functions on one device (and in f32 over shards) -------
+        pf_calls = [
+            ("applyPhaseFuncOverrides", lambda r: qt.applyPhaseFuncOverrides(
+                r, list(PF_OVERRIDE_QUBITS), qt.bitEncoding.TWOS_COMPLEMENT,
+                [0.5, -0.03, 0.001], [1.0, 2.0, 3.0], [-32, 0, 5], [0.25, -1.5, 3.0])),
+            ("applyMultiVarPhaseFunc", lambda r: qt.applyMultiVarPhaseFunc(
+                r, [q for g in PF_MULTI_REGS for q in g], [len(g) for g in PF_MULTI_REGS],
+                qt.bitEncoding.UNSIGNED, [0.7, -0.02, 0.3], [1.0, 2.0, 1.0], [2, 1])),
+            ("applyParamNamedPhaseFunc", lambda r: qt.applyParamNamedPhaseFunc(
+                r, [q for g in PF_DIST_REGS for q in g], [len(g) for g in PF_DIST_REGS],
+                qt.bitEncoding.UNSIGNED, qt.phaseFunc.SCALED_INVERSE_SHIFTED_DISTANCE,
+                [1.5, 0.0, 0.5, -2.5])),
+            ("applyNamedPhaseFunc", lambda r: qt.applyNamedPhaseFunc(
+                r, [q for g in PF_NORM_REGS for q in g], [len(g) for g in PF_NORM_REGS],
+                qt.bitEncoding.UNSIGNED, qt.phaseFunc.NORM)),
+        ]
+
+        def pf_ref(fn):
+            """The phase of each index from the definition, float64."""
+            if fn == "applyPhaseFuncOverrides":
+                x = _bits_value(k, PF_OVERRIDE_QUBITS, twos=True)
+                ph = 0.5 * x - 0.03 * x ** 2 + 0.001 * x ** 3
+                for i, p in reversed(list(zip([-32, 0, 5], [0.25, -1.5, 3.0]))):
+                    ph = torch.where(x == i, torch.full_like(ph, p), ph)
+                return ph
+            if fn == "applyMultiVarPhaseFunc":
+                x, y = (_bits_value(k, g) for g in PF_MULTI_REGS)
+                return 0.7 * x - 0.02 * x ** 2 + 0.3 * y
+            if fn == "applyParamNamedPhaseFunc":
+                v = [_bits_value(k, g) for g in PF_DIST_REGS]
+                d = torch.sqrt((v[0] - v[1] - 0.5) ** 2 + (v[2] - v[3] + 2.5) ** 2)
+                return torch.where(d <= 1e-13, torch.zeros_like(d), 1.5 / d)
+            return torch.sqrt(sum(_bits_value(k, g) ** 2 for g in PF_NORM_REGS))
+
+        q1 = qt.createQureg(n, env1, prec)
+        qs = qt.createQureg(n, env4, prec) if f32 else None
+        for fn, call in pf_calls:
+            ph = pf_ref(fn)
+            _require(float(ph.abs().max()) < 100, f"operators {fn}: |phase| >= 100")
+            want = psi * torch.polar(torch.ones_like(ph), ph)
+            del ph
+            regs = [(r, lay) for r, lay in ((q1, "one device"), (qs, f"{N_SHARDS} shards"))
+                    if r is not None]
+            errs = []
+            for r, lay in regs:
+                qt.cloneQureg(r, src)
+                call(r)
+                torch.cuda.synchronize()
+                got = _c128(pieces(r))
+                e = rel(got, want)
+                _require(e <= tol, f"operators {fn} {name} {lay}: {e} > {tol}")
+                e1 = rel(got, _c128(pieces(q1))) if r is qs else 0.0
+                _require(e1 <= 1e-6, f"operators {fn} {name}: shards against one device {e1}")
+                errs.append((e, e1))
+                del got
+            for (r, lay), (e, e1) in zip(regs, errs):
+                ms = _cuda_ms(lambda: call(r), 3)
+                bound = 2 * S / HBM_BYTES_PER_S * 1e3
+                line(f"{fn} {name} {n}q {lay}: against the float64 definition {e:.3e} of the "
+                     f"largest (limit {tol:g})" + (f", against one device {e1:.3e}" if r is qs
+                                                   else "") +
+                     f"; {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%})")
+                out[(fn, dt, lay)] = {"ms": ms, "bound_ms": bound, "error": e}
+            del want
+        torch.cuda.empty_cache()
+
+        # -- DiagonalOp: apply and expectation ----------------------------
+        prev = os.environ.get("QUEST_PRECISION")
+        os.environ["QUEST_PRECISION"] = str(prec)  # the op's global precision
+        try:
+            ops = [(qt.createDiagonalOp(n, env1), q1, "one device")]
+            if f32:
+                ops.append((qt.createDiagonalOp(n, env4), qs, f"{N_SHARDS} shards"))
+        finally:
+            if prev is None:
+                del os.environ["QUEST_PRECISION"]
+            else:
+                os.environ["QUEST_PRECISION"] = prev
+        for op, r, lay in ops:
+            t0 = time.perf_counter()
+            qt.initDiagonalOp(op, re_h, im_h)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            _require(op.pieces[0].dtype == dt, f"operators DiagonalOp {name}: dtype")
+            d = _c128(op.pieces)
+            qt.cloneQureg(r, src)
+            want_e = complex((psi.abs() ** 2 * d).sum())
+            got_e = qt.calcExpecDiagonalOp(r, op)
+            e_e = abs(got_e - want_e)
+            _require(e_e <= tol, f"operators calcExpecDiagonalOp {name} {lay}: {got_e} "
+                                 f"against {want_e}")
+            ems = _cuda_ms(lambda: qt.calcExpecDiagonalOp(r, op), 3)
+            qt.applyDiagonalOp(r, op)
+            torch.cuda.synchronize()
+            e_a = rel(_c128(pieces(r)), d * psi)
+            _require(e_a <= tol, f"operators applyDiagonalOp {name} {lay}: {e_a} > {tol}")
+            ams = _cuda_ms(lambda: qt.applyDiagonalOp(r, op), 3)
+            cs, cd = psi.to(cdt), d.to(cdt)
+            mul_ms = _cuda_ms(lambda: torch.mul(cs, cd), 3)
+            del cs, cd, d
+            bound = 3 * S / HBM_BYTES_PER_S * 1e3
+            line(f"DiagonalOp {name} {n}q {lay}: initDiagonalOp {init_s:.2f} s (host arrays); "
+                 f"applyDiagonalOp against the definition {e_a:.3e} of the largest, "
+                 f"{ams:.4f} ms, bound {bound:.4f} ms, yardstick torch.mul "
+                 f"({str(cdt)[6:]}) {mul_ms:.4f} ms; calcExpecDiagonalOp {got_e:.10g}, error "
+                 f"{e_e:.3e} (limit {tol:g}), {ems:.4f} ms, bound "
+                 f"{2 * S / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            out[("applyDiagonalOp", dt, lay)] = {"ms": ams, "bound_ms": bound,
+                                                  "yardstick_ms": mul_ms}
+            out[("calcExpecDiagonalOp", dt, lay)] = {"ms": ems,
+                                                     "bound_ms": 2 * S / HBM_BYTES_PER_S * 1e3}
+            qt.destroyDiagonalOp(op)
+        torch.cuda.empty_cache()
+
+        # -- projector, Pauli Hamiltonian ---------------------------------
+        for r, lay in ((q1, "one device"), (qs, f"{N_SHARDS} shards")):
+            if r is None:
+                continue
+            for target, outcome in zip(PROJECTOR_TARGETS, (1, 0)):
+                qt.cloneQureg(r, src)
+                qt.applyProjector(r, target, outcome)
+                torch.cuda.synchronize()
+                keep = ((k >> target) & 1) == outcome
+                e = rel(_c128(pieces(r)), torch.where(keep, psi, torch.zeros_like(psi)))
+                _require(e <= tol, f"operators applyProjector {name} {lay} {target}: {e}")
+                del keep
+                ms = _cuda_ms(lambda: qt.applyProjector(r, target, outcome), 3)
+                bound = 2 * S / HBM_BYTES_PER_S * 1e3
+                line(f"applyProjector {name} {n}q {lay}: qubit {target} outcome {outcome}, "
+                     f"against the definition {e:.3e}; {ms:.4f} ms, bound {bound:.4f} ms")
+                out[("applyProjector", dt, lay, target)] = {"ms": ms, "bound_ms": bound}
+        qt.cloneQureg(q1, src)
+        before = q1.amps.clone()
+        po = qt.createQureg(n, env1, prec)
+        t0 = time.perf_counter()
+        qt.applyPauliHamil(q1, hamil, po)
+        torch.cuda.synchronize()
+        ph_ms = (time.perf_counter() - t0) * 1e3
+        _require(torch.equal(before, q1.amps), f"operators applyPauliHamil {name}: in_qureg "
+                                               "changed")
+        del before
+        ip = qt.calcInnerProduct(q1, po).real
+        ex = qt.calcExpecPauliHamil(q1, hamil, qt.createQureg(n, env1, prec))
+        scale = float(np.abs(hamil.term_coeffs).sum())
+        e = abs(ip - ex) / scale
+        _require(e <= (1e-4 if f32 else 1e-10), f"operators applyPauliHamil {name}: "
+                                                f"Re<psi|out> {ip} against {ex}")
+        line(f"applyPauliHamil {name} {n}q: Re<psi|H psi> {ip:.10g} against "
+             f"calcExpecPauliHamil {ex:.10g}, {e:.3e} of sum |c_t|; in_qureg unchanged; "
+             f"{ph_ms:.1f} ms ({len(hamil.term_coeffs)} terms)")
+        out[("applyPauliHamil", dt)] = {"ms": ph_ms}
+        for r in (q, q1, po, qs):
+            if r is not None:
+                qt.destroyQureg(r)
+        del psi
+        torch.cuda.empty_cache()
+
+    del re_h, im_h
+
+    # -- 14-qubit density, f32: phase function, sub-diagonals, PauliHamil --
+    nd, dim = N_DENSITY, 1 << N_DENSITY
+    SD = 2 * dim * dim * 4
+    rho = qt.createDensityQureg(nd, env1, 1)
+    kd = torch.arange(dim * dim, device=dev)
+    row, col = kd & (dim - 1), kd >> nd
+    qt.initPlusState(rho)  # every element 1 / dim: the result is its factor
+    qt.applyPhaseFunc(rho, list(DENSITY_PF_QUBITS), qt.bitEncoding.UNSIGNED, [0.4, -0.02],
+                      [1.0, 2.0])
+    torch.cuda.synchronize()
+
+    def poly(idx):
+        x = _bits_value(idx, DENSITY_PF_QUBITS)
+        return 0.4 * x - 0.02 * x ** 2
+
+    want = torch.polar(torch.full(kd.shape, 1.0 / dim, dtype=torch.float64, device=dev),
+                       poly(row) - poly(col))
+    e = rel(_c128([rho.amps]), want)
+    _require(e <= 1e-4, f"operators applyPhaseFunc density: {e}")
+    ms = _clock_ms(lambda: qt.applyPhaseFunc(rho, list(DENSITY_PF_QUBITS), 0, [0.4, -0.02],
+                                             [1.0, 2.0]), 2)
+    line(f"applyPhaseFunc float32 {nd}q density ({2 * nd} flattened), rows and the conj "
+         f"shadow: against the definition {e:.3e} (limit 0.0001); {ms:.4f} ms, bound "
+         f"{2 * 2 * SD / HBM_BYTES_PER_S * 1e3:.4f} ms (two passes)")
+    srng = np.random.RandomState(83)
+    for fn, targets, shadow in (("applySubDiagonalOp", DENSITY_SUBDIAG_TARGETS[0], False),
+                                ("applyGateSubDiagonalOp", DENSITY_SUBDIAG_TARGETS[1], True)):
+        elems = np.exp(1j * srng.uniform(0, 2 * np.pi, 1 << len(targets)))
+        op = qt.createSubDiagonalOp(len(targets))
+        op.elems[:] = elems
+        qt.initPlusState(rho)
+        getattr(qt, fn)(rho, list(targets), op)
+        torch.cuda.synchronize()
+        dv = torch.as_tensor(elems, device=dev)
+
+        def sel(idx):
+            s = torch.zeros_like(idx)
+            for j, t in enumerate(targets):
+                s |= ((idx >> t) & 1) << j
+            return s
+
+        want = dv[sel(row)] / dim
+        if shadow:
+            want = want * dv[sel(col)].conj()
+        e = rel(_c128([rho.amps]), want)
+        _require(e <= 1e-4, f"operators {fn} density: {e}")
+        ms = _clock_ms(lambda: getattr(qt, fn)(rho, list(targets), op), 2)
+        line(f"{fn} float32 {nd}q density: targets {list(targets)}, against the definition "
+             f"{e:.3e} (limit 0.0001); {ms:.4f} ms, bound "
+             f"{(2 if shadow else 1) * 2 * SD / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del want, row, col
+    dh = tfim_hamil(qt, nd, seed=89)
+    t0 = time.perf_counter()
+    qt.setQuregToPauliHamil(rho, dh)
+    torch.cuda.synchronize()
+    sq_ms = (time.perf_counter() - t0) * 1e3
+    # the host-built sparse reference: one non-zero per column and term,
+    # at row c ^ f, summed where terms meet (the diagonal)
+    ch = np.arange(dim)
+    keys, vals = [], []
+    for codes, coeff in zip(dh.pauli_codes, dh.term_coeffs):
+        f = sum(1 << qq for qq, cc in enumerate(codes) if cc in (1, 2))
+        par = np.zeros(dim, dtype=np.int64)
+        for qq, cc in enumerate(codes):
+            if cc in (2, 3):
+                par ^= (ch >> qq) & 1
+        keys.append(ch * dim + (ch ^ f))
+        vals.append(coeff * (1j ** int(np.sum(codes == 2))) * (1 - 2 * par))
+    uk, inv = np.unique(np.concatenate(keys), return_inverse=True)
+    uv = np.zeros(uk.size, dtype=np.complex128)
+    np.add.at(uv, inv, np.concatenate(vals))
+    got = _c128([rho.amps])
+    idx = torch.as_tensor(uk, device=dev)
+    ref_v = torch.as_tensor(uv, device=dev)
+    e_nz = float((got[idx] - ref_v).abs().max() / ref_v.abs().max())
+    got[idx] = 0
+    e_z = float(got.abs().max())
+    _require(e_nz <= 1e-6 and e_z == 0.0, f"operators setQuregToPauliHamil: {e_nz}, {e_z}")
+    line(f"setQuregToPauliHamil float32 {nd}q density: {len(dh.term_coeffs)}-term TFIM, "
+         f"{uk.size} non-zeros against the host-built sparse reference {e_nz:.3e} of the "
+         f"largest, every other element 0; {sq_ms:.1f} ms (bound "
+         f"{(SD + SD * 2) / HBM_BYTES_PER_S * 1e3:.4f} ms: the float64 sum written, "
+         f"read and the state written)")
+    del got, kd
+    qt.destroyQureg(rho)
+    torch.cuda.empty_cache()
+
+    # -- the host mirror: copyState*GPU --------------------------------------
+    q = sv[torch.float32]
+    before = q.amps.clone()
+    ms_from = _clock_ms(lambda: qt.copyStateFromGPU(q), 1)
+    ms_to = _clock_ms(lambda: qt.copyStateToGPU(q), 1)
+    _require(torch.equal(before, q.amps), "operators copyState round trip")
+    qs = qt.createQureg(n, env4, 1)
+    qt.cloneQureg(qs, q)
+    c_sh = N // N_SHARDS
+    num = min(1 << 13, c_sh)
+    start = c_sh - num // 2
+    ms_sub = _clock_ms(lambda: qt.copySubstateFromGPU(qs, start, num), 1)
+    _require(np.array_equal(qs.state_vec[:, start:start + num],
+                            before[:, start:start + num].cpu().numpy()),
+             "operators copySubstateFromGPU across the shard boundary")
+    qs.state_vec[:, start:start + num] *= -1
+    ms_subto = _clock_ms(lambda: qt.copySubstateToGPU(qs, start, num), 1)
+    got = torch.cat(qs.shards, dim=1)
+    _require(torch.equal(got[:, start:start + num], -before[:, start:start + num])
+             and torch.equal(got[:, :start], before[:, :start])
+             and torch.equal(got[:, start + num:], before[:, start + num:]),
+             "operators copySubstateToGPU across the shard boundary")
+    line(f"copyState float32 {n}q: copyStateFromGPU {ms_from:.2f} ms, copyStateToGPU "
+         f"{ms_to:.2f} ms ({2 * N * 4 / 2**20:.0f} MiB each way, round trip exact); over "
+         f"{N_SHARDS} shards a substate of {num} amplitudes across the boundary at {c_sh}: "
+         f"copySubstateFromGPU {ms_sub:.3f} ms, copySubstateToGPU {ms_subto:.3f} ms")
+    del got, before
+    for r in (qs, *sv.values()):
+        qt.destroyQureg(r)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    line(f"phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -2149,6 +2711,7 @@ def main() -> int:
     from quest_tpu_torch import _build, fusion, telemetry
     from quest_tpu_torch.ops import fused_gates as FG
 
+    t_start = time.perf_counter()
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
@@ -2427,11 +2990,14 @@ def main() -> int:
              for ddt in (torch.float32, torch.float64)},
             {ddt: sharded[ddt].pop("qureg") for ddt in (torch.float32, torch.float64)})
     _readout_phase(qt, dev, *kept)
-    for regs in kept:
+    for regs in kept[1:]:
         for r in regs.values():
             for x in (r if isinstance(r, tuple) else (r,)):
                 qt.destroyQureg(x)
     torch.cuda.empty_cache()
+
+    # -- operators phase: the operators slice on the main path's states ----
+    operators = _operators_phase(qt, dev, kept[0])
 
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
@@ -2477,9 +3043,21 @@ def main() -> int:
         e["ptxas"] = ptxas["window_dot" if e["name"].startswith("window_dot") else "fused_gates"]
     for e in entries[:2]:
         e["sass"], e["blocks_per_sm"] = sass, occupancy
+    for e, ddt in zip(entries, (torch.float32, torch.float64)):
+        # the operators phase's fused QFT and Trotter runs, each driven with
+        # the counts reset (beside the paths above, not in their means)
+        e["operators_paths"] = {kind: {
+            "launches": r["launches"], "runs": r["runs"], "passes": len(r["ms"]),
+            "ms": sum(r["ms"]) / len(r["ms"]), "bound_ms": sum(r["bound_ms"]) / len(r["ms"]),
+            "plain_ms": sum(r["plain_ms"]) / len(r["ms"]), "fused_ms": r["fused_ms"],
+            "eager_ms": r["eager_ms"], "max_abs_err": r["max_abs_err"]}
+            for kind, r in ((kind, operators[(kind, ddt)]) for kind in ("qft", "trotter"))}
+        e["operators_paths"]["qft"]["yardstick_fft_ms"] = operators[("qft", ddt)]["fft_ms"]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))
+    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all (operators phase "
+          f"{operators['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ real amplitude layout as ``quest_tpu`` (a density matrix of n qubits is a
 execute on the card through the hand-written CUDA kernel
 ``csrc/fused_gates.cu``, in float32 and float64; a dense unitary on a
 contiguous qubit window through ``csrc/window_dot.cu``
-(``ops.window_dot``).
+(``ops.window_dot``). Every function of the reference's API surface that
+``quest_tpu`` exports is here.
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -28,7 +29,8 @@ from .gates import *  # noqa: F401,F403
 from .gates import __all__ as _gates_all
 from .operators import *  # noqa: F401,F403
 from .operators import __all__ as _operators_all
-from .registers import (Qureg, createCloneQureg, createDensityQureg, createQureg,
+from .registers import (Qureg, copyStateFromGPU, copyStateToGPU, copySubstateFromGPU,
+                        copySubstateToGPU, createCloneQureg, createDensityQureg, createQureg,
                         destroyQureg, get_np)
 from .reporting import *  # noqa: F401,F403
 from .reporting import __all__ as _reporting_all
@@ -42,7 +44,8 @@ __all__ = [
     "syncQuESTSuccess", "reportQuESTEnv", "getEnvironmentString", "seedQuEST",
     "seedQuESTDefault", "getQuESTSeeds",
     "Qureg", "createQureg", "createDensityQureg", "createCloneQureg",
-    "destroyQureg", "get_np",
+    "destroyQureg", "get_np", "copyStateToGPU", "copyStateFromGPU",
+    "copySubstateToGPU", "copySubstateFromGPU",
     *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
     *_decoherence_all, *_calculations_all, *_reporting_all,
     "Circuit", "random_layers", "density_circuit", "QuESTError",

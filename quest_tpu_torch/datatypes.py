@@ -12,23 +12,27 @@ time.
   - PauliHamil                  (QuEST.h:296-307, createPauliHamilFromFile
                                  QuEST.h:914), host-side numpy codes and
                                  coefficients
+  - phaseFunc / bitEncoding     (QuEST.h enums of the phase-function family)
+  - DiagonalOp                  (QuEST.h:316-332), a full 2^N diagonal on
+                                 the env's device, or cut over its mesh
+                                 as a Qureg is
   - SubDiagonalOp               (QuEST.h:340-351), a small diagonal on <= N
                                  targets
-
-``DiagonalOp`` waits for the operators slice.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 
 from . import validation
 
 __all__ = [
-    "pauliOpType", "PAULI_I", "PAULI_X", "PAULI_Y", "PAULI_Z", "Vector",
+    "pauliOpType", "PAULI_I", "PAULI_X", "PAULI_Y", "PAULI_Z", "bitEncoding",
+    "phaseFunc", "Vector", "DiagonalOp",
     "createComplexMatrixN", "destroyComplexMatrixN", "initComplexMatrixN",
     "bindArraysToStackComplexMatrixN", "getStaticComplexMatrixN",
     "SubDiagonalOp", "createSubDiagonalOp", "destroySubDiagonalOp",
@@ -50,6 +54,33 @@ PAULI_I = pauliOpType.PAULI_I
 PAULI_X = pauliOpType.PAULI_X
 PAULI_Y = pauliOpType.PAULI_Y
 PAULI_Z = pauliOpType.PAULI_Z
+
+class bitEncoding(enum.IntEnum):
+    """Sub-register value encodings for phase functions (QuEST.h enum bitEncoding)."""
+
+    UNSIGNED = 0
+    TWOS_COMPLEMENT = 1
+
+
+class phaseFunc(enum.IntEnum):
+    """Named phase functions (QuEST.h enum phaseFunc)."""
+
+    NORM = 0
+    SCALED_NORM = 1
+    INVERSE_NORM = 2
+    SCALED_INVERSE_NORM = 3
+    SCALED_INVERSE_SHIFTED_NORM = 4
+    PRODUCT = 5
+    SCALED_PRODUCT = 6
+    INVERSE_PRODUCT = 7
+    SCALED_INVERSE_PRODUCT = 8
+    DISTANCE = 9
+    SCALED_DISTANCE = 10
+    INVERSE_DISTANCE = 11
+    SCALED_INVERSE_DISTANCE = 12
+    SCALED_INVERSE_SHIFTED_DISTANCE = 13
+    SCALED_INVERSE_SHIFTED_WEIGHTED_DISTANCE = 14
+
 
 #: the Pauli matrices by code
 PAULI_MATRICES = {
@@ -254,8 +285,39 @@ def pauli_term_matrix(codes_row) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# SubDiagonalOp
+# DiagonalOp / SubDiagonalOp
 # ---------------------------------------------------------------------------
+
+@dataclass
+class DiagonalOp:
+    """Full-Hilbert 2^N diagonal operator (QuEST.h:316-332).
+
+    ``elems`` is the planar (2, 2^N) tensor of its elements on the env's
+    device, in the global precision's dtype; on an env whose mesh holds
+    D > 1 devices it is None and ``shards`` holds D tensors (2, 2^N / D),
+    cut as a state-vector Qureg of N qubits is (``registers``). The
+    reference's host copy is the pair of views ``real`` and ``imag``."""
+
+    num_qubits: int
+    elems: Optional[object] = None
+    shards: Optional[list] = None
+
+    @property
+    def pieces(self) -> list:
+        """The element tensors: its shards, or its one tensor."""
+        return [self.elems] if self.shards is None else list(self.shards)
+
+    def _host(self) -> np.ndarray:
+        return np.concatenate([p.detach().cpu().numpy() for p in self.pieces], axis=1)
+
+    @property
+    def real(self) -> np.ndarray:
+        return self._host()[0]
+
+    @property
+    def imag(self) -> np.ndarray:
+        return self._host()[1]
+
 
 @dataclass
 class SubDiagonalOp:

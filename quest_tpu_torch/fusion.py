@@ -84,6 +84,9 @@ class _SpyQureg:
         self.amps = _SpyAmps(dtype)
         self.qasm_log = None
         self.env = None
+        #: an unsharded register: swapGate and the operators read this
+        #: before they choose their route
+        self.shards = None
 
     @property
     def num_qubits_in_state_vec(self):
@@ -97,7 +100,7 @@ class _SpyQureg:
     def eps(self):
         return precision.eps_for_dtype(self.amps.dtype)
 
-    def put(self, amps):  # swapGate calls this with the spy token
+    def put(self, amps):  # swapGate's inline path calls this with the token
         self.amps = amps
 
 

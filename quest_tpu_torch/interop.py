@@ -4,7 +4,8 @@
 The tests use these to feed identical inputs to both packages. Nothing
 here imports ``quest_tpu`` or JAX: the JAX side's objects arrive as numpy
 arrays, tuples, matrices that expose their ndarray as ``.arr``, and the
-data structures ``Vector`` and ``SubDiagonalOp``, recognised by name.
+data structures ``Vector``, ``SubDiagonalOp`` and ``PauliHamil``,
+recognised by name.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from .circuits import Circuit
-from .datatypes import SubDiagonalOp, Vector
+from .datatypes import PauliHamil, SubDiagonalOp, Vector
 from .ops.fused_gates import HashableMatrix
 
 
@@ -77,15 +78,19 @@ def ops_from_reference(ops) -> tuple:
 
 
 def arg_from_reference(x):
-    """One ``quest_tpu`` API argument -> the port's: a ``Vector`` or a
-    ``SubDiagonalOp`` becomes the port's own, a matrix (a ComplexMatrixN
-    array, a bound matrix, a jax array) a numpy copy; lists and tuples
-    convert element by element, every other value is kept."""
+    """One ``quest_tpu`` API argument -> the port's: a ``Vector``, a
+    ``SubDiagonalOp`` or a ``PauliHamil`` becomes the port's own, a matrix
+    (a ComplexMatrixN array, a bound matrix, a jax array) a numpy copy;
+    lists and tuples convert element by element, every other value is
+    kept."""
     name = type(x).__name__
     if name == "Vector":
         return Vector(float(x.x), float(x.y), float(x.z))
     if name == "SubDiagonalOp":
         return SubDiagonalOp(int(x.num_qubits), np.array(x.elems, dtype=complex))
+    if name == "PauliHamil":
+        return PauliHamil(int(x.num_qubits), int(x.num_sum_terms),
+                          np.array(x.pauli_codes), np.array(x.term_coeffs))
     if isinstance(x, (list, tuple)):
         return type(x)(arg_from_reference(y) for y in x)
     if hasattr(x, "__array__") and not isinstance(x, np.generic):

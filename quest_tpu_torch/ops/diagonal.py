@@ -1,4 +1,5 @@
 """Diagonal and phase-only kernels: no data movement, one elementwise pass.
+The full 2^n diagonal of a ``DiagonalOp`` multiplies elementwise.
 
 The per-amplitude factor is computed from flat-index bits and gathered from
 the 2^t-entry diagonal table or, for parity phases, from a 2-entry phase
@@ -71,3 +72,44 @@ def apply_parity_phase(amps: torch.Tensor, theta: float, *, n: int,
     tr = torch.tensor([c, c], dtype=amps.dtype, device=amps.device)
     ti = torch.tensor([-s, s], dtype=amps.dtype, device=amps.device)
     return _apply_factor(amps, tr[par], ti[par], _ctrl_ok(idx, controls))
+
+
+def apply_full_diagonal(amps: torch.Tensor, elems: torch.Tensor) -> torch.Tensor:
+    """Elementwise multiply by a full planar diagonal operator of the same
+    length (applyDiagonalOp; reference kernel ``QuEST_cpu.c:3975-4030``):
+    on one device, or shard by shard with ``elems`` cut as ``amps``."""
+    er, ei = elems[0].to(amps.dtype), elems[1].to(amps.dtype)
+    re = amps[0] * er - amps[1] * ei
+    im = amps[0] * ei + amps[1] * er
+    return torch.stack([re, im])
+
+
+def apply_full_diagonal_to_density(amps: torch.Tensor, elems: torch.Tensor, *,
+                                   n: int) -> torch.Tensor:
+    """applyDiagonalOp on a density matrix: rho -> D rho (left-multiply
+    only, per the reference's densmatr_applyDiagonalOp). Row bits are the
+    low n bits of the 2n-qubit flattening, so D broadcasts along the
+    column axis."""
+    dim = 1 << n
+    t = amps.reshape(2, dim, dim)  # [plane, col, row]
+    er, ei = elems[0].to(amps.dtype)[None, :], elems[1].to(amps.dtype)[None, :]
+    re = t[0] * er - t[1] * ei
+    im = t[0] * ei + t[1] * er
+    return torch.stack([re, im]).reshape(2, -1)
+
+
+def pauli_z_diagonal(codes, coeffs, *, offset: int, size: int, device) -> torch.Tensor:
+    """Elements [offset, offset + size) of the diagonal of sum_t c_t P_t, a
+    Hamiltonian of I and Z terms only, in float64 on ``device``
+    (initDiagonalOpFromPauliHamil): each term adds c_t (-1)^(parity of
+    the index's Z bits), in term order, as the JAX package adds them on
+    the host."""
+    idx = torch.arange(offset, offset + size, device=device)
+    diag = torch.zeros(size, dtype=torch.float64, device=device)
+    for row_codes, coeff in zip(codes, coeffs):
+        sign = torch.ones(size, dtype=torch.float64, device=device)
+        for q, code in enumerate(row_codes):
+            if int(code) == 3:
+                sign *= 1.0 - 2.0 * ((idx >> q) & 1)
+        diag += float(coeff) * sign
+    return diag

@@ -110,3 +110,39 @@ def weighted_sum(f1: complex, amps1: torch.Tensor, f2: complex, amps2: torch.Ten
         return torch.stack([f.real * a[0] - f.imag * a[1],
                             f.real * a[1] + f.imag * a[0]])
     return term(f1, amps1) + term(f2, amps2) + term(fo, amps_out)
+
+
+def density_from_pauli_hamil(codes, coeffs, *, n: int, dtype: torch.dtype,
+                             device) -> torch.Tensor:
+    """rho = sum_t c_t P_t as a dense n-qubit density matrix, flattened
+    [col, row] (element rho[r, c] at c 2^n + r), built on ``device``
+    (setQuregToPauliHamil; densmatr_setQuregToPauliHamil).
+
+    A Pauli string has one non-zero per column c, at row c ^ f (f the mask
+    of its X and Y qubits), worth i^(number of Y) (-1)^(parity of c's Y and
+    Z bits). Each term adds c_t times that value into the real or the
+    imaginary plane of a float64 accumulator, in term order (the sum the
+    JAX package forms in complex128 on the host: the same values, the same
+    order), cast to ``dtype`` at the end."""
+    dim = 1 << n
+    acc = torch.zeros((2, dim * dim), dtype=torch.float64, device=device)
+    col = torch.arange(dim, device=device)
+    for row_codes, coeff in zip(codes, coeffs):
+        f = par_mask = 0
+        num_y = 0
+        for q, code in enumerate(row_codes):
+            code = int(code)
+            if code in (1, 2):
+                f |= 1 << q
+            if code in (2, 3):
+                par_mask |= 1 << q
+            num_y += code == 2
+        par = torch.zeros_like(col)
+        for q in range(n):
+            if (par_mask >> q) & 1:
+                par ^= (col >> q) & 1
+        sign = (1 - 2 * par).to(torch.float64)
+        # i^num_y: 1, i, -1, -i
+        plane, unit = ((0, 1.0), (1, 1.0), (0, -1.0), (1, -1.0))[num_y % 4]
+        acc[plane].index_add_(0, col * dim + (col ^ f), float(coeff) * unit * sign)
+    return acc.to(dtype)

@@ -1,11 +1,11 @@
-"""Outcome probabilities, outcome distributions and collapse
+"""Outcome probabilities, outcome distributions, collapse and projection
 (``quest_tpu/ops/measure.py``).
 
 Reference: statevec_collapseToKnownProbOutcome and
 densmatr_collapseToKnownProbOutcome (``QuEST_cpu.c:3695-3848``). Row bits
 of a density matrix are the low n, column bits the high n of the
-2n-qubit flattening (see ``ops.density``). Each collapse returns a new
-tensor.
+2n-qubit flattening (see ``ops.density``). Each collapse and projection
+returns a new tensor.
 """
 
 from __future__ import annotations
@@ -130,4 +130,23 @@ def collapse_shards(shards, prob: float, *, n: int, target: int,
                 for s in shards]
     scale = 1.0 / math.sqrt(prob)
     return [s * scale if (r >> (target - nl)) & 1 == outcome else torch.zeros_like(s)
+            for r, s in enumerate(shards)]
+
+
+def project_statevec(amps: torch.Tensor, *, n: int, target: int,
+                     outcome: int) -> torch.Tensor:
+    """Unnormalised projection of ``target`` on ``outcome`` (applyProjector,
+    QuEST.h:7421): a new tensor."""
+    mask, shape = _keep_mask(n, (target,), outcome, amps.dtype, amps.device)
+    return (amps.reshape((2,) + shape) * mask).reshape(2, -1)
+
+
+def project_shards(shards, *, n: int, target: int, outcome: int) -> list:
+    """:func:`project_statevec` over the shards: per shard on a local
+    target; on a sharded one, the shards whose index has the other bit
+    value are zeroed whole and the rest kept, with no communication."""
+    nl = local_qubit_count(n, shards)
+    if target < nl:
+        return [project_statevec(s, n=nl, target=target, outcome=outcome) for s in shards]
+    return [s if (r >> (target - nl)) & 1 == outcome else torch.zeros_like(s)
             for r, s in enumerate(shards)]

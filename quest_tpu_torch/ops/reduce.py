@@ -1,5 +1,6 @@
 """Scalar reductions over planar states: norms, purity, outcome
-probabilities, inner products, fidelity and distances.
+probabilities, inner products, fidelity, distances and the expectation
+of a full diagonal operator.
 
 The reference protects its norm accumulations with Kahan summation
 (statevec_calcTotalProb, QuEST_cpu_distributed.c:62-119) because low
@@ -149,3 +150,28 @@ def prob_of_outcome_shards(shards, *, n: int, target: int,
     parts = [total_prob_statevec(s) for r, s in enumerate(shards)
              if (r >> (target - nl)) & 1 == outcome]
     return _csum_parts(parts)
+
+
+def expec_diag_op_statevec(amps: torch.Tensor, elems: torch.Tensor):
+    """sum |amp_i|^2 d_i as a (re, im) pair of 0-d tensors
+    (statevec_calcExpecDiagonalOp, QuEST_cpu_distributed.c:1612-1647);
+    ``elems`` in the state's dtype."""
+    p = amps[0] * amps[0] + amps[1] * amps[1]
+    return _csum(p * elems[0]), _csum(p * elems[1])
+
+
+def expec_diag_op_density(amps: torch.Tensor, elems: torch.Tensor, *, n: int):
+    """Tr(rho D) = sum_r rho[r,r] d_r, (re, im) (densmatr_calcExpecDiagonalOp)."""
+    dim = 1 << n
+    t = amps.reshape(2, dim, dim)
+    dr, di = torch.diagonal(t[0]), torch.diagonal(t[1])
+    er, ei = elems[0], elems[1]
+    return _csum(dr * er - di * ei), _csum(dr * ei + di * er)
+
+
+def expec_diag_op_shards(shards, elem_shards):
+    """:func:`expec_diag_op_statevec` of a sharded state vector, the
+    operator cut as the state: each shard's partial (re, im) on its
+    device, cascaded in shard order."""
+    parts = [expec_diag_op_statevec(s, e) for s, e in zip(shards, elem_shards)]
+    return _csum_parts([p[0] for p in parts]), _csum_parts([p[1] for p in parts])

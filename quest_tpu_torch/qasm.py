@@ -4,8 +4,8 @@ Pure host-side string accumulation, one logger per Qureg: a copy of the
 part of ``quest_tpu/qasm.py`` that the ported gates and initialisers call,
 so the recorded text matches the JAX package's byte for byte (the
 reference's header, gate-name table, ``c`` prefix per control, ZYZ
-decompositions of unitaries and the REAL_QASM_FORMAT number format).
-Phase-function records are not ported yet.
+decompositions of unitaries and the REAL_QASM_FORMAT number format),
+the phase-function records included.
 """
 
 from __future__ import annotations
@@ -258,6 +258,184 @@ class QASMLogger:
         express -- init, decoherence, phase functions, QFT internals etc."""
         if self.recording:
             self._lines.append(f"// {comment}")
+
+    # -- phase-function records (QuEST_qasm.c:485-868) ----------------------
+    #
+    # Phase functions aren't expressible in OPENQASM 2.0; the reference
+    # renders them as structured comments -- the applied scalar in closed
+    # form, the sub-register qubit lists, and any overrides -- and these
+    # mirror that text.
+
+    @staticmethod
+    def _symbol(num_regs: int, ind: int) -> str:
+        """getPhaseFuncSymbol (QuEST_qasm.c:553-566)."""
+        if num_regs <= 7:
+            return "xyztrvu"[ind]
+        if num_regs <= 24:
+            return "abcdefghjklmnpqrstuvwxyz"[ind]  # no i or o
+        return f"x{ind}"
+
+    def _term_text(self, coeff, exponent, symbol, first):
+        mag = coeff if first else abs(coeff)
+        if exponent > 0:
+            return f"{self._num(mag)} {symbol}^{self._num(exponent)}"
+        return f"{self._num(mag)} {symbol}^({self._num(exponent)})"
+
+    def _add_regs_comment(self, qubits_flat, reg_sizes, encoding):
+        """addMultiVarRegsToQASM (QuEST_qasm.c:568-596)."""
+        enc = "an unsigned" if int(encoding) == 0 else "a two's complement"
+        self.record_comment("  upon substates informed by qubits (under "
+                            f"{enc} binary encoding)")
+        off = 0
+        for r, m in enumerate(reg_sizes):
+            sym = f"|{self._symbol(len(reg_sizes), r)}>"
+            qs = ", ".join(str(int(q)) for q in qubits_flat[off:off + m])
+            self._lines.append(f"//     {sym} = {{{qs}}}")
+            off += m
+
+    def _add_overrides_comment(self, num_regs, override_inds, override_phases):
+        """addMultiVarOverridesToQASM (QuEST_qasm.c:598-636)."""
+        self.record_comment("  though with overrides")
+        vi = 0
+        for v in range(len(override_phases)):
+            parts = []
+            for r in range(num_regs):
+                sym = self._symbol(num_regs, r)
+                parts.append(f"{sym}={int(override_inds[vi])}")
+                vi += 1
+            p = float(override_phases[v])
+            phase = (f"exp(i {self._num(p)})" if p >= 0
+                     else f"exp(i ({self._num(p)}))")
+            self._lines.append("//     |" + ", ".join(parts) + f"> -> {phase}")
+
+    def record_phase_func(self, qubits, encoding, coeffs, exponents,
+                          override_inds, override_phases):
+        """qasm_recordPhaseFunc (QuEST_qasm.c:485-550)."""
+        if not self.recording:
+            return
+        self.record_comment(
+            "Here, applyPhaseFunc() multiplied a complex scalar of the form")
+        terms = []
+        for t, (c, e) in enumerate(zip(coeffs, exponents)):
+            if t > 0:
+                terms.append(" + " if float(coeffs[t]) > 0 else " - ")
+            terms.append(self._term_text(float(c), float(e), "x", t == 0))
+        self._lines.append("//     exp(i (" + "".join(terms) + "))")
+        enc = "an unsigned" if int(encoding) == 0 else "a two's complement"
+        self.record_comment("  upon every substate |x>, informed by qubits "
+                            f"(under {enc} binary encoding)")
+        self._lines.append(
+            "//     {" + ", ".join(str(int(q)) for q in qubits) + "}")
+        if override_phases:
+            self.record_comment("  though with overrides")
+            for i, p in zip(override_inds, override_phases):
+                p = float(p)
+                phase = (f"exp(i {self._num(p)})" if p >= 0
+                         else f"exp(i ({self._num(p)}))")
+                self.record_comment(f"    |{int(i)}> -> {phase}")
+
+    def record_multi_var_phase_func(self, qubits_flat, reg_sizes, encoding,
+                                    coeffs, exponents, terms_per_reg,
+                                    override_inds, override_phases):
+        """qasm_recordMultiVarPhaseFunc (QuEST_qasm.c:661-719)."""
+        if not self.recording:
+            return
+        self.record_comment("Here, applyMultiVarPhaseFunc() multiplied a "
+                            "complex scalar of the form")
+        self.record_comment("    exp(i (")
+        num_regs = len(reg_sizes)
+        ti = 0
+        for r in range(num_regs):
+            sym = self._symbol(num_regs, r)
+            line = " + " if float(coeffs[ti]) > 0 else " - "
+            parts = [line]
+            for t in range(terms_per_reg[r]):
+                parts.append(self._term_text(
+                    abs(float(coeffs[ti])), float(exponents[ti]), sym, False))
+                if t < terms_per_reg[r] - 1:
+                    parts.append(" + " if float(coeffs[ti + 1]) > 0 else " - ")
+                ti += 1
+            tail = " ))" if r == num_regs - 1 else ""
+            self._lines.append("//         " + "".join(parts) + tail)
+        self._add_regs_comment(qubits_flat, reg_sizes, encoding)
+        if override_phases:
+            self._add_overrides_comment(num_regs, override_inds,
+                                        override_phases)
+
+    def record_named_phase_func(self, qubits_flat, reg_sizes, encoding,
+                                func_code, params, override_inds,
+                                override_phases):
+        """qasm_recordNamedPhaseFunc (QuEST_qasm.c:721-857)."""
+        if not self.recording:
+            return
+        self.record_comment(
+            "Here, applyNamedPhaseFunc() multiplied a complex scalar of form")
+        f = int(func_code)
+        num_regs = len(reg_sizes)
+        syms = [self._symbol(num_regs, r) for r in range(num_regs)]
+
+        def coeff_text():
+            p0 = float(params[0])
+            return (f"{self._num(p0)} " if p0 > 0
+                    else f"({self._num(p0)}) ")
+
+        body = "exp(i "
+        if f in (0, 1, 2, 3, 4):        # NORM family
+            if f in (1, 3, 4):
+                body += coeff_text()
+            body += {0: "sqrt(", 1: "sqrt(", 2: "1 / sqrt("}.get(f, "/ sqrt(")
+            parts = []
+            for r in range(num_regs):
+                if f == 4:  # SCALED_INVERSE_SHIFTED_NORM
+                    # the kernel applies sum (x_r - d_r)^2; the reference's
+                    # <=24-register comment misprints this as (x^2 - d) --
+                    # its own >24 branch and kernel use (x-d)^2, so record
+                    # the form that matches the applied scalar
+                    d = float(params[2 + r])
+                    sign = "+" if d < 0 else "-"
+                    parts.append(f"({syms[r]}{sign}{self._num(abs(d))})^2")
+                else:
+                    parts.append(f"{syms[r]}^2")
+            body += " + ".join(parts) + "))"
+        elif f in (5, 6, 7, 8):         # PRODUCT family
+            if f in (6, 8):
+                body += coeff_text()
+            if f == 7:
+                body += "1 / ("
+            elif f == 8:
+                body += "/ ("
+            body += " ".join(syms[:-1]) + (" " if len(syms) > 1 else "")
+            body += f"{syms[-1]})"
+            if f in (7, 8):
+                body += ")"
+        elif f in (9, 10, 11, 12, 13, 14):  # DISTANCE family
+            if f in (10, 12, 13, 14):
+                body += coeff_text()
+            body += {9: "sqrt(", 10: "sqrt(", 11: "1 / sqrt("}.get(f, "/ sqrt(")
+            parts = []
+            for r in range(0, num_regs, 2):
+                if f == 13:  # SCALED_INVERSE_SHIFTED_DISTANCE
+                    d = float(params[2 + r // 2])
+                    sign = "+" if d < 0 else "-"
+                    parts.append(f"({syms[r]}-{syms[r + 1]}{sign}"
+                                 f"{self._num(abs(d))})^2")
+                elif f == 14:  # SCALED_INVERSE_SHIFTED_WEIGHTED_DISTANCE:
+                    # kernel: sum_r w_r (x_r - y_r - d_r)^2 with per-pair
+                    # (factor, offset) params (ops/phasefunc.py:199-201);
+                    # the reference renders no formula for this code at all
+                    w = float(params[2 + r])
+                    d = float(params[2 + r + 1])
+                    sign = "+" if d < 0 else "-"
+                    parts.append(f"{self._num(w)} ({syms[r]}-{syms[r + 1]}"
+                                 f"{sign}{self._num(abs(d))})^2")
+                else:
+                    parts.append(f"({syms[r]}-{syms[r + 1]})^2")
+            body += " + ".join(parts) + "))"
+        self._lines.append("//     " + body)
+        self._add_regs_comment(qubits_flat, reg_sizes, encoding)
+        if override_phases:
+            self._add_overrides_comment(num_regs, override_inds,
+                                        override_phases)
 
     def fmt_real(self, value: float) -> str:
         """REAL_QASM_FORMAT rendering for comment text interpolation."""

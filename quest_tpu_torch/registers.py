@@ -10,9 +10,9 @@ mesh's device r with the flat indices [r 2^(n-d), (r+1) 2^(n-d)), and
 ``amps`` is None (the JAX package's block sharding, registers.py:95-97;
 ``parallel.mesh``). A register of fewer amplitudes than devices stays on
 the first device, as the JAX package keeps it unsharded. The shards are
-gathered only at the API boundary (``get_np``, ``interop``). A density
-register on such a mesh is refused: density matrices over shards are a
-later slice of the port.
+gathered only at the API boundary (``get_np``, ``interop``, the host
+mirror). A density register on such a mesh is refused: density matrices
+over shards are a later slice of the port.
 
 The API rebinds ``qureg.amps`` to each new tensor (``put``). A fused-run
 pass that folds a frame swap into its loads or stores reads tiles that
@@ -53,6 +53,14 @@ class Qureg:
     shards: Optional[list] = None
     #: each shard's out-of-place twin, allocated at first use
     shard_spares: Optional[list] = None
+    #: the host planar mirror for copyState{To,From}GPU, made at first use
+    host_amps: Optional[np.ndarray] = None
+
+    @property
+    def state_vec(self) -> np.ndarray:
+        """Host planar mirror (the reference's ``qureg.stateVec``); sync with
+        copyStateFromGPU/copyStateToGPU."""
+        return _host_mirror(self)
 
     @property
     def num_qubits_in_state_vec(self) -> int:
@@ -209,3 +217,84 @@ def get_np(qureg: Qureg) -> np.ndarray:
     if qureg.shards is not None:
         return np.concatenate([cplx.to_complex(s) for s in qureg.shards])
     return cplx.to_complex(qureg.amps)
+
+
+# --------------------------------------------------------------------------
+# Host-mirror synchronisation (copyStateToGPU/FromGPU, QuEST.h:2286-2383).
+#
+# The reference keeps a host planar array (qureg.stateVec) beside the device
+# copy and lets users edit it directly, syncing explicitly. Here the device
+# tensors are the state of record; ``qureg.state_vec`` is a planar numpy
+# mirror (2, numAmps) of the state's own dtype, made at first use, that
+# these four functions sync in either direction. A sharded register's
+# shards are gathered into it, and scattered from it, by flat index range:
+# a substate may cross a shard boundary. On a CPU register they are
+# host-to-host copies, as the reference's CPU definitions are no-ops.
+# --------------------------------------------------------------------------
+
+def _host_mirror(qureg: Qureg) -> np.ndarray:
+    """The mirror, made (again) where it is missing or of another dtype than
+    the state (``applyPauliSum`` binds its input's dtype to its output)."""
+    dt = np.float32 if qureg.dtype == torch.float32 else np.float64
+    if qureg.host_amps is None or qureg.host_amps.dtype != dt:
+        qureg.host_amps = np.zeros((2, qureg.num_amps_total), dtype=dt)
+    return qureg.host_amps
+
+
+def _validate_live(qureg: Qureg, func: str) -> None:
+    validation._assert(
+        qureg.amps is not None or qureg.shards is not None,
+        "Invalid Qureg. The register has been destroyed.", func)
+
+
+def _pull(qureg: Qureg, start: int, num: int) -> np.ndarray:
+    """Copy the flat range [start, start + num) of the device tensors into
+    the mirror."""
+    mirror = _host_mirror(qureg)
+    pieces = [qureg.amps] if qureg.shards is None else qureg.shards
+    c = qureg.num_amps_total // len(pieces)
+    for r, t in enumerate(pieces):
+        lo, hi = max(start, r * c), min(start + num, (r + 1) * c)
+        if lo < hi:
+            mirror[:, lo:hi] = t[:, lo - r * c:hi - r * c].cpu().numpy()
+    return mirror
+
+
+def _push(qureg: Qureg, start: int, num: int) -> None:
+    """Write the mirror's [start, start + num) into the device tensors, in
+    place (``state_init._write_slice``, as ``setAmps`` writes)."""
+    from .state_init import _write_slice
+
+    mirror = _host_mirror(qureg)
+    _write_slice(qureg, start, mirror[0, start:start + num], mirror[1, start:start + num],
+                 num)
+
+
+def copyStateFromGPU(qureg: Qureg) -> np.ndarray:
+    """Pull the device state into the host mirror (copyStateFromGPU, QuEST.h:2321)."""
+    _validate_live(qureg, "copyStateFromGPU")
+    return _pull(qureg, 0, qureg.num_amps_total)
+
+
+def copyStateToGPU(qureg: Qureg) -> None:
+    """Push the host mirror to the device (copyStateToGPU, QuEST.h:2301)."""
+    _validate_live(qureg, "copyStateToGPU")
+    _push(qureg, 0, qureg.num_amps_total)
+
+
+def copySubstateFromGPU(qureg: Qureg, start_ind: int, num_amps: int) -> np.ndarray:
+    """Pull amplitudes [start, start+num) into the host mirror
+    (copySubstateFromGPU, QuEST.h:2383)."""
+    func = "copySubstateFromGPU"
+    _validate_live(qureg, func)
+    validation.validate_num_amps(qureg, start_ind, num_amps, func)
+    return _pull(qureg, start_ind, num_amps)
+
+
+def copySubstateToGPU(qureg: Qureg, start_ind: int, num_amps: int) -> None:
+    """Push host-mirror amplitudes [start, start+num) to the device
+    (copySubstateToGPU, QuEST.h:2352)."""
+    func = "copySubstateToGPU"
+    _validate_live(qureg, func)
+    validation.validate_num_amps(qureg, start_ind, num_amps, func)
+    _push(qureg, start_ind, num_amps)

@@ -206,7 +206,12 @@ def _in_layout(source: Qureg, like: list, dtype: torch.dtype) -> list:
     index): new tensors of ``dtype`` on ``like``'s devices, each filled by
     device-to-device ``copy_`` of the source blocks it overlaps. Nothing
     goes through host memory."""
-    src = _pieces(source)
+    return _recut(_pieces(source), like, dtype)
+
+
+def _recut(src: list, like: list, dtype: torch.dtype) -> list:
+    """:func:`_in_layout` of the tensors ``src`` (each a contiguous block of
+    one flat index, in order)."""
     cs, ct = src[0].shape[1], like[0].shape[1]
     out = []
     for j, t in enumerate(like):

@@ -3,7 +3,8 @@
 They cover targets and controls, unitarity of 2x2, 4x4 and N-qubit
 matrices and of compact pairs, Pauli codes, outcomes and measurement
 probabilities, amplitude ranges, matching registers, Kraus maps and the
-channel probabilities, Pauli Hamiltonians and their files.
+channel probabilities, Pauli Hamiltonians and their files, Trotter
+parameters, DiagonalOps and the phase-function family.
 
 A copy of the matching functions of ``quest_tpu/validation.py`` (itself the
 counterpart of the reference's ``QuEST_validation.c``), with the messages
@@ -416,12 +417,227 @@ def validate_num_amps_fit_type(num_qubits: int, is_density: bool, func: str) -> 
 
 
 def validate_qureg_allocation(alloc_fn, func: str):
+    return _validate_allocation(alloc_fn, "Qureg", func)
+
+
+def validate_diag_op_allocation(alloc_fn, func: str):
+    return _validate_allocation(alloc_fn, "DiagonalOp", func)
+
+
+def _validate_allocation(alloc_fn, what: str, func: str):
     """Run ``alloc_fn``, turning an allocator failure into a QuESTError
-    (validateQuregAllocation, QuEST_cpu.c:1318)."""
+    (validateQuregAllocation, QuEST_cpu.c:1318; DiagonalOp variant)."""
     import torch
 
     try:
         return alloc_fn()
     except (MemoryError, torch.OutOfMemoryError):
-        _fail("Could not allocate memory for Qureg. Possibly insufficient "
+        _fail(f"Could not allocate memory for {what}. Possibly insufficient "
               "memory.", func)
+
+
+# ---------------------------------------------------------------------------
+# the operators slice: Trotter parameters, DiagonalOp, phase functions
+# ---------------------------------------------------------------------------
+
+def validate_trotter_params(order: int, reps: int, func: str) -> None:
+    _assert(
+        order > 0 and (order == 1 or order % 2 == 0),
+        "Invalid Trotter-Suzuki order. Must be 1, or an even number.",
+        func,
+    )
+    _assert(reps > 0, "Invalid number of Trotter repetitions. Must be >=1.", func)
+
+
+def validate_diag_op_fits_devices(num_qubits: int, num_devices: int,
+                                  func: str) -> None:
+    _assert((1 << num_qubits) >= num_devices,
+            "Too few qubits. The created DiagonalOp must contain at least "
+            "one element per node used in distributed simulation.", func)
+
+
+def validate_diag_op_init(op, func: str) -> None:
+    # a DiagonalOp holds its elements as one tensor or as shards
+    _assert(getattr(op, "elems", None) is not None
+            or getattr(op, "shards", None) is not None,
+            "The diagonal operator has not been initialised through "
+            "createDiagonalOperator().", func)
+
+
+def validate_diag_op_matches_qureg(qureg, op, func: str) -> None:
+    _assert(
+        op.num_qubits == qureg.num_qubits_represented,
+        "The DiagonalOp must act on the same number of qubits as the register.",
+        func,
+    )
+
+
+def validate_hamil_matches_diag_op(hamil, op, func: str) -> None:
+    _assert(hamil.num_qubits == op.num_qubits,
+            "The Pauli Hamiltonian and diagonal operator have different, "
+            "incompatible dimensions.", func)
+
+
+def validate_diag_pauli_hamil(hamil, func: str) -> None:
+    """validateDiagPauliHamil (E_PAULI_HAMIL_NOT_DIAGONAL): only I and Z
+    terms are expressible as a diagonal operator."""
+    codes = np.asarray(hamil.pauli_codes).ravel()
+    _assert(bool(np.all((codes == 0) | (codes == 3))),
+            "The Pauli Hamiltonian contained operators other than PAULI_Z "
+            "and PAULI_I, and hence cannot be expressed as a diagonal matrix.",
+            func)
+
+
+def validate_num_elems(op, start: int, num: int, func: str) -> None:
+    total = 2 ** op.num_qubits
+    _assert(0 <= start < total, "Invalid element index.", func)
+    _assert(num >= 0 and start + num <= total, "Invalid number of elements.", func)
+
+
+#: parameter count accepted by each named phase function (enum phaseFunc);
+#: negative: depends on the number of sub-registers
+#: (validate_num_named_phase_func_params)
+_PHASE_FUNC_NUM_PARAMS = {
+    0: 0, 1: 1, 2: 1, 3: 2,           # NORM, SCALED_NORM, INVERSE_NORM, SCALED_INVERSE_NORM
+    4: -1,                            # SCALED_INVERSE_SHIFTED_NORM
+    5: 0, 6: 1, 7: 1, 8: 2,           # PRODUCT family
+    9: 0, 10: 1, 11: 1, 12: 2,        # DISTANCE family
+    13: -2,                           # SCALED_INVERSE_SHIFTED_DISTANCE
+    14: -3,                           # SCALED_INVERSE_SHIFTED_WEIGHTED_DISTANCE
+}
+_DISTANCE_FUNCS = frozenset((9, 10, 11, 12, 13, 14))
+
+
+def encoded_range(num_qubits: int, encoding) -> tuple[int, int]:
+    """Representable value range of a sub-register under an encoding
+    (0 = UNSIGNED, 1 = TWOS_COMPLEMENT, as enum bitEncoding)."""
+    if int(encoding) == 0:
+        return 0, 2 ** num_qubits - 1
+    return -(2 ** (num_qubits - 1)), 2 ** (num_qubits - 1) - 1
+
+
+def validate_num_subregisters(num_regs: int, func: str) -> None:
+    _assert(0 < num_regs <= 100,
+            "Invalid number of qubit subregisters, which must be >0 and <=100.",
+            func)
+
+
+def validate_bit_encoding(encoding, func: str) -> None:
+    _assert(int(encoding) in (0, 1),
+            "Invalid bit encoding. Must be one of {UNSIGNED, TWOS_COMPLEMENT}.",
+            func)
+
+
+def validate_multi_reg_bit_encoding(reg_sizes, encoding, func: str) -> None:
+    validate_bit_encoding(encoding, func)
+    if int(encoding) == 1:
+        for m in reg_sizes:
+            _assert(m > 1,
+                    "A sub-register contained too few qubits to employ "
+                    "TWOS_COMPLEMENT encoding. Must use >1 qubits "
+                    "(allocating one for the sign).", func)
+
+
+def validate_phase_func_terms(num_qubits: int, encoding, coeffs, exponents,
+                              override_inds, num_overrides, func: str) -> None:
+    """validatePhaseFuncTerms: single-variable exponent guards -- negative
+    exponents diverge at index 0 unless overridden; fractional exponents in
+    TWOS_COMPLEMENT produce complex phases at negative indices unless every
+    negative index is overridden."""
+    _assert(len(coeffs) > 0 and len(coeffs) == len(exponents),
+            "Invalid number of terms in the phase function specified. Must be >0.",
+            func)
+    has_neg = any(e < 0 for e in exponents)
+    has_frac = any(float(e) != int(e) for e in exponents)
+    if has_neg:
+        zero_overridden = any(int(i) == 0 for i in override_inds[:num_overrides])
+        _assert(zero_overridden,
+                "The phase function contained a negative exponent which would "
+                "diverge at zero, but the zero index was not overriden.", func)
+    if has_frac and int(encoding) == 1:
+        lo, _hi = encoded_range(num_qubits, encoding)
+        overridden = {int(i) for i in override_inds[:num_overrides]}
+        _assert(all(v in overridden for v in range(lo, 0)),
+                "The phase function contained a fractional exponent, which in "
+                "TWOS_COMPLEMENT encoding, requires all negative indices are "
+                "overriden. However, one or more negative indices were not "
+                "overriden.", func)
+
+
+def validate_multi_var_phase_func_terms(encoding, exponents, func: str) -> None:
+    """validateMultiVarPhaseFuncTerms: multi-variable functions reject
+    negative and (under TWOS_COMPLEMENT) fractional exponents outright."""
+    _assert(not any(e < 0 for e in exponents),
+            "The phase function contained an illegal negative exponent. One "
+            "must instead call applyPhaseFuncOverrides() once for each "
+            "register, so that the zero index of each register is overriden, "
+            "independent of the indices of all other registers.", func)
+    if int(encoding) == 1:
+        _assert(not any(float(e) != int(e) for e in exponents),
+                "The phase function contained a fractional exponent, which is "
+                "illegal in TWOS_COMPLEMENT encoding, since it cannot be "
+                "(efficiently) checked that all negative indices were "
+                "overriden. One must instead call applyPhaseFuncOverrides() "
+                "once for each register, so that each register's negative "
+                "indices can be overriden, independent of the indices of all "
+                "other registers.", func)
+
+
+def validate_num_phase_func_overrides(num_qubits: int, num_overrides: int,
+                                      single_var: bool, func: str) -> None:
+    limit = (1 << num_qubits) if single_var else None
+    ok = num_overrides >= 0 and (limit is None or num_overrides <= limit)
+    _assert(ok,
+            "Invalid number of phase function overrides specified. Must be "
+            ">=0, and for single-variable phase functions, <=2^numQubits "
+            "(the maximum unique binary values of the sub-register). Note "
+            "that uniqueness of overriding indices is not checked.", func)
+
+
+def validate_phase_func_overrides(reg_sizes, encoding, override_inds, num_overrides,
+                                  func: str) -> None:
+    """Override indices are stored flat, one per register per override
+    (QuEST_cpu.c:4330-4341); each must be representable by its register."""
+    n_regs = len(reg_sizes)
+    _assert(len(override_inds) == num_overrides * n_regs,
+            "Invalid number of override indices.", func)
+    for r, m in enumerate(reg_sizes):
+        lo, hi = encoded_range(m, encoding)
+        for i in range(num_overrides):
+            _assert(lo <= int(override_inds[i * n_regs + r]) <= hi,
+                    "Invalid phase function override index, not representable by the qubit sub-register.",
+                    func)
+
+
+def validate_phase_func_name(code, func: str) -> None:
+    _assert(int(code) in _PHASE_FUNC_NUM_PARAMS,
+            "Invalid named phase function, which must be one of {NORM, "
+            "SCALED_NORM, INVERSE_NORM, SCALED_INVERSE_NORM, "
+            "SCALED_INVERSE_SHIFTED_NORM, PRODUCT, SCALED_PRODUCT, "
+            "INVERSE_PRODUCT, SCALED_INVERSE_PRODUCT, DISTANCE, "
+            "SCALED_DISTANCE, INVERSE_DISTANCE, SCALED_INVERSE_DISTANCE, "
+            "SCALED_INVERSE_SHIFTED_DISTANCE, "
+            "SCALED_INVERSE_SHIFTED_WEIGHTED_DISTANCE}.", func)
+
+
+def validate_num_regs_distance_phase_func(code, num_regs: int, func: str) -> None:
+    if int(code) in _DISTANCE_FUNCS:
+        _assert(num_regs % 2 == 0,
+                "Phase functions DISTANCE, INVERSE_DISTANCE, SCALED_DISTANCE, "
+                "SCALED_INVERSE_DISTANCE, SCALED_INVERSE_SHIFTED_DISTANCE and "
+                "SCALED_INVERSE_SHIFTED_WEIGHTED_DISTANCE require a strictly "
+                "even number of sub-registers.", func)
+
+
+def validate_num_named_phase_func_params(code, num_regs: int, num_params: int,
+                                         func: str) -> None:
+    expect = _PHASE_FUNC_NUM_PARAMS[int(code)]
+    if expect == -1:
+        expect = 2 + num_regs
+    elif expect == -2:
+        expect = 2 + num_regs // 2
+    elif expect == -3:
+        expect = 2 + num_regs
+    _assert(num_params == expect,
+            "Invalid number of parameters passed for the given named phase "
+            "function.", func)

@@ -27,7 +27,9 @@ def test_import_pulls_in_no_jax(module):
             "'quest_tpu_torch.datatypes', 'quest_tpu_torch.operators', "
             "'quest_tpu_torch.ops.window_dot', 'quest_tpu_torch.parallel', "
             "'quest_tpu_torch.parallel.mesh', 'quest_tpu_torch.parallel.exchange', "
-            "'quest_tpu_torch.parallel.scheduler', 'quest_tpu_torch.reporting'} "
+            "'quest_tpu_torch.parallel.scheduler', 'quest_tpu_torch.reporting', "
+            "'quest_tpu_torch.ops.phasefunc', 'quest_tpu_torch.ops.diagonal', "
+            "'quest_tpu_torch.ops.reduce', 'quest_tpu_torch.registers'} "
             "<= {m.__name__ for m in mods}; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
