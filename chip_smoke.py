@@ -157,7 +157,32 @@ no result, without them. Phases, in order:
    register), ``DiagonalOp``, projectors, sub-diagonal operators,
    ``setQuregToPauliHamil``, ``applyPauliHamil`` and the copyState*GPU
    host mirror, each against its definition in float64/complex128 and
-   timed beside its bytes bound; then the phase's time and the script's.
+   timed beside its bytes bound; then the phase's time;
+11. compiled (``_compiled_phase``, ``# compiled`` lines): the compiled
+   routes as CUDA-graph replays of the eager replay against the eager
+   replay in this call -- the main path in f32 and f64 through
+   ``compiled()``, ``compiled_segments(24)``, ``compiled_blocks(24)``,
+   ``compiled_request()`` (also with a readout) and ``Circuit.run``, bit
+   for bit; the fused_run kernel nodes of the graphs a replay launches
+   equal the runs, the card's profiler trace shows them running, and the
+   wrappers' launch counts do not move in a replay; ``amps = fn(amps)`` with no allocation; ``random_layers(20,
+   8)``; the density r4 circuit and the sharded main path through
+   ``compiled()`` and ``compiled_request()``, bit for bit with the eager
+   run's counts; the QFT and Trotter plans within 1e-5 with no item
+   dispatch; the serving ansatz's parameter sweep through
+   ``parameterized()`` (one capture, at the second call, none after; a
+   structure-equal circuit hitting the executable cache); many distinct
+   circuits run once and twice through ``Circuit.run``, with the card's
+   reserved memory bounded; then the script's time.
+
+Every phase runs its circuits through ``Circuit.run``, which dispatches
+through ``compiled()``: a plan's first run is eager (so the launch counts
+of a phase's first, counted run are the wrappers' own), and each later
+run on a buffer pair that has no graph yet captures one, which the runs
+after it replay; a phase warms both buffer orders of a register before it
+times its runs. A replay adds the telemetry counts its capture recorded,
+and nothing to the wrappers' launch counts. Each phase closes the cached
+executables it leaves (``_release``).
 
 The earlier phases pin ``createQuESTEnv(device="cuda:0")``, so that a host
 with more cards does not shard them. Lines starting with ``#`` carry the
@@ -304,6 +329,59 @@ def _clock_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+#: the port's kernels as their names show in a profiler trace of the card
+TRACE_NAMES = {"fused_run": ("fused_run_kernel",),
+               "window_dot": ("window_mma_kernel", "window_fma_kernel")}
+
+
+def _card_runs(fn) -> tuple[dict, object]:
+    """(kernel -> runs, fn()): ``fn()`` under torch.profiler's CUDA
+    activity, and how many times each of the port's kernels ran on the
+    card in it, graph replays included (the wrappers count only the
+    launches they make). The trace can lose records: late in a full run
+    of this script it showed 11-12 of a graph's 13 kernels, while the
+    graph's result equalled the eager replay's (PERF.md section 7), so a
+    replay's kernels are counted from its graph (``_graph_kernels``) and
+    the trace must show some and no more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    runs = dict.fromkeys(TRACE_NAMES, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k, names in TRACE_NAMES.items():
+                runs[k] += any(n in e.name for n in names)
+    return runs, out
+
+
+def _graph_kernels(exe) -> int:
+    """The fused_run kernel nodes of the CUDA graphs that ``exe``'s last
+    call replayed (each captured piece's most recently used graph), read
+    from the graphs' node lists (``CUDAGraph.debug_dump``): the kernels
+    every replay of them launches."""
+    import os
+    import tempfile
+    import warnings
+
+    n = 0
+    for p in exe.program.pieces:
+        if not p.graphs:
+            continue
+        g = next(reversed(p.graphs.values())).graph
+        with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # debug_dump warns that it ran
+            path = os.path.join(d, "graph.dot")
+            g.debug_dump(path)
+            with open(path) as f:
+                dot = f.read()
+        n += sum('label="{KERNEL' in node and TRACE_NAMES["fused_run"][0] in node
+                 for node in dot.split('"[style=')[1:])
+    return n
 
 
 def _pass_work(prepared, n: int, itemsize: int) -> tuple[float, float, float]:
@@ -895,8 +973,7 @@ def _main_path_f64(qt, env, circ, fz, dev) -> dict:
     _require(abs(total - 1) <= 1e-10, f"{label}: total probability {total}")
     _require(rel <= 1e-10, f"{label}: fused vs per-gate replay {diff} ({rel} of the largest)")
     reps = 5
-    fz.run(q)
-    torch.cuda.synchronize()
+    _warm_run(fz, q)
     t0 = time.perf_counter()
     for _ in range(reps):
         fz.run(q)
@@ -1143,8 +1220,7 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     torch.cuda.empty_cache()
 
     reps = 3
-    fz.run(rho)
-    torch.cuda.synchronize()
+    _warm_run(fz, rho)
     t0 = time.perf_counter()
     for _ in range(reps):
         fz.run(rho)
@@ -1165,7 +1241,7 @@ def _density_path(qt, env, dt, with_krausn: bool, rng, dev) -> dict:
     torch.cuda.empty_cache()
     res.update(launches=launches, passes=len(items), channel_ops_per_sec=cops,
                circuit_ms=circuit_s * 1e3, barrier_ms=barrier_ms, copy_ms=copy_ms,
-               trace=trace, purity=purity, max_abs_diff_vs_engine=diff, qureg=rho)
+               trace=trace, purity=purity, max_abs_diff_vs_engine=diff, qureg=rho, plan=fz)
     return res
 
 
@@ -1377,6 +1453,7 @@ def _gate_surface_path(qt, env, dev, rng) -> dict:
         res[f"{label}_launches"] = launches
         if pallas:
             reps = 3
+            _warm_run(fz, q)
             t0 = time.perf_counter()
             for _ in range(reps):
                 fz.run(q)
@@ -1642,8 +1719,7 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
 
     # gates/sec of the fused circuit over the shards, and where its time goes
     reps = 3
-    fz.run(q)
-    torch.cuda.synchronize()
+    _warm_run(fz, q)
     t0 = time.perf_counter()
     for _ in range(reps):
         fz.run(q)
@@ -1677,10 +1753,10 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
           f" each against a bound of {bound_perm:.4f} ms (2 x state bytes / 3.35 TB/s); "
           f"one shard's copy_ {copy_ms:.4f} ms")
 
-    # one more run with CUDA events around every kernel launch and every
-    # collective permute, none synchronised: the circuit's time on the
-    # card's clock split into the shard passes, the permutes and the rest
-    # (the card waiting between them)
+    # one more run, eager, with CUDA events around every kernel launch and
+    # every collective permute, none synchronised: the eager replay's time
+    # on the card's clock split into the shard passes, the permutes and the
+    # rest (the card waiting between them)
     spans: dict = {"kernel": [], "permute": []}
 
     def timed(kind, fn):
@@ -1699,14 +1775,14 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    fz.run(q)
+    _eager_run(fz, q)  # the eager replay: a graph replay runs no Python to time
     e1.record()
     torch.cuda.synchronize()
     FG._launch, X.dist_permute_bits = launch, permute
     split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
     total_ms = e0.elapsed_time(e1)
     rest_ms = total_ms - split["kernel"] - split["permute"]
-    print(f"# {label} in the circuit: {total_ms:.3f} ms on the card's clock; "
+    print(f"# {label} in the eager circuit: {total_ms:.3f} ms on the card's clock; "
           f"{len(spans['kernel'])} shard passes {split['kernel']:.3f} ms, "
           f"{len(spans['permute'])} collective permutes {split['permute']:.3f} ms, "
           f"the rest {rest_ms:.3f} ms ({rest_ms / total_ms:.1%}, the card waiting)")
@@ -1721,7 +1797,7 @@ def _sharded_path(qt, dev, rng, dt) -> dict:
                copy_ms=copy_ms, replay_gates_per_sec=len(circ) / replay_s,
                collective_transposes=ts["collective_transposes"],
                local_transposes=ts["local_transposes"], runs=len(runs),
-               max_abs_diff_vs_one_device=diff, qureg=q)
+               max_abs_diff_vs_one_device=diff, qureg=q, plan=fz)
     return res
 
 
@@ -2277,14 +2353,21 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
                                   f"{e_closed} > {tol}")
         qt.cloneQureg(q, src)
         FG.fused_run.launches = 0
-        fz.run(q)
+        fz.run(q)  # the second run: a capture for the register's buffers, then its replay
         torch.cuda.synchronize()
-        _require(FG.fused_run.launches == kernel_passes, f"operators qft {name}: launches")
+        _require(FG.fused_run.launches == 0,
+                 f"operators qft {name}: the replay moved the wrapper's launches")
         ref = torch.fft.ifft(psi) * N ** 0.5
         e_fused = rel(_c128(pieces(q)), ref)
         _require(e_fused <= tol, f"operators qft {name}: fused against sqrt(N) ifft "
                                  f"{e_fused} > {tol}")
-        fused_ms = _clock_ms(lambda: fz.run(q), 3)  # warmed up by the checked runs
+        _warm_run(fz, q)
+        ran, _ = _card_runs(lambda: fz.run(q))  # a replay, nothing captured
+        nodes = _graph_kernels(fz.compiled())
+        _require(nodes == kernel_passes and 0 < ran["fused_run"] <= nodes,
+                 f"operators qft {name}: the replayed graph holds {nodes} fused_run kernels "
+                 f"(kernel passes {kernel_passes}), the card's trace shows {ran['fused_run']}")
+        fused_ms = _clock_ms(lambda: fz.run(q), 3)
         qe = qt.createQureg(n, env1, prec)
         qt.cloneQureg(qe, src)
         torch.cuda.synchronize()
@@ -2320,8 +2403,10 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
         line(f"applyQFT {name}: qubits {list(QFT_SUBSET)} eager {sub_ms:.1f} ms, against its "
              f"definition {e_sub:.3e} (limit {tol:g})")
         res.update(launches=launches, runs=kernel_passes, fused_ms=fused_ms, eager_ms=eager_ms,
-                   fft_ms=fft_ms, summed_bound_ms=bound)
+                   fft_ms=fft_ms, summed_bound_ms=bound, graph_kernels=nodes,
+                   traced=ran["fused_run"])
         out[("qft", dt)] = res
+        out[("qft_plan", dt)] = fz
         qt.destroyQureg(qe)
 
         # -- Trotter: the TFIM on a tape, fused against eager -------------
@@ -2354,6 +2439,7 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
         t_eager = (time.perf_counter() - t0) * 1e3
         e_tr = rel(_c128(pieces(q)), _c128(pieces(qe)))
         _require(e_tr <= tol, f"operators trotter {name}: fused against eager {e_tr} > {tol}")
+        _warm_run(tz, q)
         t_fused = _clock_ms(lambda: tz.run(q), 2)
         line(f"trotter {name}: {len(hamil.term_coeffs)}-term TFIM, order {order}, reps {reps}, "
              f"t {t_evol}: {len(truns)} fused runs, launches {tl}; calcTotalProb {total:.12f}; "
@@ -2362,6 +2448,7 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
              f"{sum(tres['bound_ms']):.4f} ms), eager {t_eager:.1f} ms")
         tres.update(launches=tl, runs=len(truns), fused_ms=t_fused, eager_ms=t_eager)
         out[("trotter", dt)] = tres
+        out[("trotter_plan", dt)] = tz
         qt.destroyQureg(qe)
 
         # -- phase functions on one device (and in f32 over shards) -------
@@ -2640,6 +2727,500 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
     for r in (qs, *sv.values()):
         qt.destroyQureg(r)
     torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    line(f"phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _eager_run(circ, qureg) -> None:
+    """The tape on ``qureg`` one entry at a time, eagerly: the route that
+    ``Circuit.run`` took before it dispatched through ``compiled()``."""
+    for f, a, kw in circ._tape:
+        f(qureg, *a, **kw)
+
+
+def _warm_run(fz, qureg) -> None:
+    """The runs of ``fz`` on ``qureg`` that capture, after a plan's first
+    (eager) run, the graph of each order of the register's state and spare
+    buffers that its runs use, so that the timed runs only replay: one run
+    where the state stays in its buffer, two where it alternates with the
+    spare (the later phases read these states: no run more than needed)."""
+    import torch
+
+    def where():
+        return (qureg.amps if qureg.shards is None else qureg.shards[0]).data_ptr()
+
+    before = where()
+    fz.run(qureg)
+    if where() != before:
+        fz.run(qureg)
+    torch.cuda.synchronize()
+
+
+def _release() -> None:
+    """Close every cached executable (its graphs, their memory pool, its
+    spare buffer) and return the cached memory to the card."""
+    import torch
+
+    from quest_tpu_torch.engine import executables
+
+    executables().clear()
+    torch.cuda.empty_cache()
+
+
+#: the serving ansatz of the compiled phase's parameter sweep (bench.py's
+#: serve_20q): qubits, layers, value vectors
+SWEEP = (20, 4, 8)
+#: the compiled phase's distinct circuits run through Circuit.run: qubits,
+#: random layers, circuits
+MANY = (22, 2, 12)
+
+
+def _marginal(amps):
+    """The compiled phase's terminal readout: the outcome distribution of
+    the top 4 qubits."""
+    return (amps[0] ** 2 + amps[1] ** 2).reshape(16, -1).sum(1)
+
+
+def _compiled_phase(qt, dev, plans: dict) -> dict:
+    """Phase 11: the compiled routes, each a CUDA-graph replay of the eager
+    replay (``quest_tpu_torch._capture``), against the eager replay
+    (``as_fn``) in this call (``# compiled`` lines):
+
+    - the main path at N_MAIN qubits, depth DEPTH_MAIN, f32 and f64 (the
+      plans of the main-path phases): ``compiled()``,
+      ``compiled_segments(24)``, ``compiled_blocks(24)``,
+      ``compiled_request()``, ``compiled_request(reduce=_marginal)`` and
+      ``Circuit.run``, each bit for bit against the eager replay after
+      one, two and three applications and after the timed loop: the first
+      call eager (its launches = the runs, no capture), the second and
+      third capturing the two buffer orders; then one more replay, traced,
+      whose graphs hold as many fused_run kernel nodes as there are runs
+      (``_graph_kernels``), which the card's profiler trace shows running
+      (``_card_runs``), while the wrapper's launch count stays 0; the ``device_dispatch_total`` of that replay, the calls' seconds, each
+      capture's seconds and the device memory it holds; ``amps = fn(amps)``
+      with the allocator's count of allocations unchanged and at most two
+      state buffers;
+    - ``random_layers(20, 8)`` in f32, graph against eager;
+    - the density r4 circuit at N_DENSITY qubits and the sharded main path
+      over N_SHARDS virtual shards, f32 and f64, through ``compiled()`` and
+      ``compiled_request()``: bit for bit; a replay's graph kernels equal
+      the eager run's launches, and its fallback, channel-route and
+      exchange counts the eager run's;
+    - the QFT and the Trotter circuit of the operators phase at N_MAIN
+      qubits, f32, through ``compiled()``: within 1e-5 of the largest
+      amplitude of the eager run, no item dispatch, a replay's graph
+      kernels equal to the eager run's launches;
+    - ``serving_ansatz(*SWEEP[:2])`` through ``parameterized()``, f32 and
+      f64: SWEEP[2] value vectors, each against the concrete twin run
+      eagerly (1e-5 / 1e-12 of the largest amplitude), one capture (at the
+      second call) and none after, a structure-equal circuit hitting the
+      executable cache; capture seconds, the graph's replay ms and ms per
+      request;
+    - MANY[2] distinct circuits, each run through ``Circuit.run`` and
+      dropped: a run made once captures nothing, a dropped circuit's
+      executable leaves the cache, and the card's reserved memory grows by
+      less than one state over them.
+    """
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def line(what: str) -> None:
+        print(f"# compiled {what}")
+
+    def state(n, dt, seed, shards=1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(2, 1 << n, generator=g, device=dev, dtype=dt)
+        x /= x.norm()
+        return x if shards == 1 else [c.clone() for c in x.chunk(shards, dim=1)]
+
+    def clone(x):
+        return [t.clone() for t in x] if isinstance(x, list) else x.clone()
+
+    def equal(a, b):
+        if isinstance(a, list):
+            return all(torch.equal(u, v) for u, v in zip(a, b))
+        return torch.equal(a, b)
+
+    def reset():
+        telemetry.reset()
+        FG.fused_run.launches = 0
+
+    def counted():
+        torch.cuda.synchronize()
+        return {"launches": FG.fused_run.launches,
+                "passes": telemetry.counter_value("pallas_pass_total", kind="fused_run"),
+                "fallbacks": telemetry.counter_total("engine_fallback_total"),
+                "channel_routes": {r: telemetry.counter_value("channel_route_total", route=r)
+                                   for r in ("superop", "kernel", "engine")},
+                "exchanges": telemetry.counter_total("exchange_calls_total"),
+                "dispatches": {r: telemetry.counter_value("device_dispatch_total", route=r)
+                               for r in ("circuit", "segment", "item", "request", "block")}}
+
+    def replayed(fn, exe, want):
+        """The counts of ``fn()``, a replay of ``exe``'s graphs, with those
+        reset before it: the fused_run kernels of the graphs it replayed
+        (``graph_kernels``, which must be ``want``) and those the card's
+        trace shows (``traced``: some, and no more)."""
+        reset()
+        ran, res = _card_runs(fn)
+        c = counted()
+        c["graph_kernels"], c["traced"] = _graph_kernels(exe), ran["fused_run"]
+        _require(c["graph_kernels"] == want and 0 < c["traced"] <= want,
+                 f"compiled: a replay's graphs hold {c['graph_kernels']} fused_run kernels "
+                 f"(runs {want}), the card's trace shows {c['traced']}")
+        return c, res
+
+    def passes(fz):
+        return sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape)
+
+    def held(fn):
+        caps = fn.captures
+        return ([round(s, 4) for s, _ in caps], [round(b / 2 ** 20, 1) for _, b in caps])
+
+    def loop(fn, x, reps):
+        """``x = fn(x)`` reps times, timed on the card's clock; the
+        allocations made and the distinct buffers that held the state."""
+        box, ptrs = [x], set()
+
+        def step():
+            box[0] = fn(box[0])
+            ptrs.add(box[0].data_ptr())
+
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        ms = _clock_ms(step, reps)
+        made = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
+        return box[0], ms, made, len(ptrs)
+
+    # -- the main path, f32 and f64 -----------------------------------------
+    reps = 5
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        fz = plans[("main", dt)]
+        kp = passes(fz)
+        x0 = state(N_MAIN, dt, 101)
+        eager = fz.as_fn()
+        refs = [x0]  # refs[k]: the state after k eager applications
+        for _ in range(3):
+            refs.append(eager(refs[-1].clone()))
+        torch.cuda.synchronize()
+        ref_loop, eager_ms, _, _ = loop(eager, refs[3].clone(), reps)
+        rows = {}
+        routes = (("compiled", lambda: fz.compiled()),
+                  ("segments_24", lambda: fz.compiled_segments(max_items=24)),
+                  ("blocks_24", lambda: fz.compiled_blocks(24)),
+                  ("request", lambda: fz.compiled_request()))
+        for route, make in routes:
+            reset()
+            t0 = time.perf_counter()
+            fn = make()
+            a = fn(x0.clone())
+            first = counted()
+            first_s = time.perf_counter() - t0
+            _require(equal(a, refs[1]) and first["launches"] == kp and not fn.captures,
+                     f"compiled {name} {route}: first call (eager) {first['launches']} "
+                     f"launches, {len(fn.captures)} captures")
+            t0 = time.perf_counter()
+            for k in (2, 3):  # each buffer order's capture, then its replay
+                a = fn(a)
+                _require(equal(a, refs[k]), f"compiled {name} {route}: call {k} != eager")
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            ncaps = len(fn.captures)
+            a, ms, made, nbuf = loop(fn, a, reps)
+            _require(equal(a, ref_loop), f"compiled {name} {route}: timed loop != eager loop")
+            _require(made == 0 and nbuf <= 2 and len(fn.captures) == ncaps,
+                     f"compiled {name} {route}: the loop allocated {made} times over {nbuf} "
+                     f"buffers, {len(fn.captures) - ncaps} captures")
+            c, a = replayed(lambda: fn(a), fn, kp)  # one more replay, traced
+            _require(c["passes"] == kp and c["launches"] == 0 and c["fallbacks"] == 0
+                     and len(fn.captures) == ncaps,
+                     f"compiled {name} {route}: a replay's pallas_pass_total {c['passes']} "
+                     f"(runs {kp}), wrapper launches {c['launches']}")
+            caps_s, caps_mib = held(fn)
+            segs = getattr(fn, "num_segments", getattr(fn, "num_blocks", 1))
+            disp = {k: v for k, v in c["dispatches"].items() if v}
+            line(f"{name} {route}: {N_MAIN}q depth {DEPTH_MAIN}, {len(fz)} items, "
+                 f"{segs} {'blocks' if route.startswith('blocks') else 'segments'}; bit for bit "
+                 f"with the eager replay after 1-3 calls and the timed loop; first call eager {first_s:.3f} s, "
+                 f"launches {first['launches']} (= runs {kp}); calls 2-3 (captures) "
+                 f"{warm_s:.3f} s; a replay: its graph {c['graph_kernels']} fused_run kernels, the "
+                 f"card's trace {c['traced']}, wrapper launches {c['launches']}, pallas_pass_total "
+                 f"{c['passes']:g}, device_dispatch_total {disp}; captures {caps_s} s holding "
+                 f"{caps_mib} MiB; graph {ms:.4f} ms per circuit against eager {eager_ms:.4f} "
+                 f"ms ({eager_ms / ms:.3f}x); amps = fn(amps) x {reps}: {made} allocations, "
+                 f"{nbuf} state buffers")
+            rows[route] = {"launches": first["launches"], "graph_kernels": c["graph_kernels"],
+                           "traced": c["traced"],
+                           "dispatches": disp, "segments": segs, "first_call_s": first_s,
+                           "capture_calls_s": warm_s, "capture_s": caps_s,
+                           "capture_mib": caps_mib, "ms": ms, "eager_ms": eager_ms,
+                           "loop_allocations": made, "loop_buffers": nbuf}
+            del fn, a
+            _release()
+        # the request with its readout (no donation: the input stays)
+        reset()
+        fn = fz.compiled_request(donate=False, reduce=_marginal)
+        want = _marginal(refs[1])
+        got = fn(x0)
+        first = counted()
+        _require(torch.equal(got, want) and first["launches"] == kp,
+                 f"compiled {name} request+reduce: readout")
+        _require(torch.equal(fn(x0), want), f"compiled {name} request+reduce: capture")
+        c, got = replayed(lambda: fn(x0), fn, kp)
+        _require(torch.equal(got, want) and c["launches"] == 0
+                 and c["dispatches"]["request"] == 1, f"compiled {name} request+reduce: {c}")
+        ms = _clock_ms(lambda: fn(x0), reps)
+        line(f"{name} request+reduce: the top-4-qubit distribution, bit for bit; first call "
+             f"launches {first['launches']}; a replay: its graph {c['graph_kernels']} kernels, "
+             f"the card's trace {c['traced']}, "
+             f"device_dispatch_total{{request}} {c['dispatches']['request']:g}; {ms:.4f} ms "
+             f"per request (input copied in, no donation); captures {held(fn)[0]} s")
+        rows["request_reduce"] = {"launches": first["launches"],
+                                  "graph_kernels": c["graph_kernels"], "traced": c["traced"],
+                                  "ms": ms}
+        del fn
+        _release()
+        # Circuit.run on a register's own buffers
+        env = qt.createQuESTEnv(device=dev)
+        q = qt.createQureg(N_MAIN, env, 1 if dt == torch.float32 else 2)
+        q.amps.copy_(x0)
+        reset()
+        fz.run(q)
+        first = counted()
+        _require(torch.equal(q.amps, refs[1]) and first["launches"] == kp
+                 and not fz.compiled().captures, f"compiled {name} run: first call")
+        for k in (2, 3):
+            fz.run(q)
+            _require(torch.equal(q.amps, refs[k]), f"compiled {name} run: call {k}")
+        ptrs = set()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+        def run_once():
+            fz.run(q)
+            ptrs.add(q.amps.data_ptr())
+
+        ms = _clock_ms(run_once, reps)
+        made = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
+        _require(torch.equal(q.amps, ref_loop) and made == 0 and len(ptrs) <= 2,
+                 f"compiled {name} run: loop ({made} allocations)")
+        c, _ = replayed(lambda: fz.run(q), fz.compiled(), kp)  # one more replay, traced
+        _require(c["launches"] == 0
+                 and c["dispatches"]["circuit"] == 1, f"compiled {name} run: replay {c}")
+        line(f"{name} Circuit.run: bit for bit; first run eager, launches {first['launches']}, "
+             f"no capture; a replay: its graph {c['graph_kernels']} kernels, the card's trace "
+             f"{c['traced']}, "
+             f"device_dispatch_total{{circuit}} {c['dispatches']['circuit']:g}; {ms:.4f} ms "
+             f"per circuit against eager {eager_ms:.4f} ms; {made} allocations over "
+             f"{reps} runs, {len(ptrs)} state buffers (the register's amps and spare)")
+        rows["run"] = {"launches": first["launches"], "graph_kernels": c["graph_kernels"],
+                       "traced": c["traced"], "ms": ms,
+                       "eager_ms": eager_ms, "loop_allocations": made}
+        qt.destroyQureg(q)
+        del x0, refs, ref_loop
+        _release()
+        out[("main", dt)] = {"rows": rows, "passes": kp, "eager_ms": eager_ms}
+
+    # -- 20 qubits: host dispatch against device time ------------------------
+    c20 = qt.Circuit(20)
+    qt.random_layers(c20, 20, DEPTH_MAIN)
+    fz20 = c20.fused(max_qubits=5, pallas=True, dtype=torch.float32)
+    p20 = passes(fz20)
+    x0 = state(20, torch.float32, 103)
+    eager = fz20.as_fn()
+    fn = fz20.compiled()
+    reset()
+    a = fn(x0.clone())
+    first = counted()
+    _require(torch.equal(a, eager(x0.clone())) and first["launches"] == p20,
+             "compiled 20q: first call")
+    a = fn(fn(a))
+    c, a = replayed(lambda: fn(a), fn, p20)
+    _require(c["launches"] == 0, f"compiled 20q: a replay {c}")
+    reps20 = 100  # ~0.5-1 ms a circuit: enough reps to steady the host's share
+    _, eager20, _, _ = loop(eager, x0.clone(), reps20)
+    _, graph20, made, _ = loop(fn, a, reps20)
+    line(f"20q: random_layers(20, {DEPTH_MAIN}) f32, {len(fz20)} items, {p20} runs "
+         f"(a replay's graph {c['graph_kernels']}, the card's trace {c['traced']}): graph {graph20:.4f} ms per circuit "
+         f"against eager {eager20:.4f} ms ({eager20 / graph20:.2f}x); {made} allocations in "
+         f"the graph loop")
+    out["20q"] = {"ms": graph20, "eager_ms": eager20, "passes": p20,
+                  "launches": first["launches"], "graph_kernels": c["graph_kernels"],
+                  "traced": c["traced"]}
+    del fn, a, x0
+    _release()
+
+    # -- density r4 and the sharded main path: counts against eager ---------
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        for kind in ("density", "sharded"):
+            fz = plans[(kind, dt)]
+            if kind == "density":
+                x0 = state(2 * N_DENSITY, dt, 105)
+            else:
+                x0 = state(N_MAIN, dt, 107, shards=N_SHARDS)
+            reset()
+            ref = fz.as_fn()(clone(x0))
+            want = counted()
+            for route, make in (("compiled", fz.compiled), ("request", fz.compiled_request)):
+                fn = make(donate=False)  # the input stays: one graph for every call
+                reset()
+                a = fn(x0)
+                first = counted()
+                _require(equal(a, ref) and first["launches"] == want["launches"],
+                         f"compiled {name} {kind} {route}: first call")
+                _require(equal(fn(x0), ref), f"compiled {name} {kind} {route}: capture")
+                c, a = replayed(lambda: fn(x0), fn, want["launches"])
+                _require(equal(a, ref), f"compiled {name} {kind} {route}: replay")
+                same = {k: c[k] == want[k] for k in ("fallbacks", "channel_routes",
+                                                      "exchanges")}
+                same["kernels"] = c["launches"] == 0
+                _require(all(same.values()), f"compiled {name} {kind} {route}: counts {c} "
+                                             f"against eager {want}")
+                ms = _clock_ms(lambda: fn(x0), 3)
+                line(f"{name} {kind} {route}: bit for bit with the eager replay; a replay ran "
+                     f"its graph's {c['graph_kernels']} fused_run kernels (the card's trace "
+                     f"{c['traced']}; the eager run launched "
+                     f"{want['launches']}), engine_fallback_total {c['fallbacks']:g}, "
+                     f"channel_route_total {c['channel_routes']}, exchange_calls_total "
+                     f"{c['exchanges']:g} (all as the eager run's); {ms:.4f} ms per call "
+                     f"(the input copied in and the result out); captures {held(fn)[0]} s holding "
+                     f"{held(fn)[1]} MiB")
+                out[(kind, route, dt)] = {"launches": first["launches"],
+                                          "graph_kernels": c["graph_kernels"],
+                                          "traced": c["traced"], "ms": ms,
+                                          "exchanges": c["exchanges"]}
+                del fn, a
+                _release()
+            del x0, ref
+
+    # -- QFT and Trotter, f32: engine entries in the graph ------------------
+    for kind in ("qft", "trotter"):
+        fz = plans[(kind, torch.float32)]
+        x0 = state(N_MAIN, torch.float32, 109)
+        reset()
+        ref = fz.as_fn()(x0.clone())
+        want = counted()
+        fn = fz.compiled(donate=False)
+        fn(x0)
+        fn(x0)
+        c, a = replayed(lambda: fn(x0), fn, want["launches"])
+        err = float((a - ref).abs().max() / ref.abs().max())
+        _require(err <= 1e-5, f"compiled {kind}: {err} of the largest amplitude > 1e-5")
+        _require(c["dispatches"]["item"] == 0 and c["fallbacks"] == 0,
+                 f"compiled {kind}: item dispatches {c['dispatches']['item']}")
+        _require(c["launches"] == 0, f"compiled {kind}: a replay moved the launch count")
+        line(f"float32 {kind}: {len(fz)} items, a replay ran its graph's {c['graph_kernels']} "
+             f"fused_run kernels (the card's trace {c['traced']}; the eager run launched {want['launches']}), item dispatches "
+             f"{c['dispatches']['item']:g}; against the eager run {err:.3e} of the largest "
+             f"amplitude (limit 1e-5); captures {held(fn)[0]} s holding {held(fn)[1]} MiB")
+        out[kind] = {"launches": want["launches"], "graph_kernels": c["graph_kernels"],
+                     "traced": c["traced"],
+                     "max_rel_err": err}
+        del fn, a, ref, x0
+        _release()
+
+    # -- the parameter sweep -------------------------------------------------
+    n, depth, nvec = SWEEP
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = str(dt)[6:]
+        env = qt.createQuESTEnv(device=dev)
+        prec = 1 if dt == torch.float32 else 2
+        amps0 = qt.createQureg(n, env, prec).amps
+        circ = qt.serving_ansatz(n, depth)
+        names = circ.param_names
+        rng = np.random.RandomState(113)
+        vecs = [dict(zip(names, rng.uniform(0, 2 * np.pi, len(names)))) for _ in range(nvec)]
+        reset()
+        exe = circ.parameterized(donate=False)
+        walls, errs = [], []
+        for i, v in enumerate(vecs):
+            t0 = time.perf_counter()
+            got = exe(amps0, v)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 1:
+                traces = telemetry.counter_value("engine_trace_total", kind="param_replay")
+            want = qt.serving_ansatz(n, depth, v).as_fn()(amps0.clone())
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        _require(max(errs) <= tol, f"compiled {name} sweep: {max(errs)} > {tol}")
+        _require(traces == 2 and len(exe.captures) == 1,
+                 f"compiled {name} sweep: {traces:g} builds after two calls (the warm-up run "
+                 f"and one capture expected), {len(exe.captures)} captures")
+        moved = telemetry.counter_value("engine_trace_total", kind="param_replay") - traces
+        _require(moved == 0, f"compiled {name} sweep: {moved} captures after the second call")
+        h0 = telemetry.counter_value("plan_cache_hit_total", cache="executable")
+        twin_exe = qt.serving_ansatz(n, depth).parameterized(donate=False)
+        hits = telemetry.counter_value("plan_cache_hit_total", cache="executable") - h0
+        _require(hits == 1 and twin_exe._fn is exe._fn,
+                 f"compiled {name} sweep: a structure-equal circuit missed the cache")
+        _require(torch.equal(twin_exe(amps0, vecs[0]), exe(amps0, vecs[0])),
+                 f"compiled {name} sweep: the shared executable")
+        _require(telemetry.counter_value("engine_trace_total", kind="param_replay") == traces,
+                 f"compiled {name} sweep: the shared executable captured again")
+        graph = next(iter(exe._fn._exe.program.pieces[0].graphs.values())).graph
+        replay_ms = _cuda_ms(graph.replay, 5)
+        request_ms = _clock_ms(lambda: exe(amps0, vecs[1]), 5)
+        line(f"{name} sweep: serving_ansatz({n}, {depth}), {len(names)} Params, {len(circ)} "
+             f"entries; {nvec} value vectors against the concrete twin run eagerly: largest "
+             f"{max(errs):.3e} of the largest amplitude (limit {tol:g}); "
+             f"engine_trace_total{{param_replay}} {traces:g} after two calls (the first "
+             f"call's eager build, the second's capture), moved {moved:g} after; a "
+             f"structure-equal circuit: plan_cache_hit_total +{hits:g}, the same executable; "
+             f"captures {held(exe)[0]} s holding {held(exe)[1]} MiB; first call "
+             f"{walls[0]:.3f} s, second (capture) {walls[1]:.3f} s, then "
+             f"{np.mean(walls[2:]) * 1e3:.3f} ms a request on the host's clock; graph replay "
+             f"{replay_ms:.4f} ms, request {request_ms:.4f} ms on the card's clock")
+        out[("sweep", dt)] = {"params": len(names), "max_rel_err": max(errs),
+                              "first_call_s": walls[0], "capture_call_s": walls[1],
+                              "request_ms": request_ms, "replay_ms": replay_ms,
+                              "captures": held(exe)}
+        del exe, twin_exe, amps0
+        _release()
+
+    # -- many distinct circuits through Circuit.run: memory held ------------
+    from quest_tpu_torch.engine import executables
+
+    env = qt.createQuESTEnv(device=dev)
+    q = qt.createQureg(MANY[0], env, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = []
+    for i in range(MANY[2]):
+        c = qt.Circuit(MANY[0])
+        qt.random_layers(c, MANY[0], MANY[1], seed=1000 + i)  # per-gate engine entries
+        qt.initZeroState(q)
+        c.run(q)
+        if i == 0:
+            _require(not c.compiled().captures, "compiled: a run made once captured")
+        c.run(q)
+        c.run(q)
+        _require(len(executables()) == 1 and c.compiled().captures,
+                 f"compiled: circuit {i} holds {len(executables())} executables")
+        del c  # its executables leave the cache with it
+        _require(len(executables()) == 0, f"compiled: circuit {i} left its executable")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    grew = max(reserved) - reserved[0]
+    state_bytes = q.amps.numel() * q.amps.element_size()
+    _require(grew <= state_bytes, f"compiled: reserved memory grew {grew} bytes over "
+                                  f"{MANY[2]} distinct circuits")
+    line(f"many circuits: {MANY[2]} distinct random_layers({MANY[0]}, {MANY[1]}) tapes "
+         f"(per-gate engine entries), each run three times through Circuit.run (eager, "
+         f"then the captures of both buffer orders) and dropped: memory_reserved "
+         f"{reserved[0] / 2 ** 20:.1f} .. {max(reserved) / 2 ** 20:.1f} MiB (grew "
+         f"{grew / 2 ** 20:.1f} MiB, limit one state, {state_bytes / 2 ** 20:.1f} MiB); a "
+         f"run made once captured nothing")
+    out["many"] = {"reserved_mib": [r / 2 ** 20 for r in reserved]}
+    qt.destroyQureg(q)
+    _release()
     out["phase_s"] = time.perf_counter() - t_phase
     line(f"phase: {out['phase_s']:.1f} s")
     return out
@@ -2926,8 +3507,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     reps = 5
-    fz.run(q)
-    torch.cuda.synchronize()
+    _warm_run(fz, q)
     t0 = time.perf_counter()
     for _ in range(reps):
         fz.run(q)
@@ -2952,7 +3532,7 @@ def main() -> int:
           f"{sum(main['plain_ms']) / npass:.2f} ms mean")
     q.spare = None  # the final state stays for the readout phase
     del y
-    torch.cuda.empty_cache()
+    _release()
 
     # -- lane_u phase: one-op passes of the tensor-core folds, f32 and f64 -
     # (the f64 passes draw from a generator of their own, so the later
@@ -2966,6 +3546,7 @@ def main() -> int:
                    for ddt, r in ((torch.float32, runs), (torch.float64, runs64))}
     # -- main path f64: the same circuit planned at f64 on one device -----
     main64 = _main_path_f64(qt, env, circ, fz64, dev)
+    _release()
 
     # -- density path: the channel circuits, f32 then f64 ------------------
     density, kraus_alone = {}, {}
@@ -2973,16 +3554,20 @@ def main() -> int:
         for tag, with_krausn in (("r3", False), ("r4", True)):
             density[(ddt, tag)] = _density_path(qt, env, ddt, with_krausn, rng, dev)
         kraus_alone[ddt] = _kraus_ops_at_width(ddt, dev, rng)
-        torch.cuda.empty_cache()
+        _release()
 
     # -- window phase: window_dot's entry point, f32 and f64 ---------------
     window = _window_phase(dev, rng)
 
     # -- gate-surface phase: every tapeable gate and operator, f32 ---------
     surface = _gate_surface_path(qt, env, dev, rng)
+    _release()
 
     # -- sharded phase: the main path's circuit over 4 shards, f32 and f64 -
-    sharded = {ddt: _sharded_path(qt, dev, rng, ddt) for ddt in (torch.float32, torch.float64)}
+    sharded = {}
+    for ddt in (torch.float32, torch.float64):
+        sharded[ddt] = _sharded_path(qt, dev, rng, ddt)
+        _release()
 
     # -- readout phase: the readouts on the states the phases above made ---
     kept = ({torch.float32: q, torch.float64: main64.pop("qureg")},
@@ -2998,6 +3583,16 @@ def main() -> int:
 
     # -- operators phase: the operators slice on the main path's states ----
     operators = _operators_phase(qt, dev, kept[0])
+    _release()
+
+    # -- compiled phase: the compiled routes as CUDA-graph replays ---------
+    plans = {("main", torch.float32): fz, ("main", torch.float64): fz64}
+    for ddt in (torch.float32, torch.float64):
+        plans[("density", ddt)] = density[(ddt, "r4")]["plan"]
+        plans[("sharded", ddt)] = sharded[ddt]["plan"]
+    for k in ("qft", "trotter"):
+        plans[(k, torch.float32)] = operators[(f"{k}_plan", torch.float32)]
+    compiled = _compiled_phase(qt, dev, plans)
 
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
@@ -3050,14 +3645,69 @@ def main() -> int:
             "launches": r["launches"], "runs": r["runs"], "passes": len(r["ms"]),
             "ms": sum(r["ms"]) / len(r["ms"]), "bound_ms": sum(r["bound_ms"]) / len(r["ms"]),
             "plain_ms": sum(r["plain_ms"]) / len(r["ms"]), "fused_ms": r["fused_ms"],
-            "eager_ms": r["eager_ms"], "max_abs_err": r["max_abs_err"]}
+            "eager_ms": r["eager_ms"], "max_abs_err": r["max_abs_err"],
+            "graph_kernels": r.get("graph_kernels"), "traced_runs": r.get("traced")}
             for kind, r in ((kind, operators[(kind, ddt)]) for kind in ("qft", "trotter"))}
         e["operators_paths"]["qft"]["yardstick_fft_ms"] = operators[("qft", ddt)]["fft_ms"]
+    # the compiled phase's routes, each driven with the counts reset: the
+    # wrapper's launches in the route's first (eager) call, the fused_run
+    # kernel nodes of the graphs one replay launches and those the card's
+    # trace showed, its ms
+    # per circuit beside the eager replay's, and the per-pass bound and
+    # plain ms of the same runs
+    def replays(e, r):
+        for k, v in (("graph_kernels", r["graph_kernels"]), ("traced_runs", r["traced"])):
+            e[k] = e.get(k, 0) + v
+
+    for e, ddt, base, shard_e in ((entries[0], torch.float32, main, entries[4]),
+                                  (entries[1], torch.float64, main64, entries[5])):
+        rows = compiled[("main", ddt)]["rows"]
+        npass = compiled[("main", ddt)]["passes"]
+        for route, r in rows.items():
+            e["paths"][f"compiled_{route}_26q_depth8"] = {
+                "launches": r["launches"], "graph_kernels": r["graph_kernels"],
+                "traced_runs": r["traced"],
+                "passes": npass, "ms": r["ms"] / npass,
+                "circuit_ms": r["ms"], "eager_circuit_ms": r.get("eager_ms"),
+                "bound_ms": sum(base["bound_ms"]) / len(base["bound_ms"]),
+                "plain_ms": sum(base["plain_ms"]) / len(base["plain_ms"])}
+            e["launches"] += r["launches"]
+            replays(e, r)
+        for route in ("compiled", "request"):
+            d = compiled[("density", route, ddt)]
+            e["paths"][f"compiled_{route}_density_14q_r4"] = {
+                "launches": d["launches"], "graph_kernels": d["graph_kernels"],
+                "traced_runs": d["traced"],
+                "call_ms": d["ms"]}
+            e["launches"] += d["launches"]
+            replays(e, d)
+            sh = compiled[("sharded", route, ddt)]
+            shard_e.setdefault("compiled_paths", {})[f"compiled_{route}_26q_depth8"] = {
+                "launches": sh["launches"], "graph_kernels": sh["graph_kernels"],
+                "traced_runs": sh["traced"],
+                "call_ms": sh["ms"], "exchange_calls": sh["exchanges"]}
+            shard_e["launches"] += sh["launches"]
+            replays(shard_e, sh)
+        e["compiled_sweep"] = compiled[("sweep", ddt)]
+    entries[0]["launches"] += compiled["20q"]["launches"]
+    replays(entries[0], compiled["20q"])
+    entries[0]["paths"]["compiled_20q_depth8"] = {
+        "launches": compiled["20q"]["launches"],
+        "graph_kernels": compiled["20q"]["graph_kernels"],
+        "traced_runs": compiled["20q"]["traced"], "passes": compiled["20q"]["passes"],
+        "circuit_ms": compiled["20q"]["ms"], "eager_circuit_ms": compiled["20q"]["eager_ms"]}
+    for k in ("qft", "trotter"):
+        # their launches are the eager run's, counted in the operators phase
+        entries[0]["operators_paths"][k]["compiled"] = compiled[k]
+        replays(entries[0], compiled[k])
+    entries[0]["compiled_many_circuits"] = compiled["many"]
     print("# kernels: " + json.dumps({e["name"]: {
-        "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+        "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
+        "traced_runs": e.get("traced_runs", 0),
+        "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all (operators phase "
-          f"{operators['phase_s']:.1f} s)")
+          f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -9,18 +9,23 @@ execute on the card through the hand-written CUDA kernel
 ``csrc/fused_gates.cu``, in float32 and float64; a dense unitary on a
 contiguous qubit window through ``csrc/window_dot.cu``
 (``ops.window_dot``). Every function of the reference's API surface that
-``quest_tpu`` exports is here.
+``quest_tpu`` exports is here. ``Circuit.run`` and the compiled routes
+(``compiled``, ``compiled_segments``, ``compiled_blocks``,
+``compiled_request``, ``parameterized`` with :class:`Param` values) run a
+tape on the card as CUDA-graph replays (``_capture``).
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
 
 from .calculations import *  # noqa: F401,F403
 from .calculations import __all__ as _calculations_all
-from .circuits import Circuit, density_circuit, random_layers
+from . import engine
+from .circuits import Circuit, density_circuit, random_layers, serving_ansatz
 from .datatypes import *  # noqa: F401,F403
 from .datatypes import __all__ as _datatypes_all
 from .decoherence import *  # noqa: F401,F403
 from .decoherence import __all__ as _decoherence_all
+from .engine import P, Param
 from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
                           getEnvironmentString, getQuESTSeeds, reportQuESTEnv,
                           seedQuEST, seedQuESTDefault, syncQuESTEnv,
@@ -48,6 +53,7 @@ __all__ = [
     "copySubstateToGPU", "copySubstateFromGPU",
     *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
     *_decoherence_all, *_calculations_all, *_reporting_all,
-    "Circuit", "random_layers", "density_circuit", "QuESTError",
+    "Circuit", "random_layers", "density_circuit", "serving_ansatz", "engine", "P",
+    "Param", "QuESTError",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
 ]

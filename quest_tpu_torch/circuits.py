@@ -1,22 +1,36 @@
-"""Circuit: a recorded gate tape, replayed eagerly or planned into fused
-gate runs.
+"""Circuit: a recorded gate tape, replayed eagerly, planned into fused
+gate runs, or run as compiled programs.
 
 Record the L5 API calls (same names and argument order as ``QuEST.h``,
 without the leading register) on a tape, then ``run`` it on a register.
 ``fused`` plans the tape (``fusion.plan``) into passes of the fused
 gate-run kernel: ``Circuit(n)...fused(pallas=True).run(qureg)`` is the
 main path, and ``Circuit(n, is_density_matrix=True)`` records gates and
-decoherence channels for a density register. There is no ``jit``: replay
-is a Python loop over the tape.
+decoherence channels for a density register.
+
+The JAX package runs a tape as one jitted XLA program (``compiled``); the
+port's counterpart is a CUDA graph of the eager replay (``_capture``):
+``run`` dispatches through ``compiled()``, which on the card runs the
+replay eagerly at its first call, captures it at the first later call on
+each buffer pair and replays the graph after that, and on the CPU is the
+cached eager replay. A tape revision's executables leave the cache, and
+free what they hold on the card, when the tape changes or the Circuit is
+collected. ``compiled_segments``, ``compiled_blocks`` and
+``compiled_request`` split or compose it as the JAX package's routes do
+(``segments``), and ``parameterized`` makes the tape's angles runtime
+values (``engine.params``) that one captured replay reads from a device
+buffer. ``as_fn`` stays the plain eager replay.
 """
 
 from __future__ import annotations
 
 import importlib
 import inspect
+import weakref
 
 import numpy as np
 
+from . import telemetry
 from .registers import Qureg
 
 #: modules whose functions can be recorded on a tape
@@ -48,6 +62,39 @@ def _tape_compatible(fn) -> bool:
     return is_qureg(params[0]) and not any(is_qureg(p) for p in params[1:])
 
 
+#: modules whose tape entries a CUDA graph can hold: they copy nothing
+#: from the host at replay (host constants go through
+#: ``_capture.to_device``) and read nothing back
+_CAPTURE_SAFE_MODULES = ("quest_tpu_torch.gates", "quest_tpu_torch.decoherence",
+                         "quest_tpu_torch.operators", "quest_tpu_torch.state_init")
+
+#: entries of those modules that a graph cannot hold: measurement and
+#: collapse draw or test a probability on the host; ``applyDiagonalOp``
+#: reads the DiagonalOp's device tensor, which ``initDiagonalOp`` and
+#: ``setDiagonalOpElems`` rebind, so a graph would go on reading the old
+#: buffer
+_HOST_BOUND_NAMES = {
+    "measure", "measureWithStats", "collapseToOutcome", "applyDiagonalOp",
+}
+
+
+def _capture_safe(f) -> bool:
+    """True if tape entry ``f`` may run inside a captured replay (the
+    port's counterpart of the JAX package's ``_defer_safe`` registry). The
+    fused plan's executors and the gate, channel, operator and init
+    entries are; a host-bound entry (:data:`_HOST_BOUND_NAMES`, or any
+    function of another module, such as a user's) runs eagerly as an item
+    of its own between the captured pieces (``segments.segment_cuts``)."""
+    from . import fusion
+
+    if f in (fusion._apply_pallas_run, fusion._apply_frame_swap,
+             fusion._apply_dense_block):
+        return True
+    if getattr(f, "__module__", None) in _CAPTURE_SAFE_MODULES:
+        return getattr(f, "__name__", "") not in _HOST_BOUND_NAMES
+    return False
+
+
 def _resolve(name):
     for mod_name in _TAPEABLE_MODULES:
         mod = importlib.import_module(f".{mod_name}", __package__)
@@ -63,6 +110,13 @@ def _resolve(name):
         f"(measurement and calc* functions must run eagerly)")
 
 
+def _drop_revision(token) -> None:
+    """Close and drop every cached executable keyed on one tape revision."""
+    from .engine import cache as _ec
+    _ec.executables().discard(
+        lambda k: isinstance(k, tuple) and len(k) > 1 and k[1] is token)
+
+
 class Circuit:
     """Deferred-execution circuit over ``num_qubits`` qubits::
 
@@ -76,6 +130,14 @@ class Circuit:
         self.num_qubits = int(num_qubits)
         self.is_density_matrix = bool(is_density_matrix)
         self._tape: list = []
+        # identity of this tape revision: executable-cache keys carry it, so
+        # appending invalidates them (the executables live in the bounded
+        # process-global LRU, engine.cache.executables(), and leave it with
+        # the revision: _exec_token)
+        self._cache_token = object()
+        self._token_final = None
+        self._lifted_cache = None
+        self._fp_cache = None
 
     # -- recording ----------------------------------------------------------
 
@@ -93,6 +155,12 @@ class Circuit:
     def append(self, fn, *args, **kwargs) -> "Circuit":
         """Record ``fn(qureg, *args, **kwargs)`` on the tape."""
         self._tape.append((fn, args, kwargs))
+        if self._token_final is not None:
+            self._token_final()  # the old revision's executables go
+            self._token_final = None
+        self._cache_token = object()
+        self._lifted_cache = None
+        self._fp_cache = None
         return self
 
     def __len__(self) -> int:
@@ -100,19 +168,155 @@ class Circuit:
 
     # -- execution ----------------------------------------------------------
 
+    def _exec_token(self):
+        """The executable-cache token of this tape revision. The executables
+        keyed on it are closed and dropped (their graphs, memory pools and
+        buffers freed) when the tape changes or the Circuit is collected."""
+        if self._token_final is None:
+            self._token_final = weakref.finalize(self, _drop_revision, self._cache_token)
+            self._token_final.atexit = False
+        return self._cache_token
+
     def as_fn(self):
-        """Function amps -> amps replaying the tape on a bare register
-        around the given planar tensor."""
-        tape = tuple(self._tape)
+        """Function amps -> amps replaying the tape eagerly on a bare
+        register around the given planar tensor (which a pass may update in
+        place)."""
+        return self._replay_fn(None)
+
+    def _replay_body(self, lifted, lo: int = 0, hi: int | None = None):
+        """``body(shell, values=None)`` applying ``tape[lo:hi]`` to a shell
+        register; with a lifted tape (``engine.params.LiftedTape``) the
+        body substitutes the bound values into the slotted entries first,
+        so gate matrices assemble on the device from them. Slicing
+        composes with plain replay only (lifted entries index the whole
+        tape)."""
+        if lifted is not None and (lo != 0 or hi is not None):
+            raise ValueError("sliced replay requires lifted=None")
+        tape = tuple(self._tape[lo:hi])
+        entries = tuple(lifted.entries) if lifted is not None else None
+
+        def body(shell, values=None):
+            if entries is None:
+                steps = tape
+            else:
+                from .engine.params import materialize_entry
+                steps = [materialize_entry(e, values) for e in entries]
+            for f, args, kwargs in steps:
+                f(shell, *args, **kwargs)
+
+        return body
+
+    def _replay_fn(self, lifted, lo: int = 0, hi: int | None = None):
+        """The eager replay as ``fn(amps, values=None) -> amps`` (a state
+        tensor or a sharded state's list of shards), the JAX package's
+        replay body; ``as_fn`` is ``_replay_fn(None)``."""
+        body = self._replay_body(lifted, lo, hi)
         n, is_density = self.num_qubits, self.is_density_matrix
 
-        def fn(amps):
+        def fn(amps, values=None):
+            if isinstance(amps, (list, tuple)):
+                shell = Qureg(n, is_density, None, env=None, shards=list(amps))
+                body(shell, values)
+                return list(shell.shards)
             shell = Qureg(n, is_density, amps, env=None)
-            for f, args, kwargs in tape:
-                f(shell, *args, **kwargs)
+            body(shell, values)
             return shell.amps
 
         return fn
+
+    def _replay(self, lo: int, hi: int, *, eager_only: bool = False,
+                route: str | None = None):
+        """``tape[lo:hi]`` as one piece of a compiled program."""
+        from ._capture import Replay
+        return Replay(self._replay_body(None, lo, hi), self.num_qubits,
+                      self.is_density_matrix, eager_only=eager_only, route=route)
+
+    def compiled(self, donate: bool = True):
+        """The tape as one compiled executable ``fn(amps) -> amps``
+        (``_capture.Executable``): on the card the eager replay at its
+        first call, then a CUDA graph of it, captured at the first later
+        call on each pair of buffers and replayed after; on the CPU the
+        eager replay. ``amps`` is a planar state, or a sharded state's list
+        of shard tensors. A host-bound entry (``_capture_safe``) splits the
+        program, and runs eagerly between its pieces as the item route.
+        Cached in the process-global bounded LRU
+        (``engine.cache.executables()``), keyed on the tape revision."""
+        from . import segments
+        from ._capture import Executable, Program
+        from .engine import cache as _ec
+        key = ("circuit", self._exec_token(), donate)
+
+        def build():
+            return Executable(Program([(None, segments._pieces(self, 0, len(self._tape)))]),
+                              donate)
+
+        return _ec.executables().get_or_create(key, build)
+
+    # -- parameterized execution -------------------------------------------
+
+    def lifted(self):
+        """This tape's :class:`~quest_tpu_torch.engine.params.LiftedTape`
+        (value slots factored out of Params AND constant angles/Complex
+        scalars), memoized per tape revision."""
+        from .engine import params as _prm
+        tok = self._cache_token
+        if self._lifted_cache is None or self._lifted_cache[0] is not tok:
+            self._lifted_cache = (tok, _prm.lift_tape(tuple(self._tape)))
+        return self._lifted_cache[1]
+
+    @property
+    def param_names(self) -> tuple:
+        """Ordered unique :class:`~quest_tpu_torch.engine.params.Param`
+        names recorded on the tape."""
+        return self.lifted().param_names
+
+    def fingerprint(self) -> str:
+        """Structure fingerprint of the tape (gate names, targets/controls,
+        value-slot kinds -- never the lifted values): the executable-cache
+        key under which structure-equal circuits share one executable
+        (``engine.cache.structure_fingerprint``)."""
+        from .engine import cache as _ec
+        tok = self._cache_token
+        if self._fp_cache is None or self._fp_cache[0] is not tok:
+            self._fp_cache = (tok, _ec.structure_fingerprint(
+                self._tape, self.num_qubits, self.is_density_matrix))
+        return self._fp_cache[1]
+
+    def parameterized(self, donate: bool = True, reduce=None):
+        """The tape as ONE compiled executable whose lifted values (Params
+        and constant angles/Complex scalars) are runtime values: a
+        :class:`~quest_tpu_torch.engine.params.ParamExecutable` called as
+        ``exe(amps, {"theta": 0.3})``. On the card the graph reads the
+        values from a device buffer that each call loads, so new values
+        never capture again; gate matrices assemble from them on the
+        device (``matrices``' tensor branches), also between the static
+        kernel runs of a fused plan.
+
+        ``reduce``: an optional terminal stage composed into the program
+        -- the executable returns ``reduce(final_amps)`` (with
+        ``reduce.wants_values``, ``reduce(final_amps, values)``) instead
+        of the amplitudes. It is part of the cache key.
+
+        Cached in the global LRU keyed by the structure fingerprint: two
+        structure-equal circuits -- same ansatz, different recorded angles
+        -- share one executable (``plan_cache_hit_total``). Every entry
+        must be capturable (``_capture_safe``)."""
+        from .engine import cache as _ec
+        from .engine.params import ParamExecutable
+        from .validation import QuESTError
+        bad = sorted({getattr(f, "__name__", repr(f)) for f, _a, _kw in self._tape
+                      if not _capture_safe(f)})
+        if bad:
+            raise QuESTError(f"parameterized replays the tape as one program, and "
+                             f"{bad} cannot be captured into it", "parameterized")
+        lifted = self.lifted()
+        fp = self.fingerprint()
+        key = ("param", fp, donate, reduce)
+
+        def build():
+            return _ParamFn(self, lifted, donate, reduce)
+
+        return ParamExecutable(_ec.executables().get_or_create(key, build), lifted, fp)
 
     def fused(self, max_qubits: int = 5, dtype=None, pallas: bool = False,
               tile_bits: int | None = None,
@@ -159,21 +363,126 @@ class Circuit:
             p = fusion.plan(tuple(self._tape), self.num_qubits, dt,
                             max_qubits=max_qubits, pallas_tile_bits=tb,
                             is_density=self.is_density_matrix)
+        # stamp each frame-carrying item with its frame-identity segment
+        # (the seams of the segment programs), as the JAX package does
+        from . import segments as _segments
+        _segments.stamp_plan(p, (2 if self.is_density_matrix else 1) * self.num_qubits)
         out = Circuit(self.num_qubits, self.is_density_matrix)
         out._tape = fusion.as_tape(p)
         return out
 
+    def blocks(self, max_gates: int) -> list:
+        """Split the tape into sub-circuits of at most ``max_gates`` gates."""
+        if max_gates < 1:
+            raise ValueError("max_gates must be >= 1")
+        parts = []
+        for i in range(0, len(self._tape), max_gates):
+            part = Circuit(self.num_qubits, self.is_density_matrix)
+            part._tape = list(self._tape[i:i + max_gates])
+            parts.append(part)
+        return parts
+
+    def compiled_blocks(self, max_gates: int, donate: bool = True):
+        """Like :meth:`compiled`, but as a chain of block-sized programs
+        sharing one spare buffer; each block's launch counts
+        ``device_dispatch_total{route="block"}``. Cached like
+        :meth:`compiled`."""
+        from . import segments
+        from ._capture import Executable, Program
+        from .engine import cache as _ec
+        key = ("circuit_blocks", self._exec_token(), max_gates, donate)
+
+        def build():
+            groups = [("block", segments._pieces(b, 0, len(b)))
+                      for b in self.blocks(max_gates)]
+            exe = Executable(Program(groups), donate)
+            exe.num_blocks = len(groups)
+            return exe
+
+        return _ec.executables().get_or_create(key, build)
+
+    def compiled_segments(self, max_items: int | None = None, donate: bool = True):
+        """The tape as a chain of frame-identity-aligned segment programs
+        (:mod:`quest_tpu_torch.segments`): each segment is ONE dispatch
+        covering up to ``max_items`` tape entries, cut only at
+        frame-identity seams (``max_items=None`` = the whole tape as one
+        program). The chain exposes its link count as ``.num_segments``;
+        every link launch counts ``device_dispatch_total{route="segment"}``."""
+        from . import segments
+        return segments.chain_executable(self, max_items=max_items, donate=donate)
+
+    def compiled_request(self, donate: bool = True, reduce=None):
+        """The WHOLE request -- every frame-identity segment plus an optional
+        terminal ``reduce(amps)`` -- composed into ONE dispatched program
+        (:func:`quest_tpu_torch.segments.request_executable`): one
+        ``device_dispatch_total{route="request"}`` per call, however many
+        segments (``.num_segments``) were composed."""
+        from . import segments
+        return segments.request_executable(self, donate=donate, reduce=reduce)
+
     def run(self, qureg: Qureg) -> Qureg:
         """Apply the circuit to ``qureg`` (mutates it, like the C API),
-        sharded or not: each entry takes the register's route."""
+        sharded or not: the tape dispatches through :meth:`compiled` on the
+        register's own buffers (its state and spare), counted as
+        ``device_dispatch_total{route="circuit"}``, as the JAX package
+        counts it. Each entry takes the register's route."""
         if qureg.num_qubits_represented != self.num_qubits or \
            qureg.is_density_matrix != self.is_density_matrix:
             raise ValueError(
                 f"Circuit({self.num_qubits}q, density={self.is_density_matrix}) "
                 f"cannot run on {qureg!r}")
-        for f, args, kwargs in self._tape:
-            f(qureg, *args, **kwargs)
+        telemetry.inc("device_dispatch_total", route="circuit")
+        self.compiled().run_register(qureg)
         return qureg
+
+
+class _ParamFn:
+    """The shared body of :meth:`Circuit.parameterized`: one compiled
+    program that reads its values from a :class:`BoundValues` it owns (on
+    the state's device); each call loads the caller's values into it, so
+    the program's graphs read the new values at their fixed address.
+    ``engine_trace_total{kind=param_replay}`` counts each build of the
+    replay: its eager run and every capture."""
+
+    def __init__(self, circuit, lifted, donate: bool, reduce):
+        from ._capture import Executable, Program, Replay
+        self._values = None
+        self._reduce = reduce
+        self._body = circuit._replay_body(lifted)
+        piece = Replay(self._run, circuit.num_qubits, circuit.is_density_matrix,
+                       on_build=lambda: telemetry.inc("engine_trace_total",
+                                                      kind="param_replay"))
+        self._exe = Executable(Program([(None, [piece])]), donate,
+                               returns_state=reduce is None)
+
+    @property
+    def captures(self) -> list:
+        return self._exe.captures
+
+    def close(self) -> None:
+        self._exe.close()
+        self._values = None
+
+    def _run(self, shell):
+        self._body(shell, self._values)
+        if self._reduce is None:
+            return None
+        amps = shell.amps if shell.shards is None else list(shell.shards)
+        if getattr(self._reduce, "wants_values", False):
+            return self._reduce(amps, self._values)
+        return self._reduce(amps)
+
+    def __call__(self, amps, values):
+        first = amps[0] if isinstance(amps, (list, tuple)) else amps
+        have = self._values
+        if (have is None or have.index != values.index
+                or have.device != first.device):
+            if have is not None:
+                self._exe.close()  # the graphs read the old buffers
+            self._values = values.to(first.device).clone()
+        else:
+            have.copy_(values)
+        return self._exe(amps)
 
 
 def random_layers(circ, num_qubits: int, depth: int, seed: int = 2026):
@@ -196,6 +505,29 @@ def random_layers(circ, num_qubits: int, depth: int, seed: int = 2026):
         for q in range(layer % 2, num_qubits - 1, 2):
             circ.controlledNot(q, q + 1)
         circ.controlledPhaseFlip(0, num_qubits - 1)
+
+
+def serving_ansatz(n: int, depth: int, values: dict | None = None) -> Circuit:
+    """The bench's VQE-style serving ansatz (``bench.py::serving_ansatz``):
+    per layer rotateZ and rotateX on every qubit, a CNOT ladder and
+    CZ(0, n-1). By default every rotation is a runtime
+    :class:`~quest_tpu_torch.engine.params.Param` (``a{layer}_{q}``,
+    ``b{layer}_{q}``); ``values`` (name -> float) bakes the angles in
+    instead, giving the concrete structure-identical twin."""
+    from .engine.params import P
+
+    def angle(name):
+        return P(name) if values is None else float(values[name])
+
+    circ = Circuit(n)
+    for layer in range(depth):
+        for q in range(n):
+            circ.rotateZ(q, angle(f"a{layer}_{q}"))
+            circ.rotateX(q, angle(f"b{layer}_{q}"))
+        for q in range(layer % 2, n - 1, 2):
+            circ.controlledNot(q, q + 1)
+        circ.controlledPhaseFlip(0, n - 1)
+    return circ
 
 
 def density_circuit(num_qubits: int, with_krausn: bool) -> Circuit:

@@ -29,8 +29,15 @@ def _record(qureg, text):
 
 
 def _channel(qureg, superop, targets):
-    qureg.put(DN.apply_channel(qureg.amps, superop, n=qureg.num_qubits_represented,
-                               targets=tuple(targets)))
+    """The channel on the register; the kernel route writes into its spare
+    buffer, which then becomes the state, as a fused run with a folded swap
+    does (so a compiled replay leaves no state in its graph's pool)."""
+    out = DN.apply_channel(qureg.amps, superop, n=qureg.num_qubits_represented,
+                           targets=tuple(targets), out=qureg.spare_buffer())
+    if out is qureg.spare:
+        qureg.swap_spare()
+    else:
+        qureg.put(out)
 
 
 def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:

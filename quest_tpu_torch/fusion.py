@@ -103,6 +103,12 @@ class _SpyQureg:
     def put(self, amps):  # swapGate's inline path calls this with the token
         self.amps = amps
 
+    #: no out-of-place buffer: a channel's kernel route is not run here
+    spare = None
+
+    def spare_buffer(self):
+        return None
+
 
 @contextlib.contextmanager
 def _channel_capture_ctx(events: list):
@@ -111,7 +117,7 @@ def _channel_capture_ctx(events: list):
     diagonals (``_diag_dispatch``, flattened 2n coordinates)."""
     from .ops import density as DN
 
-    def cap_channel(amps, superop, *, n, targets):
+    def cap_channel(amps, superop, *, n, targets, out=None):
         events.append(GateEvent(
             "channel", tuple(targets),
             superop=np.asarray(superop, dtype=complex), extended=True))
@@ -171,6 +177,18 @@ def _capture_ctx(events: list):
     finally:
         (G._apply_gate_matrix, G._apply_gate_diag, G._apply_gate_x,
          G._apply_gate_parity_phase, K.apply_swap) = saved
+
+
+def _entry_has_params(args, kwargs) -> bool:
+    """True when a tape entry carries ``engine.params.Param`` placeholders:
+    the planner never spy-captures it (there is no concrete matrix to fuse
+    at plan time) -- the entry passes through as a barrier whose matrix is
+    assembled from the runtime values at replay, so the plan's structure
+    stays value-independent and one captured replay serves every
+    parameter vector."""
+    from .engine.params import has_params
+
+    return has_params(args, kwargs)
 
 
 def capture(fn, args, kwargs, num_qubits: int, dtype,
@@ -345,6 +363,9 @@ class PallasRun:
     store_swap_k: int = 0
     load_swap_hi: int | None = None
     store_swap_hi: int | None = None
+    #: the index of the frame-identity segment the run belongs to, stamped
+    #: by ``segments.stamp_plan`` (None on an unstamped plan)
+    seg: int | None = None
     #: the folded, encoded form of ``ops`` (ops.fused_gates.PreparedRun),
     #: built at first execution and reused by every replay
     prepared: object = field(default=None, repr=False, compare=False)
@@ -364,6 +385,8 @@ class FrameSwap:
     tile_bits: int
     k: int
     hi: int | None = None
+    #: the frame-identity segment index (``segments.stamp_plan``)
+    seg: int | None = None
 
 
 def _window(qubits) -> tuple:
@@ -728,6 +751,12 @@ def plan(tape, num_qubits: int, dtype, max_qubits: int = 5,
         cur = DiagBlock(qs, _event_diag(ev, qs))
 
     for fn, args, kwargs in tape:
+        if _entry_has_params(args, kwargs):
+            flush()
+            out.items.append((fn, args, kwargs))
+            out.num_barriers += 1
+            telemetry.inc("fusion_param_barriers_total", mode="dense")
+            continue
         events = capture(fn, args, kwargs, num_qubits, dtype)
         fusible = events is not None and all(
             (len(ev.support) <= max_diag_qubits) if _event_is_diag(ev)
@@ -875,6 +904,12 @@ def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
     # -- pass 1: resolve every tape entry (capture + lower + routability) --
     resolved = []  # ('barrier', entry) | ('events', [(ev, pops|None)])
     for fn, args, kwargs in tape:
+        if _entry_has_params(args, kwargs):
+            # a runtime-parameter entry: a barrier between the static
+            # kernel runs, assembled at replay (see _entry_has_params)
+            telemetry.inc("fusion_param_barriers_total", mode="pallas")
+            resolved.append(("barrier", (fn, args, kwargs)))
+            continue
         events = capture(fn, args, kwargs, num_qubits, dtype,
                          is_density=is_density)
         lowered = None
@@ -991,7 +1026,8 @@ def _frame_permute(qureg, tile_bits: int, k: int, hi: int) -> None:
     [tile_bits-k, tile_bits) and [hi, hi+k) exchanged: a block reaching a
     sharded qubit is ``dist_permute_bits`` of the block swap (a collective,
     into the shards' spare buffers); one inside the shards a
-    ``swap_bit_blocks`` pass on each shard."""
+    ``swap_bit_blocks`` pass on each shard, into the shards' spare
+    buffers."""
     from .ops.fused_gates import swap_bit_blocks
     from .parallel import exchange as X
 
@@ -1006,8 +1042,9 @@ def _frame_permute(qureg, tile_bits: int, k: int, hi: int) -> None:
                             out=qureg.shard_spare_buffers())
         qureg.swap_shard_spares()
     else:
-        qureg.put_shards(swap_bit_blocks(a, n=nl, lo1=lo1, lo2=hi, k=k)
-                         for a in qureg.shards)
+        for a, out in zip(qureg.shards, qureg.shard_spare_buffers()):
+            swap_bit_blocks(a, n=nl, lo1=lo1, lo2=hi, k=k, out=out)
+        qureg.swap_shard_spares()
 
 
 def _apply_pallas_sharded(qureg, run: PallasRun) -> None:
@@ -1054,8 +1091,9 @@ def _apply_pallas_sharded(qureg, run: PallasRun) -> None:
 
 
 def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
-    """Tape entry of a FrameSwap: one relabeling pass (on a sharded
-    register, :func:`_frame_permute`)."""
+    """Tape entry of a FrameSwap: one relabeling pass into the register's
+    spare buffer, which then becomes the state, as a run with a folded
+    swap does (on a sharded register, :func:`_frame_permute`)."""
     from .ops.fused_gates import swap_bit_blocks
 
     if qureg.shards is not None:
@@ -1063,9 +1101,10 @@ def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
                        fs.tile_bits if fs.hi is None else fs.hi)
         return
     telemetry.inc("pallas_pass_total", kind="frame_swap")
-    qureg.put(swap_bit_blocks(
-        qureg.amps, n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,
-        lo2=fs.tile_bits if fs.hi is None else fs.hi, k=fs.k))
+    swap_bit_blocks(qureg.amps, n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,
+                    lo2=fs.tile_bits if fs.hi is None else fs.hi, k=fs.k,
+                    out=qureg.spare_buffer())
+    qureg.swap_spare()
 
 
 def dense_block_route(nsv: int, is_density: bool, qubits: tuple,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from . import matrices, validation as V
 from .datatypes import SubDiagonalOp, Vector
@@ -58,7 +59,7 @@ def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
     conj-shadow (QuEST.c:184-193)."""
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
-    m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
+    m = cplx.as_planar(matrix, 3, qureg.dtype, qureg.device)
     if qureg.shards is not None:
         qureg.put_shards(_engine(qureg).apply_matrix(
             qureg.shards, m, n=nsv, targets=targets, controls=controls,
@@ -76,7 +77,8 @@ def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
 def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls = tuple(targets), tuple(controls)
-    d = cplx.from_complex(np.asarray(diag).reshape(-1), qureg.dtype, qureg.device)
+    d = (cplx.as_planar(diag, 2, qureg.dtype, qureg.device) if cplx.is_planar(diag, 2)
+         else cplx.from_complex(np.asarray(diag).reshape(-1), qureg.dtype, qureg.device))
     if qureg.shards is not None:
         qureg.put_shards(_engine(qureg).apply_diagonal(
             qureg.shards, d, n=nsv, targets=targets, controls=controls))
@@ -427,6 +429,17 @@ def _multi_rotate_pauli(qureg, controls, targets, paulis, angle, func):
     active = [(t, c) for t, c in zip(targets, codes) if c != 0]
     if not active:
         # a global phase exp(-i angle/2) on the controlled subspace
+        if matrices.is_traced(angle):
+            # a runtime angle: the phase is assembled on its device
+            c, s = torch.cos(angle / 2), -torch.sin(angle / 2)
+            if controls:
+                diag = matrices.planar(torch.stack([torch.ones_like(c), c]),
+                                       torch.stack([torch.zeros_like(s), s]))
+                _apply_gate_diag(qureg, diag, (controls[0],), tuple(controls[1:]))
+            else:
+                diag = matrices.planar(torch.stack([c, c]), torch.stack([s, s]))
+                _apply_gate_diag(qureg, diag, (targets[0],))
+            return
         if controls:
             _apply_gate_diag(qureg, np.array([1.0, np.exp(-0.5j * angle)]),
                              (controls[0],), tuple(controls[1:]))

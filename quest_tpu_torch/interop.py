@@ -80,10 +80,14 @@ def ops_from_reference(ops) -> tuple:
 def arg_from_reference(x):
     """One ``quest_tpu`` API argument -> the port's: a ``Vector``, a
     ``SubDiagonalOp`` or a ``PauliHamil`` becomes the port's own, a matrix
-    (a ComplexMatrixN array, a bound matrix, a jax array) a numpy copy;
-    lists and tuples convert element by element, every other value is
-    kept."""
+    (a ComplexMatrixN array, a bound matrix, a jax array) a numpy copy, a
+    ``Param`` the port's ``Param`` of the same name (so a parameterized
+    tape carries across); lists and tuples convert element by element,
+    every other value is kept."""
     name = type(x).__name__
+    if name == "Param":
+        from .engine.params import Param
+        return Param(str(x.name))
     if name == "Vector":
         return Vector(float(x.x), float(x.y), float(x.z))
     if name == "SubDiagonalOp":

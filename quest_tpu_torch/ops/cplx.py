@@ -12,12 +12,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._capture import to_device
+
 
 def from_complex(arr, dtype: torch.dtype, device) -> torch.Tensor:
-    """Host complex array -> planar (2, *shape) tensor on ``device``."""
+    """Complex array -> planar (2, *shape) tensor on ``device``. A host
+    array is staged through ``_capture.to_device`` (inside a compiled
+    replay the copy is made once and kept); a tensor is split into its
+    planes where it lies, then moved and cast."""
+    if isinstance(arr, torch.Tensor):
+        im = arr.imag if arr.is_complex() else torch.zeros_like(arr)
+        return torch.stack([arr.real, im]).to(device=device, dtype=dtype)
     a = np.asarray(arr)
-    return torch.as_tensor(np.stack([a.real, a.imag]), dtype=dtype,
-                           device=device)
+    return to_device(np.stack([a.real, a.imag]), dtype, device)
+
+
+def is_planar(x, ndim: int) -> bool:
+    """True for a real planar tensor of ``ndim`` dimensions, (real plane,
+    imaginary plane) on axis 0: what ``matrices``' tensor branches build
+    (a matrix (2, D, D), a diagonal (2, D))."""
+    return (isinstance(x, torch.Tensor) and not x.is_complex() and x.dim() == ndim
+            and x.shape[0] == 2)
+
+
+def as_planar(x, ndim: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a planar tensor of the dtype on the device: a planar one
+    (:func:`is_planar`) is only cast, anything else goes through
+    :func:`from_complex`."""
+    if is_planar(x, ndim):
+        return x.to(device=device, dtype=dtype)
+    return from_complex(x, dtype, device)
 
 
 def to_complex(x: torch.Tensor) -> np.ndarray:

@@ -68,9 +68,12 @@ def choi_kraus(superop) -> list[tuple[float, np.ndarray]]:
 
 
 def apply_channel(amps: torch.Tensor, superop, *, n: int,
-                  targets: tuple[int, ...]) -> torch.Tensor:
+                  targets: tuple[int, ...],
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Apply a (numpy complex) superoperator to density targets: qubits
-    (T..., T+n...) of the flattened 2n-qubit state. Returns a new tensor."""
+    (T..., T+n...) of the flattened 2n-qubit state. Returns a new tensor,
+    or ``out`` (a buffer of the state's size, not the state) where the
+    kernel route writes into it."""
     if 2 * n <= _SUPEROP_MAX_QUBITS:
         telemetry.inc("channel_route_total", route="superop")
         ext_targets = tuple(targets) + tuple(q + n for q in targets)
@@ -78,7 +81,7 @@ def apply_channel(amps: torch.Tensor, superop, *, n: int,
         return apply.apply_matrix(amps, so, n=2 * n, targets=ext_targets)
     terms = choi_kraus(superop)
     if len(targets) == 1:
-        new = _kraus_sum_kernel(amps, terms, n, targets[0])
+        new = _kraus_sum_kernel(amps, terms, n, targets[0], out=out)
         if new is not None:
             telemetry.inc("channel_route_total", route="kernel")
             return new
@@ -88,13 +91,14 @@ def apply_channel(amps: torch.Tensor, superop, *, n: int,
 
 
 def _kraus_sum_kernel(amps: torch.Tensor, terms, n: int, t: int,
-                      lq: int | None = None) -> torch.Tensor | None:
+                      lq: int | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor | None:
     """A single-target Kraus sum as ONE fused-run pass: every term's K on
     the row qubit and conj(K) on the column qubit, sign-accumulated, in the
     kernel's ``kraus1`` op, placed by :func:`kraus1_pass`. Returns None
     only for a state smaller than two lane rows, as the JAX package's
     ``_kraus_sum_pallas`` does. ``lq`` (tile bits) defaults to the Hopper
-    tile."""
+    tile; the pass writes into ``out``, a new tensor when None."""
     from . import fused_gates as FG
 
     if amps.shape[-1] < 2 * FG._LANES:
@@ -104,7 +108,7 @@ def _kraus_sum_kernel(amps: torch.Tensor, terms, n: int, t: int,
     terms_h = tuple((float(s), FG.HashableMatrix(k)) for s, k in terms)
     op, swaps = kraus1_pass(n, t, lq, terms_h)
     return FG.fused_run(amps, n=2 * n, ops=(op,), tile_bits=lq, **swaps,
-                        out=torch.empty_like(amps))
+                        out=torch.empty_like(amps) if out is None else out)
 
 
 def kraus1_pass(n: int, t: int, lq: int, terms) -> tuple[tuple, dict]:

@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from .._capture import to_device
 
 
 def _index(num: int, device) -> torch.Tensor:
@@ -61,16 +64,24 @@ def apply_parity_phase(amps: torch.Tensor, theta: float, *, n: int,
                        conj: bool = False) -> torch.Tensor:
     """exp(-i theta/2 * Z x Z x ... x Z) on ``qubits``: the factor is
     cos(theta/2) - i sin(theta/2) (-1)^{parity of the member bits}, gathered
-    from a 2-entry table. ``conj`` negates theta."""
+    from a 2-entry table. ``conj`` negates theta. A tensor theta (a
+    runtime value, ``engine.params``) builds the table on its device; a
+    number's table is staged (``_capture.to_device``)."""
     del n
-    theta = -float(theta) if conj else float(theta)
     idx = _index(amps.shape[-1], amps.device)
     par = torch.zeros_like(idx)
     for q in qubits:
         par ^= (idx >> q) & 1
-    c, s = math.cos(theta / 2), math.sin(theta / 2)
-    tr = torch.tensor([c, c], dtype=amps.dtype, device=amps.device)
-    ti = torch.tensor([-s, s], dtype=amps.dtype, device=amps.device)
+    if isinstance(theta, torch.Tensor):
+        theta = -theta if conj else theta
+        c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+        tab = torch.stack([torch.stack([c, c]), torch.stack([-s, s])]).to(
+            device=amps.device, dtype=amps.dtype)
+    else:
+        theta = -float(theta) if conj else float(theta)
+        c, s = math.cos(theta / 2), math.sin(theta / 2)
+        tab = to_device(np.array([[c, c], [-s, s]]), amps.dtype, amps.device)
+    tr, ti = tab[0], tab[1]
     return _apply_factor(amps, tr[par], ti[par], _ctrl_ok(idx, controls))
 
 

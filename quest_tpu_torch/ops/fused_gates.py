@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from .._capture import to_device
 
 #: the lane zone: qubits [0, 7) fold into one 128x128 unitary (lane_u)
 LANE_BITS = 7
@@ -270,15 +271,20 @@ def _fold_zone_ops(ops, tile_bits: int) -> tuple:
 
 
 def swap_bit_blocks(amps: torch.Tensor, *, n: int, lo1: int, lo2: int,
-                    k: int) -> torch.Tensor:
+                    k: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Exchange the k-bit index blocks [lo1, lo1+k) and [lo2, lo2+k)
     (lo1 + k <= lo2) of the planar (2, 2^n) state: a pure qubit relabeling,
-    one permute. Returns a new contiguous tensor."""
+    one permute. Returns a new contiguous tensor, or ``out`` (a contiguous
+    buffer of the state's size, not the state) written in place."""
     if not (lo1 + k <= lo2 and lo2 + k <= n):
         raise ValueError(f"bad bit-block swap (lo1={lo1}, lo2={lo2}, k={k}, n={n})")
     d = 1 << k
     x = amps.reshape(amps.shape[0], -1, d, 1 << (lo2 - lo1 - k), d, 1 << lo1)
-    return x.permute(0, 1, 4, 3, 2, 5).reshape(amps.shape[0], -1)
+    y = x.permute(0, 1, 4, 3, 2, 5)
+    if out is None:
+        return y.reshape(amps.shape[0], -1)
+    out.view(y.shape).copy_(y)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +540,8 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
 class PreparedRun:
     """A run's folded ops and their encoded table, computed once per
     (ops, tile_bits) and kept with the run because plans are replayed; the
-    device copies are cached per (device, dtype)."""
+    device copies are cached per (device, dtype), staged
+    (``_capture.to_device``) so that a compiled replay keeps them."""
 
     def __init__(self, ops, tile_bits: int):
         self.tile_bits = tile_bits
@@ -556,8 +563,8 @@ class PreparedRun:
         key = (str(device), dtype)
         if key not in self._device:
             self._device[key] = (
-                torch.as_tensor(self.table, device=device).contiguous(),
-                torch.as_tensor(self.coeffs, dtype=dtype, device=device).contiguous())
+                to_device(self.table, None, device).contiguous(),
+                to_device(self.coeffs, dtype, device).contiguous())
         return self._device[key]
 
 
@@ -718,7 +725,7 @@ def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
         x = swap_bit_blocks(x, n=ln, lo1=pair_swap[0], lo2=pair_swap[1], k=1)
     loc = torch.arange(1 << ln, device=amps.device)
     idx = loc | (int(shard_index) << ln)
-    cf = torch.as_tensor(prepared.coeffs, dtype=amps.dtype, device=amps.device)
+    cf = to_device(prepared.coeffs, amps.dtype, amps.device)
     for op, rec in zip(prepared.ops, prepared.table.tolist()):
         if op[0] in _KRAUS:
             x = _plain_kraus(x, op, idx, loc)
@@ -796,8 +803,8 @@ def _plain_kraus(x, op, idx, loc):
     acc = None
     for s, K in terms:
         k = _arr(K).astype(complex)
-        kr = torch.as_tensor(k.real, dtype=x.dtype, device=x.device)
-        ki = torch.as_tensor(k.imag, dtype=x.dtype, device=x.device)
+        kr = to_device(k.real, x.dtype, x.device)
+        ki = to_device(k.imag, x.dtype, x.device)
         y = _plain_dense(x, kr, ki, rows, idx, loc)
         y = float(s) * _plain_dense(y, kr, -ki, cols, idx, loc)
         acc = y if acc is None else acc + y

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._capture import to_device
 from ..datatypes import phaseFunc
 
 #: sentinel divergence parameters match the reference kernel defaults
@@ -77,9 +78,9 @@ def _reg_inds(amps, n, offset, qubits, reg_sizes, encoding):
 
 
 def _values(x, amps) -> torch.Tensor:
-    """A host sequence as a tensor of the amplitude dtype on their device."""
-    return torch.tensor(np.asarray(x, dtype=np.float64).reshape(-1), dtype=amps.dtype,
-                        device=amps.device)
+    """A host sequence as a tensor of the amplitude dtype on their device
+    (staged: ``_capture.to_device``)."""
+    return to_device(np.asarray(x, dtype=np.float64).reshape(-1), amps.dtype, amps.device)
 
 
 def _phase_to_factor(amps, phase2d):
@@ -136,8 +137,8 @@ def apply_poly_phase(amps, coeffs, override_inds, override_phases, *,
                     p = p * ind
                 term = c * p
             else:
-                term = c * torch.pow(ind, torch.tensor(e, dtype=amps.dtype,
-                                                       device=amps.device))
+                term = c * torch.pow(ind, to_device(np.asarray(e, dtype=np.float64),
+                                                    amps.dtype, amps.device))
             phase = phase + term
             flat += 1
     if len(override_phases):

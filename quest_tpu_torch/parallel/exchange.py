@@ -292,10 +292,12 @@ def dist_apply_diag_phase(shards, diag, *, n: int, targets: tuple,
             out.append(own)
             continue
         off = sum(_rank_bit(r, t, nl) << k for k, t in enumerate(targets) if t >= nl)
-        sel = torch.full((1 << len(local),), off, dtype=torch.long)
-        for j, (k, _) in enumerate(local):
-            sel |= ((torch.arange(1 << len(local)) >> j) & 1) << k
-        sub = diag[:, sel.to(diag.device)].to(own.device)
+        # the entry index, built where the diagonal lives (no host copy)
+        j = torch.arange(1 << len(local), device=diag.device)
+        sel = torch.full_like(j, off)
+        for b, (k, _) in enumerate(local):
+            sel |= ((j >> b) & 1) << k
+        sub = diag[:, sel].to(own.device)
         new = D.apply_diagonal(own, sub, n=nl, targets=tuple(t for _, t in local),
                                conj=conj)
         out.append(_apply_local_ctrl_mask(own, new, lc, ls))
@@ -311,7 +313,9 @@ def dist_apply_parity_phase(shards, theta: float, *, n: int, qubits: tuple,
     nl = local_qubit_count(n, shards)
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
     local_q = tuple(q for q in qubits if q < nl)
-    theta = -float(theta) if conj else float(theta)
+    if not isinstance(theta, torch.Tensor):  # a tensor is a runtime value
+        theta = float(theta)
+    theta = -theta if conj else theta
     out = []
     for r, own in enumerate(shards):
         if not _ctrl_pred(r, sc, ss, nl):

@@ -115,7 +115,11 @@ class DistributedScheduler:
 
 
 def engine(qureg) -> DistributedScheduler:
-    """The scheduler that runs a sharded register's gates: its env's."""
+    """The scheduler that runs a sharded register's gates: its env's, or a
+    fresh one for a register without an env (a compiled replay's bare
+    register around a caller's shards, ``Circuit.compiled()(shards)``)."""
+    if qureg.env is None:
+        return DistributedScheduler()
     if qureg.env.engine is None:
         qureg.env.engine = DistributedScheduler()
     return qureg.env.engine

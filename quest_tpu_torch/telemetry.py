@@ -16,10 +16,36 @@ needs:
   ``x_permute``, ``grouped_permute``, ``swap_rank_permute`` or
   ``swap_odd_parity``, as the JAX package counts its collectives.
 
+- ``device_dispatch_total{route}``: one per dispatch of a compiled
+  route (``Circuit.compiled`` and its kin), ``route`` = ``circuit`` (one
+  ``Circuit.run``), ``segment`` (one segment program of a chain),
+  ``item`` (one host-bound tape entry run eagerly between programs),
+  ``request`` (one whole-request program) or ``block`` (one block of
+  ``compiled_blocks``);
+- ``plan_cache_{hit,miss,evict}_total{cache}``: the executable cache's
+  lookups and evictions (``engine.cache.LRUCache``), with the gauge
+  ``plan_cache_size{cache}``;
+- ``engine_trace_total{kind=param_replay}``: one each time a
+  parameterized executable builds its replay, at its first (warm-up) run
+  and at each CUDA-graph capture (its second call on the card, for one
+  pair of buffers): the port's counterpart of a trace.
+
 Kernel launch counts live on the kernel wrappers themselves
 (``ops.fused_gates.fused_run.launches``,
 ``ops.window_dot.window_dot.launches``). A counter key is the name, plus
 ``{k=v,...}`` with the labels sorted, as in the JAX package.
+
+**The counting rule.** Counters count *executions*, not Python calls. A
+compiled route on the card replays a CUDA graph, which runs no Python, so
+the executable records what its capture's replay body added to every
+counter here (``pallas_pass_total``, ``channel_route_total``,
+``exchange_calls_total``, ``engine_fallback_total``, ...), takes those
+increments back (a capture executes nothing), and adds the same deltas at
+every replay (``_capture``). The counters of a graph replay therefore equal
+those of an eager run of the same tape. The kernel launch counts are not
+counters: a wrapper adds one where it launches its kernel and nowhere
+else, so a capture takes its increments back and a replay adds none; what
+a replay launches is read from its graph's kernel nodes.
 """
 
 from __future__ import annotations
@@ -28,6 +54,7 @@ import threading
 
 _lock = threading.Lock()
 _counters: dict[str, float] = {}
+_gauges: dict[str, float] = {}
 
 
 def _key(name: str, labels: dict) -> str:
@@ -55,6 +82,43 @@ def counter_total(name: str) -> float:
                    if k == name or k.startswith(name + "{"))
 
 
+def set_gauge(name: str, value: float, **labels) -> None:
+    with _lock:
+        _gauges[_key(name, labels)] = float(value)
+
+
+def gauge_value(name: str, **labels) -> float:
+    with _lock:
+        return _gauges.get(_key(name, labels), 0.0)
+
+
+def snapshot() -> dict:
+    """A copy of every counter (key -> value)."""
+    with _lock:
+        return dict(_counters)
+
+
+def delta(before: dict, after: dict) -> dict:
+    """The counters that moved from ``before`` to ``after``, by how much."""
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def restore(saved: dict) -> None:
+    """Put every counter back to ``saved``."""
+    with _lock:
+        _counters.clear()
+        _counters.update(saved)
+
+
+def add(moves: dict) -> None:
+    """Add a :func:`delta` to the counters."""
+    with _lock:
+        for k, v in moves.items():
+            _counters[k] = _counters.get(k, 0.0) + v
+
+
 def reset() -> None:
     with _lock:
         _counters.clear()
+        _gauges.clear()

@@ -59,8 +59,9 @@ def assert_plans_equal(ref, got):
                     b.store_swap_hi) == (a.tile_bits, a.load_swap_k,
                                          a.load_swap_hi, a.store_swap_k,
                                          a.store_swap_hi)
+            assert b.seg == a.seg  # the frame-identity segment stamps
         elif isinstance(a, JF.FrameSwap):
-            assert (b.tile_bits, b.k, b.hi) == (a.tile_bits, a.k, a.hi)
+            assert (b.tile_bits, b.k, b.hi, b.seg) == (a.tile_bits, a.k, a.hi, a.seg)
         elif isinstance(a, JF.FusedBlock):
             assert b.qubits == a.qubits
             np.testing.assert_allclose(b.matrix, a.matrix, rtol=0, atol=1e-14)
