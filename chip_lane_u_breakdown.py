@@ -4,7 +4,7 @@ lane_u fold in f32 and f64, the krausn arm in f64 and f32, and the window
 fold in f64 and f32.
 
     python3 chip_lane_u_breakdown.py [--parent DIR]
-        [--passes f32,f64,krausn,krausn32,window64,window32]
+        [--passes f32,f64,krausn,krausn32,window64,window32,diag32,diag64]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
 that each take one piece of an op away (or change it), and times a one-op
@@ -148,6 +148,19 @@ of 128 columns, 26 qubits, in place):
   ``window32 three products``: Ur xr, Ui xi and (Ur + Ui)(xr + xi)
   (Gauss's), out_i from the third less the others (24 sums a thread).
 
+``diag32`` and ``diag64``: the diagonal arm alone (``diag_sweep``), one
+pass of the elementwise ops of the 26-qubit QFT's run that holds the most
+(its controlled phases, merged into ``diagw`` records), in place:
+
+- ``diag out of line``: ``diag_sweep`` a call, not inlined into the kernel;
+- ``diag32 held 8``, ``diag32 held 4``, ``diag64 held 8``, ``diag64 held
+  2``: a thread holds 8 or 4 (f32) or 8 or 2 (f64) of its amplitudes in
+  registers at once, not 16 or 4;
+- ``diag no multiply``: each record's entries loaded but not multiplied
+  in (wrong results, timing only);
+- ``diag load and store``: the sweep stages its records and reads and
+  writes its amplitudes, but applies no record (timing only).
+
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
 times its passes beside this one's, first and last but one: its kernel
@@ -279,9 +292,9 @@ VARIANTS = {
     "f64 m16n8k8": ("f64", [(_K16, _K8_PAIR)]),
     "f64 ring of 3": ("f64", [("constexpr int kChunkRing = 2;", "constexpr int kChunkRing = 3;")]),
     "f64 one block per SM": ("f64", [
-        ("    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;\n",
-         "    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;\n"
-         "    if (staged & kStagedLaneU) kernel = fused_run_kernel<T, true>;\n"),
+        ("      stage = kLaneDmmaStage;\n    }\n  }\n  *smem",
+         "      stage = kLaneDmmaStage;\n    }\n"
+         "    if (staged & kStagedLaneU) kernel = fused_run_kernel<T, true>;\n  }\n  *smem"),
         ("  } else if constexpr (kLaneMma) {\n    // one block per SM",
          "  } else if constexpr (kLaneMma && sizeof(T) == 4) {\n    // one block per SM"),
         ("  } else if constexpr (kLaneMma) {\n    for (uint32_t i = 4 * tid;",
@@ -481,8 +494,9 @@ VARIANTS.update({
             quest_mma::split_tf32(im.y, ui[j].hi[1], ui[j].lo[1]);
 """)]),
     "krausn32 one block per SM": ("krausn32", [
-        ("    } else if (staged & (kStagedKrausN | kStagedWindow)) {\n      stage = kLaneDmmaStage;\n",
-         "    } else if (staged & (kStagedKrausN | kStagedWindow)) {\n"
+        ("    } else if (staged & (kStagedKrausN | kStagedWindow | kStagedDiag)) {\n"
+         "      stage = kLaneDmmaStage;\n",
+         "    } else if (staged & (kStagedKrausN | kStagedWindow | kStagedDiag)) {\n"
          "      kernel = fused_run_kernel<T, true>;\n      stage = kLaneDmmaStage;\n"),
         ("krausn_mma<kLaneMma ? 1 : kKrausN8>(", "krausn_mma<kKrausN8>(")]),
 })
@@ -959,6 +973,26 @@ VARIANTS.update({
         (_W32STAGE, _W32STAGE.replace("v < 64 * mtiles * ksteps", "v < 0"))]),
 })
 
+_DIAG_HELD = "constexpr int kDiagHeld32 = 16;\nconstexpr int kDiagHeld64 = 4;"
+
+
+def _diag_held(f32: int, f64: int) -> str:
+    return f"constexpr int kDiagHeld32 = {f32};\nconstexpr int kDiagHeld64 = {f64};"
+
+
+_DIAG_CALL = "__device__ __forceinline__ int diag_sweep("
+_DIAG_MUL = "            cmul_into(xr[g], xi[g], f.x, f.y);"
+_DIAG_RECS = "      for (int k = 0; k < n; ++k) {\n        const DiagRec& m = meta[k];"
+for _arm, _held in (("diag32", ((8, 4), (4, 4))), ("diag64", ((16, 8), (16, 2)))):
+    VARIANTS.update({
+        f"{_arm} out of line": (_arm, [(_DIAG_CALL, _DIAG_CALL.replace("__forceinline__",
+                                                                       "__noinline__"))]),
+        f"{_arm} no multiply": (_arm, [(_DIAG_MUL, "            xr[g] += f.x;")]),
+        f"{_arm} load and store": (_arm, [(_DIAG_RECS, _DIAG_RECS.replace("k < n", "k < 0"))]),
+    })
+    for _h in _held:
+        VARIANTS[f"{_arm} held {_h[_arm == 'diag64']}"] = (_arm, [(_DIAG_HELD, _diag_held(*_h))])
+
 
 def _window32_variants(src: str) -> dict:
     """The window32 variants cut from the source itself: the whole arm, and
@@ -985,7 +1019,10 @@ RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "window64 offset found again", "window64 without the FMA arm",
          "window64 k loop unrolled", "window32 X through padded rows", "window32 U^T as B",
          "window32 U split by the host", "window32 k loop unrolled", "window32 three products",
-         "window32 two items at once", "window32 B prefetch"}
+         "window32 two items at once", "window32 B prefetch"} | {
+             f"{a} {v}" for a in ("diag32", "diag64")
+             for v in ("out of line", "held 8", "held 4", "held 2")} - {"diag32 held 2",
+                                                                          "diag64 held 4"}
 
 
 def _variant_sources(src: str) -> dict:
@@ -1035,12 +1072,28 @@ def _window_pass(FG, tb):
     return FG.PreparedRun((("window", 7, 5, FG.HashableMatrix(W)),), tb)
 
 
+def _diag_pass(FG, dt):
+    """The diagonal arm alone: the elementwise ops of the run of the
+    N_QUBITS-qubit QFT, planned at ``dt``'s tile, that holds the most."""
+    import quest_tpu_torch as qt
+    from quest_tpu_torch import fusion
+
+    c = qt.Circuit(N_QUBITS)
+    c.applyFullQFT()
+    fz = c.fused(max_qubits=5, pallas=True, dtype=dt)
+    runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    run = max(runs, key=lambda r: sum(FG._op_is_diag(o) for o in r.prepare().ops))
+    return FG.PreparedRun(tuple(o for o in run.prepare().ops if FG._op_is_diag(o)),
+                          run.tile_bits)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
-    ap.add_argument("--passes", default="f32,f64,krausn,krausn32,window64,window32",
+    ap.add_argument("--passes",
+                    default="f32,f64,krausn,krausn32,window64,window32,diag32,diag64",
                     help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32, "
-                         "window64, window32 (default: all)")
+                         "window64, window32, diag32, diag64 (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -1085,15 +1138,19 @@ def main() -> int:
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
                             ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5),
-                            ("window64", torch.float64, 1e-12), ("window32", torch.float32, 1e-5)):
+                            ("window64", torch.float64, 1e-12), ("window32", torch.float32, 1e-5),
+                            ("diag32", torch.float32, 1e-5), ("diag64", torch.float64, 1e-12)):
             if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
             kraus = pn.startswith("krausn")
             n = 2 * CS.N_DENSITY if kraus else N_QUBITS
             window = pn.startswith("window")
+            diag = pn.startswith("diag")
             prep = (_krausn_pass(FG, tb) if kraus else _window_pass(FG, tb) if window
+                    else _diag_pass(FG, dt) if diag
                     else FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
+            tb = prep.tile_bits
             table, coeffs = prep.device_tables(dev, dt)
             # the host-split variant's own coefficients: U, then its table
             own = {"window32 U split by the host": torch.as_tensor(np.concatenate(
@@ -1106,7 +1163,8 @@ def main() -> int:
             def run(name):
                 fn = (libs[name].quest_fused_run_f32 if dt == torch.float32
                       else libs[name].quest_fused_run_f64)
-                err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(), 1,
+                err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(),
+                         int(table.shape[0]),
                          own.get(name, coeffs).data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
@@ -1130,10 +1188,12 @@ def main() -> int:
             # arms share the instantiation's registers
             mine = [v for v, (d, _) in variants.items() if v in libs
                     and (d == pn or (pn, d) == ("f64", "krausn"))]
-            what = "krausn" if kraus else "window" if window else "lane_u"
+            what = ("krausn" if kraus else "window" if window else "diagonal arm" if diag
+                    else "lane_u")
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
                 ms = CS._cuda_ms(lambda: run(name), REPS)
-                print(f"# one-op {what} pass, {n}q {str(dt)[6:]}, {name}: {ms:.4f} ms "
+                print(f"# {'' if diag else 'one-op '}{what} pass, {n}q {str(dt)[6:]}, "
+                      f"{name}: {ms:.4f} ms "
                       f"(bound {bound:.4f} ms, {bound / ms:.1%} of it)")
             del st, x
             torch.cuda.empty_cache()

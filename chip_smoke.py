@@ -15,9 +15,9 @@ no result, without them. Phases, in order:
    whose krausn arm, windows of span 3 or more and (the lane_u one)
    lane_u fold run on 3xTF32, more HMMA than those arms took before the
    window's: 192 in the other f32 one, 288 in the lane_u one) and the
-   blocks per SM of each kind of run (an f64 run with lane_u, krausn or a
-   window of span 3 or more, and an f32 run with krausn or such a window,
-   must fit two);
+   blocks per SM of each kind of run (an f64 run with lane_u, krausn, a
+   window of span 3 or more or elementwise records, and an f32 run with
+   krausn, such a window or elementwise records, must fit two);
 2. kernel: the fused gate-run kernel against its plain PyTorch version at
    20 qubits in f32 and f64, for every op kind (matrix with lane, sublane
    and grid-bit controls, parity, swap, diagw, lane_u, window, and the
@@ -151,8 +151,15 @@ no result, without them. Phases, in order:
    version, launches = kernel passes, zero fallbacks; against the closed
    form on a basis state and against sqrt(N) ``torch.fft.ifft`` of the
    main path's state; the eager QFT and ``applyQFT`` on a subset against
-   the same references; ``torch.fft.fft`` as the yardstick), a Trotter
-   circuit of the readout phase's Hamiltonian fused against eager, the
+   the same references; ``torch.fft.fft`` as the yardstick); the kernel's
+   diagonal arm alone (``_diag_arm_alone``, ``# diagonal arm alone``
+   lines): the elementwise ops of the QFT plan's densest run in one pass,
+   their op and record counts, against the plain version (1e-5 / 1e-12 of
+   the largest amplitude), timed beside its bytes bound, the plain
+   version and one complex ``torch.mul`` by the same diagonal, and at each
+   table width of DIAG_WIDTHS; a Trotter
+   circuit of the readout phase's Hamiltonian fused against eager (its
+   input's total probability printed beside its output's), the
    phase functions (one device, f32 also over N_SHARDS shards; a density
    register), ``DiagonalOp``, projectors, sub-diagonal operators,
    ``setQuregToPauliHamil``, ``applyPauliHamil`` and the copyState*GPU
@@ -234,6 +241,8 @@ KRAUS_TILE_BITS_F32 = KRAUS_TILE_BITS + (12,)
 #: the 2^13 tile (the zone [7, 12): D = 32 over two slabs), on 3xTF32
 WINDOW_TILE_BITS = (10, 11, 12)
 WINDOW_TILE_BITS_F32 = WINDOW_TILE_BITS + (13,)
+#: the table widths (qubits) at which the diagonal arm's pass is timed
+DIAG_WIDTHS = (4, 5, 6, 7, 8)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -657,7 +666,8 @@ def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
                           if k in kinds)
         pair = f" pair {kw['pair_swap']}" if kw.get("pair_swap") else ""
         print(f"# {label} pass {i}: {nops} ops -> {len(kinds)} "
-              f"({folds or 'no folds or channels'}), swaps load {kw['load_swap_k']} "
+              f"({folds or 'no folds or channels'}; {len(prep.records)} records), swaps "
+              f"load {kw['load_swap_k']} "
               f"store {kw['store_swap_k']}{pair}: kernel {ms:.4f} ms, bound "
               f"{max(b_bytes, b_ops):.4f} ms by "
               f"{'operations' if b_ops > b_bytes else 'bytes'}, plain "
@@ -925,6 +935,68 @@ def _window_fold_pass(dev, rng, runs, dt) -> dict:
             "rel_err_vs_exact": rel_exact, "main_path_folds": folds,
             "main_path_folds_in_lane_u_runs": in_lane,
             "max_abs_err": res["max_abs_err"]}
+
+
+def _diag_arm_alone(dev, runs, dt) -> dict:
+    """The fused-run kernel's diagonal arm alone: the elementwise ops of
+    the run of ``runs`` (the QFT planned at ``dt``'s tile) that holds the
+    most (its 75-96 controlled phases), in one N_MAIN-qubit pass with no
+    folded swap, merged into ``diagw`` records (``merge_diagonals``):
+    against the plain version (1e-5 / 1e-12 of the largest amplitude),
+    timed beside its bytes bound, the plain version and one complex
+    ``torch.mul`` (complex64 / complex128) of the state by the same
+    diagonal, precomputed on the card, which the port never calls; and the
+    pass timed at each table width of DIAG_WIDTHS (``# diagonal arm alone``
+    line)."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = N_MAIN
+    name = str(dt)[6:]
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    run = max(runs, key=lambda r: sum(FG._op_is_diag(o) for o in r.prepare().ops))
+    ops = tuple(o for o in run.prepare().ops if FG._op_is_diag(o))
+    tb = run.tile_bits
+    prep = FG.PreparedRun(ops, tb)
+    rng = np.random.RandomState(37)
+    res = _passes([(len(ops), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng, tol,
+                  f"diagonal arm alone {name}")
+    ms, bound = res["ms"][0], res["bound_ms"][0]
+    _require(len(prep.records) < len(ops), f"diagonal arm alone {name}: {len(ops)} ops "
+                                           f"encode to {len(prep.records)} records")
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    widths = {}
+    for w in DIAG_WIDTHS:
+        p = FG.PreparedRun(ops, tb, diag_bits=w)
+        widths[w] = {"records": len(p.records), "ms": _cuda_ms(
+            lambda: FG.fused_run(st, n=n, ops=p.ops, tile_bits=tb, prepared=p), 5)}
+    # the yardstick: the same diagonal as one complex tensor, times the state
+    one = torch.zeros_like(st)
+    one[0] = 1
+    d = FG.fused_run_plain(one, prep, n=n, tile_bits=tb)
+    diag = torch.complex(d[0], d[1])
+    del d, one
+    c = torch.complex(st[0], st[1])
+    o = torch.empty_like(c)
+    lib_ms = _cuda_ms(lambda: torch.mul(c, diag, out=o), 20)
+    call = f"torch.mul {str(c.dtype)[6:]}"
+    del st, c, diag, o
+    torch.cuda.empty_cache()
+    tables = [len(r[1]) for r in prep.records]
+    print(f"# diagonal arm alone at {n}q {name}: the QFT run's {len(ops)} elementwise ops -> "
+          f"{len(prep.records)} diagw records (tables of {tables} qubits) at tile_bits {tb}: "
+          f"kernel {ms:.4f} ms ({bound / ms:.1%} of the bound), bound {bound:.4f} ms by bytes, "
+          f"plain {res['plain_ms'][0]:.2f} ms; {call} of the state by the diagonal "
+          f"{lib_ms:.4f} ms (kernel / mul {ms / lib_ms:.3f}); max_abs_err "
+          f"{res['max_abs_err']:.3e} (limit {tol:g} of the largest); by table width: "
+          + ", ".join(f"{w}: {v['records']} records {v['ms']:.4f} ms" for w, v in widths.items()))
+    return {"ops": len(ops), "records": len(prep.records), "tables": tables, "ms": ms,
+            "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / ms,
+            "plain_ms": res["plain_ms"][0], "library_ms": lib_ms, "library_call": call,
+            "max_abs_err": res["max_abs_err"], "by_width": widths}
 
 
 def _main_path_f64(qt, env, circ, fz, dev) -> dict:
@@ -2331,6 +2403,7 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
                       [(1, fusion.lane_u_run(b, tb), dict(tile_bits=tb, **_swaps()))
                        for b in lane], n, dt, dev,
                       np.random.RandomState(71), tol_k, f"operators qft {name}")
+        out[("diag_arm", dt)] = _diag_arm_alone(dev, runs, dt)
         kernel_passes = len(runs) + len(lane)
         torch.cuda.empty_cache()
         q = qt.createQureg(n, env1, prec)
@@ -2420,6 +2493,9 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
         tres = _passes([_run_item(r) for r in truns], n, dt, dev,
                        np.random.RandomState(73), tol_k, f"operators trotter {name}")
         qt.cloneQureg(q, src)
+        # the input's own total probability, beside the output's: it says
+        # whether a miss came from the input state or from the passes
+        total_in = qt.calcTotalProb(q)
         telemetry.reset()
         FG.fused_run.launches = 0
         tz.run(q)
@@ -2429,7 +2505,7 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
                  f"operators trotter {name}: launches {tl} != runs {len(truns)}")
         total = qt.calcTotalProb(q)
         _require(abs(total - 1) <= (1e-4 if f32 else 1e-10),
-                 f"operators trotter {name}: total probability {total}")
+                 f"operators trotter {name}: total probability {total} (input {total_in})")
         qe = qt.createQureg(n, env1, prec)
         qt.cloneQureg(qe, src)
         torch.cuda.synchronize()
@@ -2442,11 +2518,13 @@ def _operators_phase(qt, dev, sv: dict) -> dict:
         _warm_run(tz, q)
         t_fused = _clock_ms(lambda: tz.run(q), 2)
         line(f"trotter {name}: {len(hamil.term_coeffs)}-term TFIM, order {order}, reps {reps}, "
-             f"t {t_evol}: {len(truns)} fused runs, launches {tl}; calcTotalProb {total:.12f}; "
+             f"t {t_evol}: {len(truns)} fused runs, launches {tl}; calcTotalProb {total:.12f} "
+             f"(input {total_in:.12f}); "
              f"fused against eager {e_tr:.3e} of the largest (limit {tol:g}); fused "
              f"{t_fused:.4f} ms ({sum(tres['ms']):.4f} ms of kernel passes, summed bound "
              f"{sum(tres['bound_ms']):.4f} ms), eager {t_eager:.1f} ms")
-        tres.update(launches=tl, runs=len(truns), fused_ms=t_fused, eager_ms=t_eager)
+        tres.update(launches=tl, runs=len(truns), fused_ms=t_fused, eager_ms=t_eager,
+                    total_prob=total, input_total_prob=total_in)
         out[("trotter", dt)] = tres
         out[("trotter_plan", dt)] = tz
         qt.destroyQureg(qe)
@@ -3333,9 +3411,10 @@ def main() -> int:
     occupancy = {}
     for f64, ddt in ((0, torch.float32), (1, torch.float64)):
         # the launch's staged flags: 1 a lane_u op, 2 a krausn op, 4 a
-        # window op of span 3 or more (its U, in either precision)
+        # window op of span 3 or more (its U, in either precision), 8 an
+        # elementwise record (the diagonal arm's tables)
         for staged, what in ((0, ""), (1, " lane_u"), (2, " krausn"), (3, " lane_u+krausn"),
-                             (4, " window")):
+                             (4, " window"), (8, " diag")):
             k = f"{str(ddt)[6:]}{what}"
             occupancy[k] = lib.quest_fused_run_blocks_per_sm(
                 f64, FG.HOPPER_TILE_BITS[ddt], staged)
@@ -3346,6 +3425,8 @@ def main() -> int:
     _require(occupancy["float32 krausn"] == 2, "an f32 krausn run does not fit two blocks an SM")
     _require(occupancy["float64 window"] == 2, "an f64 window run does not fit two blocks an SM")
     _require(occupancy["float32 window"] == 2, "an f32 window run does not fit two blocks an SM")
+    _require(occupancy["float64 diag"] == 2, "an f64 diagonal run does not fit two blocks an SM")
+    _require(occupancy["float32 diag"] == 2, "an f32 diagonal run does not fit two blocks an SM")
     dev = torch.device("cuda:0")
 
     # -- kernel phase: every op kind and swap form, f32 and f64 ------------
@@ -3649,6 +3730,11 @@ def main() -> int:
             "graph_kernels": r.get("graph_kernels"), "traced_runs": r.get("traced")}
             for kind, r in ((kind, operators[(kind, ddt)]) for kind in ("qft", "trotter"))}
         e["operators_paths"]["qft"]["yardstick_fft_ms"] = operators[("qft", ddt)]["fft_ms"]
+        # the diagonal arm alone: the QFT run's controlled phases in one pass
+        arm = operators[("diag_arm", ddt)]
+        e["diagonal_arm_pass"] = arm
+        e["library_yardsticks_ms"]["mul_diagonal"] = arm["library_ms"]
+        e["max_abs_err"] = max(e["max_abs_err"], arm["max_abs_err"])
     # the compiled phase's routes, each driven with the counts reset: the
     # wrapper's launches in the route's first (eager) call, the fused_run
     # kernel nodes of the graphs one replay launches and those the card's

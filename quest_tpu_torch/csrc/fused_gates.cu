@@ -10,7 +10,7 @@
 //           controls with any control states
 //   parity  exp(-i theta/2 Z..Z) on any qubits, all-1 controls
 //   swap    SWAP of two in-tile qubits, any controls and states
-//   diagw   a <= 32-entry diagonal table over any targets, all-1 controls
+//   diagw   a <= 256-entry diagonal table over any targets, all-1 controls
 //   lane_u  a dense 128x128 complex unitary on qubits [0, 7)
 //   window  a dense 2^span x 2^span complex unitary (span <= 5) on the
 //           in-tile qubits [lo, lo + span)
@@ -51,11 +51,28 @@
 // read once and written once): at 26 qubits in f32, 1 GiB, 0.32 ms at
 // 3.35 TB/s. Elementwise and 2x2 ops cost a few flops per amplitude, so a
 // pass of them is bound by bytes, and the design keeps the whole op list
-// between one load and one store of each tile. A lane_u op is 128 complex
-// multiply-adds per amplitude (about 6.9e10 flop at 26 qubits): 1.03 ms
-// at the 67 TFLOP/s FP32 rate (and at the FP64 tensor-core rate, the same
-// 67 TFLOP/s), 0.42 ms as 3xTF32 on the tensor cores (494.7/3 TFLOP/s), so
-// passes that carry one are bound by operations.
+// between one load and one store of each tile.
+//   Diagonal ops (the diagonal arm, diag_sweep). Applied one at a time,
+//     each op would make every block read and write its tile in shared
+//     memory and wait at a barrier: a QFT pass of 96 controlled phases at
+//     26 qubits in f32 is 96 x 2^26 x 16 B, ~100 GB of shared-memory
+//     traffic, ~3 ms at the card's ~33 TB/s, ten times the pass's bytes.
+//     And at ~33e12 lane instructions a second, the 0.32 ms bound leaves
+//     ~175 instructions an amplitude for the whole pass, against 15-20 an
+//     op when each op tests its controls and extracts its bits. So the
+//     host merges each run of consecutive diagonal ops into few tables
+//     (merge_diagonals: controls become index bits; the QFT's densest
+//     run, 91 phases, -> 11 tables of <= 2^8 entries), and the kernel
+//     applies a run of such records in one sweep, the amplitudes in
+//     registers, with the per-record index parts that do not vary across
+//     a thread's amplitudes staged once per block: about 6 instructions
+//     an amplitude a record (an XOR, a shared-memory load of the entry, a
+//     complex multiply).
+// A lane_u op is 128 complex multiply-adds per amplitude (about 6.9e10
+// flop at 26 qubits): 1.03 ms at the 67 TFLOP/s FP32 rate (and at the FP64
+// tensor-core rate, the same 67 TFLOP/s), 0.42 ms as 3xTF32 on the tensor
+// cores (494.7/3 TFLOP/s), so passes that carry one are bound by
+// operations.
 //   f32: the tensor cores, mma.sync m16n8k8 in 3xTF32 (mma.cuh). The
 //     product is OUT (rows x 128) = X (rows x 128) U^T, four real
 //     products summed into two accumulators. U^T arrives split into TF32
@@ -1141,6 +1158,294 @@ __device__ __noinline__ void kraus_op(T* sre, T* sim, uint32_t tile,
   }
 }
 
+// The diagonal arm: a maximal run of consecutive elementwise records (a
+// diagonal kMatrix, kParity, kDiagw) in one sweep of the tile. The host
+// has merged the run into few kDiagw records without controls
+// (merge_diagonals: tables of up to 2^8 entries, bit j of the index the
+// j-th lowest qubit), which take the fast path; an op too wide for a
+// table stays as it is and takes the generic path (its factor from the
+// amplitude's whole index, as the per-op arms computed it). Each thread
+// walks its K = tile / kThreads amplitudes (i = tid + kThreads s, slot s
+// < K) in groups of KG held in registers: it reads each amplitude from
+// shared memory once, multiplies it by every record's entry for its
+// index, in record order, and writes it once.
+//
+// Fast path. A record's index is a gather of up to 8 bits of the
+// amplitude's global index. The bits below 9 (kThreads) come from the
+// thread (lane bits 0-4, warp bits 5-8), those above the tile from the
+// block: both are fixed for a thread and a record, so staging writes, per
+// record, the index part of each of the 32 lanes and of each of the 16
+// warps (the block's bits above the tile ORed into the latter). Only the
+// tile bits [9, T) vary across a thread's amplitudes: a group walks them
+// in Gray order, so each step flips one of them and the index changes by
+// one XOR (byte b of ``steps``: the index bits that tile bit 9 + b sets).
+// Per record and amplitude: an XOR, a shared-memory load of the entry and
+// a complex multiply. The lanes of a warp read at most 32 neighbouring
+// entries (their qubits take the table's low bits): no bank conflict
+// beyond the entry's width.
+//
+// Staging, once per block: a chunk of up to kDiagRecs (= one warp's
+// lanes) records and their tables goes into the stage after the tile
+// (kDiagStage bytes). Every warp reads the chunk's records, one a lane,
+// and sizes it with a prefix sum of the table sizes (no thread walks the
+// records one by one, and no warp waits for another); then the tables
+// arrive by cp.async, all of them in flight at once, while 48 threads a
+// record compute its lane and warp parts. A run whose tables fit is one
+// chunk: one barrier after the staging, none in the sweep, one after it.
+// A longer run takes further chunks, each staged in turn.
+constexpr int kThreadBits = 9;  // log2(kThreads): tile bits from the thread index
+constexpr int kDiagRecs = 32;   // records a chunk stages: one warp's lanes
+constexpr int kDiagStage = kLaneDmmaStage;
+constexpr int kDiagFast = 0, kDiagSkip = 1, kDiagGeneric = 2;
+// Amplitudes a thread holds in registers at once in the sweep, of its K =
+// 2^13 / kThreads (f32) or 2^12 / kThreads (f64)
+constexpr int kDiagHeld32 = 16;
+constexpr int kDiagHeld64 = 4;
+
+struct DiagRec {
+  uint8_t lane[32];  // the index bits from lane bits 0-4 of the amplitude
+  uint8_t warp[16];  // from warp bits 5-8, with the block's bits above the tile
+  uint32_t steps;    // byte b: the index bits that tile bit 9 + b sets
+  uint32_t tab;      // the record's first table entry in the chunk's tables
+  uint32_t src;      // its coefficients' offset
+  uint8_t mode;      // kDiagFast, kDiagSkip (controls above the tile miss), kDiagGeneric
+  uint8_t pad[3];
+};
+static_assert(sizeof(DiagRec) == 64, "a staged record is 64 bytes");
+constexpr int kDiagHead = kDiagRecs * sizeof(DiagRec);  // the records, then the tables
+
+template <typename T> struct Cplx;
+template <> struct Cplx<float> { using type = float2; };
+template <> struct Cplx<double> { using type = double2; };
+
+__device__ __forceinline__ bool elementwise(const long long* r) {
+  const int kind = static_cast<int>(r[0]);
+  return kind == kParity || kind == kDiagw || (kind == kMatrix && (r[7] & 1));
+}
+
+// a kDiagw record without controls: the fast path
+__device__ __forceinline__ bool diag_fast(const long long* r) {
+  return r[0] == kDiagw && r[3] == 0;
+}
+
+// An elementwise record that takes no table (a diagonal 2x2 or parity op
+// with any controls, or a kDiagw with controls) on the amplitude x of
+// in-tile index i, from its whole index (its controls above the tile hold
+// in this block).
+template <typename T>
+__device__ __forceinline__ void diag_generic(T& xr, T& xi, const long long* r, const T* cf,
+                                             uint32_t i, uint32_t tile, uint64_t role_base) {
+  const uint32_t lmask = static_cast<uint32_t>(r[3]) & (tile - 1);
+  const uint32_t lval = static_cast<uint32_t>(r[4]) & (tile - 1);
+  if ((i & lmask) != lval) return;
+  const int kind = static_cast<int>(r[0]);
+  const uint64_t gi = role_base | i;
+  T fr, fi;
+  if (kind == kMatrix) {
+    const bool one = (gi >> r[1]) & 1;
+    fr = cf[one ? 6 : 0];
+    fi = cf[one ? 7 : 1];
+  } else if (kind == kParity) {
+    fr = cf[0];
+    fi = (__popcll(gi & static_cast<uint64_t>(r[5])) & 1) ? cf[1] : -cf[1];
+  } else {
+    const int t = static_cast<int>(r[1]);
+    const uint64_t packed = static_cast<uint64_t>(r[2]);
+    uint32_t k = 0;
+    for (int j = 0; j < t; ++j) {
+      k |= static_cast<uint32_t>((gi >> ((packed >> (6 * j)) & 63)) & 1) << j;
+    }
+    fr = cf[2 * k];
+    fi = cf[2 * k + 1];
+  }
+  cmul_into(xr, xi, fr, fi);
+}
+
+// The run of elementwise records that starts at record o0 of the table
+// ``ops`` (num_ops records); returns the record after the last one it
+// applied. ``sre``:
+// the tile's real plane, then its imaginary plane and the stage
+// (kDiagStage bytes that no other arm uses during the sweep).
+template <typename T>
+__device__ __forceinline__ int diag_sweep(T* sre, int tile_bits, uint64_t role_base,
+                                          const long long* __restrict__ ops, int o0,
+                                          int num_ops, const T* __restrict__ coeffs,
+                                          int tid_in) {
+  using C = typename Cplx<T>::type;
+  // the thread index, the tile and the block's bits through opaque moves,
+  // as in krausn_dmma: what the sweep derives from them is computed here, not
+  // hoisted out of the kernel's op loop, where it would hold registers
+  // through every other op
+  int tid, tb;
+  asm volatile("mov.b32 %0, %1;" : "=r"(tid) : "r"(tid_in));
+  asm volatile("mov.b32 %0, %1;" : "=r"(tb) : "r"(tile_bits));
+  asm volatile("mov.b64 %0, %0;" : "+l"(role_base));
+  const uint32_t tile = 1u << tb;
+  T* sim = sre + tile;
+  unsigned char* stage = reinterpret_cast<unsigned char*>(sim + tile);
+  constexpr int K = (sizeof(T) == 4 ? 1 << 13 : 1 << 12) / kThreads;
+  constexpr int KG = sizeof(T) == 4 ? kDiagHeld32 : kDiagHeld64;
+  constexpr int kGroupBits = KG == 16 ? 4 : KG == 8 ? 3 : KG == 4 ? 2 : KG == 2 ? 1 : 0;
+  static_assert(KG == 1 << kGroupBits && K % KG == 0, "groups of a power of two");
+  constexpr uint32_t kCap = (kDiagStage - kDiagHead) / sizeof(C);
+  DiagRec* meta = reinterpret_cast<DiagRec*>(stage);
+  C* tabs = reinterpret_cast<C*>(stage + kDiagHead);
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long* r0 = ops + kRec * o0;
+  const int left = num_ops - o0;
+  int o = 0;  // records applied
+  for (bool first = true; o < left && elementwise(r0 + kRec * o); first = false) {
+    if (!first) __syncthreads();  // the last chunk's reads of the stage are done
+    // every warp reads the chunk's records, lane k record o + k, so that
+    // each has the chunk's size and its records' places without waiting
+    // for another: the chunk ends before the first record that is not
+    // elementwise or whose table does not fit
+    const long long* r = r0 + kRec * (o + lane);
+    const bool ew = o + lane < left && elementwise(r);
+    const bool fast = ew && diag_fast(r);
+    const int t = fast ? static_cast<int>(r[1]) : -1;  // its table's index bits
+    constexpr uint32_t kPiece = 16 / sizeof(C);          // entries a 16-byte piece
+    const uint32_t need = fast ? ((1u << t) + kPiece - 1) / kPiece * kPiece : 0u;
+    uint32_t end = need;  // the inclusive prefix sum of the table sizes
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t v = __shfl_up_sync(0xffffffffu, end, d);
+      if (lane >= d) end += v;
+    }
+    const uint32_t stop = __ballot_sync(0xffffffffu, !(ew && end <= kCap));
+    const int n = stop ? __ffs(stop) - 1 : 32;
+    const uint32_t tab = end - need;
+    const uint32_t src = ew ? static_cast<uint32_t>(r[6]) : 0u;
+    if (warp == 0 && lane < n) {  // what the sweep reads of each record
+      DiagRec& m = meta[lane];
+      m.tab = tab;
+      m.src = src;
+      if (fast) {
+        const uint64_t packed = static_cast<uint64_t>(r[2]);
+        uint32_t steps = 0;
+        for (int j = 0; j < t; ++j) {
+          const int q = static_cast<int>((packed >> (6 * j)) & 63);
+          if (q >= kThreadBits && q < tb) steps |= 1u << (8 * (q - kThreadBits) + j);
+        }
+        m.steps = steps;
+        m.mode = kDiagFast;
+      } else {
+        const uint64_t above = ~static_cast<uint64_t>(tile - 1);
+        const uint64_t cmask = static_cast<uint64_t>(r[3]), cval = static_cast<uint64_t>(r[4]);
+        m.mode = (role_base & cmask & above) != (cval & above) ? kDiagSkip : kDiagGeneric;
+      }
+    }
+    // the tables, by cp.async in 16-byte pieces (a block's coefficients
+    // start 4-element aligned and are padded to 4 elements): all of the
+    // chunk's in flight at once, holding no registers
+    for (int k = 0; k < n; ++k) {
+      const int tk = __shfl_sync(0xffffffffu, t, k);
+      const uint32_t tabk = __shfl_sync(0xffffffffu, tab, k);
+      const uint32_t srck = __shfl_sync(0xffffffffu, src, k);
+      if (tk < 0) continue;
+      const int pieces = ((1 << tk) + kPiece - 1) / kPiece;
+      for (int x = tid; x < pieces; x += kThreads) {
+        quest_mma::copy16_async(tabs + tabk + kPiece * x, coeffs + srck + 2 * kPiece * x);
+      }
+    }
+    quest_mma::async_commit();
+    // the lane and warp parts: 48 threads a record
+    for (int w0 = 0; w0 < 48 * n; w0 += kThreads) {
+      const int w = w0 + tid;
+      const int k = w < 48 * n ? w / 48 : 0, p = w % 48;
+      const int tk = __shfl_sync(0xffffffffu, t, k);
+      if (w >= 48 * n || tk < 0) continue;
+      const uint64_t packed = static_cast<uint64_t>(r0[kRec * (o + k) + 2]);
+      const uint32_t v = p < 32 ? p : (p - 32) << 5;  // the part's bits of the thread index
+      uint32_t idx = 0;
+      for (int j = 0; j < tk; ++j) {
+        const int q = static_cast<int>((packed >> (6 * j)) & 63);
+        if (q >= tb) {
+          if (p >= 32) idx |= static_cast<uint32_t>((role_base >> q) & 1) << j;
+        } else if (q < kThreadBits) {
+          idx |= ((v >> q) & 1) << j;
+        }
+      }
+      if (p < 32) {
+        meta[k].lane[p] = static_cast<uint8_t>(idx);
+      } else {
+        meta[k].warp[p - 32] = static_cast<uint8_t>(idx);
+      }
+    }
+    quest_mma::async_wait<0>();
+    __syncthreads();
+    // each group of KG of the thread's amplitudes, slots s0 .. s0 + KG - 1:
+    // read once, every record, written once
+#pragma unroll 1
+    for (int s0 = 0; s0 < K; s0 += KG) {
+      if (static_cast<uint32_t>(tid) + kThreads * s0 >= tile) break;
+      T xr[KG], xi[KG];
+#pragma unroll
+      for (int a = 0; a < KG; ++a) {
+        const uint32_t i = static_cast<uint32_t>(tid) + kThreads * (s0 + a);
+        xr[a] = i < tile ? sre[i] : T(0);
+        xi[a] = i < tile ? sim[i] : T(0);
+      }
+      for (int k = 0; k < n; ++k) {
+        const DiagRec& m = meta[k];
+        const int mode = m.mode;
+        if (mode == kDiagFast) {
+          const C* tab = tabs + m.tab;
+          const uint32_t steps = m.steps;
+          uint32_t idx = m.lane[lane] | m.warp[warp];
+#pragma unroll
+          for (int b = kGroupBits; (1 << b) < K; ++b) {  // the group's fixed slot bits
+            if ((s0 >> b) & 1) idx ^= (steps >> (8 * b)) & 0xff;
+          }
+#pragma unroll
+          for (int a = 0; a < KG; ++a) {
+            // Gray order: step a flips slot bit ctz(a), tile bit 9 + ctz(a)
+            if (a) idx ^= (steps >> (8 * (__ffs(a) - 1))) & 0xff;
+            const int g = a ^ (a >> 1);
+            const C f = tab[idx];
+            cmul_into(xr[g], xi[g], f.x, f.y);
+          }
+        } else if (mode == kDiagGeneric) {
+          // an op too wide for a table (rare): through shared memory, one
+          // amplitude at a time, so that it holds few registers
+          const long long* r = r0 + kRec * (o + k);
+#pragma unroll
+          for (int a = 0; a < KG; ++a) {
+            const uint32_t i = static_cast<uint32_t>(tid) + kThreads * (s0 + a);
+            if (i < tile) {
+              sre[i] = xr[a];
+              sim[i] = xi[a];
+            }
+          }
+#pragma unroll 1
+          for (int a = 0; a < KG; ++a) {
+            const uint32_t i = static_cast<uint32_t>(tid) + kThreads * (s0 + a);
+            if (i < tile) diag_generic(sre[i], sim[i], r, coeffs + m.src, i, tile, role_base);
+          }
+#pragma unroll
+          for (int a = 0; a < KG; ++a) {
+            const uint32_t i = static_cast<uint32_t>(tid) + kThreads * (s0 + a);
+            if (i < tile) {
+              xr[a] = sre[i];
+              xi[a] = sim[i];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < KG; ++a) {
+        const uint32_t i = static_cast<uint32_t>(tid) + kThreads * (s0 + a);
+        if (i < tile) {
+          sre[i] = xr[a];
+          sim[i] = xi[a];
+        }
+      }
+    }
+    o += n;
+  }
+  return o0 + o;
+}
+
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
 // both planes of the tile, plus, for a run with a t = 3 kraus op or an
@@ -1209,6 +1514,11 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
 
   for (int o = 0; o < num_ops; ++o) {
     const long long* r = ops + kRec * o;
+    if (elementwise(r)) {  // the run of elementwise records from here: one sweep
+      o = diag_sweep<T>(sre, tile_bits, role_base, ops, o, num_ops, coeffs, tid) - 1;
+      __syncthreads();
+      continue;
+    }
     const int kind = static_cast<int>(r[0]);
     const uint64_t cmask = static_cast<uint64_t>(r[3]);
     const uint64_t cval = static_cast<uint64_t>(r[4]);
@@ -1219,37 +1529,19 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
     const uint32_t lval = static_cast<uint32_t>(cval & tile_mask);
     const T* cf = coeffs + r[6];
 
-    if (kind == kMatrix) {
+    if (kind == kMatrix) {  // a 2x2 on an in-tile target (diagonal ones are elementwise)
       const int q = static_cast<int>(r[1]);
       const T m00r = cf[0], m00i = cf[1], m01r = cf[2], m01i = cf[3];
       const T m10r = cf[4], m10i = cf[5], m11r = cf[6], m11i = cf[7];
-      if (r[7] & 1) {  // diagonal: the target may be any qubit
-        for (uint32_t i = tid; i < tile; i += kThreads) {
-          if ((i & lmask) != lval) continue;
-          const bool b = ((role_base | i) >> q) & 1;
-          cmul_into(sre[i], sim[i], b ? m11r : m00r, b ? m11i : m00i);
-        }
-      } else {
-        for (uint32_t p = tid; p < (tile >> 1); p += kThreads) {
-          const uint32_t i0 = insert_zero(p, q);
-          const uint32_t i1 = i0 | (1u << q);
-          if ((i0 & lmask) != lval) continue;
-          const T a0r = sre[i0], a0i = sim[i0], a1r = sre[i1], a1i = sim[i1];
-          sre[i0] = m00r * a0r - m00i * a0i + m01r * a1r - m01i * a1i;
-          sim[i0] = m00r * a0i + m00i * a0r + m01r * a1i + m01i * a1r;
-          sre[i1] = m10r * a0r - m10i * a0i + m11r * a1r - m11i * a1i;
-          sim[i1] = m10r * a0i + m10i * a0r + m11r * a1i + m11i * a1r;
-        }
-      }
-    } else if (kind == kParity) {
-      const uint64_t pmask = static_cast<uint64_t>(r[5]);
-      const T c = cf[0], s = cf[1];
-      const uint32_t gpar = __popcll(role_base & pmask & ~tile_mask) & 1;
-      const uint32_t lpm = static_cast<uint32_t>(pmask & tile_mask);
-      for (uint32_t i = tid; i < tile; i += kThreads) {
-        if ((i & lmask) != lval) continue;
-        const uint32_t par = gpar ^ (__popc(i & lpm) & 1);
-        cmul_into(sre[i], sim[i], c, par ? s : -s);
+      for (uint32_t p = tid; p < (tile >> 1); p += kThreads) {
+        const uint32_t i0 = insert_zero(p, q);
+        const uint32_t i1 = i0 | (1u << q);
+        if ((i0 & lmask) != lval) continue;
+        const T a0r = sre[i0], a0i = sim[i0], a1r = sre[i1], a1i = sim[i1];
+        sre[i0] = m00r * a0r - m00i * a0i + m01r * a1r - m01i * a1i;
+        sim[i0] = m00r * a0i + m00i * a0r + m01r * a1i + m01i * a1r;
+        sre[i1] = m10r * a0r - m10i * a0i + m11r * a1r - m11i * a1i;
+        sim[i1] = m10r * a0i + m10i * a0r + m11r * a1i + m11i * a1r;
       }
     } else if (kind == kSwap) {
       const int q1 = static_cast<int>(r[1]), q2 = static_cast<int>(r[2]);
@@ -1263,19 +1555,6 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
         sim[ia] = sim[ib];
         sre[ib] = tr;
         sim[ib] = ti;
-      }
-    } else if (kind == kDiagw) {
-      const int t = static_cast<int>(r[1]);
-      const uint64_t packed = static_cast<uint64_t>(r[2]);
-      for (uint32_t i = tid; i < tile; i += kThreads) {
-        if ((i & lmask) != lval) continue;
-        const uint64_t g = role_base | i;
-        uint32_t k = 0;
-        for (int j = 0; j < t; ++j) {
-          const int q = static_cast<int>((packed >> (6 * j)) & 63);
-          k |= static_cast<uint32_t>((g >> q) & 1) << j;
-        }
-        cmul_into(sre[i], sim[i], cf[2 * k], cf[2 * k + 1]);
       }
     } else if (kind == kLaneU) {
       if constexpr (sizeof(T) == 8) {
@@ -1348,16 +1627,18 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
 // What a run's ops stage through shared memory beyond the tile (the
 // ``staged`` flags of the launch): bit 0, a lane_u op; bit 1, a kraus op on
 // t = 3 row qubits; bit 2, a window op of span 3 or more (its U, in either
-// precision: window_dmma's table, window_mma's split table).
+// precision: window_dmma's table, window_mma's split table); bit 3, an
+// elementwise record (diag_sweep's staged records and tables).
 constexpr int kStagedLaneU = 1;
 constexpr int kStagedKrausN = 2;
 constexpr int kStagedWindow = 4;
+constexpr int kStagedDiag = 8;
 
 // The instantiation a run takes and its dynamic shared memory, chosen by
 // what the run holds: an f32 run with lane_u (and krausn or windows or
 // not) takes the one with one block per SM; every other run, runs with
-// krausn or a window of span 3 or more and f64 runs with lane_u too, two
-// blocks per SM.
+// krausn, a window of span 3 or more or elementwise records and f64 runs
+// with lane_u too, two blocks per SM.
 template <typename T>
 auto pick(int tile_bits, int staged, int* smem) {
   auto kernel = fused_run_kernel<T, false>;
@@ -1366,11 +1647,13 @@ auto pick(int tile_bits, int staged, int* smem) {
     if (staged & kStagedLaneU) {
       kernel = fused_run_kernel<T, true>;
       stage = kLaneMmaStage;  // holds krausn_mma's chunk ring and window_mma's table too
-    } else if (staged & (kStagedKrausN | kStagedWindow)) {
+    } else if (staged & (kStagedKrausN | kStagedWindow | kStagedDiag)) {
       stage = kLaneDmmaStage;
     }
   } else {
-    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow)) stage = kLaneDmmaStage;
+    if (staged & (kStagedLaneU | kStagedKrausN | kStagedWindow | kStagedDiag)) {
+      stage = kLaneDmmaStage;
+    }
   }
   *smem = static_cast<int>(2 * sizeof(T) << tile_bits) + stage;
   return kernel;
@@ -1434,7 +1717,7 @@ extern "C" {
 // through shared memory, bit 0 a lane_u op (in f32, the tensor-core
 // instantiation), bit 1 a kraus op on 3 row qubits (krausn_dmma,
 // krausn_mma), bit 2 a window op of span 3 or more (window_dmma,
-// window_mma).
+// window_mma), bit 3 an elementwise record (diag_sweep's tables).
 // A run whose flags miss such an op writes past its shared memory.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,

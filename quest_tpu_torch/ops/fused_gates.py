@@ -31,11 +31,19 @@ decisions as the JAX package; kraus ops never fold. The tile is
 2^tile_bits amplitudes; a dense (partner-exchanging) target must lie below
 tile_bits, and every qubit of a kraus op is dense.
 
+Below the fold, ``merge_diagonals`` packs each run of consecutive diagonal
+ops (diagonal ``matrix``, ``parity``, ``diagw``) into few ``diagw`` tables
+of up to 2^8 entries, which the kernel's diagonal arm applies in one sweep
+of the tile. The fold (``PreparedRun.ops``) is the plan's work and stays
+equal to the JAX package's; the merged list (``PreparedRun.records``) is
+what is encoded.
+
 Route: ``fused_run`` launches the kernel for a CUDA tensor, and uses the
 plain PyTorch version ``fused_run_plain`` only for a CPU tensor. Both read
-the same encoded op table (``encode_ops``), so the CPU tests that hold the
-plain version against ``quest_tpu`` also cover the encoding the kernel
-reads, and the card checks the kernel against the plain version.
+the same encoded op table (``encode_ops`` of the merged records), so the
+CPU tests that hold the plain version against ``quest_tpu`` also cover the
+encoding the kernel reads, and the card checks the kernel against the
+plain version.
 """
 
 from __future__ import annotations
@@ -64,6 +72,11 @@ HOPPER_TILE_BITS = {torch.float32: 13, torch.float64: 12}
 
 #: width (in qubits) of each sublane fold zone, as in the JAX package
 _ZONE_SPAN = 5
+
+#: the widest ``diagw`` record the kernel takes (its diagonal arm stages a
+#: table of up to 2^8 entries a record), and the width ``merge_diagonals``
+#: packs a run of diagonal ops into: the widest measured fastest (PERF.md)
+DIAG_TABLE_BITS = 8
 
 #: op kind codes of the kernel's op table (csrc/fused_gates.cu)
 _KIND = {"matrix": 0, "parity": 1, "swap": 2, "diagw": 3, "lane_u": 4,
@@ -270,6 +283,91 @@ def _fold_zone_ops(ops, tile_bits: int) -> tuple:
     return tuple(out)
 
 
+def _diag_factor(op, bit) -> np.ndarray:
+    """The diagonal of the elementwise ``op`` at every index of a table,
+    complex128: ``bit[q]`` holds qubit q's bit of each table index (its
+    support's qubits all have one). Identity where a control misses."""
+    if op[0] == "matrix":
+        _, q, controls, states, M = op
+        m = _arr(M).astype(complex)
+        states = states if states else (1,) * len(controls)
+        f = np.where(bit[q] == 1, m[1, 1], m[0, 0])
+    elif op[0] == "parity":
+        _, qubits, controls, theta = op
+        states = (1,) * len(controls)
+        par = np.zeros_like(next(iter(bit.values())))
+        for q in qubits:
+            par = par ^ bit[q]
+        c, s = math.cos(theta / 2), math.sin(theta / 2)
+        f = np.where(par == 1, complex(c, s), complex(c, -s))
+    else:  # diagw
+        _, targets, controls, D = op
+        states = (1,) * len(controls)
+        k = sum(bit[q] << j for j, q in enumerate(targets))
+        f = _arr(D).astype(complex).reshape(-1)[k]
+    ok = np.ones(f.shape, dtype=bool)
+    for c, st in zip(controls, states):
+        ok &= bit[c] == int(st)
+    return np.where(ok, f, 1.0)
+
+
+def _diag_table_op(qubits, ops) -> tuple:
+    """One ``diagw`` op over ``qubits`` (ascending: table bit j is the j-th
+    lowest, so that a warp's lanes read neighbouring entries) that applies
+    every op of ``ops``, with no controls: its table is their product,
+    built in complex128."""
+    qubits = tuple(sorted(qubits))
+    idx = np.arange(1 << len(qubits))
+    bit = {q: (idx >> j) & 1 for j, q in enumerate(qubits)}
+    d = np.ones(idx.size, dtype=complex)
+    for op in ops:
+        d = d * _diag_factor(op, bit)
+    return ("diagw", qubits, (), HashableMatrix(d))
+
+
+def merge_diagonals(ops, max_bits: int = DIAG_TABLE_BITS) -> tuple:
+    """The records a run's folded ops encode into: each maximal run of
+    consecutive elementwise ops (diagonal ``matrix``, ``parity``,
+    ``diagw``) packed into as few ``diagw`` tables of at most ``max_bits``
+    qubits as first fit finds, every other op as it is. A control (or an
+    anti-control) is one more index bit of the table, with identity
+    entries where it misses. Diagonal ops commute, so the order inside a
+    run is free; an op whose qubits and controls exceed ``max_bits`` stays
+    as it is, in the run. Nothing crosses a non-elementwise op. The plan
+    (``PreparedRun.ops``) is not changed: only what the kernel and its
+    plain version read."""
+    if not 0 <= max_bits <= DIAG_TABLE_BITS:
+        raise ValueError(f"a diagonal table takes 0 to {DIAG_TABLE_BITS} qubits, "
+                         f"got {max_bits}")
+    out, run = [], []
+
+    def flush():
+        groups, items = [], []  # items: op tuples kept, [qubits, ops] groups
+        for op in run:
+            s = _op_support(op)
+            if len(s) > max_bits:
+                items.append(op)
+                continue
+            g = next((g for g in groups if len(g[0] | s) <= max_bits), None)
+            if g is None:
+                g = [set(), []]
+                groups.append(g)
+                items.append(g)
+            g[0].update(s)
+            g[1].append(op)
+        out.extend(_diag_table_op(*it) if isinstance(it, list) else it for it in items)
+        run.clear()
+
+    for op in ops:
+        if _op_is_diag(op):
+            run.append(op)
+            continue
+        flush()
+        out.append(op)
+    flush()
+    return tuple(out)
+
+
 def swap_bit_blocks(amps: torch.Tensor, *, n: int, lo1: int, lo2: int,
                     k: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Exchange the k-bit index blocks [lo1, lo1+k) and [lo2, lo2+k)
@@ -427,8 +525,9 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     ``coeffs``, flags -- and ``coeffs`` float64 holds each op's numbers,
     every block padded to a multiple of 4:
     matrix 8 (m00..m11, re/im), parity 2 (cos, sin of theta/2), diagw 2^t
-    interleaved re/im, lane_u U^T real then imaginary (128 x 128 each,
-    what the plain version reads), then for the f32 kernel the same split
+    (t <= 8 targets, packed 6 bits each) interleaved re/im, lane_u U^T
+    real then imaginary (128 x 128 each, what the plain version reads),
+    then for the f32 kernel the same split
     into TF32 hi and lo in its fragment order (``lane_u_split_table``, 2 x
     128 x 256), then for the f64 kernel the same in its fragment order
     (``lane_u_f64_table``, 2 x 16 x 2 x 64 x 8); window U real then
@@ -494,8 +593,9 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
         elif kind == "diagw":
             _, targets, controls, D = op
             d = _arr(D).astype(complex).reshape(-1)
-            if len(targets) > 5 or d.size != 1 << len(targets):
-                raise ValueError(f"diagw op needs 2^t <= 32 entries, got {d.size}")
+            if len(targets) > DIAG_TABLE_BITS or d.size != 1 << len(targets):
+                raise ValueError(f"diagw op needs 2^t <= {1 << DIAG_TABLE_BITS} "
+                                 f"entries, got {d.size}")
             rec[1] = len(targets)
             rec[2] = sum(int(q) << (6 * j) for j, q in enumerate(targets))
             rec[3] = rec[4] = _mask(controls)
@@ -541,22 +641,30 @@ class PreparedRun:
     """A run's folded ops and their encoded table, computed once per
     (ops, tile_bits) and kept with the run because plans are replayed; the
     device copies are cached per (device, dtype), staged
-    (``_capture.to_device``) so that a compiled replay keeps them."""
+    (``_capture.to_device``) so that a compiled replay keeps them.
 
-    def __init__(self, ops, tile_bits: int):
+    ``ops`` is the fold, the plan's work (as the JAX package folds it);
+    ``records`` what the kernel and the plain version read, one table row
+    each: the fold with each run of diagonal ops merged into ``diagw``
+    tables of at most ``diag_bits`` qubits (:func:`merge_diagonals`)."""
+
+    def __init__(self, ops, tile_bits: int, diag_bits: int = DIAG_TABLE_BITS):
         self.tile_bits = tile_bits
         self.ops = _fold_zone_ops(tuple(ops), tile_bits)
-        self.table, self.coeffs = encode_ops(self.ops)
+        self.records = merge_diagonals(self.ops, diag_bits)
+        self.table, self.coeffs = encode_ops(self.records)
         self.has_lane_u = any(o[0] == "lane_u" for o in self.ops)
         #: what the kernel stages through extra shared memory, the launch's
         #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
         #: matrix, bit 1 a 3-qubit kraus op's S^T, bit 2 the U of a window op
         #: of span 3 or more (in either precision: the f64 fragment table, or
-        #: U split into TF32 hi and lo by the f32 kernel as it stages it)
+        #: U split into TF32 hi and lo by the f32 kernel as it stages it), bit
+        #: 3 an elementwise record (the diagonal arm's tables)
         self.staged = (int(self.has_lane_u)
                        | 2 * any(o[0] in _KRAUS and len(kraus_parts(o)[0]) == 3
                                  for o in self.ops)
-                       | 4 * any(o[0] == "window" and o[2] >= 3 for o in self.ops))
+                       | 4 * any(o[0] == "window" and o[2] >= 3 for o in self.ops)
+                       | 8 * any(_op_is_diag(o) for o in self.records))
         self._device: dict = {}
 
     def device_tables(self, device, dtype):
@@ -709,8 +817,9 @@ def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
                     store_swap_hi: int | None = None,
                     pair_swap: tuple[int, int] | None = None,
                     local_n: int | None = None, shard_index: int = 0) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the same encoded ops, one at
-    a time on the whole state (or shard: ``local_n``, ``shard_index`` as
+    """The plain PyTorch version of the kernel: the same encoded records
+    (``prepared.records``: diagonal runs merged), one at a time on the whole
+    state (or shard: ``local_n``, ``shard_index`` as
     for :func:`fused_run`) with torch indexing (a kraus op from its terms,
     which the op tuple keeps), and folded swaps as explicit
     ``swap_bit_blocks`` before and after. Roles read the global index,
@@ -726,7 +835,7 @@ def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
     loc = torch.arange(1 << ln, device=amps.device)
     idx = loc | (int(shard_index) << ln)
     cf = to_device(prepared.coeffs, amps.dtype, amps.device)
-    for op, rec in zip(prepared.ops, prepared.table.tolist()):
+    for op, rec in zip(prepared.records, prepared.table.tolist()):
         if op[0] in _KRAUS:
             x = _plain_kraus(x, op, idx, loc)
         else:
