@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the tensor-core folds goes, on one CUDA card: the
-lane_u fold in f32 and f64, the krausn arm in f64 and f32, and the window
-fold in f64 and f32.
+"""Where the time of the fused-run kernel's arms goes, on one CUDA card:
+the lane_u fold in f32 and f64, the krausn arm in f64 and f32, the window
+fold in f64 and f32, the diagonal arm and the 2x2 arm.
 
     python3 chip_lane_u_breakdown.py [--parent DIR]
-        [--passes f32,f64,krausn,krausn32,window64,window32,diag32,diag64]
+        [--passes f32,f64,krausn,krausn32,window64,window32,diag32,diag64,sweep32,sweep64]
 
 Builds ``quest_tpu_torch/csrc/fused_gates.cu`` as it is and in variants
 that each take one piece of an op away (or change it), and times a one-op
@@ -160,6 +160,26 @@ pass of the elementwise ops of the 26-qubit QFT's run that holds the most
   in (wrong results, timing only);
 - ``diag load and store``: the sweep stages its records and reads and
   writes its amplitudes, but applies no record (timing only).
+
+``sweep32`` and ``sweep64``: the 2x2 arm alone (``reg_sweep``), one pass
+of ``chip_smoke.TWO_BY_TWO_RUN`` (14 2x2s on [7, 12) with T and Rz
+between them) built below the fold, 26 qubits, in place:
+
+- ``sweep load and store``: each sweep reads and writes its groups but
+  applies no record (a lone swap still moves; timing only);
+- ``sweep no 2x2``: the 2x2 records' arithmetic skipped (swaps stay;
+  wrong results, timing only);
+- ``sweep general form``: every 2x2 in the general form (16 multiply-adds
+  a pair; the host's real, Rx and X forms unused);
+- ``sweep32 width 2``, ``sweep32 width 4``, ``sweep64 width 3``: the kernel
+  built for sweeps of that many qubits (``sweep_bits``), the pass's table
+  grouped at that width (``group_sweeps``, ``mark_sweeps``).
+
+With ``--parent``, the sweep passes are followed by the kernel passes of
+the 26-qubit main path's and the QFT's fused runs in that precision
+(``chip_smoke``'s circuits, each pass with its folded frame swaps), each
+through this checkout's kernel and the parent's (kernel, parent, parent,
+kernel), the two held against each other and summed a path.
 
 ``--parent DIR`` also builds ``DIR/quest_tpu_torch/csrc/fused_gates.cu``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) and
@@ -994,6 +1014,30 @@ for _arm, _held in (("diag32", ((8, 4), (4, 4))), ("diag64", ((16, 8), (16, 2)))
         VARIANTS[f"{_arm} held {_h[_arm == 'diag64']}"] = (_arm, [(_DIAG_HELD, _diag_held(*_h))])
 
 
+_SWEEP_LOOP = "    for (int k = 0; k < count; ++k) {\n      const long long* r = r0 + kRec * k;"
+_SWEEP_2X2 = ("        reg_2x2_on<T, W>(static_cast<int>(r[7] >> 1) & 3, j1, xr, xi, coeffs + r[6], "
+              "cm, cv);\n")
+_SWEEP_LONE_2X2 = "      reg_2x2_form<T, 1, 0>(form, xr, xi, cf, 0u, 0u);\n"
+_SWEEP_FORM = "const int form = static_cast<int>(r[7] >> 1) & 3;"
+_SWEEP_BITS = "return sizeof(T) == 4 ? 3 : 2;"
+
+#: the sweep widths built as variants, a pass
+SWEEP_WIDTHS = {"sweep32": (2, 4), "sweep64": (3,)}
+for _arm in ("sweep32", "sweep64"):
+    VARIANTS.update({
+        f"{_arm} load and store": (_arm, [
+            (_SWEEP_LOOP, _SWEEP_LOOP.replace("k < count", "k < 0")), (_SWEEP_LONE_2X2, "")]),
+        f"{_arm} no 2x2": (_arm, [(_SWEEP_2X2, ""), (_SWEEP_LONE_2X2, "")]),
+        f"{_arm} general form": (_arm, [
+            (_SWEEP_2X2, _SWEEP_2X2.replace("static_cast<int>(r[7] >> 1) & 3", "0")),
+            (_SWEEP_FORM, "const int form = 0;")]),
+    })
+    for _w in SWEEP_WIDTHS[_arm]:
+        VARIANTS[f"{_arm} width {_w}"] = (_arm, [(_SWEEP_BITS, (
+            f"return sizeof(T) == 4 ? {_w} : 2;" if _arm == "sweep32"
+            else f"return sizeof(T) == 4 ? 3 : {_w};"))])
+
+
 def _window32_variants(src: str) -> dict:
     """The window32 variants cut from the source itself: the whole arm, and
     its stage."""
@@ -1022,7 +1066,10 @@ RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
          "window32 two items at once", "window32 B prefetch"} | {
              f"{a} {v}" for a in ("diag32", "diag64")
              for v in ("out of line", "held 8", "held 4", "held 2")} - {"diag32 held 2",
-                                                                          "diag64 held 4"}
+                                                                          "diag64 held 4"} | {
+             f"{a} {v}" for a in SWEEP_WIDTHS
+             for v in ("general form",)} | {
+             f"{a} width {w}" for a, ws in SWEEP_WIDTHS.items() for w in ws}
 
 
 def _variant_sources(src: str) -> dict:
@@ -1087,13 +1134,88 @@ def _diag_pass(FG, dt):
                           run.tile_bits)
 
 
+def _sweep_pass(FG, dt):
+    """The 2x2 arm alone: ``chip_smoke.TWO_BY_TWO_RUN``'s records, below the
+    fold, at ``dt``'s tile."""
+    import numpy as np
+
+    import chip_smoke as CS
+
+    return CS._below_fold(CS._two_by_two_ops(np.random.RandomState(41)),
+                          FG.HOPPER_TILE_BITS[dt])
+
+
+def _sweep_table(FG, prep, dt, w: int):
+    """``prep``'s table with its records grouped into sweeps of ``w``
+    qubits for ``dt``."""
+    table, _ = FG.encode_ops(prep.records)
+    FG.mark_sweeps(table, {dt: FG.group_sweeps(prep.records, w, prep.tile_bits)})
+    return table
+
+
+def _path_passes(dt, libs: dict, tol: float) -> None:
+    """The kernel passes of the N_QUBITS-qubit main path's and QFT's fused
+    runs in ``dt``, through this checkout's kernel and the parent's in turns
+    (kernel, parent, parent, kernel), the parent's held against the kernel,
+    summed a path (``# paths`` lines)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    import quest_tpu_torch as qt
+    from quest_tpu_torch import _build, fusion
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n, dev = N_QUBITS, torch.device("cuda:0")
+    main = qt.Circuit(n)
+    qt.random_layers(main, n, CS.DEPTH_MAIN)
+    qft = qt.Circuit(n)
+    qft.applyFullQFT()
+    st = torch.as_tensor(np.random.RandomState(9).randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    out, ref = torch.empty_like(st), torch.empty_like(st)
+    turns = ["kernel", "parent", "parent", "kernel"]
+    try:
+        for label, circ in (("main path", main), ("QFT", qft)):
+            fz = circ.fused(max_qubits=5, pallas=True, dtype=dt)
+            items = [CS._run_item(a[0]) for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+            for i, (_, prep, kw) in enumerate(items):
+                _build._loaded["fused_gates"] = libs["kernel"]
+                FG.fused_run(st, n=n, ops=prep.ops, out=ref, prepared=prep, **kw)
+                _build._loaded["fused_gates"] = libs["parent"]
+                FG.fused_run(st, n=n, ops=prep.ops, out=out, prepared=prep, **kw)
+                err, rel = CS._rel_err(out, ref)
+                CS._require(rel <= tol, f"{label} pass {i}: parent against kernel {rel}")
+            ms = {}
+            for name in turns:
+                _build._loaded["fused_gates"] = libs[name]
+                ms.setdefault(name, []).append([CS._cuda_ms(
+                    lambda: FG.fused_run(st, n=n, ops=prep.ops, out=out, prepared=prep,
+                                         **kw), 10) for _, prep, kw in items])
+            mean = {k: np.mean(v, axis=0) for k, v in ms.items()}
+            p = mean["parent"].sum()
+            print(f"# paths {label} {str(dt)[6:]}, {len(items)} kernel passes, summed ms "
+                  f"(against the parent): " + ", ".join(
+                      f"{k} " + " / ".join(f"{sum(x):.4f}" for x in v)
+                      + f" ({mean[k].sum() / p - 1:+.2%})" for k, v in ms.items()))
+            print(f"# paths {label} {str(dt)[6:]} by pass (2x2 records, sweeps; ms of "
+                  + ", ".join(ms) + "): " + "; ".join(
+                      f"{i} ({sum(FG._opens_sweep(r) for r in prep.records)}, "
+                      f"{len(prep.sweeps[dt])}; "
+                      + " ".join(f"{mean[k][i]:.4f}" for k in ms) + ")"
+                      for i, (_, prep, _) in enumerate(items)))
+    finally:
+        _build._loaded["fused_gates"] = libs["kernel"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
     ap.add_argument("--passes",
-                    default="f32,f64,krausn,krausn32,window64,window32,diag32,diag64",
+                    default="f32,f64,krausn,krausn32,window64,window32,diag32,diag64,"
+                            "sweep32,sweep64",
                     help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32, "
-                         "window64, window32, diag32, diag64 (default: all)")
+                         "window64, window32, diag32, diag64, sweep32, sweep64 (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -1139,7 +1261,8 @@ def main() -> int:
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
                             ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5),
                             ("window64", torch.float64, 1e-12), ("window32", torch.float32, 1e-5),
-                            ("diag32", torch.float32, 1e-5), ("diag64", torch.float64, 1e-12)):
+                            ("diag32", torch.float32, 1e-5), ("diag64", torch.float64, 1e-12),
+                            ("sweep32", torch.float32, 1e-5), ("sweep64", torch.float64, 1e-12)):
             if pn not in passes:
                 continue
             tb = FG.HOPPER_TILE_BITS[dt]
@@ -1147,8 +1270,9 @@ def main() -> int:
             n = 2 * CS.N_DENSITY if kraus else N_QUBITS
             window = pn.startswith("window")
             diag = pn.startswith("diag")
+            sweep = pn.startswith("sweep")
             prep = (_krausn_pass(FG, tb) if kraus else _window_pass(FG, tb) if window
-                    else _diag_pass(FG, dt) if diag
+                    else _diag_pass(FG, dt) if diag else _sweep_pass(FG, dt) if sweep
                     else FG.PreparedRun((("lane_u", FG.HashableMatrix(W)),), tb))
             tb = prep.tile_bits
             table, coeffs = prep.device_tables(dev, dt)
@@ -1156,6 +1280,10 @@ def main() -> int:
             own = {"window32 U split by the host": torch.as_tensor(np.concatenate(
                 [prep.coeffs[:2 * 32 * 32], window_split_table(prep.coeffs[:2 * 32 * 32], 5)
                  .reshape(-1)]), dtype=dt, device=dev)} if pn == "window32" else {}
+            # the width variants' own tables: the records grouped at their width
+            own_table = {f"{pn} width {w}": torch.as_tensor(_sweep_table(FG, prep, dt, w),
+                                                            device=dev)
+                         for w in SWEEP_WIDTHS.get(pn, ())}
             st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
             st /= st.norm()
             x = st.clone()
@@ -1163,7 +1291,8 @@ def main() -> int:
             def run(name):
                 fn = (libs[name].quest_fused_run_f32 if dt == torch.float32
                       else libs[name].quest_fused_run_f64)
-                err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(),
+                err = fn(x.data_ptr(), x.data_ptr(), n, n, 0, tb,
+                         own_table.get(name, table).data_ptr(),
                          int(table.shape[0]),
                          own.get(name, coeffs).data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
                          torch.cuda.current_stream().cuda_stream)
@@ -1189,14 +1318,16 @@ def main() -> int:
             mine = [v for v, (d, _) in variants.items() if v in libs
                     and (d == pn or (pn, d) == ("f64", "krausn"))]
             what = ("krausn" if kraus else "window" if window else "diagonal arm" if diag
-                    else "lane_u")
+                    else "2x2 arm" if sweep else "lane_u")
             for name in ["kernel", *parent, *mine, *parent, "kernel"]:
                 ms = CS._cuda_ms(lambda: run(name), REPS)
-                print(f"# {'' if diag else 'one-op '}{what} pass, {n}q {str(dt)[6:]}, "
+                print(f"# {'' if diag or sweep else 'one-op '}{what} pass, {n}q {str(dt)[6:]}, "
                       f"{name}: {ms:.4f} ms "
                       f"(bound {bound:.4f} ms, {bound / ms:.1%} of it)")
             del st, x
             torch.cuda.empty_cache()
+            if sweep and parent:
+                _path_passes(dt, libs, tol)
     print(CS._card_line())
     return 0
 

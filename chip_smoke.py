@@ -57,7 +57,16 @@ no result, without them. Phases, in order:
    largest amplitude in f32, 1e-12 in f64), timed beside its bound (its
    share) and one complex ``torch.matmul`` of the same product, and the
    main path's fold count (in f32, split by the instantiation its runs
-   launch); then the main path in f64 on one device: the same circuit
+   launch); then the 2x2 arm alone (``_two_by_two_arm_alone``, ``# 2x2
+   arm alone`` lines), f32 and f64: one 26-qubit pass with no folded swap
+   of TWO_BY_TWO_RUN's records (14 2x2s on [7, 12), built below the fold)
+   and of the f64 main path's run with the most 2x2 records among those
+   with no lane_u, window or kraus record, each against the plain version
+   (1e-5 / 1e-12 of the largest amplitude), its 2x2 records and register
+   sweeps, timed beside its bytes bound, the plain version and one complex
+   ``torch.matmul`` of the state's [7, 12) view by the run's 32 x 32
+   product;
+   then the main path in f64 on one device: the same circuit
    planned at the f64 tile, each run's pass against the plain version
    (1e-12) and timed, then ``Circuit.run`` on an f64 register with the
    counts reset just before it (launches = runs, zero fallbacks, total
@@ -181,6 +190,10 @@ no result, without them. Phases, in order:
    structure-equal circuit hitting the executable cache); many distinct
    circuits run once and twice through ``Circuit.run``, with the card's
    reserved memory bounded; then the script's time.
+
+Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
+records and the register sweeps they take (the 2x2 arm's, at the
+precision's width).
 
 Every phase runs its circuits through ``Circuit.run``, which dispatches
 through ``compiled()``: a plan's first run is eager (so the launch counts
@@ -665,8 +678,13 @@ def _passes(items, n: int, dt, dev, rng, tol: float, label: str) -> dict:
                           ("lane_u", "window", "kraus1", "kraus2", "krausn")
                           if k in kinds)
         pair = f" pair {kw['pair_swap']}" if kw.get("pair_swap") else ""
+        twos = sum(FG._opens_sweep(r) for r in prep.records)
+        sweeps = len(FG.sweep_spans(prep.table, dt))
+        res.setdefault("two_by_two", []).append(twos)
+        res.setdefault("sweeps", []).append(sweeps)
         print(f"# {label} pass {i}: {nops} ops -> {len(kinds)} "
-              f"({folds or 'no folds or channels'}; {len(prep.records)} records), swaps "
+              f"({folds or 'no folds or channels'}; {len(prep.records)} records, {twos} 2x2 "
+              f"in {sweeps} sweeps), swaps "
               f"load {kw['load_swap_k']} "
               f"store {kw['store_swap_k']}{pair}: kernel {ms:.4f} ms, bound "
               f"{max(b_bytes, b_ops):.4f} ms by "
@@ -997,6 +1015,120 @@ def _diag_arm_alone(dev, runs, dt) -> dict:
             "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / ms,
             "plain_ms": res["plain_ms"][0], "library_ms": lib_ms, "library_call": call,
             "max_abs_err": res["max_abs_err"], "by_width": widths}
+
+
+#: the 2x2 arm alone: 14 non-diagonal 2x2s in the main path's gate mix (H,
+#: Rx and a CNOT ladder) with T and Rz between them, on the qubits [7, 12):
+#: (kind, target, control) per gate, "cx" a CNOT from the control
+TWO_BY_TWO_RUN = (("h", 7, None), ("t", 8, None), ("rx", 9, None), ("cx", 8, 7),
+                  ("rz", 10, None), ("h", 11, None), ("cx", 9, 8), ("t", 7, None),
+                  ("rx", 10, None), ("cx", 10, 9), ("h", 8, None), ("rz", 11, None),
+                  ("cx", 11, 10), ("rx", 7, None), ("t", 9, None), ("h", 9, None),
+                  ("rx", 11, None), ("rz", 8, None), ("h", 10, None), ("rx", 8, None))
+
+
+def _two_by_two_ops(rng) -> tuple:
+    """TWO_BY_TWO_RUN as fused-run ops, its angles from ``rng``."""
+    import numpy as np
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    ops = []
+    for kind, q, c in TWO_BY_TWO_RUN:
+        th = float(rng.uniform(-np.pi, np.pi))
+        m = {"h": np.array([[1, 1], [1, -1]]) / np.sqrt(2),
+             "t": np.diag([1, np.exp(0.25j * np.pi)]),
+             "rx": np.array([[np.cos(th / 2), -1j * np.sin(th / 2)],
+                             [-1j * np.sin(th / 2), np.cos(th / 2)]]),
+             "rz": np.diag([np.exp(-0.5j * th), np.exp(0.5j * th)]),
+             "cx": np.array([[0, 1], [1, 0]])}[kind]
+        ops.append(("matrix", q, () if c is None else (c,), () if c is None else (1,),
+                    FG.HashableMatrix(m)))
+    return tuple(ops)
+
+
+def _below_fold(ops, tb: int):
+    """A PreparedRun of ``ops`` as given, the records of one arm: the zone
+    fold, which would contract a run of 2x2s on [7, 12) into a window, is
+    skipped."""
+    from unittest import mock
+
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    with mock.patch.object(FG, "_fold_zone_ops", lambda o, t: tuple(o)):
+        return FG.PreparedRun(ops, tb)
+
+
+def _densest_2x2_run(runs):
+    """Of ``runs``, the one with the most 2x2 and swap records among those
+    that hold no lane_u, window or kraus record (the 2x2 arm's own passes)."""
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    own = [r for r in runs if not {o[0] for o in r.prepare().records}
+           & {"lane_u", "window", "kraus1", "kraus2", "krausn"}]
+    return max(own, key=lambda r: sum(FG._opens_sweep(o) for o in r.prepare().records))
+
+
+def _two_by_two_arm_alone(dev, runs64, dt) -> dict:
+    """The fused-run kernel's 2x2 arm alone (``reg_sweep``): one N_MAIN-qubit
+    pass with no folded swap, in ``dt``, of (a) TWO_BY_TWO_RUN's records,
+    built below the fold (``_below_fold``), and (b) the f64 main path's run
+    (of ``runs64``) with the most 2x2 records and no lane_u, window or
+    kraus record (``_densest_2x2_run``), without its folded swaps. Each
+    against the plain version (1e-5 / 1e-12 of the largest amplitude),
+    timed beside its bytes bound and the plain version, with its 2x2
+    records and sweeps (at the kernel's width; other widths are variant
+    builds of ``chip_lane_u_breakdown.py --passes sweep32,sweep64``); (a)
+    also beside one complex ``torch.matmul`` (complex64 / complex128) of
+    the state's [7, 12) view by the run's 32 x 32 product, precomputed on
+    the card, which the port never calls; (b) beside the same call, a
+    yardstick of the same bytes (``# 2x2 arm alone`` lines)."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch.fusion import event_matrix
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = N_MAIN
+    name = str(dt)[6:]
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    rng = np.random.RandomState(41)
+    ops = _two_by_two_ops(rng)
+    dense = _densest_2x2_run(runs64)
+    U = np.eye(32, dtype=complex)
+    for op in ops:
+        U = event_matrix(FG._op_event(op), tuple(range(7, 12))) @ U
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    xc = torch.complex(st[0], st[1]).reshape(-1, 32, 1 << 7)
+    u = torch.as_tensor(U, dtype=xc.dtype, device=dev)
+    lib_ms = _cuda_ms(lambda: torch.matmul(u, xc), 20)
+    call = f"torch.matmul {str(xc.dtype)[6:]} (32 x 32 by {xc.shape[0]} x 32 x 128)"
+    del st, xc, u
+    torch.cuda.empty_cache()
+    out = {"library_ms": lib_ms, "library_call": call, "max_abs_err": 0.0}
+    cases = (("run_7_12", "the [7, 12) run", _below_fold(ops, FG.hopper_tile_bits(n, dt))),
+             ("main_path_f64_densest", "the f64 main path's densest 2x2 run",
+              FG.PreparedRun(dense.ops, dense.tile_bits)))
+    for key, what, prep in cases:
+        tb = prep.tile_bits
+        twos = sum(FG._opens_sweep(r) for r in prep.records)
+        res = _passes([(len(prep.ops), prep, dict(tile_bits=tb, **_swaps()))], n, dt, dev, rng,
+                      tol, f"2x2 arm alone {name} {what}")
+        ms, bound = res["ms"][0], res["bound_ms"][0]
+        by = "operations" if res["by_ops"][0] else "bytes"
+        print(f"# 2x2 arm alone at {n}q {name}, {what}: {len(prep.ops)} ops -> "
+              f"{len(prep.records)} records, {twos} 2x2 in {res['sweeps'][0]} sweeps at "
+              f"width {FG.SWEEP_BITS[dt]}, tile_bits {tb}: kernel {ms:.4f} ms ({bound / ms:.1%} "
+              f"of the bound), bound {bound:.4f} ms by {by}, plain {res['plain_ms'][0]:.2f} ms; "
+              f"{call} {lib_ms:.4f} ms (kernel / matmul {ms / lib_ms:.3f}); max_abs_err "
+              f"{res['max_abs_err']:.3e} (limit {tol:g} of the largest)")
+        out[key] = {"ops": len(prep.ops), "records": len(prep.records), "two_by_two": twos,
+                    "sweeps": res["sweeps"][0], "ms": ms, "bound_ms": bound, "bound_by": by,
+                    "share_of_bound": bound / ms, "plain_ms": res["plain_ms"][0],
+                    "max_abs_err": res["max_abs_err"]}
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+    return out
 
 
 def _main_path_f64(qt, env, circ, fz, dev) -> dict:
@@ -3625,6 +3757,9 @@ def main() -> int:
     runs64 = [a[0] for f, a, _ in fz64._tape if f is fusion._apply_pallas_run]
     window_fold = {ddt: _window_fold_pass(dev, np.random.RandomState(31), r, ddt)
                    for ddt, r in ((torch.float32, runs), (torch.float64, runs64))}
+    # the 2x2 arm alone (its own generator)
+    two_arm = {ddt: _two_by_two_arm_alone(dev, runs64, ddt)
+               for ddt in (torch.float32, torch.float64)}
     # -- main path f64: the same circuit planned at f64 on one device -----
     main64 = _main_path_f64(qt, env, circ, fz64, dev)
     _release()
@@ -3705,6 +3840,10 @@ def main() -> int:
     for e, ddt in zip(entries, (torch.float32, torch.float64)):
         e["window_fold_pass"] = window_fold[ddt]
         e["max_abs_err"] = max(e["max_abs_err"], window_fold[ddt]["max_abs_err"])
+        # the 2x2 arm alone, beside one torch.matmul of the same product
+        e["two_by_two_arm_pass"] = two_arm[ddt]
+        e["library_yardsticks_ms"]["matmul_2x2_run"] = two_arm[ddt]["library_ms"]
+        e["max_abs_err"] = max(e["max_abs_err"], two_arm[ddt]["max_abs_err"])
     entries[0]["gate_surface"] = {k: surface[k] for k in (
         "fused_launches", "dense_launches", "density_launches", "circuit_ms",
         "ms_by_item")}

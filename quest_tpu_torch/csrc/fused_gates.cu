@@ -68,6 +68,15 @@
 //     a thread's amplitudes staged once per block: about 6 instructions
 //     an amplitude a record (an XOR, a shared-memory load of the entry, a
 //     complex multiply).
+//   2x2 and swap ops (the 2x2 arm, reg_sweep). Applied one at a time, each
+//     makes the block read and write both planes of its tile in shared
+//     memory and wait at a barrier, the same cost as a diagonal op. So the
+//     host groups each run of them whose partner qubits fit a set Q of 3
+//     (f32) or 2 (f64) in-tile qubits into one register sweep: a thread
+//     holds the 2^|Q| amplitudes of its slice that differ in Q, applies the
+//     run to them in registers and writes them back once. What bounds such
+//     a run is then its arithmetic (16 FMAs a pair for a general 2x2, 8
+//     for H, none for X), not the sweeps.
 // A lane_u op is 128 complex multiply-adds per amplitude (about 6.9e10
 // flop at 26 qubits): 1.03 ms at the 67 TFLOP/s FP32 rate (and at the FP64
 // tensor-core rate, the same 67 TFLOP/s), 0.42 ms as 3xTF32 on the tensor
@@ -1446,6 +1455,397 @@ __device__ __forceinline__ int diag_sweep(T* sre, int tile_bits, uint64_t role_b
   return o0 + o;
 }
 
+// The 2x2 arm (reg_sweep): a run of non-diagonal 2x2 and swap records in
+// one sweep of the tile whose amplitudes stay in registers from the first
+// record to the last.
+//
+// The host groups the records (group_sweeps, below the plan): a sweep
+// holds consecutive 2x2 and swap records whose partner qubits lie in one
+// set Q of W in-tile qubits, W = sweep_bits<T>() (3 in f32, 2 in f64: the
+// widest that fit 64 registers; f32 at 4 and f64 at 3 spilled). Its first
+// record carries, in fields that matrix and swap records leave free (p = 0
+// for float, 1 for double), Q's mask (r[5] bits [16 p, 16 p + 16)) and its
+// record count (r[7] bits [16 + 16 p, 32 + 16 p)). Elementwise records
+// stay outside: the diagonal arm takes them (PERF.md: a sweep that took
+// them through shared memory was no faster). A thread takes a group: the
+// 2^W amplitudes whose indices differ only in Q, its group index deposited
+// into the tile bits outside Q (the thread index's lowest bits into the
+// lowest of them, so that a warp's lanes differ there: with Q above bit
+// 4, each register step's shared-memory accesses fall in 32 distinct
+// banks; the host pads Q from qubit 5 up). Two groups a thread at the
+// 2^13 f32 and the 2^12 f64 tile. A group is read from shared memory
+// once, every record of the sweep applied to it in registers, and written
+// back once: no barrier inside the sweep (the groups partition the tile),
+// one after it. A sweep of one record (reg_lone) takes Q = its own
+// partner qubits, unpadded: a pair for a 2x2, a quad for a swap of which
+// it reads and writes only the two registers that move, the record
+// decoded once a thread (PERF.md: padded to W, with the registers it acts
+// on masked, it ran 3-12% slower than the per-op branches on the QFT).
+//   a 2x2 on q in Q      its 2^(W-1) register pairs (bit j of the register
+//                        index, j = q's place in Q), in the form the host
+//                        marks (r[7] bits 1-2): 16 multiply-adds a pair, 8
+//                        for a real matrix (H), an exchange for X;
+//   a swap of q1, q2     a permutation of the registers (selects where a
+//                        control decides).
+// Controls above the tile resolve once per block (a record whose controls
+// there miss is skipped, block-uniformly), those in the tile outside Q
+// once per group, those in Q per register pair (a mask over the register
+// index). The register bit of a target is a runtime value, so each 2x2
+// (and swap) dispatches to an instantiation per bit (pair), by if chains.
+//
+// Cost model, and what the card showed (PERF.md, H100 80GB HBM3 at 700
+// W). Per sweep each amplitude it acts on crosses shared memory twice: at
+// most 2^T x 2 x sizeof(T) x 2 bytes a tile, as ONE per-op sweep of the
+// old arm did. At 26 qubits that is ~37 us a sweep in f32 (8192 tiles, 62
+// an SM, at 128 bytes a clock), ~75 us in f64. Per 2x2, 16 FMAs a pair:
+// 16 us in f32 at 67 TFLOP/s, 32 us in f64 at the 34 TFLOP/s outside the
+// tensor cores, so the arithmetic, not the sweeps, bounds a run of 2x2s:
+// the [7, 12) run's 14 2x2s in f32 spend ~0.25 ms in sweeps and ~0.4 ms
+// in arithmetic and record decoding beside its 0.32 ms of HBM bytes.
+constexpr int kSweepField = 16;  // bits of each precision's Q and count fields
+
+template <typename T>
+__host__ __device__ constexpr int sweep_place() { return sizeof(T) == 4 ? 0 : 1; }
+
+// the width W of a register sweep (the host's SWEEP_BITS)
+template <typename T>
+__host__ __device__ constexpr int sweep_bits() { return sizeof(T) == 4 ? 3 : 2; }
+
+// the index bits that register index a sets: qbit[j] where bit j of a is set
+template <int W>
+__device__ __forceinline__ uint32_t reg_bits(int a, const uint32_t (&qbit)[W]) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if ((a >> j) & 1) d |= qbit[j];
+  }
+  return d;
+}
+
+// The forms of a non-diagonal 2x2 that ``encode_ops`` marks in r[7] bits
+// 1-2, each with its own arithmetic a register pair: a general matrix 16
+// multiply-adds; a real one (Hadamard, Ry) 8; X (a CNOT's target) none, an
+// exchange. (An Rx form of 8 more made ptxas spill 12 bytes in <float,
+// false>: PERF.md.)
+constexpr int kFormGeneral = 0, kFormReal = 1, kFormX = 3;
+
+// the 2x2 cf (m00..m11, re/im) of form F on register bit J, on the pairs
+// whose register index a meets the controls in Q: (a & cm) == cv
+template <typename T, int W, int J, int F>
+__device__ __forceinline__ void reg_2x2(T (&xr)[1 << W], T (&xi)[1 << W],
+                                        const T* __restrict__ cf, uint32_t cm, uint32_t cv) {
+  const T m00r = cf[0], m00i = cf[1], m01r = cf[2], m01i = cf[3];
+  const T m10r = cf[4], m10i = cf[5], m11r = cf[6], m11i = cf[7];
+#pragma unroll
+  for (int a = 0; a < (1 << W); ++a) {
+    if ((a >> J) & 1) continue;
+    constexpr int kB = 1 << J;
+    const bool on = (static_cast<uint32_t>(a) & cm) == cv;
+    const T a0r = xr[a], a0i = xi[a], a1r = xr[a | kB], a1i = xi[a | kB];
+    if constexpr (F == kFormX) {
+      xr[a] = on ? a1r : a0r;
+      xi[a] = on ? a1i : a0i;
+      xr[a | kB] = on ? a0r : a1r;
+      xi[a | kB] = on ? a0i : a1i;
+    } else {
+      if (!on) continue;
+      if constexpr (F == kFormReal) {
+        xr[a] = m00r * a0r + m01r * a1r;
+        xi[a] = m00r * a0i + m01r * a1i;
+        xr[a | kB] = m10r * a0r + m11r * a1r;
+        xi[a | kB] = m10r * a0i + m11r * a1i;
+      } else {
+        xr[a] = m00r * a0r - m00i * a0i + m01r * a1r - m01i * a1i;
+        xi[a] = m00r * a0i + m00i * a0r + m01r * a1i + m01i * a1r;
+        xr[a | kB] = m10r * a0r - m10i * a0i + m11r * a1r - m11i * a1i;
+        xi[a | kB] = m10r * a0i + m10i * a0r + m11r * a1i + m11i * a1r;
+      }
+    }
+  }
+}
+
+// (if chains, not switches: a switch compiles to an indirect branch, and
+// with one in the op loop ptxas spills in every arm)
+template <typename T, int W, int F>
+__device__ __forceinline__ void reg_2x2_at(int j, T (&xr)[1 << W], T (&xi)[1 << W],
+                                           const T* __restrict__ cf, uint32_t cm,
+                                           uint32_t cv) {
+  if (j == 0) {
+    reg_2x2<T, W, 0, F>(xr, xi, cf, cm, cv);
+  } else if (j == 1) {
+    reg_2x2<T, W, 1, F>(xr, xi, cf, cm, cv);
+  } else if constexpr (W > 2) {
+    if (j == 2) {
+      reg_2x2<T, W, 2, F>(xr, xi, cf, cm, cv);
+    } else if constexpr (W > 3) {
+      reg_2x2<T, W, 3, F>(xr, xi, cf, cm, cv);
+    }
+  }
+}
+
+// a 2x2 of the form ``form`` on register bit J
+template <typename T, int W, int J>
+__device__ __forceinline__ void reg_2x2_form(int form, T (&xr)[1 << W], T (&xi)[1 << W],
+                                             const T* __restrict__ cf, uint32_t cm,
+                                             uint32_t cv) {
+  if (form == kFormX) {
+    reg_2x2<T, W, J, kFormX>(xr, xi, cf, cm, cv);
+  } else if (form == kFormReal) {
+    reg_2x2<T, W, J, kFormReal>(xr, xi, cf, cm, cv);
+  } else {
+    reg_2x2<T, W, J, kFormGeneral>(xr, xi, cf, cm, cv);
+  }
+}
+
+// a 2x2 of the form ``form`` on register bit j
+template <typename T, int W>
+__device__ __forceinline__ void reg_2x2_on(int form, int j, T (&xr)[1 << W], T (&xi)[1 << W],
+                                           const T* __restrict__ cf, uint32_t cm,
+                                           uint32_t cv) {
+  if (form == kFormX) {
+    reg_2x2_at<T, W, kFormX>(j, xr, xi, cf, cm, cv);
+  } else if (form == kFormReal) {
+    reg_2x2_at<T, W, kFormReal>(j, xr, xi, cf, cm, cv);
+  } else {
+    reg_2x2_at<T, W, kFormGeneral>(j, xr, xi, cf, cm, cv);
+  }
+}
+
+// SWAP of register bits J1 < J2 on the registers that meet the controls
+template <typename T, int W, int J1, int J2>
+__device__ __forceinline__ void reg_swap(T (&xr)[1 << W], T (&xi)[1 << W], uint32_t cm,
+                                         uint32_t cv) {
+#pragma unroll
+  for (int a = 0; a < (1 << W); ++a) {
+    if (!((a >> J1) & 1) || ((a >> J2) & 1)) continue;  // a: bit J1 set, bit J2 clear
+    constexpr int kFlip = (1 << J1) | (1 << J2);
+    const bool on = (static_cast<uint32_t>(a) & cm) == cv;
+    const T ar = xr[a], ai = xi[a], br = xr[a ^ kFlip], bi = xi[a ^ kFlip];
+    xr[a] = on ? br : ar;
+    xi[a] = on ? bi : ai;
+    xr[a ^ kFlip] = on ? ar : br;
+    xi[a ^ kFlip] = on ? ai : bi;
+  }
+}
+
+template <typename T, int W, int J1>
+__device__ __forceinline__ void reg_swap_from(int j2, T (&xr)[1 << W], T (&xi)[1 << W],
+                                              uint32_t cm, uint32_t cv) {
+  if constexpr (J1 < 1) {
+    if (j2 == 1) {
+      reg_swap<T, W, J1, 1>(xr, xi, cm, cv);
+      return;
+    }
+  }
+  if constexpr (J1 < 2 && W > 2) {
+    if (j2 == 2) {
+      reg_swap<T, W, J1, 2>(xr, xi, cm, cv);
+      return;
+    }
+  }
+  if constexpr (J1 < 3 && W > 3) {
+    if (j2 == 3) reg_swap<T, W, J1, 3>(xr, xi, cm, cv);
+  }
+}
+
+// the swap of register bits j1 and j2 (j1 != j2)
+template <typename T, int W>
+__device__ __forceinline__ void reg_swap_on(int j1, int j2, T (&xr)[1 << W],
+                                            T (&xi)[1 << W], uint32_t cm, uint32_t cv) {
+  if (j1 > j2) {
+    const int t = j1;
+    j1 = j2;
+    j2 = t;
+  }
+  if (j1 == 0) {
+    reg_swap_from<T, W, 0>(j2, xr, xi, cm, cv);
+  } else if (j1 == 1) {
+    reg_swap_from<T, W, 1>(j2, xr, xi, cm, cv);
+  } else if constexpr (W > 3) {
+    reg_swap_from<T, W, 2>(j2, xr, xi, cm, cv);
+  }
+}
+
+// g with a zero inserted at each of Q's bits: the in-tile index of group
+// g's register 0
+template <int W>
+__device__ __forceinline__ uint32_t deposit_zeros(uint32_t g, const uint32_t (&qbit)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const uint32_t low = g & (qbit[j] - 1);
+    g = ((g - low) << 1) | low;
+  }
+  return g;
+}
+
+// The group's registers to (store) or from its slots in shared memory, the
+// addresses found again each time, not held from an earlier access
+template <typename T, int W, bool kStore>
+__device__ __forceinline__ void group_io(T* sre, T* sim, uint32_t base, uint32_t (&qbit)[W],
+                                         T (&xr)[1 << W], T (&xi)[1 << W]) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(base));
+#pragma unroll
+  for (int j = 0; j < W; ++j) asm volatile("mov.b32 %0, %0;" : "+r"(qbit[j]));
+#pragma unroll
+  for (int a = 0; a < (1 << W); ++a) {
+    const uint32_t i = base | reg_bits(a, qbit);
+    if constexpr (kStore) {
+      sre[i] = xr[a];
+      sim[i] = xi[a];
+    } else {
+      xr[a] = sre[i];
+      xi[a] = sim[i];
+    }
+  }
+}
+
+// The controls of record r that lie in Q, over the register index (cm,
+// cv), from its in-tile control mask and values
+template <int W>
+__device__ __forceinline__ void reg_controls(uint32_t lmask, uint32_t lval,
+                                             const uint32_t (&qbit)[W], uint32_t& cm,
+                                             uint32_t& cv) {
+  cm = cv = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    cm |= (lmask & qbit[j]) ? 1u << j : 0u;
+    cv |= (lval & qbit[j]) ? 1u << j : 0u;
+  }
+}
+
+// The sweep of W-bit Q ``qmask_in`` over the ``count`` 2x2 and swap
+// records from r0; ``sre``: the tile's real plane, then its imaginary
+// plane.
+template <typename T, int W>
+__device__ __forceinline__ void reg_sweep(T* sre, int tile_bits, uint64_t role_base,
+                                          const long long* __restrict__ r0, int count,
+                                          uint32_t qmask_in, const T* __restrict__ coeffs,
+                                          int tid_in) {
+  // through opaque moves, as in diag_sweep: what the sweep derives from
+  // them stays here, not hoisted into the kernel's op loop
+  int tid, tb;
+  uint32_t qmask;
+  asm volatile("mov.b32 %0, %1;" : "=r"(tid) : "r"(tid_in));
+  asm volatile("mov.b32 %0, %1;" : "=r"(tb) : "r"(tile_bits));
+  asm volatile("mov.b32 %0, %1;" : "=r"(qmask) : "r"(qmask_in));
+  asm volatile("mov.b64 %0, %0;" : "+l"(role_base));
+  const uint32_t tile = 1u << tb;
+  T* sim = sre + tile;
+  const uint64_t above = ~static_cast<uint64_t>(tile - 1);
+  uint32_t qbit[W];  // Q's qubits as index bits, lowest first
+  {
+    uint32_t m = qmask;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      qbit[j] = m & (0u - m);
+      m &= m - 1;
+    }
+  }
+  const uint32_t groups = tile >> W;
+  for (uint32_t g = tid; g < groups; g += kThreads) {
+    const uint32_t base = deposit_zeros<W>(g, qbit);
+    T xr[1 << W], xi[1 << W];
+    group_io<T, W, false>(sre, sim, base, qbit, xr, xi);
+    for (int k = 0; k < count; ++k) {
+      const long long* r = r0 + kRec * k;
+      const uint64_t cmask = static_cast<uint64_t>(r[3]);
+      const uint64_t cval = static_cast<uint64_t>(r[4]);
+      // controls above the tile: the identity on this whole tile where they miss
+      if ((role_base & cmask & above) != (cval & above)) continue;
+      const uint32_t lmask = static_cast<uint32_t>(cmask) & (tile - 1);
+      const uint32_t lval = static_cast<uint32_t>(cval) & (tile - 1);
+      if ((base & lmask) != (lval & ~qmask)) continue;  // controls outside Q miss
+      uint32_t cm, cv;
+      reg_controls<W>(lmask, lval, qbit, cm, cv);
+      const int j1 = __popc(qmask & ((1u << static_cast<uint32_t>(r[1])) - 1));
+      if (static_cast<int>(r[0]) == kMatrix) {
+        reg_2x2_on<T, W>(static_cast<int>(r[7] >> 1) & 3, j1, xr, xi, coeffs + r[6], cm, cv);
+      } else {  // a swap
+        reg_swap_on<T, W>(j1, __popc(qmask & ((1u << static_cast<uint32_t>(r[2])) - 1)), xr,
+                          xi, cm, cv);
+      }
+    }
+    group_io<T, W, true>(sre, sim, base, qbit, xr, xi);
+  }
+}
+
+// A sweep of one record (a lone 2x2 or swap), at its own width: Q is the
+// record's partner qubits, so a group is a pair for a 2x2 and a quad for a
+// swap, of which only registers 1 and 2 move; the record is decoded once
+// a thread, and a group its controls miss is skipped (no control lies in
+// Q).
+template <typename T>
+__device__ __forceinline__ void reg_lone(T* sre, int tile_bits, uint64_t role_base,
+                                         const long long* __restrict__ r, uint32_t qmask_in,
+                                         const T* __restrict__ coeffs, int tid_in) {
+  int tid, tb;
+  uint32_t qmask;
+  asm volatile("mov.b32 %0, %1;" : "=r"(tid) : "r"(tid_in));
+  asm volatile("mov.b32 %0, %1;" : "=r"(tb) : "r"(tile_bits));
+  asm volatile("mov.b32 %0, %1;" : "=r"(qmask) : "r"(qmask_in));
+  asm volatile("mov.b64 %0, %0;" : "+l"(role_base));
+  const uint32_t tile = 1u << tb;
+  T* sim = sre + tile;
+  const uint64_t above = ~static_cast<uint64_t>(tile - 1);
+  const uint64_t cmask = static_cast<uint64_t>(r[3]);
+  const uint64_t cval = static_cast<uint64_t>(r[4]);
+  if ((role_base & cmask & above) != (cval & above)) return;  // block-uniform
+  const uint32_t lmask = static_cast<uint32_t>(cmask) & (tile - 1);
+  const uint32_t lval = static_cast<uint32_t>(cval) & (tile - 1);
+  if (static_cast<int>(r[0]) == kSwap) {
+    uint32_t qbit[2] = {qmask & (0u - qmask), qmask & (qmask - 1)};
+    for (uint32_t g = tid; g < (tile >> 2); g += kThreads) {
+      const uint32_t base = deposit_zeros<2>(g, qbit);
+      if ((base & lmask) != lval) continue;
+      const uint32_t i1 = base | qbit[0], i2 = base | qbit[1];
+      const T ar = sre[i1], ai = sim[i1];
+      sre[i1] = sre[i2];
+      sim[i1] = sim[i2];
+      sre[i2] = ar;
+      sim[i2] = ai;
+    }
+  } else {
+    const uint32_t qbit[1] = {qmask};
+    const int form = static_cast<int>(r[7] >> 1) & 3;
+    const T* cf = coeffs + r[6];
+    for (uint32_t g = tid; g < (tile >> 1); g += kThreads) {
+      const uint32_t base = deposit_zeros<1>(g, qbit);
+      if ((base & lmask) != lval) continue;
+      T xr[2] = {sre[base], sre[base | qmask]}, xi[2] = {sim[base], sim[base | qmask]};
+      reg_2x2_form<T, 1, 0>(form, xr, xi, cf, 0u, 0u);
+      sre[base] = xr[0];
+      sim[base] = xi[0];
+      sre[base | qmask] = xr[1];
+      sim[base | qmask] = xi[1];
+    }
+  }
+}
+
+// The register sweep that record ``r`` (a non-diagonal 2x2 or a swap)
+// opens; returns its record count.
+template <typename T>
+__device__ __forceinline__ int reg_sweep_at(T* sre, int tile_bits, uint64_t role_base,
+                                            const long long* __restrict__ r,
+                                            const T* __restrict__ coeffs, int tid) {
+  constexpr int p = sweep_place<T>();
+  const uint32_t qmask = static_cast<uint32_t>(
+      (static_cast<uint64_t>(r[5]) >> (kSweepField * p)) & 0xffff);
+  const int count = static_cast<int>(
+      (static_cast<uint64_t>(r[7]) >> (kSweepField * (p + 1))) & 0xffff);
+  // every 2x2 and swap record lies in a sweep that the host marked: a lone
+  // one at its own qubits, a longer one at the precision's width
+  if (count == 1) {
+    const uint32_t own = (1u << static_cast<uint32_t>(r[1])) |
+                         (static_cast<int>(r[0]) == kSwap ? 1u << static_cast<uint32_t>(r[2]) : 0u);
+    if (qmask != own || (qmask >> tile_bits)) __trap();
+    reg_lone<T>(sre, tile_bits, role_base, r, qmask, coeffs, tid);
+    return 1;
+  }
+  if (count == 0 || (qmask >> tile_bits) || __popc(qmask) != sweep_bits<T>()) __trap();
+  reg_sweep<T, sweep_bits<T>()>(sre, tile_bits, role_base, r, count, qmask, coeffs, tid);
+  return count;
+}
+
 // The dense ops hold at most 16 outputs per thread, so a tile is at most
 // 16 * kThreads = 2^13 amplitudes (2^12 in f64). Dynamic shared memory:
 // both planes of the tile, plus, for a run with a t = 3 kraus op or an
@@ -1520,43 +1920,19 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
       continue;
     }
     const int kind = static_cast<int>(r[0]);
+    if (kind == kMatrix || kind == kSwap) {  // the register sweep it opens: its records at once
+      o += reg_sweep_at<T>(sre, tile_bits, role_base, r, coeffs, tid) - 1;
+      __syncthreads();
+      continue;
+    }
     const uint64_t cmask = static_cast<uint64_t>(r[3]);
     const uint64_t cval = static_cast<uint64_t>(r[4]);
     // controls above the tile resolve per tile: where they miss, the op
     // is the identity on this whole tile (a block-uniform branch)
     if ((role_base & cmask & ~tile_mask) != (cval & ~tile_mask)) continue;
-    const uint32_t lmask = static_cast<uint32_t>(cmask & tile_mask);
-    const uint32_t lval = static_cast<uint32_t>(cval & tile_mask);
     const T* cf = coeffs + r[6];
 
-    if (kind == kMatrix) {  // a 2x2 on an in-tile target (diagonal ones are elementwise)
-      const int q = static_cast<int>(r[1]);
-      const T m00r = cf[0], m00i = cf[1], m01r = cf[2], m01i = cf[3];
-      const T m10r = cf[4], m10i = cf[5], m11r = cf[6], m11i = cf[7];
-      for (uint32_t p = tid; p < (tile >> 1); p += kThreads) {
-        const uint32_t i0 = insert_zero(p, q);
-        const uint32_t i1 = i0 | (1u << q);
-        if ((i0 & lmask) != lval) continue;
-        const T a0r = sre[i0], a0i = sim[i0], a1r = sre[i1], a1i = sim[i1];
-        sre[i0] = m00r * a0r - m00i * a0i + m01r * a1r - m01i * a1i;
-        sim[i0] = m00r * a0i + m00i * a0r + m01r * a1i + m01i * a1r;
-        sre[i1] = m10r * a0r - m10i * a0i + m11r * a1r - m11i * a1i;
-        sim[i1] = m10r * a0i + m10i * a0r + m11r * a1i + m11i * a1r;
-      }
-    } else if (kind == kSwap) {
-      const int q1 = static_cast<int>(r[1]), q2 = static_cast<int>(r[2]);
-      const int qlo = q1 < q2 ? q1 : q2, qhi = q1 < q2 ? q2 : q1;
-      for (uint32_t p = tid; p < (tile >> 2); p += kThreads) {
-        const uint32_t base = insert_zero(insert_zero(p, qlo), qhi);
-        if ((base & lmask) != lval) continue;
-        const uint32_t ia = base | (1u << q1), ib = base | (1u << q2);
-        const T tr = sre[ia], ti = sim[ia];
-        sre[ia] = sre[ib];
-        sim[ia] = sim[ib];
-        sre[ib] = tr;
-        sim[ib] = ti;
-      }
-    } else if (kind == kLaneU) {
+    if (kind == kLaneU) {
       if constexpr (sizeof(T) == 8) {
         lane_u_dmma(sre, sim, sim + tile, tile, cf, tid);
       } else if constexpr (kLaneMma) {

@@ -36,7 +36,15 @@ ops (diagonal ``matrix``, ``parity``, ``diagw``) into few ``diagw`` tables
 of up to 2^8 entries, which the kernel's diagonal arm applies in one sweep
 of the tile. The fold (``PreparedRun.ops``) is the plan's work and stays
 equal to the JAX package's; the merged list (``PreparedRun.records``) is
-what is encoded.
+what is encoded. Beside the merge, ``group_sweeps`` groups the encoded
+records for the kernel's 2x2 arm: each maximal run of non-diagonal 2x2
+and swap records whose partner qubits fit a set Q of ``SWEEP_BITS``
+in-tile qubits is one register-resident sweep of the tile (a thread holds
+the 2^|Q| amplitudes of its slice that differ in Q; a lone record's Q is
+its own qubits). The grouping is written into fields of the
+table that those records' kinds leave free (``mark_sweeps``), one set per
+precision: records, table rows and what the plain version computes stay
+as they are.
 
 Route: ``fused_run`` launches the kernel for a CUDA tensor, and uses the
 plain PyTorch version ``fused_run_plain`` only for a CPU tensor. Both read
@@ -77,6 +85,18 @@ _ZONE_SPAN = 5
 #: table of up to 2^8 entries a record), and the width ``merge_diagonals``
 #: packs a run of diagonal ops into: the widest measured fastest (PERF.md)
 DIAG_TABLE_BITS = 8
+
+#: the 2x2 arm's width m in qubits, per precision: a register sweep holds
+#: the 2^m amplitudes of a thread's slice that differ only in its set Q of
+#: m in-tile qubits, 8 (f32) and 4 (f64), two groups a thread at the 2^13
+#: / 2^12 tile. The widest the kernel's 64 registers a thread hold (PERF.md:
+#: f32 at 4 and f64 at 3 spilled); the kernel takes no other width
+SWEEP_BITS = {torch.float32: 3, torch.float64: 2}
+#: where a precision's grouping sits in the table (p = 0 f32, 1 f64): the
+#: sweep's Q mask in r[5] bits [16 p, 16 p + 16), its record count in r[7]
+#: bits [16 + 16 p, 32 + 16 p) (matrix and swap records leave r[5] and
+#: r[7] above bit 15 free)
+_SWEEP_FIELD = {torch.float32: 0, torch.float64: 1}
 
 #: op kind codes of the kernel's op table (csrc/fused_gates.cu)
 _KIND = {"matrix": 0, "parity": 1, "swap": 2, "diagw": 3, "lane_u": 4,
@@ -368,6 +388,75 @@ def merge_diagonals(ops, max_bits: int = DIAG_TABLE_BITS) -> tuple:
     return tuple(out)
 
 
+def _opens_sweep(op) -> bool:
+    """A record the 2x2 arm applies: a non-diagonal ``matrix`` or a ``swap``."""
+    return op[0] == "swap" or (op[0] == "matrix" and not _op_is_diag(op))
+
+
+def _pad_sweep(q: set, m: int, tile_bits: int) -> int:
+    """The mask of Q filled up to m in-tile qubits, the extra ones taken from
+    [5, tile_bits) first: a warp's 32 lanes take the five lowest tile bits
+    outside Q, so that with Q above bit 4 each register step's
+    shared-memory accesses fall in distinct banks."""
+    free = [b for b in (*range(5, tile_bits), *range(min(5, tile_bits))) if b not in q]
+    return _mask(q | set(free[:m - len(q)]))
+
+
+def group_sweeps(records, m: int, tile_bits: int) -> tuple:
+    """The register sweeps of the 2x2 arm over ``records`` (the merged,
+    encoded list): ((start, count, qmask), ...). A sweep opens at a
+    non-diagonal ``matrix`` or a ``swap`` record and takes, in order, every
+    following 2x2 / swap record whose partner qubits, joined to Q, keep Q
+    at m qubits or fewer. It closes before any other record (elementwise
+    ones stay with the diagonal arm's sweep: PERF.md, the break-even), and
+    before a 2x2 that would need an (m+1)-th qubit. Controls add nothing to
+    Q: the kernel tests them on each amplitude's index. Nothing moves: a
+    sweep is records [start, start + count). The Q of a sweep of several
+    records is padded to exactly m in-tile qubits (``_pad_sweep``); a sweep
+    of one keeps its record's own partner qubits (the kernel walks it in
+    pairs or quads). Every 2x2 and swap record lies in one sweep."""
+    if not 2 <= m <= min(tile_bits, 4):
+        raise ValueError(f"a register sweep takes 2 to 4 qubits (at most tile_bits="
+                         f"{tile_bits}), got {m}")
+    out, i, nrec = [], 0, len(records)
+    while i < nrec:
+        if not _opens_sweep(records[i]):
+            i += 1
+            continue
+        q = set(op_dense_targets(records[i]))
+        j = i + 1
+        while j < nrec and _opens_sweep(records[j]):
+            joined = q | set(op_dense_targets(records[j]))
+            if len(joined) > m:
+                break
+            q, j = joined, j + 1
+        out.append((i, j - i, _pad_sweep(q, m, tile_bits) if j - i > 1 else _mask(q)))
+        i = j
+    return tuple(out)
+
+
+def mark_sweeps(table: np.ndarray, sweeps: dict) -> None:
+    """Write each precision's sweeps (``{dtype: group_sweeps(...)}``) into
+    the first record of each: Q's mask into r[5], the record count into
+    r[7] above bit 15, at the precision's place (``_SWEEP_FIELD``)."""
+    for dt, spans in sweeps.items():
+        p = _SWEEP_FIELD[dt]
+        for start, count, qmask in spans:
+            if not 0 < count < 1 << 16 or table[start, 5] >> (16 * p) & 0xffff:
+                raise ValueError(f"bad register sweep at record {start} ({count} records)")
+            table[start, 5] |= qmask << (16 * p)
+            table[start, 7] |= count << (16 + 16 * p)
+
+
+def sweep_spans(table: np.ndarray, dtype) -> tuple:
+    """The register sweeps that ``table`` holds for ``dtype``, read back
+    from its fields: ((start, count, qmask), ...)."""
+    p = _SWEEP_FIELD[dtype]
+    counts = (table[:, 7] >> (16 + 16 * p)) & 0xffff
+    return tuple((int(i), int(counts[i]), int((table[i, 5] >> (16 * p)) & 0xffff))
+                 for i in np.flatnonzero(counts))
+
+
 def swap_bit_blocks(amps: torch.Tensor, *, n: int, lo1: int, lo2: int,
                     k: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Exchange the k-bit index blocks [lo1, lo1+k) and [lo2, lo2+k)
@@ -519,10 +608,20 @@ def window_f64_table(W, span: int) -> np.ndarray:
     return np.stack(planes, axis=2)
 
 
+def _matrix_form(m: np.ndarray) -> int:
+    """The arithmetic form of a 2x2 that the kernel's 2x2 arm takes (r[7]
+    bits 1-2): 3 X, 1 real, 0 any other."""
+    if (m == np.array([[0, 1], [1, 0]])).all():
+        return 3
+    return int(not m.imag.any())
+
+
 def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     """(table, coeffs): ``table`` is int64 (num_ops, 8) -- kind, two qubit
     fields, control mask, control values, parity mask, offset into
-    ``coeffs``, flags -- and ``coeffs`` float64 holds each op's numbers,
+    ``coeffs``, flags (bit 0: a diagonal ``matrix``; bits 1-2 its form,
+    ``_matrix_form``) -- and ``coeffs``
+    float64 holds each op's numbers,
     every block padded to a multiple of 4:
     matrix 8 (m00..m11, re/im), parity 2 (cos, sin of theta/2), diagw 2^t
     (t <= 8 targets, packed 6 bits each) interleaved re/im, lane_u U^T
@@ -547,7 +646,12 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
     f32 kernel's fragment order (``kraus_superop_tf32_table``, 4 x 2 x 2 x
     64 x 16, float32 values: exact in the f32 device copy), which
     ``krausn_mma`` streams. The plain version applies the op's terms, which
-    stay on the host in the op tuple."""
+    stay on the host in the op tuple.
+
+    ``matrix`` and ``swap`` records leave r[5] and r[7] above bit 15 free:
+    ``PreparedRun`` writes the 2x2 arm's grouping there afterwards
+    (:func:`mark_sweeps`: a sweep's first record carries, per precision,
+    its Q mask and its record count), which the plain version ignores."""
     table = np.zeros((len(ops), _REC), dtype=np.int64)
     coeffs: list[np.ndarray] = []
     off = 0
@@ -577,7 +681,7 @@ def encode_ops(ops) -> tuple[np.ndarray, np.ndarray]:
             rec[3] = _mask(controls)
             rec[4] = _mask(c for c, s in zip(controls, states) if s)
             rec[6] = put([(v.real, v.imag) for v in m.reshape(-1)])
-            rec[7] = int(m[0, 1] == 0 and m[1, 0] == 0)
+            rec[7] = int(m[0, 1] == 0 and m[1, 0] == 0) | _matrix_form(m) << 1
         elif kind == "parity":
             _, qubits, controls, theta = op
             rec[3] = rec[4] = _mask(controls)
@@ -646,13 +750,21 @@ class PreparedRun:
     ``ops`` is the fold, the plan's work (as the JAX package folds it);
     ``records`` what the kernel and the plain version read, one table row
     each: the fold with each run of diagonal ops merged into ``diagw``
-    tables of at most ``diag_bits`` qubits (:func:`merge_diagonals`)."""
+    tables of at most ``diag_bits`` qubits (:func:`merge_diagonals`).
+    ``sweeps`` holds, per precision, the 2x2 arm's register sweeps over the
+    records (:func:`group_sweeps` at the width ``SWEEP_BITS[dtype]``),
+    which :func:`mark_sweeps` writes into the table: the first record of a
+    sweep carries its Q mask in r[5] and its record count in r[7] above
+    bit 15."""
 
     def __init__(self, ops, tile_bits: int, diag_bits: int = DIAG_TABLE_BITS):
         self.tile_bits = tile_bits
         self.ops = _fold_zone_ops(tuple(ops), tile_bits)
         self.records = merge_diagonals(self.ops, diag_bits)
         self.table, self.coeffs = encode_ops(self.records)
+        self.sweeps = {dt: group_sweeps(self.records, m, tile_bits)
+                       for dt, m in SWEEP_BITS.items()}
+        mark_sweeps(self.table, self.sweeps)
         self.has_lane_u = any(o[0] == "lane_u" for o in self.ops)
         #: what the kernel stages through extra shared memory, the launch's
         #: ``staged`` flags (``csrc/fused_gates.cu``): bit 0 a lane_u op's
