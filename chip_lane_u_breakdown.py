@@ -1295,7 +1295,7 @@ def main() -> int:
                          own_table.get(name, table).data_ptr(),
                          int(table.shape[0]),
                          own.get(name, coeffs).data_ptr(), 0, tb, 0, tb, 0, 0, prep.staged,
-                         torch.cuda.current_stream().cuda_stream)
+                         torch.cuda.current_stream().cuda_stream, 1)
                 if err:
                     raise RuntimeError(f"launch failed ({err})")
 

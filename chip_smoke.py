@@ -189,7 +189,29 @@ no result, without them. Phases, in order:
    ``parameterized()`` (one capture, at the second call, none after; a
    structure-equal circuit hitting the executable cache); many distinct
    circuits run once and twice through ``Circuit.run``, with the card's
-   reserved memory bounded; then the script's time.
+   reserved memory bounded;
+12. serving (``_serving_phase``, ``# serving`` lines): the serving
+   ``Engine`` on ``createQuESTEnv(device="cuda:0")``, f32 and f64, over
+   the bench's serve_20q (``serving_ansatz(20, 4)``, raw and planned into
+   fused runs, ``max_batch=8``) and ``serving_ansatz(26, 4)`` fused at
+   ``max_batch=4`` (four 512 MiB / 1 GiB lanes): a coalesced batch
+   against a loop of single requests, bit for bit; each lane against the
+   unbatched ``parameterized()`` replay (1e-5 / 1e-12 of the largest
+   amplitude) and its total probability; no capture after the warm-up;
+   the batch's first (eager) call launching the fused-run kernel once a
+   run for all lanes, and its graph holding one fused_run node a run
+   (``_graph_kernels``); no sentinel breach with ``QUEST_SENTINEL``
+   armed; the cold first call and the capture, requests/s of a batch
+   against the same requests uncoalesced, p50 / p99 latency of a
+   16-request stream; the same sweep through the unbatched
+   ``parameterized()`` replay, timed (the route a user would take without
+   the Engine); a 12q stream of requests arriving one at a time, with the
+   card's and the host's share of a batch (``_single_submits``, ``# serving
+   single`` lines);
+   and the kernel's lane axis alone (``_lanes_alone``, ``# serving lanes``
+   lines): one 26q main-path run over 4 lanes in one launch against 4
+   one-lane launches, bit for bit, timed beside its bound; then the
+   script's time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
 records and the register sweeps they take (the 2x2 arm's, at the
@@ -3436,6 +3458,370 @@ def _compiled_phase(qt, dev, plans: dict) -> dict:
     return out
 
 
+#: the serving phase's configurations: (name, qubits, layers, fused, max_batch)
+SERVING = (("serve_20q", 20, 4, False, 8), ("serve_20q_fused", 20, 4, True, 8),
+           ("serve_26q_fused", 26, 4, True, 4))
+#: lanes of the kernel-alone measurement
+LANES = 4
+
+
+def _lanes_alone(dev, plans: dict) -> dict:
+    """The fused-run kernel's lane axis alone (``# serving lanes`` lines):
+    for f32 and f64, the main path's densest run at N_MAIN qubits over
+    LANES random lanes in ONE launch, against LANES one-lane launches of the
+    same table (bit for bit), timed on the card's clock beside the LANES
+    one-lane launches, the plain version on the same batch (against which
+    it is held, 1e-5 / 1e-12 of the largest amplitude) and its bound (LANES
+    times one lane's bytes at HBM_BYTES_PER_S, and its operations)."""
+    import torch
+
+    from quest_tpu_torch import fusion
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        runs = [a[0] for f, a, _ in plans[dt]._tape if f is fusion._apply_pallas_run]
+        run = max(runs, key=lambda r: len(r.prepare().records))
+        prep = run.prepare()
+        kw = dict(n=N_MAIN, ops=run.ops, tile_bits=run.tile_bits,
+                  load_swap_k=run.load_swap_k, store_swap_k=run.store_swap_k,
+                  load_swap_hi=run.load_swap_hi, store_swap_hi=run.store_swap_hi,
+                  prepared=prep)
+        g = torch.Generator(device=dev).manual_seed(19)
+        x = torch.randn(LANES, 2, 1 << N_MAIN, generator=g, device=dev, dtype=dt)
+        x /= x.flatten(1).norm(dim=1)[:, None, None]
+        batch, single = torch.empty_like(x), torch.empty_like(x)
+        FG.fused_run.launches = 0
+        FG.fused_run(x, out=batch, **kw)
+        torch.cuda.synchronize()
+        _require(FG.fused_run.launches == 1, f"serving lanes {name}: "
+                 f"{FG.fused_run.launches} launches for {LANES} lanes")
+
+        def one_lane_launches():
+            for i in range(LANES):
+                FG.fused_run(x[i], out=single[i], **kw)
+
+        one_lane_launches()
+        torch.cuda.synchronize()
+        same = all(torch.equal(batch[i], single[i]) for i in range(LANES))
+        _require(same, f"serving lanes {name}: a lane of the batched launch differs "
+                       "from its one-lane launch")
+        ms = _cuda_ms(lambda: FG.fused_run(x, out=batch, **kw), 5)
+        singles_ms = _cuda_ms(one_lane_launches, 5)
+        plain_kw = {k: v for k, v in kw.items() if k not in ("ops", "prepared")}
+        box = []
+        plain_ms = _clock_ms(lambda: box.append(FG.fused_run_plain(x, prep, **plain_kw)), 1)
+        err, rel = _rel_err(batch, box.pop())
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        _require(rel <= tol, f"serving lanes {name}: the batched launch is {rel} of the "
+                             f"largest amplitude from the plain version (limit {tol:g})")
+        work = _pass_work(prep, N_MAIN, x.element_size())
+        by_bytes, by_ops = (LANES * b for b in _bound_ms(work, dt == torch.float32))
+        bound = max(by_bytes, by_ops)
+        print(f"# serving lanes {name}: the main path's densest run ({len(prep.records)} "
+              f"records, folded swaps load {run.load_swap_k} store {run.store_swap_k}) over "
+              f"{LANES} lanes of {N_MAIN} qubits in 1 launch: {ms:.4f} ms, {LANES} one-lane "
+              f"launches {singles_ms:.4f} ms, the plain version {plain_ms:.2f} ms (error "
+              f"{err:.3e}, {rel:.3e} of the largest); bound {bound:.4f} ms ({LANES} x one "
+              f"lane's bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms), "
+              f"{bound / ms:.1%} of it; lanes equal one-lane launches bit for bit")
+        out[dt] = {"lanes": LANES, "qubits": N_MAIN, "records": len(prep.records),
+                   "launches": 1, "ms": ms, "one_lane_launches_ms": singles_ms,
+                   "plain_ms": plain_ms, "max_abs_err": err,
+                   "bound_ms": bound, "bound_by": "operations" if by_ops > by_bytes else "bytes",
+                   "bit_identical_to_one_lane": same}
+    return out
+
+
+#: the stream of single submits: a small circuit, whose batch is short
+#: enough for the host's work around it (values, copies, futures) to
+#: matter: (qubits, layers, max_batch, max_delay_ms, requests)
+SINGLE_STREAM = (12, 4, 8, 1.0, 96)
+
+
+def _single_submits(qt, dev) -> dict:
+    """Requests arriving one at a time (``# serving single`` lines):
+    ``serving_ansatz(12, 4)``, raw and fused, f32, ``max_batch`` 8,
+    ``max_delay_ms`` 1, 96 requests submitted one at a time from one
+    thread, back to back and then paced at 80% of the back-to-back rate,
+    two runs of each: requests/s from the first submit to the last
+    completion, p50 / p99 latency, the mean batch; every run serves the
+    same bits. Beside them the card's ms of one batch (CUDA events, its
+    graph replayed back to back: the copies in and out excluded) and the
+    engine's wall ms a batch (``submit_many`` of 8, then the wait)."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import telemetry
+    from quest_tpu_torch.engine import Engine
+
+    n, depth, B, delay, count = SINGLE_STREAM
+    wait = 120
+    out: dict = {}
+    env = qt.createQuESTEnv(device=dev)
+    for fused in (False, True):
+        name = "fused" if fused else "raw"
+        circ = qt.serving_ansatz(n, depth)
+        if fused:
+            circ = circ.fused(max_qubits=5, pallas=True, dtype=torch.float32)
+        rng = np.random.RandomState(1912)
+        reqs = [dict(zip(circ.param_names, rng.uniform(0, 2 * np.pi, len(circ.param_names))))
+                for _ in range(count)]
+        eng = Engine(circ, env, precision_code=1, max_batch=B, max_delay_ms=delay)
+        eng.warmup(reqs[0], wait)
+
+        def stream(gap):
+            b0 = telemetry.counter_value("engine_batches_total", mode="vmap")
+            done_at: dict = {}
+            futs, subs = [], []
+            t_start = time.perf_counter()
+            for i, p in enumerate(reqs):
+                if gap:
+                    while time.perf_counter() < t_start + i * gap:
+                        time.sleep(gap / 8)
+                subs.append(time.perf_counter())
+                f = eng.submit(p)
+                f.add_done_callback(
+                    lambda _f, _k=i: done_at.setdefault(_k, time.perf_counter()))
+                futs.append(f)
+            res = [f.result(wait).cpu() for f in futs]
+            batches = telemetry.counter_value("engine_batches_total", mode="vmap") - b0
+            lats = [(done_at[k] - subs[k]) * 1e3 for k in range(count)]
+            return {"req_s": count / (max(done_at.values()) - subs[0]),
+                    "p50_ms": float(np.percentile(lats, 50)),
+                    "p99_ms": float(np.percentile(lats, 99)),
+                    "mean_batch": count / batches}, res
+
+        ref = None
+        gap = 0.0
+        for pattern in ("back to back", "paced"):
+            runs = []
+            for _ in range(2):
+                row, res = stream(gap)
+                if ref is None:
+                    ref = res
+                _require(all(torch.equal(a, b) for a, b in zip(res, ref)),
+                         f"serving single {name}: a run served other bits")
+                runs.append(row)
+            m = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+            out[(name, pattern)] = {"gap_ms": gap * 1e3, **m,
+                                    "runs_req_s": [r["req_s"] for r in runs]}
+            print(f"# serving single {name} {pattern}: serving_ansatz({n}, {depth}) f32, "
+                  f"max_batch {B}, max_delay_ms {delay:g}, {count} requests one at a time"
+                  + (f" every {gap * 1e3:.3f} ms" if gap else "") +
+                  f": {m['req_s']:.1f} requests/s (runs "
+                  f"{', '.join(f'{x:.1f}' for x in out[(name, pattern)]['runs_req_s'])}), "
+                  f"p50 / p99 {m['p50_ms']:.3f} / {m['p99_ms']:.3f} ms, mean batch "
+                  f"{m['mean_batch']:.2f} (the same bits)")
+            gap = 1.25 / m["req_s"]
+        # the card's time of one batch against the engine's wall time a
+        # batch (back to back, full batches)
+        graphs = eng._execB().program.pieces[0].graphs
+        _require(len(graphs) == 1, f"serving single {name}: {len(graphs)} batch graphs")
+        card_ms = _cuda_ms(next(iter(graphs.values())).graph.replay, 20)
+        t0 = time.perf_counter()
+        for i in range(0, count, B):
+            for f in eng.submit_many(reqs[i:i + B]):
+                f.result(wait)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (count // B)
+        eng.close(timeout=wait)
+        out[(name, "batch")] = {"card_ms": card_ms, "wall_ms": wall_ms}
+        print(f"# serving single {name} batch: the card {card_ms:.3f} ms a batch of {B} "
+              f"(its graph replayed back to back), the engine {wall_ms:.3f} ms a batch "
+              f"wall (submit_many of {B}, then the wait), host share "
+              f"{1 - card_ms / wall_ms:.1%}")
+        del eng
+        _release()
+    return out
+
+
+def _serving_phase(qt, dev) -> dict:
+    """Phase 12: the serving Engine on the card (see the module docstring,
+    item 12), each configuration of SERVING in f32 and f64, its counts
+    reset just before its first (eager) batch and read just after."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.engine import Engine
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.resilience import sentinel_policy
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    wait = 600
+    for cfg, n, depth, fused, B in SERVING:
+        for dt, tol, ptol in ((torch.float32, 1e-5, 1e-4), (torch.float64, 1e-12, 1e-9)):
+            name = f"{cfg} {str(dt)[6:]}"
+            prec = 1 if dt == torch.float32 else 2
+            env = qt.createQuESTEnv(device=dev)
+            circ = qt.serving_ansatz(n, depth)
+            if fused:
+                circ = circ.fused(max_qubits=5, pallas=True, dtype=dt)
+            runs = sum(f is fusion._apply_pallas_run for f, _, _ in circ._tape)
+            names = circ.param_names
+            rng = np.random.RandomState(1900 + n)
+            draw = [dict(zip(names, rng.uniform(0, 2 * np.pi, len(names))))
+                    for _ in range(2 * B + 16)]
+            sweep, stream = draw[:B], draw[B:B + 16]
+            eng = Engine(circ, env, precision_code=prec, max_batch=B, max_delay_ms=0.0)
+            # cold: the first call (eager: it loads the kernels and stages the
+            # tables), counted; then the second, which captures the graph
+            telemetry.reset()
+            FG.fused_run.launches = 0
+            t0 = time.perf_counter()
+            eng.run(draw[-1], wait)
+            cold_s = time.perf_counter() - t0
+            launches = FG.fused_run.launches
+            _require(launches == runs, f"serving {name}: the eager batch launched the "
+                     f"kernel {launches} times for {runs} runs of {B} lanes")
+            t0 = time.perf_counter()
+            eng.warmup(draw[-1], wait)
+            capture_s = time.perf_counter() - t0
+            batch_fn = eng._execB()
+            traces = telemetry.counter_value("engine_trace_total", kind="param_replay")
+            _require(traces == 2 and len(batch_fn.captures) == 1,
+                     f"serving {name}: {traces:g} builds and {len(batch_fn.captures)} "
+                     "captures after the warm-up (the eager run and one capture expected)")
+            graph_kernels = _graph_kernels(batch_fn)
+            _require(graph_kernels == runs, f"serving {name}: the batch graph holds "
+                     f"{graph_kernels} fused_run nodes for {runs} runs")
+            # requests/s: the batch (best of `reps`) against the same requests
+            # uncoalesced; the two must agree bit for bit
+            reps = 3 if n < N_MAIN else 1
+            batch_s = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                batched = [f.result(wait) for f in eng.submit_many(sweep)]
+                batch_s = min(batch_s, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            looped = [eng.run(p, wait) for p in sweep]
+            loop_s = time.perf_counter() - t0
+            same = all(torch.equal(a, b) for a, b in zip(batched, looped))
+            _require(same, f"serving {name}: a coalesced lane differs from its request "
+                           "served alone")
+            del looped
+            # one batch more with the sentinels armed: no breach, the same bits
+            with sentinel_policy("default"):
+                guarded = [f.result(wait) for f in eng.submit_many(sweep)]
+            breaches = sum(telemetry.counter_value("sentinel_checks_total", kind=k,
+                                                   outcome="breach")
+                           for k in ("norm", "checksum"))
+            checks = sum(telemetry.counter_value("sentinel_checks_total", kind=k,
+                                                 outcome="ok") for k in ("norm", "checksum"))
+            _require(breaches == 0 and checks == 2 * B and all(
+                torch.equal(a, b) for a, b in zip(guarded, batched)),
+                f"serving {name}: {breaches:g} sentinel breaches, {checks:g} clean checks")
+            del guarded
+            moved = telemetry.counter_value("engine_trace_total", kind="param_replay") - traces
+            _require(moved == 0 and len(batch_fn.captures) == 1,
+                     f"serving {name}: {moved:g} builds after the warm-up")
+            # the reference: the unbatched parameterized replay (an executable
+            # of its own, which builds twice: eager, then its capture), the
+            # route a user would take without the Engine: warmed, then the
+            # sweep through it timed (best of `reps`) beside the batch
+            amps0 = qt.createQureg(n, env, prec).amps
+            exe = circ.parameterized(donate=False)
+            for _ in range(2):
+                exe(amps0, sweep[0])
+            replay_s = float("inf")
+            for _ in range(reps):
+                wants = None
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                wants = [exe(amps0, p) for p in sweep]
+                torch.cuda.synchronize(dev)
+                replay_s = min(replay_s, time.perf_counter() - t0)
+            errs, probs = [], []
+            for want, lane in zip(wants, batched):
+                errs.append(float((lane - want).abs().max() / want.abs().max()))
+                probs.append(abs(float((lane.double() ** 2).sum()) - 1.0))
+            del exe, wants, want, batched, amps0
+            _require(max(errs) <= tol, f"serving {name}: a lane is {max(errs)} of the "
+                     f"largest amplitude from the unbatched replay (limit {tol:g})")
+            _require(max(probs) <= ptol, f"serving {name}: total probability off by "
+                     f"{max(probs)} (limit {ptol:g})")
+            row = {"qubits": n, "layers": depth, "fused": fused, "max_batch": B,
+                   "runs": runs, "launches": launches, "graph_kernels": graph_kernels,
+                   "cold_s": cold_s, "capture_s": capture_s,
+                   "captures": [round(c[0], 4) for c in batch_fn.captures],
+                   "capture_mib": [round(c[1] / 2 ** 20, 1) for c in batch_fn.captures],
+                   "max_rel_err": max(errs), "max_prob_err": max(probs),
+                   "batch_ms": batch_s * 1e3, "batch_req_s": B / batch_s,
+                   "loop_req_s": B / loop_s, "batch_speedup": loop_s / batch_s,
+                   "replay_req_s": B / replay_s, "vs_replay": replay_s / batch_s,
+                   "sentinel_checks": checks}
+            lat = ""
+            if n < N_MAIN:
+                # p50 / p99 latency of a 16-request stream, sent in batches
+                # of max_batch through the warm engine
+                done_at: dict = {}
+                futs, subs = [], []
+                for i in range(0, len(stream), B):
+                    fs = eng.submit_many(stream[i:i + B])
+                    t_sub = time.perf_counter()
+                    for f in fs:
+                        k = len(futs)
+                        futs.append(f)
+                        subs.append(t_sub)
+                        f.add_done_callback(
+                            lambda _f, _k=k: done_at.setdefault(_k, time.perf_counter()))
+                for f in futs:
+                    f.result(wait)
+                lats = [(done_at[k] - subs[k]) * 1e3 for k in range(len(futs))]
+                row["p50_ms"] = float(np.percentile(lats, 50))
+                row["p99_ms"] = float(np.percentile(lats, 99))
+                del futs
+                lat = (f"; 16-request stream p50 / p99 {row['p50_ms']:.2f} / "
+                       f"{row['p99_ms']:.2f} ms")
+            eng.close(timeout=wait)
+            del eng, batch_fn
+            _release()
+            kern = ""
+            if fused:
+                # where the batch's time goes: its runs' lane-batched launches
+                # alone, on B random lanes (the rest is the Param barriers on
+                # the per-gate engine and the batch's copies)
+                g = torch.Generator(device=dev).manual_seed(n)
+                xb = torch.randn(B, 2, 1 << n, generator=g, device=dev, dtype=dt)
+                ob = torch.empty_like(xb)
+                plan = [a[0] for f, a, _ in circ._tape if f is fusion._apply_pallas_run]
+
+                def all_runs():
+                    for r in plan:
+                        FG.fused_run(xb, n=n, ops=r.ops, tile_bits=r.tile_bits,
+                                     load_swap_k=r.load_swap_k, store_swap_k=r.store_swap_k,
+                                     load_swap_hi=r.load_swap_hi,
+                                     store_swap_hi=r.store_swap_hi, prepared=r.prepare(),
+                                     out=ob)
+
+                row["kernel_ms"] = _cuda_ms(all_runs, 3)
+                row["kernel_share"] = row["kernel_ms"] / row["batch_ms"]
+                del xb, ob
+                torch.cuda.empty_cache()
+                kern = (f"; its {runs} runs' lane-batched launches alone "
+                        f"{row['kernel_ms']:.3f} ms, {row['kernel_share']:.1%} of the batch")
+            print(f"# serving {name}: serving_ansatz({n}, {depth}){' fused' if fused else ''}"
+                  f", {len(names)} Params, {runs} fused runs, max_batch {B}: the eager batch "
+                  f"launched the kernel {launches} times (runs {runs}), the graph holds "
+                  f"{graph_kernels} fused_run nodes; batch = loop bit for bit; lanes within "
+                  f"{max(errs):.3e} of the unbatched replay (limit {tol:g}), total "
+                  f"probability within {max(probs):.3e}; {checks:g} sentinel checks, no "
+                  f"breach; cold {cold_s:.3f} s, capture {capture_s:.3f} s "
+                  f"({row['capture_mib']} MiB); a batch {row['batch_ms']:.2f} ms, "
+                  f"{row['batch_req_s']:.2f} requests/s coalesced against "
+                  f"{row['loop_req_s']:.2f} uncoalesced (x{row['batch_speedup']:.2f}) and "
+                  f"{row['replay_req_s']:.2f} through the unbatched parameterized() replay "
+                  f"(the Engine x{row['vs_replay']:.2f})"
+                  f"{kern}{lat}")
+            out[(cfg, dt)] = row
+    out["single"] = _single_submits(qt, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"# serving phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -3810,6 +4196,10 @@ def main() -> int:
         plans[(k, torch.float32)] = operators[(f"{k}_plan", torch.float32)]
     compiled = _compiled_phase(qt, dev, plans)
 
+    # -- serving phase: the Engine's lane-batched replays, f32 and f64 -----
+    serving = _serving_phase(qt, dev)
+    lanes = _lanes_alone(dev, {torch.float32: fz, torch.float64: fz64})
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -3926,13 +4316,30 @@ def main() -> int:
         entries[0]["operators_paths"][k]["compiled"] = compiled[k]
         replays(entries[0], compiled[k])
     entries[0]["compiled_many_circuits"] = compiled["many"]
+    # the serving phase: each fused configuration's eager batch (its counts
+    # reset just before it) launches the kernel once a run for all lanes,
+    # and its graph holds one fused_run node a run; the lane axis alone
+    for e, ddt in zip(entries[:2], (torch.float32, torch.float64)):
+        e["lanes"] = lanes[ddt]
+        e["max_abs_err"] = max(e["max_abs_err"], lanes[ddt]["max_abs_err"])
+        e["serving"] = {cfg: serving[(cfg, ddt)] for cfg, *_ in SERVING}
+        for cfg, n, _depth, fused, batch in SERVING:
+            r = serving[(cfg, ddt)]
+            if not fused:
+                continue
+            e["paths"][f"serving_{cfg}"] = {
+                "launches": r["launches"], "graph_kernels": r["graph_kernels"],
+                "runs": r["runs"], "lanes": batch, "qubits": n}
+            e["launches"] += r["launches"]
+            e["graph_kernels"] = e.get("graph_kernels", 0) + r["graph_kernels"]
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
         "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all (operators phase "
-          f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s)")
+          f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s, "
+          f"serving phase {serving['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ contiguous qubit window through ``csrc/window_dot.cu``
 ``quest_tpu`` exports is here. ``Circuit.run`` and the compiled routes
 (``compiled``, ``compiled_segments``, ``compiled_blocks``,
 ``compiled_request``, ``parameterized`` with :class:`Param` values) run a
-tape on the card as CUDA-graph replays (``_capture``).
+tape on the card as CUDA-graph replays (``_capture``); :class:`Engine`
+serves parameter sweeps as micro-batched, lane-batched replays
+(``engine``), with the typed failures of ``resilience``.
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -25,7 +27,10 @@ from .datatypes import *  # noqa: F401,F403
 from .datatypes import __all__ as _datatypes_all
 from .decoherence import *  # noqa: F401,F403
 from .decoherence import __all__ as _decoherence_all
-from .engine import P, Param
+from .engine import Engine, P, Param
+from . import resilience
+from .resilience import (QuESTBackpressureError, QuESTCancelledError, QuESTHangError,
+                         QuESTIntegrityError, QuESTTimeoutError)
 from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
                           getEnvironmentString, getQuESTSeeds, reportQuESTEnv,
                           seedQuEST, seedQuESTDefault, syncQuESTEnv,
@@ -54,6 +59,8 @@ __all__ = [
     *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
     *_decoherence_all, *_calculations_all, *_reporting_all,
     "Circuit", "random_layers", "density_circuit", "serving_ansatz", "engine", "P",
-    "Param", "QuESTError",
+    "Param", "Engine", "resilience", "QuESTError", "QuESTTimeoutError",
+    "QuESTBackpressureError", "QuESTCancelledError", "QuESTIntegrityError",
+    "QuESTHangError",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
 ]

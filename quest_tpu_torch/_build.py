@@ -127,12 +127,12 @@ SIGNATURES = {
     "fused_gates": {
         # (src, dst, n, local_n, shard_index, tile_bits, ops, num_ops,
         #  coeffs, load_k, load_hi, store_k, store_hi, pair_lo, pair_hi,
-        #  staged, stream) -> cudaError_t; staged: bit 0 a lane_u op, bit 1
+        #  staged, stream, lanes) -> cudaError_t; staged: bit 0 a lane_u op, bit 1
         #  a kraus op on 3 row qubits
         "quest_fused_run_f32": ([_VP, _VP, _CI, _CI, _CLL, _CI, _VP, _CI, _VP,
-                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _CI], _CI),
         "quest_fused_run_f64": ([_VP, _VP, _CI, _CI, _CLL, _CI, _VP, _CI, _VP,
-                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP], _CI),
+                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _CI], _CI),
         # (f64, tile_bits, staged) -> thread blocks per SM, or -cudaError_t
         "quest_fused_run_blocks_per_sm": ([_CI, _CI, _CI], _CI),
         "quest_cuda_error_string": ([_CI], ctypes.c_char_p),

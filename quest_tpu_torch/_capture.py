@@ -164,7 +164,7 @@ def _launch_counters() -> tuple:
 
 
 def _counts() -> tuple:
-    return telemetry.snapshot(), tuple(f.launches for f in _launch_counters())
+    return telemetry.counters(), tuple(f.launches for f in _launch_counters())
 
 
 def _restore(saved: tuple) -> None:
@@ -355,7 +355,7 @@ class Replay:
                                f"{type(e).__name__}: {e}") from e
         torch.cuda.synchronize(dev)
         g.seconds = time.perf_counter() - t0
-        g.moves = telemetry.delta(saved[0], telemetry.snapshot())
+        g.moves = telemetry.delta(saved[0], telemetry.counters())
         _restore(saved)
         g.bytes = torch.cuda.memory_reserved(dev) - reserved
         self.captures.append((g.seconds, g.bytes))

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import importlib
 import inspect
+import threading
 import weakref
 
 import numpy as np
@@ -442,10 +443,13 @@ class _ParamFn:
     the state's device); each call loads the caller's values into it, so
     the program's graphs read the new values at their fixed address.
     ``engine_trace_total{kind=param_replay}`` counts each build of the
-    replay: its eager run and every capture."""
+    replay: its eager run and every capture. Structure-equal circuits share
+    it (the executable LRU), so a call holds its lock from the value load
+    to the returned copy."""
 
     def __init__(self, circuit, lifted, donate: bool, reduce):
         from ._capture import Executable, Program, Replay
+        self._lock = threading.RLock()
         self._values = None
         self._reduce = reduce
         self._body = circuit._replay_body(lifted)
@@ -460,8 +464,9 @@ class _ParamFn:
         return self._exe.captures
 
     def close(self) -> None:
-        self._exe.close()
-        self._values = None
+        with self._lock:
+            self._exe.close()
+            self._values = None
 
     def _run(self, shell):
         self._body(shell, self._values)
@@ -474,15 +479,16 @@ class _ParamFn:
 
     def __call__(self, amps, values):
         first = amps[0] if isinstance(amps, (list, tuple)) else amps
-        have = self._values
-        if (have is None or have.index != values.index
-                or have.device != first.device):
-            if have is not None:
-                self._exe.close()  # the graphs read the old buffers
-            self._values = values.to(first.device).clone()
-        else:
-            have.copy_(values)
-        return self._exe(amps)
+        with self._lock:
+            have = self._values
+            if (have is None or have.index != values.index
+                    or have.device != first.device):
+                if have is not None:
+                    self._exe.close()  # the graphs read the old buffers
+                self._values = values.to(first.device).clone()
+            else:
+                have.copy_(values)
+            return self._exe(amps)
 
 
 def random_layers(circ, num_qubits: int, depth: int, seed: int = 2026):

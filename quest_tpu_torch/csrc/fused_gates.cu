@@ -1865,6 +1865,10 @@ fused_run_kernel(const T* src, T* dst, int local_n, uint64_t shard_base,
   T* sre = reinterpret_cast<T*>(smem_raw);
   T* sim = sre + tile;
   const uint64_t N = 1ull << local_n;  // amplitudes of one plane of the shard
+  // the lane: a whole (2, N) state of a batch, every lane under the same
+  // op table (one launch serves a batch of parameter sweeps' static runs)
+  src += 2 * N * blockIdx.y;
+  dst += 2 * N * blockIdx.y;
   // the tile's address in the shard, and its index bits >= T in the whole
   // state (shard_base = shard_index << local_n): the first for loads and
   // stores, the second for every op's roles
@@ -2052,14 +2056,16 @@ int blocks_per_sm(int tile_bits, int staged) {
 
 // n: the qubits of the whole state, which bound the ops' qubits; local_n:
 // those of the shard this launch runs on (its grid is 2^(local_n - T)
-// blocks), shard_index its place among the 2^(n - local_n) shards.
+// blocks by lanes), shard_index its place among the 2^(n - local_n) shards;
+// lanes: the states of the batch at src and dst, one after another.
 template <typename T>
 int launch(int max_bits, const T* src, T* dst, int n, int local_n,
            long long shard_index, int tile_bits, const long long* ops,
            int num_ops, const T* coeffs, int load_k, int load_hi,
            int store_k, int store_hi, int pair_lo, int pair_hi,
-           int staged, void* stream) {
-  if (tile_bits < kLaneBits || tile_bits > max_bits ||
+           int staged, void* stream, int lanes) {
+  if (lanes < 1 || lanes > 65535 ||
+      tile_bits < kLaneBits || tile_bits > max_bits ||
       local_n < tile_bits || n < local_n || n > 40 || num_ops < 0 ||
       shard_index < 0 || shard_index >= (1ll << (n - local_n)) ||
       (load_k && load_hi + load_k > local_n) ||
@@ -2073,7 +2079,7 @@ int launch(int max_bits, const T* src, T* dst, int n, int local_n,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = 1u << (local_n - tile_bits);
+  const dim3 grid(1u << (local_n - tile_bits), static_cast<unsigned>(lanes));
   const uint64_t shard_base = static_cast<uint64_t>(shard_index) << local_n;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       src, dst, local_n, shard_base, tile_bits, ops, num_ops, coeffs,
@@ -2094,16 +2100,18 @@ extern "C" {
 // instantiation), bit 1 a kraus op on 3 row qubits (krausn_dmma,
 // krausn_mma), bit 2 a window op of span 3 or more (window_dmma,
 // window_mma), bit 3 an elementwise record (diag_sweep's tables).
-// A run whose flags miss such an op writes past its shared memory.
+// A run whose flags miss such an op writes past its shared memory. lanes
+// (1 to 65535): the states of a batch at src and dst, each (2, 2^local_n)
+// and contiguous one after another, all under the same op table.
 int quest_fused_run_f32(const float* src, float* dst, int n, int local_n,
                         long long shard_index, int tile_bits,
                         const long long* ops, int num_ops,
                         const float* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
-                        int staged, void* stream) {
+                        int staged, void* stream, int lanes) {
   return launch<float>(13, src, dst, n, local_n, shard_index, tile_bits, ops,
                        num_ops, coeffs, load_k, load_hi, store_k, store_hi,
-                       pair_lo, pair_hi, staged, stream);
+                       pair_lo, pair_hi, staged, stream, lanes);
 }
 
 int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
@@ -2111,10 +2119,10 @@ int quest_fused_run_f64(const double* src, double* dst, int n, int local_n,
                         const long long* ops, int num_ops,
                         const double* coeffs, int load_k, int load_hi,
                         int store_k, int store_hi, int pair_lo, int pair_hi,
-                        int staged, void* stream) {
+                        int staged, void* stream, int lanes) {
   return launch<double>(12, src, dst, n, local_n, shard_index, tile_bits,
                         ops, num_ops, coeffs, load_k, load_hi, store_k,
-                        store_hi, pair_lo, pair_hi, staged, stream);
+                        store_hi, pair_lo, pair_hi, staged, stream, lanes);
 }
 
 // thread blocks per SM of a run of float (f64 = 0) or double (f64 = 1)

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 __all__ = ["Param", "P", "LiftedTape", "Slot", "ParamExecutable", "BoundValues",
-           "lift_tape", "lift_slot_census", "bind", "materialize_entry",
+           "lift_tape", "lift_slot_census", "bind", "bind_host", "stack_values",
+           "value_index", "materialize_entry",
            "materialize_tape", "has_params", "is_value"]
 
 
@@ -255,30 +256,47 @@ class BoundValues:
     """A lifted tape's bound values: one tensor per slot kind (``real``,
     ``complex``, ``seed``) on one device. ``values[i]`` is slot i as a 0-d
     view of its kind's tensor, what :func:`materialize_entry` substitutes,
-    so a captured replay reads the values the tensors hold at replay."""
+    so a captured replay reads the values the tensors hold at replay.
 
-    __slots__ = ("tensors", "index")
+    The stacked form (:func:`stack_values`) holds B lanes' values, one
+    (B, k) tensor per kind: ``lanes`` is B, and under ``torch.func.vmap`` over the tensors' first axis a
+    ``BoundValues(tensors, index)`` built from the per-lane tensors is what
+    each lane's replay reads."""
 
-    def __init__(self, tensors: dict, index: tuple):
+    __slots__ = ("tensors", "index", "_device")
+
+    def __init__(self, tensors: dict, index: tuple, device=None):
         self.tensors = tensors
         self.index = index
+        self._device = device
 
     def __len__(self) -> int:
         return len(self.index)
 
     def __getitem__(self, i):
         kind, pos = self.index[i]
-        return self.tensors[kind][pos]
+        return self.tensors[kind][..., pos]
 
     @property
     def device(self) -> torch.device:
+        """The tensors' device (the device bound for, with no slots)."""
+        if not self.tensors:
+            return torch.device(self._device or "cpu")
         return next(iter(self.tensors.values())).device
 
+    @property
+    def lanes(self) -> int | None:
+        """B of the stacked form, None for one set of values."""
+        t = next(iter(self.tensors.values()), None)
+        return None if t is None or t.dim() < 2 else t.shape[0]
+
     def to(self, device) -> "BoundValues":
-        return BoundValues({k: t.to(device) for k, t in self.tensors.items()}, self.index)
+        return BoundValues({k: t.to(device) for k, t in self.tensors.items()}, self.index,
+                           torch.device(device))
 
     def clone(self) -> "BoundValues":
-        return BoundValues({k: t.clone() for k, t in self.tensors.items()}, self.index)
+        return BoundValues({k: t.clone() for k, t in self.tensors.items()}, self.index,
+                           self.device)
 
     def copy_(self, other: "BoundValues") -> "BoundValues":
         """Load ``other``'s values into these tensors, in place."""
@@ -299,6 +317,15 @@ def bind(lifted: LiftedTape, params=None, device=True):
     slot kind; ``device=False`` returns a tuple of plain Python scalars (a
     tape materialized with them replays through the host assembly path,
     the baseline the tests compare against)."""
+    out = bind_host(lifted, params)
+    if device is False:
+        return out
+    return stack_values(lifted, [out], device, stacked=False)
+
+
+def bind_host(lifted: LiftedTape, params=None) -> tuple:
+    """``bind(lifted, params, device=False)``: the values as plain Python
+    scalars, one per slot (missing names raise)."""
     from ..validation import QuESTError
 
     params = params or {}
@@ -320,17 +347,42 @@ def bind(lifted: LiftedTape, params=None, device=True):
             out.append(complex(v))
         else:
             out.append(float(v))
-    if device is False:
-        return tuple(out)
-    dev = torch.device("cpu") if device is True else torch.device(device)
-    lists: dict = {}
+    return tuple(out)
+
+
+def value_index(lifted: LiftedTape) -> tuple:
+    """(kind, position) of each slot in its kind's tensor: the
+    :class:`BoundValues` index of the lifted tape."""
+    counts: dict = {}
     index = []
-    for s, v in zip(lifted.slots, out):
-        vals = lists.setdefault(s.kind, [])
-        index.append((s.kind, len(vals)))
-        vals.append(v)
-    tensors = {k: torch.tensor(v, dtype=_KIND_DTYPE[k], device=dev) for k, v in lists.items()}
-    return BoundValues(tensors, tuple(index))
+    for s in lifted.slots:
+        index.append((s.kind, counts.get(s.kind, 0)))
+        counts[s.kind] = counts.get(s.kind, 0) + 1
+    return tuple(index)
+
+
+def stack_values(lifted: LiftedTape, rows, device=True, *, pad_to: int | None = None,
+                 stacked: bool = True) -> BoundValues:
+    """Host value tuples (:func:`bind_host`) as ONE :class:`BoundValues` on
+    ``device`` (True: the CPU): stacked on the host into a (B, k) tensor per
+    slot kind, B = ``pad_to`` (short lists repeat the last row) or the
+    number of rows, and sent to the device in one copy per kind.
+    ``stacked=False`` takes one row and gives (k,) tensors, :func:`bind`'s
+    form."""
+    rows = list(rows)
+    if pad_to is not None:
+        rows += [rows[-1]] * (pad_to - len(rows))
+    dev = torch.device("cpu") if device is True else torch.device(device)
+    index = value_index(lifted)
+    cols: dict = {}
+    for j, (kind, _pos) in enumerate(index):
+        cols.setdefault(kind, []).append(j)
+    tensors = {}
+    for kind, js in cols.items():
+        host = [[r[j] for j in js] for r in rows]
+        t = torch.tensor(host if stacked else host[0], dtype=_KIND_DTYPE[kind])
+        tensors[kind] = t.to(dev)
+    return BoundValues(tensors, index, dev)
 
 
 class ParamExecutable:

@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
+from torch._C._functorch import is_batchedtensor
 
 from . import precision, telemetry
 
@@ -980,6 +981,15 @@ def _plan_pallas(tape, num_qubits: int, dtype, max_qubits: int,
 # executors (tape entries)
 # ---------------------------------------------------------------------------
 
+def _is_lane(qureg) -> bool:
+    """True when ``qureg`` holds one lane of a ``torch.func.vmap`` batch (the
+    serving Engine's batch body): each kernel pass then goes through
+    ``ops.fused_gates.fused_run_lanes``, whose batching rule makes one
+    launch for every lane, and each pass and frame swap writes a fresh
+    tensor (a lane has no spare buffer of its own)."""
+    return is_batchedtensor(qureg.amps)
+
+
 def _apply_pallas_run(qureg, run: PallasRun) -> None:
     """Tape entry of a PallasRun: one pass of the fused gate-run kernel.
 
@@ -987,11 +997,19 @@ def _apply_pallas_run(qureg, run: PallasRun) -> None:
     writes into the register's spare buffer, which then becomes the state
     (see registers.Qureg). A CUDA register launches the kernel or raises;
     a CPU register runs the kernel's plain version. A sharded register
-    takes :func:`_apply_pallas_sharded`."""
-    from .ops.fused_gates import fused_run
+    takes :func:`_apply_pallas_sharded`; a lane of a batch
+    (:func:`_is_lane`) one launch for the whole batch."""
+    from .ops.fused_gates import fused_run, fused_run_lanes
 
     if qureg.shards is not None:
         _apply_pallas_sharded(qureg, run)
+        return
+    if _is_lane(qureg):
+        qureg.put(fused_run_lanes(
+            qureg.amps, n=qureg.num_qubits_in_state_vec, ops=run.ops,
+            tile_bits=run.tile_bits, load_swap_k=run.load_swap_k,
+            store_swap_k=run.store_swap_k, load_swap_hi=run.load_swap_hi,
+            store_swap_hi=run.store_swap_hi, prepared=run.prepare()))
         return
     swapped = bool(run.load_swap_k or run.store_swap_k)
     out = fused_run(
@@ -1101,9 +1119,12 @@ def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
                        fs.tile_bits if fs.hi is None else fs.hi)
         return
     telemetry.inc("pallas_pass_total", kind="frame_swap")
-    swap_bit_blocks(qureg.amps, n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,
-                    lo2=fs.tile_bits if fs.hi is None else fs.hi, k=fs.k,
-                    out=qureg.spare_buffer())
+    swap = dict(n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,
+                lo2=fs.tile_bits if fs.hi is None else fs.hi, k=fs.k)
+    if _is_lane(qureg):
+        qureg.put(swap_bit_blocks(qureg.amps, **swap))
+        return
+    swap_bit_blocks(qureg.amps, out=qureg.spare_buffer(), **swap)
     qureg.swap_spare()
 
 
@@ -1143,12 +1164,17 @@ def lane_u_run(block: FusedBlock, tile_bits: int):
 
 
 def _lane_u_pass(qureg, block: FusedBlock) -> None:
-    """The block's :func:`lane_u_run` through the fused-run kernel, in place."""
-    from .ops.fused_gates import fused_run, hopper_tile_bits
+    """The block's :func:`lane_u_run` through the fused-run kernel, in place
+    (a lane of a batch: one launch for the batch, into a fresh tensor)."""
+    from .ops.fused_gates import fused_run, fused_run_lanes, hopper_tile_bits
 
     nsv = qureg.num_qubits_in_state_vec
     tb = hopper_tile_bits(nsv, qureg.dtype)
     prep = lane_u_run(block, tb)
+    if _is_lane(qureg):
+        qureg.put(fused_run_lanes(qureg.amps, n=nsv, ops=prep.ops, tile_bits=tb,
+                                  prepared=prep))
+        return
     fused_run(qureg.amps, n=nsv, ops=prep.ops, tile_bits=tb, prepared=prep)
 
 

@@ -39,15 +39,14 @@ def _plan(n, targets, controls):
 
 
 def _grouped(amps, n, targets, controls):
-    """The grouped, permuted view as a NEW contiguous tensor: where the
-    permutation only moves size-1 axes (targets on the top qubits),
-    ``contiguous()`` returns a view of ``amps`` itself, and the functions
-    below, which write into the grouped tensor, would change their input."""
+    """The grouped, permuted view as a NEW contiguous tensor (one copy):
+    where the permutation only moves size-1 axes (targets on the top
+    qubits), ``contiguous()`` would return a view of ``amps`` itself, and
+    the functions below, which write into the grouped tensor, would change
+    their input. A clone never aliases, also for a state with no storage of
+    its own (a lane of ``torch.func.vmap``)."""
     shape, perm, inv = _plan(n, targets, controls)
-    t = amps.reshape(shape).permute(perm).contiguous()
-    if t.data_ptr() == amps.data_ptr():
-        t = t.clone()
-    return t, inv
+    return amps.reshape(shape).permute(perm).clone(memory_format=torch.contiguous_format), inv
 
 
 def _ungroup(tensor, inv):

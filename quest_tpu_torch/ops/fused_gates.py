@@ -460,16 +460,18 @@ def sweep_spans(table: np.ndarray, dtype) -> tuple:
 def swap_bit_blocks(amps: torch.Tensor, *, n: int, lo1: int, lo2: int,
                     k: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Exchange the k-bit index blocks [lo1, lo1+k) and [lo2, lo2+k)
-    (lo1 + k <= lo2) of the planar (2, 2^n) state: a pure qubit relabeling,
-    one permute. Returns a new contiguous tensor, or ``out`` (a contiguous
-    buffer of the state's size, not the state) written in place."""
+    (lo1 + k <= lo2) of the planar (2, 2^n) state, or of each lane of a
+    (B, 2, 2^n) batch: a pure qubit relabeling, one permute. Returns a new
+    contiguous tensor, or ``out`` (a contiguous buffer of the state's size,
+    not the state) written in place."""
     if not (lo1 + k <= lo2 and lo2 + k <= n):
         raise ValueError(f"bad bit-block swap (lo1={lo1}, lo2={lo2}, k={k}, n={n})")
     d = 1 << k
-    x = amps.reshape(amps.shape[0], -1, d, 1 << (lo2 - lo1 - k), d, 1 << lo1)
+    x = amps.reshape(-1, amps.shape[-1] >> (lo2 + k), d, 1 << (lo2 - lo1 - k), d,
+                     1 << lo1)
     y = x.permute(0, 1, 4, 3, 2, 5)
     if out is None:
-        return y.reshape(amps.shape[0], -1)
+        return y.reshape(amps.shape)
     out.view(y.shape).copy_(y)
     return out
 
@@ -802,13 +804,20 @@ def _check_windows(prepared: PreparedRun, dtype) -> None:
                 f"{prepared.tile_bits}), got lo={o[1]}, span={o[2]}")
 
 
+#: the most lanes one launch takes (the grid's second dimension)
+MAX_LANES = 65535
+
+
 def _check(amps: torch.Tensor, n: int, local_n: int, shard_index: int, ops,
            tile_bits: int, swaps, pair) -> None:
     if not 0 < local_n <= n or not 0 <= shard_index < 1 << (n - local_n):
         raise ValueError(f"shard {shard_index} of 2^{local_n} amplitudes does not "
                          f"lie in a {n}-qubit state")
-    if amps.dim() != 2 or amps.shape[0] != 2 or amps.shape[1] != 1 << local_n:
-        raise ValueError(f"state must be planar (2, 2^{local_n}), got {tuple(amps.shape)}")
+    if amps.dim() not in (2, 3) or amps.shape[-2:] != (2, 1 << local_n):
+        raise ValueError(f"state must be planar (2, 2^{local_n}) or a batch of lanes "
+                         f"(B, 2, 2^{local_n}), got {tuple(amps.shape)}")
+    if amps.dim() == 3 and not 1 <= amps.shape[0] <= MAX_LANES:
+        raise ValueError(f"a launch takes 1 to {MAX_LANES} lanes, got {amps.shape[0]}")
     if amps.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"state must be float32 or float64, got {amps.dtype}")
     if not LANE_BITS <= tile_bits <= min(local_n, HOPPER_TILE_BITS[amps.dtype]):
@@ -846,6 +855,11 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     """Apply ``ops`` to the planar (2, 2^n) state in one pass and return
     the tensor that holds the result: ``out`` when given, else ``amps``
     itself (updated in place).
+
+    ``amps`` may be a contiguous (B, 2, 2^n) batch of B lanes (and ``out``
+    then the same): each lane is a whole state, and ONE launch applies the
+    same op table to all of them (the grid's second dimension is the
+    lane).
 
     ``local_n`` < n runs the pass on one shard of a sharded n-qubit state:
     ``amps`` is (2, 2^local_n), the amplitudes [shard_index 2^local_n,
@@ -902,6 +916,37 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
 fused_run.launches = 0
 
 
+class _LaneRun(torch.autograd.Function):
+    """One fused-run pass as a function ``torch.func.vmap`` carries: its
+    batching rule moves the lane axis to the front and makes ONE
+    lane-batched launch (:func:`fused_run` on the (B, 2, 2^n) batch), as
+    ``jax.vmap`` reaches ``pallas_call``'s batching rule. ``call(src,
+    out)`` is the pass with its run bound. Out of place: a fresh output."""
+
+    @staticmethod
+    def forward(amps, call):
+        return call(amps, torch.empty_like(amps))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, amps, call):
+        d = in_dims[0]
+        x = (amps.expand(info.batch_size, *amps.shape) if d is None
+             else amps.movedim(d, 0)).contiguous()
+        return call(x, torch.empty_like(x)), 0
+
+
+def fused_run_lanes(amps: torch.Tensor, **run) -> torch.Tensor:
+    """:func:`fused_run` (``run``: its keyword arguments but ``out``) into
+    a new tensor; under ``torch.func.vmap`` one launch for every lane."""
+    def call(src, out):
+        return fused_run(src, out=out, **run)
+    return _LaneRun.apply(amps, call)
+
+
 def _launch(src, dst, n, local_n, shard_index, tile_bits, prepared, lk, lh, sk,
             sh, pair) -> None:
     from .. import _build
@@ -912,11 +957,12 @@ def _launch(src, dst, n, local_n, shard_index, tile_bits, prepared, lk, lh, sk,
     fn = (lib.quest_fused_run_f32 if src.dtype == torch.float32
           else lib.quest_fused_run_f64)
     table, coeffs = prepared.device_tables(src.device, src.dtype)
+    lanes = src.shape[0] if src.dim() == 3 else 1
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = fn(src.data_ptr(), dst.data_ptr(), n, local_n, shard_index, tile_bits,
                  table.data_ptr(), int(table.shape[0]), coeffs.data_ptr(),
-                 lk, lh, sk, sh, *pair, prepared.staged, stream)
+                 lk, lh, sk, sh, *pair, prepared.staged, stream, lanes)
     if err != 0:
         msg = lib.quest_cuda_error_string(err).decode()
         raise RuntimeError(f"fused-run kernel launch failed: {msg} ({err})")
@@ -935,7 +981,14 @@ def fused_run_plain(amps: torch.Tensor, prepared: PreparedRun, *, n: int,
     for :func:`fused_run`) with torch indexing (a kraus op from its terms,
     which the op tuple keeps), and folded swaps as explicit
     ``swap_bit_blocks`` before and after. Roles read the global index,
-    partners the shard's own. Returns a new tensor."""
+    partners the shard's own. A (B, 2, 2^n) batch takes the same records
+    lane by lane. Returns a new tensor."""
+    if amps.dim() == 3:
+        return torch.stack([fused_run_plain(
+            a, prepared, n=n, tile_bits=tile_bits, load_swap_k=load_swap_k,
+            load_swap_hi=load_swap_hi, store_swap_k=store_swap_k,
+            store_swap_hi=store_swap_hi, pair_swap=pair_swap, local_n=local_n,
+            shard_index=shard_index) for a in amps])
     ln = n if local_n is None else local_n
     x = amps
     if load_swap_k:

@@ -1,4 +1,5 @@
-"""Counters only: how a run shows which route it took.
+"""Counters, gauges, histograms and events: how a run shows which route it
+took, and how the serving Engine shows what it served.
 
 The port keeps the counter names of ``quest_tpu.telemetry`` that the slice
 needs:
@@ -30,6 +31,25 @@ needs:
   and at each CUDA-graph capture (its second call on the card, for one
   pair of buffers): the port's counterpart of a trace.
 
+- the serving Engine's series, under the JAX package's names and labels:
+  the counters ``engine_requests_total``, ``engine_batches_total{mode}``
+  (``vmap``: one lane-batched replay of a coalesced batch; ``sequential``:
+  one replay a request), ``engine_backpressure_total{reason}``,
+  ``engine_request_timeouts_total``, ``engine_bisections_total``,
+  ``engine_poisoned_requests_total``,
+  ``engine_health_transitions_total{from,to}``, ``device_dispatch_total{route}``
+  (``engine_param``, ``engine_vmap``), the gauge ``engine_queue_depth``,
+  and the histograms ``engine_batch_size`` and
+  ``engine_request_latency_seconds``; the resilience layer's
+  ``fault_injected_total{site,kind}``, ``sentinel_checks_total{kind,outcome}``,
+  ``watchdog_timeouts_total{site}`` and ``analysis_findings_total{code,severity}``.
+
+A histogram keeps count, sum, min and max of its observations
+(:func:`observe`); :func:`event` appends one record to a bounded ring of
+flight-recorder events (:func:`events`). :func:`snapshot` gives the whole
+registry as ``{"counters", "gauges", "histograms"}``, series keyed as in
+the JAX package.
+
 Kernel launch counts live on the kernel wrappers themselves
 (``ops.fused_gates.fused_run.launches``,
 ``ops.window_dot.window_dot.launches``). A counter key is the name, plus
@@ -51,10 +71,16 @@ a replay launches is read from its graph's kernel nodes.
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 
 _lock = threading.Lock()
 _counters: dict[str, float] = {}
 _gauges: dict[str, float] = {}
+_hists: dict[str, dict] = {}
+#: the flight-recorder ring: the most recent events
+_MAX_EVENTS = 4096
+_events: deque = deque(maxlen=_MAX_EVENTS)
 
 
 def _key(name: str, labels: dict) -> str:
@@ -92,10 +118,59 @@ def gauge_value(name: str, **labels) -> float:
         return _gauges.get(_key(name, labels), 0.0)
 
 
-def snapshot() -> dict:
-    """A copy of every counter (key -> value)."""
+def observe(name: str, value: float, **labels) -> None:
+    """Record one observation into the histogram ``name{labels}`` (count,
+    sum, min, max)."""
+    key, v = _key(name, labels), float(value)
+    with _lock:
+        h = _hists.get(key)
+        if h is None:
+            _hists[key] = {"count": 1, "sum": v, "min": v, "max": v}
+        else:
+            h["count"] += 1
+            h["sum"] += v
+            h["min"] = min(h["min"], v)
+            h["max"] = max(h["max"], v)
+
+
+def histogram(name: str, **labels) -> dict:
+    """A copy of one histogram series (empty if never observed)."""
+    with _lock:
+        return dict(_hists.get(_key(name, labels), {}))
+
+
+def event(name: str, **fields) -> None:
+    """Append one flight-recorder event."""
+    with _lock:
+        _events.append({"kind": "event", "name": name, "t": time.time(), **fields})
+
+
+def events() -> list:
+    """A copy of the event ring, the most recent last."""
+    with _lock:
+        return list(_events)
+
+
+def counters() -> dict:
+    """A copy of every counter (key -> value): what :func:`delta`,
+    :func:`restore` and :func:`add` work on."""
     with _lock:
         return dict(_counters)
+
+
+def snapshot(prefix: str | None = None) -> dict:
+    """The registry as ``{"counters", "gauges", "histograms"}`` (histograms
+    as count / sum / min / max); ``prefix`` filters the series names."""
+    def keep(k):
+        return prefix is None or k.startswith(prefix)
+
+    def num(v):
+        return int(v) if float(v).is_integer() else v
+
+    with _lock:
+        return {"counters": {k: num(v) for k, v in sorted(_counters.items()) if keep(k)},
+                "gauges": {k: v for k, v in sorted(_gauges.items()) if keep(k)},
+                "histograms": {k: dict(h) for k, h in sorted(_hists.items()) if keep(k)}}
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -122,3 +197,5 @@ def reset() -> None:
     with _lock:
         _counters.clear()
         _gauges.clear()
+        _hists.clear()
+        _events.clear()
