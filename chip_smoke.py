@@ -210,7 +210,34 @@ no result, without them. Phases, in order:
    single`` lines);
    and the kernel's lane axis alone (``_lanes_alone``, ``# serving lanes``
    lines): one 26q main-path run over 4 lanes in one launch against 4
-   one-lane launches, bit for bit, timed beside its bound; then the
+   one-lane launches, bit for bit, timed beside its bound;
+13. sampling and gradients (``_sampling_gradients_phase``, ``# sampling``
+   and ``# gradients`` lines): ``sample_request`` on the main path's fused
+   plans, f32 and f64, over all 26 qubits and a 10-qubit subset at 1024
+   and 2^20 shots -- the eager request launching the kernel once a run in
+   one ``route=request`` dispatch, its graph holding one fused_run node a
+   run, every shot in range, the table equal to its stages on the card's
+   state and to the CPU's ``draw_outcomes`` of the same marginal, uniforms
+   and total (and the card's u words to the CPU's), bit for bit, the
+   10-qubit table at 2^20 shots against the float64 marginal by
+   chi-square (p-value >= 1e-6), the ms a request against
+   ``compiled_request`` of the same plan without the shot stage and the
+   shot stage's bytes bound; a 20-qubit request whose
+   ``applyMidMeasurement`` every shot carries; the Engine with
+   ``finalize=sample_reduce`` over ``serving_ansatz(20, 4)`` fused, 8
+   lanes equal to single runs; then ``Circuit.gradient`` of
+   ``serving_ansatz(20, 4)`` against a 39-term TFIM, raw and
+   ``fused(max_qubits=5)`` (its lane_u blocks the kernel's launches and
+   graph nodes), f32 and f64, its ms against the ``parameterized()``
+   forward alone, capture s and MiB, raw against fused (f64: the value bit
+   for bit, grads within 1e-12), f32 against f64 (1e-3 of the largest
+   |g|), f64 against ``parameter_shift`` on ``serving_ansatz(20, 1)``
+   (1e-9); ``serving_ansatz(26, 2)`` fused at full width against the
+   26-qubit TFIM (the value within 1e-4 / 1e-10 of
+   ``calcExpecPauliHamil`` of the forward state); ``Engine.submit_grad``
+   at 8 lanes, raw and fused, f32 and f64, lanes equal to single runs bit
+   for bit and within 2e-4 / 1e-10 of the largest |g| of the unbatched
+   gradient, requests/s against a loop of ``Circuit.gradient``; then the
    script's time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
@@ -3822,6 +3849,488 @@ def _serving_phase(qt, dev) -> dict:
     return out
 
 
+#: phase 13's sampling requests: the 10-qubit subset of the 26-qubit main
+#: path's state, the shot counts and the seed; the 20-qubit circuit whose
+#: mid-circuit measurement every shot must carry (qubits, layers, measured
+#: qubit)
+SAMPLE_SUBSET = (25, 3, 17, 9, 0, 12, 21, 6, 14, 1)
+SAMPLE_SHOTS = (1024, 1 << 20)
+SAMPLE_SEED = 2026
+MID_MEASURE = (20, 4, 7)
+#: phase 13's gradients: the serving ansatz (qubits, layers), its full
+#: width (26 qubits, depth cut to 2 for the phase's time), the depth of the
+#: parameter-shift check, and the Engine's lanes
+GRAD_ANSATZ, GRAD_FULL, SHIFT_DEPTH, GRAD_LANES = (20, 4), (26, 2), 1, 8
+
+
+def _state_only(amps, seed):
+    """The terminal stage of the request the shot stage is timed against:
+    nothing read out (the state stays on the card)."""
+    return None
+
+
+def _shot_stage_bytes(n: int, t: int, shots: int, isz: int) -> int:
+    """The bytes the shot stage of a request moves: the marginal's read of
+    the state (two planes of ``isz`` bytes) and its float32 write; each add
+    step of the two log-step scans (two reads and a write of the float32
+    table); the running maxima (a read and a write); a uniform, an outcome
+    and the binary searches' gathers a shot."""
+    bb = t // 2
+    steps = (t - bb) * (1 << t) + bb * (1 << bb)
+    return (2 * isz * (1 << n) + 4 * (1 << t) + 12 * steps + 8 * ((1 << t) + (1 << bb))
+            + shots * (8 + 4 * t))
+
+
+def _sampling_phase(qt, dev, plans: dict) -> dict:
+    """Phase 13, sampling (``# sampling`` lines; see the module docstring,
+    item 13): requests on the main path's fused plans, f32 and f64, a
+    mid-circuit measurement, and the Engine with a shot-table finalize."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2 as chi2_dist
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.engine import Engine, P
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.ops import measure as M
+    from quest_tpu_torch.ops import reduce as R
+    from quest_tpu_torch.sampling import rng, sampler as sp
+    from quest_tpu_torch.sampling.request import sample_reduce, sample_request
+
+    card = _card_line()
+    out: dict = {}
+    env = qt.createQuESTEnv(device=dev)
+    seed_t = torch.tensor(SAMPLE_SEED, dtype=torch.int64, device=dev)
+    for dt in (torch.float32, torch.float64):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        fz = plans[("main", dt)]
+        runs = sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape)
+        zero = qt.createQureg(N_MAIN, env, prec).amps
+        base = fz.compiled_request(donate=False, reduce=_state_only)
+        # the card's own final state: the same runs, no shot stage
+        state = fz.compiled_request(donate=False)(zero)
+        norm = R.total_prob_statevec(state).to(torch.float32)
+        for targets in (tuple(range(N_MAIN)), SAMPLE_SUBSET):
+            t = len(targets)
+            p = sp.marginal_probs(state, n=N_MAIN, targets=targets)
+            p_cpu = p.cpu()
+            for shots in SAMPLE_SHOTS:
+                exe = sample_request(fz, targets=targets, shots=shots, donate=False)
+                # the first (eager) call, counted: one kernel launch a run
+                telemetry.reset()
+                FG.fused_run.launches = 0
+                got = exe(zero, seed_t)["shots"]
+                torch.cuda.synchronize(dev)
+                launches = FG.fused_run.launches
+                dispatches = telemetry.counter_value("device_dispatch_total", route="request")
+                _require(launches == runs and dispatches == 1,
+                         f"sampling {name} {t}q {shots}: the eager request launched the kernel "
+                         f"{launches} times for {runs} runs, in {dispatches:g} dispatches")
+                again = exe(zero, seed_t)["shots"]  # captures the request's graph
+                graph_kernels = _graph_kernels(exe)
+                _require(graph_kernels == runs, f"sampling {name} {t}q: the request's graph "
+                                                f"holds {graph_kernels} fused_run nodes, {runs} runs")
+                _require(torch.equal(got, again) and int(got.min()) >= 0
+                         and int(got.max()) < (1 << t),
+                         f"sampling {name} {t}q {shots}: a shot out of range, or a replay "
+                         "that differs from the eager request")
+                # the same table from the explicit stages on the card's state,
+                # and from the CPU's words and draws given the same marginal,
+                # uniforms and total, bit for bit
+                u = rng.uniform(sp.shot_key(SAMPLE_SEED, 0, dev), (shots,))
+                _require(torch.equal(sp.draw_outcomes(p, u, norm=norm), got),
+                         f"sampling {name} {t}q {shots}: the request's table differs from its "
+                         "stages on its state")
+                u_cpu = rng.uniform(sp.shot_key(SAMPLE_SEED, 0), (shots,))
+                _require(torch.equal(u.cpu(), u_cpu),
+                         f"sampling {name}: the card's uniforms differ from the CPU's")
+                _require(torch.equal(sp.draw_outcomes(p_cpu, u_cpu, norm=norm.cpu()),
+                                     got.cpu()),
+                         f"sampling {name} {t}q {shots}: the card's draws differ from the CPU's")
+                chi = None
+                if t < N_MAIN and shots == max(SAMPLE_SHOTS):
+                    exact = M.prob_of_all_outcomes(state.double(), n=N_MAIN,
+                                                   targets=targets).cpu().numpy()
+                    emp = np.bincount(got.cpu().numpy(), minlength=1 << t).astype(np.float64)
+                    exp = shots * exact / exact.sum()
+                    live = exp > 0
+                    stat = float(np.sum((emp[live] - exp[live]) ** 2 / exp[live]))
+                    dof = int(live.sum()) - 1
+                    chi = (stat, float(chi2_dist.sf(stat, dof)), dof)
+                    _require(chi[1] >= 1e-6 and emp[~live].sum() == 0,
+                             f"sampling {name}: chi-square {stat:.1f} over {dof} dof, p-value "
+                             f"{chi[1]:.3g} < 1e-6, or a shot on an outcome of probability 0")
+                ms = _cuda_ms(lambda: exe(zero, seed_t), 5)
+                base(zero, seed_t)
+                base_ms = _cuda_ms(lambda: base(zero, seed_t), 5)
+                bound = _shot_stage_bytes(N_MAIN, t, shots, dt.itemsize) / HBM_BYTES_PER_S * 1e3
+                out[(dt, t, shots)] = {
+                    "launches": launches, "runs": runs, "graph_kernels": graph_kernels,
+                    "ms": ms, "no_shots_ms": base_ms, "shot_stage_ms": ms - base_ms,
+                    "shot_stage_bound_ms": bound, "chi2": chi}
+                print(f"# sampling {name} {N_MAIN}q depth {DEPTH_MAIN} fused, {t} targets, "
+                      f"{shots} shots: the eager request launched the kernel {launches} times "
+                      f"(runs {runs}), its graph holds {graph_kernels} fused_run nodes; shots "
+                      f"in range, = its stages on the card's state, = the CPU's draws and u "
+                      f"words" + (f"; chi-square {chi[0]:.1f} ({chi[2]} dof, p-value "
+                                  f"{chi[1]:.3g})" if chi else "")
+                      + f"; {ms:.3f} ms a request against {base_ms:.3f} ms without the shot "
+                        f"stage (the shot stage {ms - base_ms:.3f} ms, bytes bound "
+                        f"{bound:.3f} ms) [{card}]")
+        del zero, state, p, p_cpu, base
+        _release()
+
+        # a mid-circuit measurement: every shot carries its drawn outcome
+        n, depth, mq = MID_MEASURE
+        circs = []
+        for seed in (P("m"), SAMPLE_SEED):
+            c = qt.Circuit(n)
+            qt.random_layers(c, n, depth)
+            c.applyMidMeasurement(mq, seed, site=1)
+            for q in range(3):
+                c.hadamard(q)
+            circs.append(c)
+        exe = sample_request(circs[0].fused(max_qubits=5, pallas=True, dtype=dt), shots=4096,
+                             donate=False)
+        zero = qt.createQureg(n, env, prec).amps
+        bits = (exe(zero, seed_t)["shots"].cpu().numpy() >> mq) & 1
+        exe(zero, seed_t)
+        qr = qt.createQureg(n, env, prec)
+        circs[1].run(qr)  # the same seed, eagerly
+        p1 = qt.calcProbOfOutcome(qr, mq, 1)
+        _require(len(set(bits.tolist())) == 1 and abs(p1 - bits[0]) <= 1e-4,
+                 f"sampling {name} mid-circuit measurement: the shots carry "
+                 f"{sorted(set(bits.tolist()))} at qubit {mq}, the eager run's P(1) {p1}")
+        ms = _cuda_ms(lambda: exe(zero, seed_t), 5)
+        out[(dt, "mid")] = {"outcome": int(bits[0]), "ms": ms}
+        print(f"# sampling {name} mid-circuit measurement: {n}q random_layers({depth}) fused, "
+              f"applyMidMeasurement({mq}, P('m')) bound to the request's seed, 4096 shots all "
+              f"carry outcome {int(bits[0])} at qubit {mq} (the same seed's eager run: P(1) "
+              f"{p1:.6f}); {ms:.3f} ms a request [{card}]")
+        del zero, qr, exe
+        _release()
+
+        # the Engine with a shot table as its finalize: lanes = single runs
+        n, depth = GRAD_ANSATZ
+        circ = qt.serving_ansatz(n, depth).fused(max_qubits=5, pallas=True, dtype=dt)
+        runs = sum(f is fusion._apply_pallas_run for f, _, _ in circ._tape)
+        names = circ.param_names
+        r = np.random.RandomState(2020)
+        sweep = [dict(zip(names, r.uniform(0, 2 * np.pi, len(names))))
+                 for _ in range(GRAD_LANES)]
+        fin = sample_reduce(n=n, targets=tuple(range(n)), shots=1024)
+        eng = Engine(circ, env, precision_code=prec, max_batch=GRAD_LANES, max_delay_ms=20.0,
+                     finalize=fin)
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        eng.run(sweep[0], 600)
+        torch.cuda.synchronize(dev)
+        e_launches = FG.fused_run.launches
+        _require(e_launches == runs, f"sampling {name} engine: the eager batch launched the "
+                                     f"kernel {e_launches} times for {runs} runs")
+        eng.run(sweep[0], 600)  # the capture
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lanes = [f.result(600) for f in eng.submit_many(sweep)]
+            best = min(best, time.perf_counter() - t0)
+        e_graph = _graph_kernels(eng._execB())
+        singles = [eng.run(s, 600) for s in sweep]
+        _require(all(a.shape == (1024,) and torch.equal(a, b) for a, b in zip(lanes, singles)),
+                 f"sampling {name} engine: a lane's shot table differs from its request "
+                 "served alone")
+        eng.close(timeout=600)
+        out[(dt, "engine")] = {"launches": e_launches, "runs": runs, "graph_kernels": e_graph,
+                               "requests_per_s": GRAD_LANES / best, "batch_ms": best * 1e3}
+        print(f"# sampling {name} engine: serving_ansatz({n}, {depth}) fused ({runs} runs), "
+              f"finalize=sample_reduce(1024 shots), {GRAD_LANES} lanes: the eager batch "
+              f"launched the kernel {e_launches} times, its graph holds {e_graph} fused_run "
+              f"nodes; lanes = single runs bit for bit; a batch {best * 1e3:.2f} ms, "
+              f"{GRAD_LANES / best:.2f} requests/s [{card}]")
+        del eng, lanes, singles
+        _release()
+    return out
+
+
+def _lane_u_blocks(circ) -> int:
+    """The dense blocks of a ``fused()`` plan that run as lane_u passes of
+    the fused-run kernel on the card."""
+    from quest_tpu_torch import fusion
+
+    nsv = circ.num_qubits
+    return sum(f is fusion._apply_dense_block
+               and fusion.dense_block_route(nsv, False, a[0].qubits, True) == "lane_u"
+               for f, a, _ in circ._tape)
+
+
+def _grad_max(out) -> float:
+    return max(abs(float(g)) for g in out["grads"].values())
+
+
+def _gradients_phase(qt, dev) -> dict:
+    """Phase 13, gradients (``# gradients`` lines; see the module docstring,
+    item 13)."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import telemetry
+    from quest_tpu_torch.engine import Engine
+    from quest_tpu_torch.gradients import parameter_shift
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    card = _card_line()
+    out: dict = {}
+    env = qt.createQuESTEnv(device=dev)
+
+    def params(circ, seed):
+        r = np.random.RandomState(seed)
+        return dict(zip(circ.param_names, r.uniform(0, 2 * np.pi, len(circ.param_names))))
+
+    def gradient(circ, hamil, dt, prm, reps):
+        """One configuration: the cold (eager, counted) call, the capture,
+        the timed replays, and the forward alone timed the same way."""
+        prec = 1 if dt == torch.float32 else 2
+        zero = qt.createQureg(circ.num_qubits, env, prec).amps
+        gx = circ.gradient(hamil, donate=False, dtype=dt)
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        t0 = time.perf_counter()
+        first = gx(zero, prm)
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        launches = FG.fused_run.launches
+        res = gx(zero, prm)  # the capture
+        _require(telemetry.counter_value("device_dispatch_total", route="grad_request") == 2,
+                 "a gradient is not one grad_request dispatch")
+        same = torch.equal(first["value"], res["value"]) and all(
+            torch.equal(first["grads"][k], res["grads"][k]) for k in res["grads"])
+        _require(same, "the gradient's graph replay differs from its eager run")
+        _require(bool(gx.captures), "the gradient's second call captured no graph")
+        cap_s, cap_b = gx.captures[-1] if gx.captures else (0.0, 0)
+        graph_kernels = _graph_kernels(gx)
+        ms = _cuda_ms(lambda: gx(zero, prm), reps)
+        fw = circ.parameterized(donate=False)
+        fw(zero, prm)
+        fw(zero, prm)
+        fw_ms = _cuda_ms(lambda: fw(zero, prm), reps)
+        state = fw(zero, prm)
+        return {"out": res, "state": state, "launches": launches, "graph_kernels": graph_kernels,
+                "cold_s": cold_s, "capture_s": cap_s, "capture_mib": cap_b / 2 ** 20, "ms": ms,
+                "forward_ms": fw_ms, "ratio": ms / fw_ms, "slots": gx.num_slots}
+
+    n, depth = GRAD_ANSATZ
+    hamil = tfim_hamil(qt, n, 2020)
+    raw = qt.serving_ansatz(n, depth)
+    fused = raw.fused(max_qubits=5)
+    blocks = _lane_u_blocks(fused)
+    prm = params(raw, 13)
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        for kind, circ in (("raw", raw), ("fused", fused)):
+            r = gradient(circ, hamil, dt, prm, 3)
+            want = blocks if kind == "fused" else 0
+            _require(r["launches"] == want and r["graph_kernels"] == want,
+                     f"gradients {name} {kind}: the eager gradient launched the kernel "
+                     f"{r['launches']} times and its graph holds {r['graph_kernels']} fused_run "
+                     f"nodes, for {want} lane_u blocks")
+            if kind == "fused":
+                _require(want >= 1, "the fused gradient's graph holds no fused_run node")
+            out[(dt, kind)] = r
+            print(f"# gradients {name} serving_ansatz({n}, {depth}) {kind}: {r['slots']} slots, "
+                  f"TFIM {hamil.num_sum_terms} terms; value {float(r['out']['value']):.12f}; the "
+                  f"eager gradient launched the kernel {r['launches']} times, the graph holds "
+                  f"{r['graph_kernels']} fused_run nodes (lane_u blocks {want}); {r['ms']:.3f} ms "
+                  f"a gradient against {r['forward_ms']:.3f} ms the parameterized() forward "
+                  f"alone (x{r['ratio']:.2f}); cold {r['cold_s']:.2f} s, capture "
+                  f"{r['capture_s']:.2f} s, the graph holds {r['capture_mib']:.1f} MiB [{card}]")
+        a, b = out[(dt, "raw")]["out"], out[(dt, "fused")]["out"]
+        gd = max(abs(float(a["grads"][k]) - float(b["grads"][k])) for k in a["grads"])
+        same_value = torch.equal(a["value"], b["value"])
+        if dt == torch.float64:
+            _require(same_value and gd <= 1e-12,
+                     f"gradients f64 raw against fused: value equal {same_value}, grads {gd:.3e}")
+        dv = abs(float(a["value"]) - float(b["value"]))
+        value = "bit for bit" if same_value else f"differs by {dv:.3e}"
+        limits = " (limits: bit for bit, 1e-12)" if dt == torch.float64 else ""
+        print(f"# gradients {name} raw against fused: value {value}, grads within "
+              f"{gd:.3e}{limits} [{card}]")
+    g32, g64 = out[(torch.float32, "raw")]["out"], out[(torch.float64, "raw")]["out"]
+    gmax = _grad_max(g64)
+    d = max(abs(float(g32["grads"][k]) - float(g64["grads"][k])) for k in g64["grads"])
+    _require(d <= 1e-3 * gmax, f"gradients f32 against f64: {d:.3e} > 1e-3 x {gmax:.3e}")
+    print(f"# gradients f32 against f64: grads within {d:.3e} ({d / gmax:.3e} of the largest "
+          f"|g| {gmax:.4f}; limit 1e-3) [{card}]")
+    for r in out.values():
+        r.pop("state")
+    _release()
+
+    # the second oracle: parameter shifts on one layer, f64
+    shallow = qt.serving_ansatz(n, SHIFT_DEPTH)
+    p1 = params(shallow, 14)
+    zero = qt.createQureg(n, env, 2).amps
+    adj = shallow.gradient(hamil, donate=False, dtype=torch.float64)(zero, p1)
+    t0 = time.perf_counter()
+    ps = parameter_shift(shallow, hamil, zero, p1)
+    ps_s = time.perf_counter() - t0
+    d = max(abs(float(adj["grads"][k]) - ps["grads"][k]) for k in ps["grads"])
+    dv = abs(float(adj["value"]) - ps["value"])
+    _require(d <= 1e-9 and dv <= 1e-9, f"gradients f64 against parameter_shift: {d:.3e}, "
+                                       f"value {dv:.3e} (limit 1e-9)")
+    out["shift"] = {"max_diff": d, "seconds": ps_s, "slots": len(ps["slot_grads"])}
+    print(f"# gradients f64 serving_ansatz({n}, {SHIFT_DEPTH}) against parameter_shift "
+          f"({len(ps['slot_grads'])} slots, {2 * len(ps['slot_grads']) + 1} replays in "
+          f"{ps_s:.2f} s): grads within {d:.3e}, value within {dv:.3e} (limit 1e-9) [{card}]")
+    del zero
+    _release()
+
+    # full width: 26 qubits, depth cut to 2
+    n26, depth26 = GRAD_FULL
+    hamil26 = tfim_hamil(qt, n26, 2026)
+    circ26 = qt.serving_ansatz(n26, depth26).fused(max_qubits=5)
+    blocks26 = _lane_u_blocks(circ26)
+    prm26 = params(circ26, 26)
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        r = gradient(circ26, hamil26, dt, prm26, 2)
+        _require(r["launches"] == blocks26 and r["graph_kernels"] == blocks26,
+                 f"gradients {name} {n26}q: {r['launches']} launches, {r['graph_kernels']} "
+                 f"fused_run nodes, for {blocks26} lane_u blocks")
+        q = qt.createQureg(n26, env, prec)
+        q.amps.copy_(r.pop("state"))
+        ws = qt.createQureg(n26, env, prec)
+        want = qt.calcExpecPauliHamil(q, hamil26, ws)
+        err = abs(float(r["out"]["value"]) - want)
+        _require(err <= tol, f"gradients {name} {n26}q: value {float(r['out']['value'])} against "
+                             f"calcExpecPauliHamil {want} ({err:.3e} > {tol:g})")
+        r["value_err"] = err
+        out[(dt, "full")] = r
+        print(f"# gradients {name} serving_ansatz({n26}, {depth26}) fused: {r['slots']} slots, "
+              f"TFIM {hamil26.num_sum_terms} terms; value within {err:.3e} of "
+              f"calcExpecPauliHamil of the forward state (limit {tol:g}); the eager gradient "
+              f"launched the kernel {r['launches']} times (lane_u blocks {blocks26}); "
+              f"{r['ms']:.2f} ms a gradient against {r['forward_ms']:.2f} ms the forward alone "
+              f"(x{r['ratio']:.2f}); cold {r['cold_s']:.2f} s, capture {r['capture_s']:.2f} s, "
+              f"the graph holds {r['capture_mib']:.1f} MiB [{card}]")
+        del q, ws
+        _release()
+
+    # Engine.submit_grad: coalesced lanes against a loop of unbatched gradients
+    sweep = [params(raw, 100 + i) for i in range(GRAD_LANES)]
+    for dt, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        for kind, circ in (("raw", raw), ("fused", fused)):
+            eng = Engine(circ, env, precision_code=prec, max_batch=GRAD_LANES,
+                         max_delay_ms=20.0, hamiltonian=hamil)
+            telemetry.reset()
+            FG.fused_run.launches = 0
+            eng.submit_grad(sweep[0]).result(600)
+            torch.cuda.synchronize(dev)
+            launches = FG.fused_run.launches
+            want = blocks if kind == "fused" else 0
+            _require(launches == want, f"gradients {name} engine {kind}: the eager batch "
+                                       f"launched the kernel {launches} times for {want} blocks")
+            eng.warmup_grad(sweep[0], 600)
+            traces = telemetry.counter_value("engine_trace_total", kind="param_replay")
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                lanes = [f.result(600) for f in [eng.submit_grad(p) for p in sweep]]
+                best = min(best, time.perf_counter() - t0)
+            _require(telemetry.counter_value("engine_trace_total", kind="param_replay")
+                     == traces, f"gradients {name} engine {kind}: a warm batch built again")
+            g_graph = _graph_kernels(eng.grad_engine()._execB())
+            singles = [eng.grad_engine().run(p, 600) for p in sweep]
+            same = all(torch.equal(v, s["value"]) and all(
+                torch.equal(g[k], s["grads"][k]) for k in g) for (v, g), s in zip(lanes, singles))
+            _require(same, f"gradients {name} engine {kind}: a lane differs from its request "
+                           "served alone")
+            eng.close(timeout=600)
+            del eng, singles
+            zero = qt.createQureg(GRAD_ANSATZ[0], env, prec).amps
+            gx = circ.gradient(hamil, donate=False, dtype=dt)
+            gx(zero, sweep[0])
+            gx(zero, sweep[0])
+            loop = float("inf")
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                refs = [gx(zero, p) for p in sweep]
+                torch.cuda.synchronize(dev)
+                loop = min(loop, time.perf_counter() - t0)
+            err = max(abs(float(g[k]) - float(ref["grads"][k])) / _grad_max(ref)
+                      for (_, g), ref in zip(lanes, refs) for k in g)
+            _require(err <= tol, f"gradients {name} engine {kind}: a lane is {err:.3e} of the "
+                                 f"largest |g| from the unbatched gradient (limit {tol:g})")
+            out[(dt, "engine", kind)] = {
+                "launches": launches, "graph_kernels": g_graph, "blocks": want,
+                "requests_per_s": GRAD_LANES / best, "loop_requests_per_s": GRAD_LANES / loop,
+                "batch_ms": best * 1e3, "max_rel_err": err}
+            print(f"# gradients {name} engine {kind}: serving_ansatz({n}, {depth}), "
+                  f"{GRAD_LANES} lanes of submit_grad: the eager batch launched the kernel "
+                  f"{launches} times, its graph holds {g_graph} fused_run nodes; lanes = single "
+                  f"runs bit for bit, within {err:.3e} of the largest |g| of the unbatched "
+                  f"gradient (limit {tol:g}); a batch {best * 1e3:.1f} ms, "
+                  f"{GRAD_LANES / best:.2f} requests/s coalesced against "
+                  f"{GRAD_LANES / loop:.2f} through a loop of Circuit.gradient "
+                  f"(x{loop / best:.2f}) [{card}]")
+            del zero, gx, refs, lanes
+            _release()
+    return out
+
+
+def _sampling_gradients_phase(qt, dev, plans: dict) -> dict:
+    """Phase 13: sampling, then gradients, on the card."""
+    t0 = time.perf_counter()
+    out = {"sampling": _sampling_phase(qt, dev, plans)}
+    out["gradients"] = _gradients_phase(qt, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# sampling and gradients phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _sampling_gradients_entries(entries: list, samp_grad: dict) -> None:
+    """Phase 13's paths in the f32 and f64 ``kernels`` entries: each
+    request's, gradient's and engine's first (eager) call, its counts reset
+    just before it, launches the kernel once a run (a lane_u block), and its
+    graph holds as many fused_run nodes; beside them the phase's numbers."""
+    import torch
+
+    samp, grads = samp_grad["sampling"], samp_grad["gradients"]
+    for e, ddt in zip(entries, (torch.float32, torch.float64)):
+        reqs = [v for k, v in samp.items() if k[0] == ddt and len(k) == 3]
+        paths = {
+            "sampling_request_26q_depth8": {
+                "launches": sum(r["launches"] for r in reqs),
+                "graph_kernels": sum(r["graph_kernels"] for r in reqs),
+                "runs": reqs[0]["runs"], "requests": len(reqs)},
+            "sampling_engine_serve_20q": {
+                k: samp[(ddt, "engine")][k] for k in ("launches", "graph_kernels", "runs")},
+            "gradient_fused_20q": {
+                k: grads[(ddt, "fused")][k] for k in ("launches", "graph_kernels")},
+            "gradient_fused_26q": {
+                k: grads[(ddt, "full")][k] for k in ("launches", "graph_kernels")},
+            "gradient_engine_fused_20q": {
+                k: grads[(ddt, "engine", "fused")][k] for k in ("launches", "graph_kernels")},
+        }
+        for k, v in paths.items():
+            e["paths"][k] = v
+            e["launches"] += v["launches"]
+            e["graph_kernels"] = e.get("graph_kernels", 0) + v["graph_kernels"]
+        e["sampling"] = {f"{k[1]}_targets_{k[2]}_shots": {
+            f: v for f, v in samp[k].items() if f not in ("launches", "runs")}
+            for k in samp if k[0] == ddt and len(k) == 3}
+        e["sampling"]["mid_measurement_20q"] = samp[(ddt, "mid")]
+        e["sampling"]["engine_serve_20q"] = samp[(ddt, "engine")]
+        e["gradients"] = {
+            "serve_20q_raw": {k: v for k, v in grads[(ddt, "raw")].items() if k != "out"},
+            "serve_20q_fused": {k: v for k, v in grads[(ddt, "fused")].items() if k != "out"},
+            "serving_ansatz_26q_2": {k: v for k, v in grads[(ddt, "full")].items()
+                                     if k != "out"},
+            "engine_raw": grads[(ddt, "engine", "raw")],
+            "engine_fused": grads[(ddt, "engine", "fused")]}
+    entries[1]["gradients"]["parameter_shift_20q_1"] = grads["shift"]
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -4200,6 +4709,9 @@ def main() -> int:
     serving = _serving_phase(qt, dev)
     lanes = _lanes_alone(dev, {torch.float32: fz, torch.float64: fz64})
 
+    # -- sampling and gradients phase: shot tables and adjoint gradients ---
+    samp_grad = _sampling_gradients_phase(qt, dev, plans)
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -4332,6 +4844,7 @@ def main() -> int:
                 "runs": r["runs"], "lanes": batch, "qubits": n}
             e["launches"] += r["launches"]
             e["graph_kernels"] = e.get("graph_kernels", 0) + r["graph_kernels"]
+    _sampling_gradients_entries(entries[:2], samp_grad)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -4339,7 +4852,8 @@ def main() -> int:
         "ms": e["ms"], "bound_ms": e["bound_ms"]} for e in entries}))
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all (operators phase "
           f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s, "
-          f"serving phase {serving['phase_s']:.1f} s)")
+          f"serving phase {serving['phase_s']:.1f} s, sampling and gradients phase "
+          f"{samp_grad['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,12 @@ contiguous qubit window through ``csrc/window_dot.cu``
 ``compiled_request``, ``parameterized`` with :class:`Param` values) run a
 tape on the card as CUDA-graph replays (``_capture``); :class:`Engine`
 serves parameter sweeps as micro-batched, lane-batched replays
-(``engine``), with the typed failures of ``resilience``.
+(``engine``), with the typed failures of ``resilience``. ``sampling``
+draws shot tables on the device from the JAX package's counter-based
+stream (``sampleQureg``, one-dispatch ``sample_request``, the recordable
+``applyMidMeasurement`` / ``applyMidCollapse``); ``gradients`` computes
+adjoint-state gradients (``Circuit.gradient``, ``calcGradExpecPauliSum``,
+``Engine.submit_grad``, ``parameter_shift`` as the oracle).
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -28,6 +33,9 @@ from .datatypes import __all__ as _datatypes_all
 from .decoherence import *  # noqa: F401,F403
 from .decoherence import __all__ as _decoherence_all
 from .engine import Engine, P, Param
+from . import gradients, sampling
+from .gradients import gradient_executable, parameter_shift
+from .sampling import applyMidCollapse, applyMidMeasurement, sample_request, sampleQureg
 from . import resilience
 from .resilience import (QuESTBackpressureError, QuESTCancelledError, QuESTHangError,
                          QuESTIntegrityError, QuESTTimeoutError)
@@ -61,6 +69,7 @@ __all__ = [
     "Circuit", "random_layers", "density_circuit", "serving_ansatz", "engine", "P",
     "Param", "Engine", "resilience", "QuESTError", "QuESTTimeoutError",
     "QuESTBackpressureError", "QuESTCancelledError", "QuESTIntegrityError",
-    "QuESTHangError",
+    "QuESTHangError", "sampling", "gradients", "sampleQureg", "sample_request",
+    "applyMidMeasurement", "applyMidCollapse", "gradient_executable", "parameter_shift",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
 ]

@@ -214,8 +214,12 @@ def _check_one_card(xs: tuple) -> None:
 
 
 def _clone_out(out):
+    """A reduce's output (a tensor, or a dict, tuple or list of them) with
+    every tensor cloned out of the graph's buffers."""
     if out is None or isinstance(out, torch.Tensor):
         return None if out is None else out.clone()
+    if isinstance(out, dict):
+        return {k: _clone_out(v) for k, v in out.items()}
     return type(out)(_clone_out(o) for o in out)
 
 

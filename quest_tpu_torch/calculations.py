@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import matrices, validation as V
+from ._capture import to_device
 from .datatypes import PauliHamil
 from .ops import apply as K, cplx, diagonal as D, measure as M, reduce as R
 from .parallel.scheduler import engine as _engine
@@ -25,8 +26,8 @@ __all__ = [
     "calcTotalProb", "calcProbOfOutcome", "calcProbOfAllOutcomes",
     "calcInnerProduct", "calcDensityInnerProduct", "calcPurity", "calcFidelity",
     "calcHilbertSchmidtDistance", "calcExpecPauliProd", "calcExpecPauliSum",
-    "calcExpecPauliHamil", "getAmp", "getRealAmp", "getImagAmp", "getProbAmp",
-    "getDensityAmp",
+    "calcExpecPauliHamil", "calcGradExpecPauliSum", "getAmp", "getRealAmp", "getImagAmp",
+    "getProbAmp", "getDensityAmp",
 ]
 
 
@@ -194,8 +195,10 @@ def _expec_pauli_sum(pieces: list, coeffs, *, codes, n: int, density: bool,
     (through ``eng``), as a 0-d tensor of the state's dtype on its first
     device; nothing is read back to the host until the caller does."""
     nsv = (2 if density else 1) * n
-    coeffs = torch.as_tensor(np.asarray(coeffs, dtype=np.float64), dtype=pieces[0].dtype,
-                             device=pieces[0].device)
+    # staged: inside a compiled replay (a request's terminal reduce) the
+    # coefficients are copied to the device once
+    coeffs = to_device(np.asarray(coeffs, dtype=np.float64), pieces[0].dtype,
+                       pieces[0].device)
     total = torch.zeros((), dtype=pieces[0].dtype, device=pieces[0].device)
     for t, term in enumerate(codes):
         work = _pauli_prod(pieces, range(len(term)), term, nsv=nsv, eng=eng)
@@ -243,6 +246,29 @@ def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil, workspace: Qureg) -> fl
     V.validate_pauli_hamil(hamil, func)
     V.validate_hamil_matches_qureg(qureg, hamil, func)
     return calcExpecPauliSum(qureg, hamil.pauli_codes, hamil.term_coeffs, workspace)
+
+
+def calcGradExpecPauliSum(qureg: Qureg, circuit, all_pauli_codes, term_coeffs,
+                          params=None):
+    """The value and the parameter gradients of ``sum_t c_t <P_t>`` after
+    ``circuit`` acts on ``qureg``'s current state, by the adjoint-state
+    method (:mod:`.gradients`): one forward sweep, one application of the
+    Hamiltonian, one backward sweep, in one compiled program. ``qureg`` is
+    read, never written. Returns ``(value, grads)``, ``grads`` a name ->
+    float dict over the circuit's named Params. The serving route is
+    ``Engine.submit_grad`` over the same program."""
+    from .gradients import gradient_executable
+
+    func = "calcGradExpecPauliSum"
+    V._assert(not qureg.is_density_matrix,
+              "calcGradExpecPauliSum needs a state-vector register (the adjoint sweep "
+              "differentiates pure states).", func)
+    V._assert(qureg.shards is None,
+              "calcGradExpecPauliSum needs a register on one device (gradients over "
+              "shards are a later slice of the port).", func)
+    out = gradient_executable(circuit, (all_pauli_codes, term_coeffs),
+                              donate=False)(qureg.amps, params)
+    return float(out["value"]), {k: float(v) for k, v in out["grads"].items()}
 
 
 # ---------------------------------------------------------------------------

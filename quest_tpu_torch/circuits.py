@@ -34,8 +34,10 @@ import numpy as np
 from . import telemetry
 from .registers import Qureg
 
-#: modules whose functions can be recorded on a tape
-_TAPEABLE_MODULES = ("gates", "operators", "decoherence", "state_init")
+#: modules whose functions can be recorded on a tape (``sampling.measure``
+#: holds the recordable forms of measurement and collapse)
+_TAPEABLE_MODULES = ("gates", "operators", "decoherence", "state_init",
+                     "sampling.measure")
 #: API names that never go on a tape: measurement and collapse need host
 #: control flow and the RNG, the rest host data (the JAX package's set)
 _EXCLUDED = {
@@ -67,7 +69,8 @@ def _tape_compatible(fn) -> bool:
 #: from the host at replay (host constants go through
 #: ``_capture.to_device``) and read nothing back
 _CAPTURE_SAFE_MODULES = ("quest_tpu_torch.gates", "quest_tpu_torch.decoherence",
-                         "quest_tpu_torch.operators", "quest_tpu_torch.state_init")
+                         "quest_tpu_torch.operators", "quest_tpu_torch.state_init",
+                         "quest_tpu_torch.sampling.measure")
 
 #: entries of those modules that a graph cannot hold: measurement and
 #: collapse draw or test a probability on the host; ``applyDiagonalOp``
@@ -108,7 +111,8 @@ def _resolve(name):
             return fn
     raise AttributeError(
         f"'{name}' is not a tapeable quest_tpu_torch API function "
-        f"(measurement and calc* functions must run eagerly)")
+        f"(measure and calc* functions run eagerly; applyMidMeasurement and "
+        f"applyMidCollapse are their recordable forms)")
 
 
 def _drop_revision(token) -> None:
@@ -319,6 +323,22 @@ class Circuit:
 
         return ParamExecutable(_ec.executables().get_or_create(key, build), lifted, fp)
 
+    def gradient(self, hamiltonian, *, donate: bool = True, dtype=None):
+        """The tape's adjoint-state gradient against a Pauli-sum Hamiltonian
+        (:mod:`quest_tpu_torch.gradients`): one forward sweep, the costate
+        H|psi>, and one backward walk daggering every gate while it takes
+        <lambda|dG/dtheta|phi> for each slot -- all in ONE compiled program
+        (:meth:`parameterized` with the gradient as its terminal stage),
+        counted as ``route=grad_request``. Returns a
+        :class:`~quest_tpu_torch.gradients.GradExecutable` called as
+        ``grad(amps, {"theta": 0.3}) -> {"value", "grads", "slot_grads"}``.
+
+        An entry with no inverse (a measurement, a channel, a fused-run
+        plan entry) raises a typed :class:`QuESTError` here, naming its
+        site."""
+        from .gradients import gradient_executable
+        return gradient_executable(self, hamiltonian, donate=donate, dtype=dtype)
+
     def fused(self, max_qubits: int = 5, dtype=None, pallas: bool = False,
               tile_bits: int | None = None,
               shard_devices: int | None = None) -> "Circuit":
@@ -462,6 +482,10 @@ class _ParamFn:
     @property
     def captures(self) -> list:
         return self._exe.captures
+
+    @property
+    def program(self):
+        return self._exe.program
 
     def close(self) -> None:
         with self._lock:

@@ -159,9 +159,16 @@ class _BatchFn:
         kinds = tuple(dict.fromkeys(kind for kind, _ in index))
         self._kinds = kinds
 
+        wants_values = getattr(finalize, "wants_values", False)
+
         def lane(amps, *tensors):
-            out = body(amps, BoundValues(dict(zip(kinds, tensors)), index))
-            return out if finalize is None else finalize(out)
+            values = BoundValues(dict(zip(kinds, tensors)), index)
+            out = body(amps, values)
+            if finalize is None:
+                return out
+            # a values-aware finalize (the adjoint gradient) re-assembles
+            # the daggered gates from the lane's own values
+            return finalize(out, values) if wants_values else finalize(out)
 
         def run(shell, *tensors):
             out = torch.func.vmap(lane)(shell.amps, *tensors)
@@ -206,11 +213,13 @@ class _BatchFn:
 
 
 def _lane(out, i: int):
-    """Lane ``i`` of a batch result: a tensor, or a tuple of them (a
-    ``finalize`` output)."""
+    """Lane ``i`` of a batch result: a tensor, or a dict, tuple or list of
+    them (a ``finalize`` output)."""
     if isinstance(out, torch.Tensor):
         return out[i]
-    return tuple(_lane(v, i) for v in out)
+    if isinstance(out, dict):
+        return {k: _lane(v, i) for k, v in out.items()}
+    return type(out)(_lane(v, i) for v in out)
 
 
 class Engine:
@@ -223,9 +232,14 @@ class Engine:
     than one device shards the state and replays batches in sequence.
     ``initial`` is ``"zero"``, ``"plus"`` or a planar (2, 2^nsv) array.
     ``finalize``, a function of the final state that ``torch.func.vmap``
-    carries and that returns a tensor or a tuple of tensors, is composed
-    into the program: futures then resolve to its output, and the
-    sentinels and the corruption site are bypassed. Both
+    carries and that returns a tensor or a dict, tuple or list of them
+    (a shot table: ``sampling.sample_reduce``), is composed into the
+    program: futures then resolve to its output, and the sentinels and
+    the corruption site are bypassed. A finalize with ``wants_values``
+    (the adjoint gradient's) is called as ``finalize(state, values)``
+    with the request's bound values, and a ``dispatch_route`` labels its
+    dispatches. ``hamiltonian`` (a PauliHamil or a (pauli_codes,
+    term_coeffs) pair) is the observable :meth:`submit_grad` serves. Both
     executables run without donating the caller's buffers (the graph's
     buffers are fixed, and the input and results are copied in and out):
     ``donate`` is kept for the JAX package's signature and is ignored, as
@@ -235,7 +249,7 @@ class Engine:
     def __init__(self, circuit, env=None, *, precision_code: int | None = None,
                  max_batch: int = 8, max_delay_ms: float = 2.0, initial="zero",
                  donate: bool = True, queue_max: int | None = None,
-                 async_depth: int | None = None, finalize=None):
+                 async_depth: int | None = None, finalize=None, hamiltonian=None):
         from ..environment import createQuESTEnv
         from ..ops import init as ops_init
         from ..precision import real_dtype
@@ -263,6 +277,13 @@ class Engine:
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self._finalize = finalize
+        #: the dispatch route of a finalize that names one (grad_request)
+        self._route = getattr(finalize, "dispatch_route", None)
+        # the observable submit_grad serves; its companion gradient engine
+        # (same ansatz, the gradient as finalize) is built at first use
+        self._hamiltonian = hamiltonian
+        self._precision_code = precision_code
+        self._grad_companion = None
         self.dtype = real_dtype(precision_code)
         nsv = (2 if circuit.is_density_matrix else 1) * circuit.num_qubits
         self.num_amps = 1 << nsv
@@ -434,6 +455,69 @@ class Engine:
                 f.result(timeout)
         return self
 
+    # -- gradients ----------------------------------------------------------
+
+    def grad_engine(self) -> "Engine":
+        """The companion gradient engine: the same ansatz, env and batching
+        knobs, finalized by the adjoint gradient (:mod:`..gradients`), so
+        that T optimizer steps coalesce into ONE lane-batched forward +
+        backward program, counted as ``route=grad_request``. Built at first
+        use; needs ``hamiltonian=`` at construction."""
+        from ..validation import QuESTError
+
+        with self._cv:
+            if self._grad_companion is not None:
+                return self._grad_companion
+            if self._hamiltonian is None:
+                raise QuESTError(
+                    "Engine.submit_grad needs the observable: construct the Engine with "
+                    "hamiltonian=(pauli_codes, term_coeffs) or a PauliHamil",
+                    "Engine.submit_grad")
+        from ..gradients import grad_reduce
+
+        red = grad_reduce(self.circuit, self._hamiltonian, dtype=self.dtype)
+        eng = Engine(self.circuit, self.env, precision_code=self._precision_code,
+                     max_batch=self.max_batch, max_delay_ms=self.max_delay_s * 1e3,
+                     initial=self.initial_amps, queue_max=self.queue_max, finalize=red)
+        with self._cv:
+            if self._grad_companion is None:
+                self._grad_companion, eng = eng, None
+        if eng is not None:  # another thread built it first
+            eng.close(drain=False)
+        return self._grad_companion
+
+    def submit_grad(self, params: dict | None = None,
+                    timeout: float | None = None) -> Future:
+        """Queue one optimizer step: a Future resolving to ``(value, grads)``
+        -- E = <psi(theta)|H|psi(theta)> and the adjoint gradient as a
+        Param name -> derivative dict (0-d tensors; slots sharing a Param
+        summed). Warm steps capture nothing, and a coalesced batch is one
+        dispatch."""
+        eng = self.grad_engine()
+        telemetry.inc("grad_requests_total")
+        telemetry.inc("grad_slots_total", float(eng._finalize.num_slots))
+        inner = eng.submit(params, timeout=timeout)
+        fut: Future = Future()
+
+        def chain(f, _fut=fut):
+            exc = f.exception()
+            if exc is not None:
+                _sync.resolve_future(_fut, exception=exc, site="engine.submit_grad")
+            else:
+                out = f.result()
+                _sync.resolve_future(_fut, result=(out["value"], out["grads"]),
+                                     site="engine.submit_grad")
+
+        inner.add_done_callback(chain)
+        return fut
+
+    def warmup_grad(self, params: dict | None = None,
+                    timeout: float | None = None) -> "Engine":
+        """Build and capture the gradient program ahead of traffic (the
+        gradient counterpart of :meth:`warmup`)."""
+        self.grad_engine().warmup(params, timeout)
+        return self
+
     # -- lifecycle ----------------------------------------------------------
 
     def close(self, drain: bool = True, timeout: float | None = None) -> None:
@@ -457,6 +541,8 @@ class Engine:
             _sync.resolve_future(req.fut, exception=exc, site="engine.close")
         if self._thread.is_alive() and self._thread is not threading.current_thread():
             _sync.join_thread(self._thread, timeout)
+        if self._grad_companion is not None:
+            self._grad_companion.close(drain=drain, timeout=timeout)
         telemetry.set_gauge("engine_queue_depth", 0)
         telemetry.event("engine.close", drained=drain)
 
@@ -642,7 +728,7 @@ class Engine:
         for req in batch:
             if req.poison is not None:
                 raise PoisonedRequestFault("engine.request", req.poison)
-            telemetry.inc("device_dispatch_total", route="engine_param")
+            telemetry.inc("device_dispatch_total", route=self._route or "engine_param")
             values = stack_values(self._lifted, [req.values], self.device, stacked=False)
             res = self._maybe_corrupt(x.with_values(self.initial_amps, values))
             self._sentinel_gate(res)
@@ -659,7 +745,7 @@ class Engine:
         values = stack_values(self._lifted, [req.values for req in batch], self.device,
                               pad_to=self.max_batch)
         fnB = self._execB()
-        telemetry.inc("device_dispatch_total", route="engine_vmap")
+        telemetry.inc("device_dispatch_total", route=self._route or "engine_vmap")
         lanes = fnB(self.initial_amps, values, len(batch))
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()

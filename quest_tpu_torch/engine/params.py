@@ -409,6 +409,11 @@ class ParamExecutable:
         """(seconds, device bytes) of every capture the shared executable made."""
         return self._fn.captures
 
+    @property
+    def program(self):
+        """The shared executable's ``_capture.Program`` (its pieces' graphs)."""
+        return self._fn.program
+
     def bind(self, params=None, device=True) -> BoundValues:
         """Resolve ``params`` (Param name -> number) to the values."""
         return bind(self.lifted, params, device)

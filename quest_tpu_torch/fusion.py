@@ -203,6 +203,8 @@ def capture(fn, args, kwargs, num_qubits: int, dtype,
     entry that fails it (a decoherence channel, whose validation demands a
     density register) gets a second attempt against a density spy with the
     channel appliers patched."""
+    if getattr(fn, "_fusion_barrier", False):
+        return None  # a mid-circuit measurement or collapse: never fused
     events: list = []
     shell = _SpyQureg(num_qubits, dtype)
     try:
@@ -221,6 +223,26 @@ def capture(fn, args, kwargs, num_qubits: int, dtype,
     except Exception:
         return None
     return events if events else None
+
+
+def event_dagger(ev: GateEvent) -> GateEvent:
+    """The exact inverse of a captured unitary event, as a new event: a
+    'matrix' conjugate-transposes its block, a 'diag' conjugates its
+    diagonal, a 'parity' negates its angle, 'x' and 'swap' are their own
+    inverses. A 'channel' (and an ``extended`` density event) is not
+    unitary and raises ValueError, which the adjoint gradient's planner
+    turns into a typed error naming the tape site."""
+    if ev.kind == "matrix" and ev.matrix is not None and not ev.extended:
+        return GateEvent("matrix", ev.targets, ev.controls, ev.states,
+                         matrix=np.conj(np.asarray(ev.matrix)).T)
+    if ev.kind == "diag" and ev.diag is not None and not ev.extended:
+        return GateEvent("diag", ev.targets, ev.controls, ev.states,
+                         diag=np.conj(np.asarray(ev.diag)))
+    if ev.kind == "parity":
+        return GateEvent("parity", ev.targets, ev.controls, ev.states, theta=-ev.theta)
+    if ev.kind in ("x", "swap"):
+        return ev
+    raise ValueError(f"'{ev.kind}' event has no unitary inverse")
 
 
 # ---------------------------------------------------------------------------

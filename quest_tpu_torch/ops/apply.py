@@ -78,6 +78,11 @@ def apply_matrix(amps: torch.Tensor, matrix: torch.Tensor, *, n: int,
     flat = sub.reshape(2, dim, -1)
     rr = mr @ flat[0] - mi @ flat[1]
     ii = mr @ flat[1] + mi @ flat[0]
+    if torch.is_grad_enabled() and (matrix.requires_grad or amps.requires_grad):
+        # autograd keeps ``flat`` for the products' backward: write into a
+        # copy, so that the differentiable replay (a gradient oracle) holds
+        tensor = tensor.clone()
+        sub = _sub(tensor, controls, states)
     sub.copy_(torch.stack([rr, ii]).reshape(sub.shape))
     return _ungroup(tensor, inv)
 

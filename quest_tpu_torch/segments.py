@@ -319,8 +319,9 @@ def request_executable(circuit, donate: bool = True, reduce=None):
         raise QuESTError(
             "request_executable replays a concrete tape and has no "
             "parameter-values vector to hand a wants_values reduce (the "
-            "gradient engine's grad_reduce); the gradient route is a later "
-            "slice of the port", "request_executable")
+            "gradient engine's grad_reduce); use Circuit.gradient / "
+            "Engine.submit_grad, which compose it into the parameterized "
+            "replay", "request_executable")
     bad = [getattr(f, "__name__", repr(f)) for f, _a, _kw in circuit._tape
            if not _capture_safe(f)]
     if bad:
