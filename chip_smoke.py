@@ -237,7 +237,27 @@ no result, without them. Phases, in order:
    ``calcExpecPauliHamil`` of the forward state); ``Engine.submit_grad``
    at 8 lanes, raw and fused, f32 and f64, lanes equal to single runs bit
    for bit and within 2e-4 / 1e-10 of the largest |g| of the unbatched
-   gradient, requests/s against a loop of ``Circuit.gradient``; then the
+   gradient, requests/s against a loop of ``Circuit.gradient``;
+14. trajectories and the pool (``_trajectories_pool_phase``, ``#
+   trajectories`` and ``# pool`` lines): the bench's trajectory circuit
+   (``trajectory_circuit``, a copy on the port's Circuit) at 6 qubits, T =
+   128, its ensemble mean within 4/sqrt(T) of the density route's rho on
+   the card; unraveled at 20 qubits (T = 16, the bench's trajectories_20q)
+   and 26 (T = 4), f32 and f64, planned into fused runs and run through
+   ``run_ensemble`` -- the eager ensemble launching the kernel once a run
+   for all lanes, its graph holding one fused_run node a run, replays and
+   new seeds building nothing, replays bit for bit, a lane equal to its
+   seed served alone, the raw tape's ensemble within 1e-5 / 1e-12 of the
+   largest amplitude, total probabilities within 1e-4 / 1e-10,
+   trajectories/s and ms an ensemble, the runs' lane-batched launches
+   alone and each channel site alone (reduced-density pass and
+   ``apply_matrix``) beside its bytes bound; then the bench's pool_20q
+   (``serving_ansatz(20, 4)`` and ``(20, 5)`` fused, 3 replicas, 32
+   requests sent one at a time, f32 and f64) without and with one
+   ``pool.replica:kill``: requests/s and p50 / p99, no request lost,
+   every result equal to a lone Engine's bit for bit, the replacement's
+   first request building nothing, and ``submit_grad`` through the pool
+   (requests/s, equal to ``Engine.submit_grad`` bit for bit); then the
    script's time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
@@ -4288,6 +4308,432 @@ def _sampling_gradients_phase(qt, dev, plans: dict) -> dict:
     return out
 
 
+#: phase 14's trajectory ensembles: (qubits, trajectories); the small one is
+#: held against the density route's rho, the others are the bench's
+#: trajectories_20q (``bench.py:2074``) and the main path's width
+TRAJ_SMALL = (6, 128)
+TRAJ = ((20, 16), (26, 4))
+#: phase 14's pool: bench.py's pool_20q (``bench.py:1104``): qubits, the two
+#: structures' layers, replicas, requests, max_batch
+POOL = (20, (4, 5), 3, 32, 8)
+
+
+def trajectory_circuit(qt, n: int):
+    """``bench.py::trajectory_circuit`` on the port's Circuit: an entangled
+    n-qubit base with one channel site from each built-in family
+    (depolarising, damping, two-qubit dephasing, Pauli), recorded as a
+    density tape; ``trajectories.unravel`` turns it into the stochastic
+    pure-state form."""
+    circ = qt.Circuit(n, is_density_matrix=True)
+    for q in range(n):
+        circ.hadamard(q)
+    for q in range(0, n - 1, 2):
+        circ.controlledNot(q, q + 1)
+    circ.mixDepolarising(1, 0.05)
+    circ.rotateY(n // 2, 0.9)
+    circ.mixDamping(0, 0.1)
+    circ.mixTwoQubitDephasing(2, 5, 0.2)
+    circ.rotateX(1, -0.4)
+    circ.mixPauli(3, 0.02, 0.03, 0.05)
+    return circ
+
+
+def _traj_small(qt, dev) -> dict:
+    """The 6-qubit ensemble (T = 128, f64) against the density route's rho
+    of the same tape on the card, within 4/sqrt(T)."""
+    import numpy as np
+
+    from quest_tpu_torch import trajectories as tr
+
+    n, t = TRAJ_SMALL
+    env = qt.createQuESTEnv(device=dev)
+    circ = trajectory_circuit(qt, n)
+    res = tr.run_ensemble(circ, t, env=env, base_seed=7, precision_code=2)
+    rho_q = qt.createDensityQureg(n, env, 2)
+    circ.run(rho_q)
+    rho = np.asarray(qt.get_np(rho_q)).reshape(1 << n, 1 << n).T
+    dev_max = float(np.abs(res.density() - rho).max())
+    limit = 4.0 / np.sqrt(t)
+    _require(dev_max < limit, f"trajectories {n}q: the ensemble mean is {dev_max} from the "
+             f"density route's rho (limit {limit:.4f})")
+    print(f"# trajectories {n}q f64: T = {t}, ensemble mean within {dev_max:.4e} of the "
+          f"density route's rho on the card (limit 4/sqrt(T) = {limit:.4f})")
+    return {"qubits": n, "trajectories": t, "max_abs_dev": dev_max, "limit": limit}
+
+
+def _site_ms(dev, dt, n: int, t: int, sites) -> list:
+    """Each channel site alone at the ensemble's width: the reduced-density
+    pass and the ``apply_matrix`` of the drawn operator, under
+    ``torch.func.vmap`` over T random unit lanes (as the Engine runs it,
+    eagerly: the small tables are copied in at each call), on CUDA events,
+    beside the bytes bound (the lanes read once and written once)."""
+    import torch
+
+    from quest_tpu_torch.trajectories import sample as TS
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(t, 2, 1 << n, generator=g, device=dev, dtype=dt)
+    x /= x.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
+    seeds = torch.arange(t, device=dev, dtype=torch.int64)
+    bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for targets, ops, site in sites:
+        fn = torch.func.vmap(lambda a, s, ops=ops, targets=targets, site=site:
+                             TS.apply_traj_kraus(a, ops, n=n, targets=targets, seed=s,
+                                                 site=site))
+        out = fn(x, seeds)
+        norm = float((out.double().pow(2).sum(dim=(1, 2)) - 1).abs().max())
+        rows.append({"targets": list(targets), "kraus_ops": len(ops),
+                     "ms": _cuda_ms(lambda fn=fn: fn(x, seeds), 3), "bound_ms": bound,
+                     "max_norm_err": norm})
+        del out
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _traj_width(qt, dev, n: int, t: int, dt) -> dict:
+    """One width of the trajectory part: the unraveled trajectory_circuit
+    planned into fused runs and run as T seed lanes through
+    ``run_ensemble`` (its counts reset just before the first, eager call),
+    captured, replayed; each lane against its seed served alone, the raw
+    tape's ensemble against the fused one, the norms, the sites alone."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch import trajectories as tr
+    from quest_tpu_torch.engine import Engine, executables
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    f32 = dt == torch.float32
+    prec, tol, ptol = (1, 1e-5, 1e-4) if f32 else (2, 1e-12, 1e-10)
+    name = f"{n}q {str(dt)[6:]}"
+    wait = 600
+    env = qt.createQuESTEnv(device=dev)
+    raw = tr.unravel(trajectory_circuit(qt, n))
+    fz = raw.fused(max_qubits=5, pallas=True, dtype=dt)
+    runs = sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape)
+    sites = [(a[0], a[1], k["site"]) for f, a, k in fz._tape
+             if getattr(f, "__name__", "") == "applyTrajectoryKraus"]
+    others = sorted({getattr(f, "__name__", "") for f, _, _ in fz._tape
+                     if f is not fusion._apply_pallas_run} - {"applyTrajectoryKraus"})
+    seeds = list(range(1000, 1000 + t))
+
+    def ensemble(circ, s=seeds):
+        out = tr.run_ensemble(circ, env=env, seeds=s, precision_code=prec).states
+        torch.cuda.synchronize(dev)
+        return out
+
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    t0 = time.perf_counter()
+    first = ensemble(fz)
+    cold_s = time.perf_counter() - t0
+    launches = FG.fused_run.launches
+    _require(launches == runs, f"trajectories {name}: the eager ensemble launched the kernel "
+             f"{launches} times for {runs} runs of {t} lanes")
+    t0 = time.perf_counter()
+    second = ensemble(fz)
+    capture_s = time.perf_counter() - t0
+    batch_fn = executables().peek(("param_vmap", fz.fingerprint(), t, dt, None))
+    traces = telemetry.counter_value("engine_trace_total", kind="param_replay")
+    _require(batch_fn is not None and len(batch_fn.captures) == 1 and traces == 2,
+             f"trajectories {name}: {traces:g} builds after the capture")
+    graph_kernels = _graph_kernels(batch_fn)
+    _require(graph_kernels == runs, f"trajectories {name}: the graph holds {graph_kernels} "
+             f"fused_run nodes for {runs} runs")
+    same = torch.equal(first, second)
+    del second
+    best = float("inf")
+    for _ in range(3 if n < N_MAIN else 2):
+        t0 = time.perf_counter()
+        third = ensemble(fz)
+        best = min(best, time.perf_counter() - t0)
+        same = same and torch.equal(first, third)
+        del third
+    _require(same, f"trajectories {name}: a replay of the same seeds differs")
+    ensemble(fz, [s + 7919 for s in seeds])
+    moved = telemetry.counter_value("engine_trace_total", kind="param_replay") - traces
+    _require(moved == 0, f"trajectories {name}: new seeds built {moved:g} times")
+    # one lane against its seed served alone, through the same program
+    k = t // 2
+    with Engine(fz, env, precision_code=prec, max_batch=t, max_delay_ms=0.0) as eng:
+        single = eng.submit({tr.SEED_PARAM: seeds[k]}).result(wait)
+    _require(torch.equal(single, first[k]), f"trajectories {name}: lane {k} differs from "
+             "its seed served alone")
+    del single
+    capture_mib = round(sum(c[1] for c in batch_fn.captures) / 2 ** 20, 1)
+    norms = (first.double().pow(2).sum(dim=(1, 2)) - 1).abs()
+    norm_err = float(norms.max())
+    _require(norm_err <= ptol, f"trajectories {name}: total probability off by {norm_err}")
+    del batch_fn
+    _release()  # the fused graph's pool, before the raw tape's eager run
+    # the raw tape (every gate on the per-gate engine): one eager ensemble
+    t0 = time.perf_counter()
+    plain = ensemble(raw)
+    raw_s = time.perf_counter() - t0
+    err = float((plain - first).abs().max() / first.abs().max())
+    del plain
+    _require(err <= tol, f"trajectories {name}: fused against raw {err} of the largest "
+             f"amplitude (limit {tol:g})")
+    del first
+    _release()
+    # where an ensemble's time goes: its runs' lane-batched launches alone,
+    # and each channel site alone
+    g = torch.Generator(device=dev).manual_seed(n)
+    xb = torch.randn(t, 2, 1 << n, generator=g, device=dev, dtype=dt)
+    ob = torch.empty_like(xb)
+    plan = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+
+    def all_runs():
+        for r in plan:
+            FG.fused_run(xb, n=n, ops=r.ops, tile_bits=r.tile_bits,
+                         load_swap_k=r.load_swap_k, store_swap_k=r.store_swap_k,
+                         load_swap_hi=r.load_swap_hi, store_swap_hi=r.store_swap_hi,
+                         prepared=r.prepare(), out=ob)
+
+    kernel_ms = _cuda_ms(all_runs, 3)
+    del xb, ob
+    torch.cuda.empty_cache()
+    site_rows = _site_ms(dev, dt, n, t, sites)
+    site_ms = sum(r["ms"] for r in site_rows)
+    row = {"qubits": n, "trajectories": t, "runs": runs, "sites": len(sites),
+           "other_items": others, "launches": launches, "graph_kernels": graph_kernels,
+           "cold_s": cold_s, "capture_s": capture_s,
+           "capture_mib": capture_mib,
+           "ensemble_ms": best * 1e3, "trajectories_per_s": t / best,
+           "raw_ensemble_ms": raw_s * 1e3, "fused_vs_raw": err, "max_norm_err": norm_err,
+           "kernel_ms": kernel_ms, "site_ms": site_ms, "sites_alone": site_rows}
+    print(f"# trajectories {name}: T = {t}, {runs} fused runs + {len(sites)} channel sites "
+          f"(other items: {others}); the eager ensemble launched the kernel {launches} "
+          f"times (runs {runs}), the graph holds {graph_kernels} fused_run nodes; replays "
+          f"and new seeds built nothing, replays bit for bit, lane {k} = its seed alone; "
+          f"fused against raw {err:.3e} of the largest (limit {tol:g}); total probability "
+          f"within {norm_err:.3e}; {row['trajectories_per_s']:.2f} trajectories/s, "
+          f"{row['ensemble_ms']:.2f} ms an ensemble (raw tape, eager: {raw_s * 1e3:.1f} ms); "
+          f"cold {cold_s:.3f} s, capture {capture_s:.3f} s ({row['capture_mib']} MiB); its "
+          f"runs' lane-batched launches alone {kernel_ms:.3f} ms, its sites alone "
+          f"{site_ms:.3f} ms")
+    for r in site_rows:
+        print(f"# trajectories {name} site on {r['targets']} ({r['kraus_ops']} Kraus ops): "
+              f"{r['ms']:.4f} ms (reduced-density pass + apply_matrix over {t} lanes) "
+              f"against a bytes bound of {r['bound_ms']:.4f} ms "
+              f"(x{r['ms'] / r['bound_ms']:.1f}); norms within {r['max_norm_err']:.2e}")
+    return row
+
+
+def _pool_path(qt, dev, dt) -> dict:
+    """bench.py's pool_20q on the card: serving_ansatz(20, 4) and (20, 5)
+    planned into fused runs, 3 replicas, 32 requests sent one at a time,
+    once without and once with a ``pool.replica:kill`` halfway; every
+    served result against a lone Engine's, bit for bit; the replacement's
+    first request builds nothing; then ``submit_grad`` through the pool."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.engine import Engine, EnginePool, executables
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.resilience import fault_plan
+
+    n, depths, replicas, requests, batch = POOL
+    f32 = dt == torch.float32
+    prec = 1 if f32 else 2
+    name = f"{n}q {str(dt)[6:]}"
+    wait = 600
+    env = qt.createQuESTEnv(device=dev)
+    structures = [qt.serving_ansatz(n, d).fused(max_qubits=5, pallas=True, dtype=dt)
+                  for d in depths]
+    runs = [sum(f is fusion._apply_pallas_run for f, _, _ in c._tape) for c in structures]
+    rng = np.random.RandomState(13)
+
+    def draw(c):
+        return dict(zip(c.param_names, rng.uniform(0, 2 * np.pi, len(c.param_names))))
+
+    work = [(c, draw(c)) for c in (structures[i % len(structures)] for i in range(requests))]
+    out: dict = {"qubits": n, "layers": list(depths), "replicas": replicas,
+                 "requests": requests, "max_batch": batch, "runs": runs}
+    pool = EnginePool(env, replicas=replicas, max_batch=batch, max_delay_ms=1.0,
+                      precision_code=prec)
+    try:
+        # each structure's first request: the eager batch, counted
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        for c in structures:
+            pool.submit(c, draw(c)).result(wait)
+        launches = FG.fused_run.launches
+        _require(launches == sum(runs), f"pool {name}: the eager batches launched the "
+                 f"kernel {launches} times for {sum(runs)} runs")
+        for c in structures:  # the second captures
+            pool.submit(c, draw(c)).result(wait)
+        fns = [executables().peek(("param_vmap", c.fingerprint(), batch, dt, None))
+               for c in structures]
+        graph_kernels = sum(_graph_kernels(f) for f in fns)
+        _require(graph_kernels == sum(runs), f"pool {name}: the graphs hold {graph_kernels} "
+                 f"fused_run nodes for {sum(runs)} runs")
+        out.update(launches=launches, graph_kernels=graph_kernels)
+        kill_at = requests // 2
+
+        def stream(kill: bool):
+            lat: dict = {}
+            futs = []
+            plan = (fault_plan(f"pool.replica:kill:{kill_at}") if kill
+                    else contextlib.nullcontext())
+            done_at: dict = {}
+            with plan:
+                t_wall = time.time()
+                t0 = time.perf_counter()
+                for i, (c, p) in enumerate(work):
+                    ts = time.perf_counter()
+                    f = pool.submit(c, p, tenant=f"tenant{i % 2}")
+
+                    def finished(_f, i=i, ts=ts):
+                        done_at[i] = time.perf_counter()
+                        lat[i] = done_at[i] - ts
+
+                    f.add_done_callback(finished)
+                    futs.append(f)
+                submit_s = time.perf_counter() - t0
+                got = [f.result(wait) for f in futs]
+                wall = time.perf_counter() - t0
+            lost = sum(1 for f in futs if not f.done() or f.exception() is not None)
+            ms = [lat[i] * 1e3 for i in range(len(work))]
+            ends = sorted([t0] + list(done_at.values()))
+            # the timeline of the stream: when the pool's and the engines'
+            # lifecycle events happened, seconds after the first submit
+            timeline = [(e["name"], round(e["t"] - t_wall, 4)) for e in telemetry.events()
+                        if e["t"] >= t_wall and e["name"].split(".")[0] in ("pool", "engine")
+                        and e["name"] != "engine.health"]
+            return got, lost, {"requests_per_s": len(work) / wall, "wall_s": wall,
+                               "p50_ms": float(np.percentile(ms, 50)),
+                               "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms),
+                               "submit_s": submit_s,
+                               "max_gap_ms": max(b - a for a, b in zip(ends, ends[1:])) * 1e3,
+                               "timeline": timeline}
+
+        calm, lost0, out["no_kill"] = stream(False)
+        f0 = telemetry.counter_value("pool_failovers_total", reason="kill")
+        t_kill = time.perf_counter()
+        killed, lost1, out["kill"] = stream(True)
+        failovers = telemetry.counter_value("pool_failovers_total", reason="kill") - f0
+        _require(lost0 == 0 and lost1 == 0, f"pool {name}: {lost0} / {lost1} requests lost")
+        _require(failovers == 1, f"pool {name}: {failovers:g} kill failovers")
+        pool.await_rotation(replicas, timeout=wait)
+        out["replacement_in_rotation_s"] = time.perf_counter() - t_kill
+        new_rep = max(pool._replicas, key=lambda r: r.id)
+        _require(new_rep.id == replicas and new_rep.in_rotation,
+                 f"pool {name}: no replacement in rotation")
+        tr0 = telemetry.counter_value("engine_trace_total", kind="param_replay")
+        c, p = work[0]
+        fresh = new_rep.engines[c.fingerprint()].submit(p).result(wait)
+        retraces = telemetry.counter_value("engine_trace_total", kind="param_replay") - tr0
+        _require(retraces == 0, f"pool {name}: the replacement's first request built "
+                 f"{retraces:g} times")
+        out.update(lost_requests=lost0 + lost1, failovers=failovers,
+                   replacement_retraces=retraces)
+        # the oracle: lone Engines, each structure's requests coalesced (a
+        # lane equals its request served alone)
+        oracle = []
+        for c in structures:
+            with Engine(c, env, precision_code=prec, max_batch=batch,
+                        max_delay_ms=0.0) as eng:
+                mine = [p for cc, p in work if cc is c]
+                oracle.append(dict(zip(range(len(mine)),
+                                       [f.result(wait) for f in eng.submit_many(mine)])))
+        seen = [0] * len(structures)
+        ident = torch.equal(fresh, oracle[0][0])
+        for i, (c, _p) in enumerate(work):
+            s = structures.index(c)
+            want = oracle[s][seen[s]]
+            seen[s] += 1
+            ident = ident and torch.equal(calm[i], want) and torch.equal(killed[i], want)
+        _require(ident, f"pool {name}: a served result differs from the lone Engine's")
+        del calm, killed, oracle, fresh
+        # gradients through the pool: the raw ansatz (a fused-run entry has
+        # no adjoint) against a TFIM, 8 requests a batch
+        circ = qt.serving_ansatz(n, depths[0])
+        ham = tfim_hamil(qt, n, 2121)
+        sweep = [draw(circ) for _ in range(batch)]
+        for _ in range(2):  # eager, then the capture
+            [f.result(wait) for f in pool.submit_grad_many(circ, sweep, hamiltonian=ham)]
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            grads = [f.result(wait) for f in pool.submit_grad_many(circ, sweep,
+                                                                     hamiltonian=ham)]
+            best = min(best, time.perf_counter() - t0)
+        with Engine(circ, env, precision_code=prec, max_batch=batch, max_delay_ms=0.0,
+                    hamiltonian=ham) as eng:
+            want = eng.submit_grad(sweep[1]).result(wait)
+        g_ident = torch.equal(grads[1][0], want[0]) and all(
+            torch.equal(grads[1][1][k], want[1][k]) for k in want[1])
+        _require(g_ident, f"pool {name}: submit_grad through the pool differs from "
+                 "Engine.submit_grad")
+        out["grad_requests_per_s"] = batch / best
+        out["grad_batch_ms"] = best * 1e3
+    finally:
+        pool.close()
+    _release()
+    nk, k = out["no_kill"], out["kill"]
+    print(f"# pool {name}: serving_ansatz({n}, {depths[0]}) and ({n}, {depths[1]}) fused "
+          f"({runs} runs), {replicas} replicas, {requests} requests one at a time: the eager "
+          f"batches launched the kernel {launches} times, the graphs hold {graph_kernels} "
+          f"fused_run nodes; {nk['requests_per_s']:.2f} requests/s, p50 / p99 "
+          f"{nk['p50_ms']:.2f} / {nk['p99_ms']:.2f} ms; with a pool.replica kill at request "
+          f"{kill_at}: {k['requests_per_s']:.2f} requests/s, p50 / p99 {k['p50_ms']:.2f} / "
+          f"{k['p99_ms']:.2f} ms (slowest {k['max_ms']:.2f} ms; submits took "
+          f"{k['submit_s'] * 1e3:.1f} ms, the longest gap between completions "
+          f"{k['max_gap_ms']:.1f} ms against {nk['max_gap_ms']:.1f} without), "
+          f"{out['failovers']:g} "
+          f"failover, lost {out['lost_requests']}, every result = a lone Engine's bit for "
+          f"bit, the replacement in rotation {out['replacement_in_rotation_s']:.2f} s after "
+          f"the stream began and its first request built nothing; submit_grad through the "
+          f"pool {out['grad_requests_per_s']:.2f} requests/s ({batch} a batch, "
+          f"{out['grad_batch_ms']:.1f} ms), = Engine.submit_grad bit for bit")
+    return out
+
+
+def _trajectories_pool_phase(qt, dev) -> dict:
+    """Phase 14: trajectory ensembles, then the replica pool, on the card."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"small": _traj_small(qt, dev)}
+    _release()
+    for n, t in TRAJ:
+        for dt in (torch.float32, torch.float64):
+            out[(n, dt)] = _traj_width(qt, dev, n, t, dt)
+    for dt in (torch.float32, torch.float64):
+        out[("pool", dt)] = _pool_path(qt, dev, dt)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"# trajectories and pool phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _trajectories_pool_entries(entries: list, phase: dict) -> None:
+    """Phase 14's paths in the f32 and f64 ``kernels`` entries: each
+    ensemble's and each pool structure's first (eager) call, the counts
+    reset just before it, launches the kernel once a run for every lane,
+    and its graph holds as many fused_run nodes; beside them the numbers."""
+    import torch
+
+    for e, ddt in zip(entries, (torch.float32, torch.float64)):
+        for n, _t in TRAJ:
+            r = phase[(n, ddt)]
+            e["paths"][f"trajectories_{n}q_fused"] = {
+                k: r[k] for k in ("launches", "graph_kernels", "runs", "trajectories")}
+        p = phase[("pool", ddt)]
+        e["paths"]["pool_20q_fused"] = {k: p[k] for k in ("launches", "graph_kernels", "runs")}
+        for key in [f"trajectories_{n}q_fused" for n, _t in TRAJ] + ["pool_20q_fused"]:
+            e["launches"] += e["paths"][key]["launches"]
+            e["graph_kernels"] = e.get("graph_kernels", 0) + e["paths"][key]["graph_kernels"]
+        e["trajectories"] = {f"{n}q": phase[(n, ddt)] for n, _t in TRAJ}
+        e["trajectories"]["6q_vs_density"] = phase["small"]
+        e["pool"] = p
+
+
 def _sampling_gradients_entries(entries: list, samp_grad: dict) -> None:
     """Phase 13's paths in the f32 and f64 ``kernels`` entries: each
     request's, gradient's and engine's first (eager) call, its counts reset
@@ -4712,6 +5158,9 @@ def main() -> int:
     # -- sampling and gradients phase: shot tables and adjoint gradients ---
     samp_grad = _sampling_gradients_phase(qt, dev, plans)
 
+    # -- trajectories and pool phase: seeded ensembles, the replica pool ---
+    traj_pool = _trajectories_pool_phase(qt, dev)
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -4845,6 +5294,7 @@ def main() -> int:
             e["launches"] += r["launches"]
             e["graph_kernels"] = e.get("graph_kernels", 0) + r["graph_kernels"]
     _sampling_gradients_entries(entries[:2], samp_grad)
+    _trajectories_pool_entries(entries[:2], traj_pool)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -4853,7 +5303,8 @@ def main() -> int:
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all (operators phase "
           f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s, "
           f"serving phase {serving['phase_s']:.1f} s, sampling and gradients phase "
-          f"{samp_grad['phase_s']:.1f} s)")
+          f"{samp_grad['phase_s']:.1f} s, trajectories and pool phase "
+          f"{traj_pool['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ draws shot tables on the device from the JAX package's counter-based
 stream (``sampleQureg``, one-dispatch ``sample_request``, the recordable
 ``applyMidMeasurement`` / ``applyMidCollapse``); ``gradients`` computes
 adjoint-state gradients (``Circuit.gradient``, ``calcGradExpecPauliSum``,
-``Engine.submit_grad``, ``parameter_shift`` as the oracle).
+``Engine.submit_grad``, ``parameter_shift`` as the oracle);
+``trajectories`` unravels noisy circuits into seeded pure-state ensembles
+(``unravel``, ``applyTrajectoryKraus``, ``run_ensemble``,
+``ensemble_density``); :class:`EnginePool` serves many structures over
+replicas of Engines with failover and hedging.
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -32,13 +36,15 @@ from .datatypes import *  # noqa: F401,F403
 from .datatypes import __all__ as _datatypes_all
 from .decoherence import *  # noqa: F401,F403
 from .decoherence import __all__ as _decoherence_all
-from .engine import Engine, P, Param
+from .engine import Engine, EnginePool, P, Param
 from . import gradients, sampling
 from .gradients import gradient_executable, parameter_shift
 from .sampling import applyMidCollapse, applyMidMeasurement, sample_request, sampleQureg
 from . import resilience
 from .resilience import (QuESTBackpressureError, QuESTCancelledError, QuESTHangError,
-                         QuESTIntegrityError, QuESTTimeoutError)
+                         QuESTIntegrityError, QuESTRetryError, QuESTTimeoutError)
+from . import trajectories
+from .trajectories import applyTrajectoryKraus, ensemble_density, run_ensemble, unravel
 from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
                           getEnvironmentString, getQuESTSeeds, reportQuESTEnv,
                           seedQuEST, seedQuESTDefault, syncQuESTEnv,
@@ -67,9 +73,10 @@ __all__ = [
     *_datatypes_all, *_state_init_all, *_gates_all, *_operators_all,
     *_decoherence_all, *_calculations_all, *_reporting_all,
     "Circuit", "random_layers", "density_circuit", "serving_ansatz", "engine", "P",
-    "Param", "Engine", "resilience", "QuESTError", "QuESTTimeoutError",
+    "Param", "Engine", "EnginePool", "resilience", "QuESTError", "QuESTTimeoutError",
     "QuESTBackpressureError", "QuESTCancelledError", "QuESTIntegrityError",
-    "QuESTHangError", "sampling", "gradients", "sampleQureg", "sample_request",
+    "QuESTHangError", "QuESTRetryError", "trajectories", "unravel", "applyTrajectoryKraus",
+    "run_ensemble", "ensemble_density", "sampling", "gradients", "sampleQureg", "sample_request",
     "applyMidMeasurement", "applyMidCollapse", "gradient_executable", "parameter_shift",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
 ]

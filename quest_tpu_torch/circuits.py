@@ -35,9 +35,10 @@ from . import telemetry
 from .registers import Qureg
 
 #: modules whose functions can be recorded on a tape (``sampling.measure``
-#: holds the recordable forms of measurement and collapse)
+#: holds the recordable forms of measurement and collapse,
+#: ``trajectories.noise`` the trajectory channel site)
 _TAPEABLE_MODULES = ("gates", "operators", "decoherence", "state_init",
-                     "sampling.measure")
+                     "trajectories.noise", "sampling.measure")
 #: API names that never go on a tape: measurement and collapse need host
 #: control flow and the RNG, the rest host data (the JAX package's set)
 _EXCLUDED = {
@@ -70,7 +71,8 @@ def _tape_compatible(fn) -> bool:
 #: ``_capture.to_device``) and read nothing back
 _CAPTURE_SAFE_MODULES = ("quest_tpu_torch.gates", "quest_tpu_torch.decoherence",
                          "quest_tpu_torch.operators", "quest_tpu_torch.state_init",
-                         "quest_tpu_torch.sampling.measure")
+                         "quest_tpu_torch.sampling.measure",
+                         "quest_tpu_torch.trajectories.noise")
 
 #: entries of those modules that a graph cannot hold: measurement and
 #: collapse draw or test a probability on the host; ``applyDiagonalOp``

@@ -13,6 +13,10 @@ micro-batching Engine and admission control (``quest_tpu.engine``).
 - :mod:`.admission` -- per-tenant token-bucket quotas with a
   high-priority reserve (``QuESTBackpressureError`` with
   ``reason="quota"``).
+- :mod:`.pool` -- :class:`EnginePool`: N replicas of Engines on one env
+  behind health-aware, structure-affine routing, with quarantine
+  failover, warm replacements, parked requests, hedging and
+  ``submit_grad``.
 
 Quickstart::
 
@@ -28,14 +32,15 @@ Quickstart::
                                 for vec in sweep])
         states = [f.result() for f in futs]
 
-The JAX package's ``EnginePool`` and ``enable_persistent_cache`` are not
-here: the pool is the next slice of the port, and the persistent cache has
-no counterpart (see :mod:`.cache`).
+The JAX package's ``enable_persistent_cache`` has no counterpart (see
+:mod:`.cache`).
 """
 
 from .admission import PRIORITIES, AdmissionController, TokenBucket  # noqa: F401
 from .cache import LRUCache, executables, structure_fingerprint  # noqa: F401
 from .engine import Engine  # noqa: F401
+from . import pool  # noqa: F401
+from .pool import EnginePool  # noqa: F401
 from .params import (  # noqa: F401
     BoundValues, LiftedTape, P, Param, ParamExecutable, Slot, bind, lift_tape,
 )
@@ -43,5 +48,5 @@ from .params import (  # noqa: F401
 __all__ = [
     "Param", "P", "ParamExecutable", "LiftedTape", "Slot", "lift_tape",
     "bind", "BoundValues", "LRUCache", "executables", "structure_fingerprint",
-    "Engine", "AdmissionController", "TokenBucket", "PRIORITIES",
+    "Engine", "EnginePool", "pool", "AdmissionController", "TokenBucket", "PRIORITIES",
 ]

@@ -561,13 +561,17 @@ class Engine:
         ``plan_cache_hit_total``)."""
         return self.circuit.parameterized(donate=False, reduce=self._finalize)
 
+    def _execB_key(self) -> tuple:
+        """The executable LRU's key of :meth:`_execB` (the pool's
+        precompiler probes it with the non-mutating ``peek``)."""
+        return ("param_vmap", self.fingerprint, self.max_batch, self.dtype, self._finalize)
+
     def _execB(self) -> _BatchFn:
         """The lane-batched executable (one device): ONE program evolving
         ``max_batch`` states, every batch padded to that size."""
-        key = ("param_vmap", self.fingerprint, self.max_batch, self.dtype, self._finalize)
         circuit, lifted, finalize = self.circuit, self._lifted, self._finalize
         return _cache.executables().get_or_create(
-            key, lambda: _BatchFn(circuit, lifted, finalize))
+            self._execB_key(), lambda: _BatchFn(circuit, lifted, finalize))
 
     # -- batcher ------------------------------------------------------------
 

@@ -20,8 +20,8 @@ from ..validation import QuESTError
 
 __all__ = [
     "QuESTTimeoutError", "QuESTBackpressureError", "QuESTCancelledError",
-    "QuESTIntegrityError", "QuESTHangError",
-    "InjectedFault", "TransientFault", "PoisonedRequestFault",
+    "QuESTIntegrityError", "QuESTHangError", "QuESTRetryError",
+    "InjectedFault", "TransientFault", "KernelCompileFault", "PoisonedRequestFault",
 ]
 
 
@@ -45,6 +45,13 @@ class QuESTBackpressureError(QuESTError):
 class QuESTCancelledError(QuESTError):
     """The request was dropped by ``Engine.close(drain=False)`` before
     dispatch; its future resolves with this instead of dangling."""
+
+
+class QuESTRetryError(QuESTError):
+    """A retryable site stayed faulty past the retry policy's attempt or
+    deadline budget and has no degradation path (fail closed): an
+    ``EnginePool`` request that failed over more often than the pool has
+    replicas to try settles with it."""
 
 
 class QuESTIntegrityError(QuESTError):
@@ -84,6 +91,11 @@ class InjectedFault(RuntimeError):
 class TransientFault(InjectedFault):
     """A fault a retry is expected to clear; at ``engine.dispatch`` it
     fails one batch, which the batcher then bisects."""
+
+
+class KernelCompileFault(InjectedFault):
+    """A permanent kernel-route failure (a build error): retrying cannot
+    help, so :mod:`.retry` never retries it."""
 
 
 class PoisonedRequestFault(InjectedFault):

@@ -1,6 +1,6 @@
 """Seeded, deterministic fault injection at the serving layer's named
 sites (``quest_tpu/resilience/faultinject.py``, for the sites the Engine
-visits).
+and the EnginePool visit).
 
 Each site calls :func:`fire` (or :func:`check`) once per visit; with no
 plan installed the call returns None after one module boolean. A plan
@@ -21,6 +21,10 @@ site                 kinds               effect
 ``engine.dispatch``  ``hang, transient`` a hang inside one dispatch (the
                                          watchdog quarantines the engine)
                                          / TransientFault failing the batch
+``pool.replica``     ``kill, hang``      one ``EnginePool`` dispatch attempt
+                                         finds its replica dead: the pool
+                                         quarantines it and fails the
+                                         request over to a peer
 ``state.corrupt``    ``bitflip[<N>]``    one bit of an amplitude flipped on
                                          shard N (default 0) by
                                          ``guard.corrupt_amps``, for the
@@ -51,6 +55,7 @@ ENV_VAR = "QUEST_FAULTS"
 SITES: dict[str, tuple[str, ...]] = {
     "engine.request": ("poison",),
     "engine.dispatch": ("hang", "transient"),
+    "pool.replica": ("kill", "hang"),
     "state.corrupt": ("bitflip",),
 }
 

@@ -5,10 +5,13 @@ was found and what is wrong, counted on the telemetry registry as
 the serving layer raises).
 
 - QT302 a malformed ``QUEST_FAULTS`` entry, QT303 a malformed numeric
-  knob (``QUEST_WATCHDOG_MS``, ``QUEST_ENGINE_QUEUE_MAX``), QT605 a
+  knob (``QUEST_WATCHDOG_MS``, ``QUEST_ENGINE_QUEUE_MAX``, the
+  ``QUEST_RETRY_*`` knobs), QT605 a
   malformed ``QUEST_CONCHECK``, QT307 a malformed ``QUEST_TENANT_QPS``,
+  ``QUEST_POOL_REPLICAS`` or ``QUEST_HEDGE_MS``,
   QT403 a malformed ``QUEST_SENTINEL`` entry, QT801 a malformed
-  ``QUEST_SHOTS`` (``sampling.request``): warnings;
+  ``QUEST_SHOTS`` (``sampling.request``), QT501 a malformed
+  ``QUEST_TRAJECTORIES`` (``trajectories.ensemble``): warnings;
 - QT401 / QT402 / QT404 a sentinel breach (norm, shard checksum, density
   trace), QT405 a watchdog deadline, QT602 a blocking boundary crossed
   while holding an instrumented lock: errors.
@@ -24,7 +27,8 @@ from .. import telemetry
 
 #: severity of each code this package emits
 SEVERITY = {"QT302": "warning", "QT303": "warning", "QT307": "warning",
-            "QT403": "warning", "QT605": "warning", "QT801": "warning", "QT401": "error",
+            "QT403": "warning", "QT501": "warning", "QT605": "warning", "QT801": "warning",
+            "QT401": "error",
             "QT402": "error", "QT404": "error", "QT405": "error",
             "QT602": "error"}
 

@@ -29,7 +29,10 @@ def test_import_pulls_in_no_jax(module):
             "'quest_tpu_torch.parallel.mesh', 'quest_tpu_torch.parallel.exchange', "
             "'quest_tpu_torch.parallel.scheduler', 'quest_tpu_torch.reporting', "
             "'quest_tpu_torch.ops.phasefunc', 'quest_tpu_torch.ops.diagonal', "
-            "'quest_tpu_torch.ops.reduce', 'quest_tpu_torch.registers'} "
+            "'quest_tpu_torch.ops.reduce', 'quest_tpu_torch.registers', "
+            "'quest_tpu_torch.trajectories', 'quest_tpu_torch.trajectories.sample', "
+            "'quest_tpu_torch.trajectories.noise', 'quest_tpu_torch.trajectories.ensemble', "
+            "'quest_tpu_torch.engine.pool', 'quest_tpu_torch.resilience.retry'} "
             "<= {m.__name__ for m in mods}; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
@@ -49,3 +52,31 @@ def test_env_raises_without_cuda_unless_cpu_asked():
     env = tq.createQuESTEnv(device="cpu")
     assert env.device == torch.device("cpu")
     assert tq.createQureg(3, env).amps.device.type == "cpu"
+
+
+#: the public names the trajectories-and-pool slice brought to the port,
+#: each where the JAX package exports it
+SLICE_NAMES = {
+    "quest_tpu_torch": ("EnginePool", "trajectories", "run_ensemble", "applyTrajectoryKraus",
+                        "unravel", "ensemble_density", "QuESTRetryError"),
+    "quest_tpu_torch.engine": ("EnginePool", "pool"),
+    "quest_tpu_torch.resilience": ("retry", "QuESTRetryError", "RetryPolicy",
+                                   "call_with_retry", "default_policy", "KernelCompileFault"),
+    "quest_tpu_torch.trajectories": ("unravel", "run_ensemble", "ensemble_density",
+                                     "TrajectoryResult", "trajectory_count_default",
+                                     "applyTrajectoryKraus", "apply_traj_kraus",
+                                     "DEFAULT_TRAJECTORIES", "SEED_PARAM"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_NAMES))
+def test_trajectories_and_pool_names_exported(module):
+    import importlib
+
+    mod = importlib.import_module(module)
+    ref = importlib.import_module(module.replace("quest_tpu_torch", "quest_tpu"))
+    for name in SLICE_NAMES[module]:
+        assert hasattr(mod, name), f"{module} lacks {name}"
+        assert hasattr(ref, name), f"{name} is not a public name of the JAX package"
+        if hasattr(mod, "__all__") and name in getattr(ref, "__all__", ()):
+            assert name in mod.__all__, f"{name} missing from {module}.__all__"
