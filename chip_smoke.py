@@ -257,8 +257,33 @@ no result, without them. Phases, in order:
    ``pool.replica:kill``: requests/s and p50 / p99, no request lost,
    every result equal to a lone Engine's bit for bit, the replacement's
    first request building nothing, and ``submit_grad`` through the pool
-   (requests/s, equal to ``Engine.submit_grad`` bit for bit); then the
-   script's time.
+   (requests/s, equal to ``Engine.submit_grad`` bit for bit);
+15. checkpoints and segments (``_checkpoint_segments_phase``, ``#
+   checkpoint`` and ``# segmented`` lines; the snapshots in a temporary
+   directory, removed after): phase 3's 26q depth-8 f32 plan cut into two
+   segments (the cuts printed) and run by ``run_segmented`` under
+   ``segment.boundary:preempt:1`` (QuESTPreemptionError at the first cut),
+   resumed by ``resume_segmented`` on a fresh env -- each segment's first,
+   eager call launching the kernel once a run, the seeds restored -- and
+   equal bit for bit to an uninterrupted ``run_segmented`` (its segment
+   graphs holding one fused_run node a run), ``Circuit.run`` and the eager
+   replay, the same measurement outcomes after both; ``saveQureg`` split
+   into card to host, CRC32, compress and write, rename (beside
+   ``np.savez_compressed``'s one zlib stream on 2^23 of the amplitudes,
+   which the port never calls), ``verify_snapshot`` and ``loadQureg``
+   split into read, CRC32 and host to card, the segmented run's ms against
+   ``Circuit.run``'s; the f32 drift check (the plan run 8 times through the
+   kernel and through the plain version of its passes, |1 - calcTotalProb|
+   after each, and each pass's change of the norm in one run); 22q f64
+   under ``sentinel_policy("default")`` and ``state.corrupt:bitflip0:1``,
+   healed by one replayed rollback bit for bit, then the newest
+   generation's payload flipped: ``verify_snapshot`` raises
+   QuESTChecksumError and the resume falls back (QT305, ``skipped_corrupt``)
+   and ends bit for bit; 22q f32 over N_SHARDS virtual shards: 4 shard
+   files, loaded on one device and on the shards equal to the source, the
+   resume equal to the uninterrupted run; a 10-qubit density register, f32
+   and f64, saved and loaded bit for bit with its trace; then the script's
+   time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
 records and the register sweeps they take (the 2x2 arm's, at the
@@ -4734,6 +4759,476 @@ def _trajectories_pool_entries(entries: list, phase: dict) -> None:
         e["pool"] = p
 
 
+#: phase 15: the env seeds of the runs whose RNG must agree, the qubits
+#: measured after the resumed and the uninterrupted 26q runs, the f32 drift
+#: check's runs, and the widths of the 22q and density parts
+CKPT_SEEDS = (2026, 22)
+CKPT_MEASURE = (0, 3, 7, 11, 13, 19, 22, 25)
+DRIFT_RUNS = 8
+N_CKPT, N_CKPT_DENSITY = 22, 10
+
+
+def _halves(fz, n: int, what: str) -> tuple:
+    """(every_n_items, cuts, fused runs a segment) of a plan cut into two
+    segments or more, printed as a ``# segmented`` line."""
+    from quest_tpu_torch import fusion, segments
+    from quest_tpu_torch.resilience import segment_plan
+
+    every = (len(fz) + 1) // 2
+    cuts = segment_plan(fz._tape, n, every)
+    _require(len(cuts) >= 3, f"{what}: every_n_items {every} gives {len(cuts) - 1} segment")
+    runs = [sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape[a:b])
+            for a, b in zip(cuts, cuts[1:])]
+    print(f"# segmented {what}: {len(fz)} items, identity boundaries "
+          f"{segments.identity_boundaries(fz._tape, n)}; every_n_items {every} -> cuts "
+          f"{cuts} ({len(runs)} segments of {runs} fused runs)")
+    return every, cuts, runs
+
+
+def _hist_s(name: str, phases) -> dict:
+    """Seconds in each phase of one checkpoint timing histogram (sums)."""
+    from quest_tpu_torch import telemetry
+
+    return {ph: telemetry.histogram(name, phase=ph).get("sum", 0.0) for ph in phases}
+
+
+def _preempted(qt, fz, qureg, d: str, every: int) -> int:
+    """``run_segmented`` under a preemption at the first boundary: the
+    cursor of the QuESTPreemptionError (it must raise)."""
+    from quest_tpu_torch.resilience import fault_plan
+
+    with fault_plan("segment.boundary:preempt:1"):
+        try:
+            fz.run_segmented(qureg, checkpoint_dir=d, every_n_items=every)
+        except qt.QuESTPreemptionError as e:
+            _require(e.checkpoint_dir == d, "the preemption names another directory")
+            return e.cursor
+    raise RuntimeError("run_segmented was not preempted at segment.boundary:preempt:1")
+
+
+def _ckpt_main(qt, dev, fz, root: str) -> dict:
+    """Phase 15, part 1: the 26q f32 main path preempted, resumed and run
+    whole, against ``Circuit.run`` and the eager replay bit for bit."""
+    import os
+
+    import torch
+
+    import numpy as np
+
+    from quest_tpu_torch import checkpoint as CK
+    from quest_tpu_torch import segments, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = N_MAIN
+    every, cuts, runs = _halves(fz, n, f"{n}q f32")
+
+    def seeded():
+        env = qt.createQuESTEnv(device=dev)
+        qt.seedQuEST(env, list(CKPT_SEEDS))
+        return env
+
+    pre_dir, whole_dir = os.path.join(root, "main_pre"), os.path.join(root, "main_whole")
+    q = qt.createQureg(n, seeded(), 1)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    t0 = time.perf_counter()
+    cursor = _preempted(qt, fz, q, pre_dir, every)
+    pre_s = time.perf_counter() - t0
+    eager_first = FG.fused_run.launches
+    _require(cursor == cuts[1], f"26q: preempted at cursor {cursor}, not {cuts[1]}")
+    _require(eager_first == runs[0], f"26q: the first (eager) segment launched the kernel "
+             f"{eager_first} times for {runs[0]} runs")
+    save = _hist_s("checkpoint_save_seconds", ("copy", "crc", "write", "rename"))
+    gen = os.path.join(pre_dir, f"gen_{cursor:08d}")
+    nbytes = sum(os.path.getsize(os.path.join(gen, f)) for f in os.listdir(gen)
+                 if f.endswith(".npz"))
+    qt.destroyQureg(q)
+    del q
+    torch.cuda.empty_cache()
+
+    env_r = qt.createQuESTEnv(device=dev)  # fresh: seeded by time and pid
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    t0 = time.perf_counter()
+    resumed = qt.resume_segmented(fz, pre_dir, env_r)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    eager_rest = FG.fused_run.launches
+    verify = _hist_s("checkpoint_verify_seconds", ("read", "crc"))
+    load = _hist_s("checkpoint_load_seconds", ("read", "crc", "place"))
+    _require(telemetry.counter_value("segmented_resume_total", outcome="verified") == 1,
+             "26q: the resume took no verified generation")
+    _require(eager_rest == sum(runs[1:]), f"26q: the resumed (eager) segments launched the "
+             f"kernel {eager_rest} times for {sum(runs[1:])} runs")
+    _require(env_r.seeds == list(CKPT_SEEDS), "26q: the resume did not restore the seeds")
+    # yardstick (never called by the port): np.savez_compressed, one zlib
+    # stream, against the port's writer on the same 2^23 amplitudes
+    part = resumed.amps[:, :1 << 23].cpu().numpy()
+    yard = {}
+    for name, write in (("np.savez_compressed", lambda f: np.savez_compressed(
+            f, amps=part, start=np.int64(0), stop=np.int64(1 << 23))),
+                        ("_write_npz", lambda f: CK._write_npz(f, {
+                            "amps": part, "start": np.int64(0), "stop": np.int64(1 << 23)}))):
+        path = os.path.join(root, "yardstick.npz")
+        t0 = time.perf_counter()
+        write(path)
+        yard[name] = part.nbytes / 1e6 / (time.perf_counter() - t0)
+        os.unlink(path)
+    del part
+
+    whole = qt.createQureg(n, seeded(), 1)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    t0 = time.perf_counter()
+    fz.run_segmented(whole, checkpoint_dir=whole_dir, every_n_items=every)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_save_s = sum(_hist_s("checkpoint_save_seconds",
+                               ("copy", "crc", "write", "rename")).values())
+    dispatches = telemetry.counter_value("device_dispatch_total", route="segment")
+    _require(dispatches == len(runs) and FG.fused_run.launches == 0,
+             f"26q: the whole run dispatched {dispatches:g} segment programs and launched "
+             f"{FG.fused_run.launches} eager runs")
+    graph_kernels = [_graph_kernels(segments.slice_executable(fz, a, b))
+                     for a, b in zip(cuts, cuts[1:])]
+    _require(graph_kernels == runs, f"26q: the segment graphs hold {graph_kernels} "
+             f"fused_run nodes for {runs} runs")
+
+    env = qt.createQuESTEnv(device=dev)
+    ref = qt.createQureg(n, env, 1)
+    fz.run(ref)  # compiled()'s first call: eager
+    timed = qt.createQureg(n, env, 1)
+    t0 = time.perf_counter()
+    fz.run(timed)  # the first call on these buffers: capture, then replay
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    eager = fz.as_fn()(qt.createQureg(n, env, 1).amps)
+    same = {"uninterrupted run_segmented": torch.equal(resumed.amps, whole.amps),
+            "Circuit.run": torch.equal(resumed.amps, ref.amps),
+            "Circuit.run (graph)": torch.equal(resumed.amps, timed.amps),
+            "eager replay (as_fn)": torch.equal(resumed.amps, eager)}
+    _require(all(same.values()), f"26q: the resumed state differs: {same}")
+    total = qt.calcTotalProb(resumed)
+    _require(abs(total - 1) <= 1e-4, f"26q: resumed total probability {total}")
+    del eager, ref, timed
+    outs = [qt.measure(resumed, t) for t in CKPT_MEASURE]
+    outs_whole = [qt.measure(whole, t) for t in CKPT_MEASURE]
+    _require(outs == outs_whole, f"26q: measurements {outs} after the resume, "
+             f"{outs_whole} after the whole run")
+    save_s = sum(save.values())
+    row = {"qubits": n, "every_n_items": every, "cuts": cuts, "runs": runs,
+           "launches": eager_first + eager_rest, "graph_kernels": sum(graph_kernels),
+           "preempted_at": cursor, "snapshot_bytes": nbytes,
+           "save_s": save, "save_total_s": save_s, "verify_s": sum(verify.values()),
+           "load_s": sum(load.values()), "verify_split_s": verify, "load_split_s": load,
+           "preempted_run_s": pre_s, "resume_s": resume_s,
+           "segmented_run_ms": whole_s * 1e3, "segmented_saves_ms": whole_save_s * 1e3,
+           "circuit_run_ms": run_s * 1e3, "bit_identical": same, "measured": outs,
+           "write_mb_per_s_64mib": yard}
+    print(f"# checkpoint {n}q f32 saveQureg: {nbytes / 2 ** 20:.1f} MiB in one shard file, "
+          f"{save_s:.3f} s (card to host {save['copy']:.3f}, CRC32 {save['crc']:.3f}, "
+          f"compress and write {save['write']:.3f}, rename {save['rename']:.4f}); "
+          f"{nbytes / 1e6 / save['write']:.1f} MB/s written; on its first 2^23 amplitudes "
+          f"the writer {yard['_write_npz']:.1f} MB/s, yardstick np.savez_compressed (one "
+          f"zlib stream) {yard['np.savez_compressed']:.1f} MB/s")
+    print(f"# checkpoint {n}q f32 verify_snapshot {row['verify_s'] * 1e3:.1f} ms (read "
+          f"{verify['read'] * 1e3:.1f}, CRC32 {verify['crc'] * 1e3:.1f}); loadQureg "
+          f"{row['load_s'] * 1e3:.1f} ms (read {load['read'] * 1e3:.1f}, CRC32 "
+          f"{load['crc'] * 1e3:.1f}, host to card {load['place'] * 1e3:.1f})")
+    print(f"# segmented {n}q f32: preempted at cursor {cursor} after {pre_s:.3f} s; resumed "
+          f"on a fresh env in {resume_s:.3f} s (seeds restored); the first segment (eager) "
+          f"launched the kernel {eager_first} times, the resumed one {eager_rest}; the "
+          f"segment graphs hold {graph_kernels} fused_run nodes; resumed state = "
+          f"{', '.join(same)}, bit for bit; measure {list(CKPT_MEASURE)} -> {outs} = the "
+          f"whole run's; total probability {total:.9f}")
+    print(f"# segmented {n}q f32: uninterrupted run_segmented {whole_s * 1e3:.1f} ms "
+          f"({whole_save_s * 1e3:.1f} ms of it in {len(runs)} saves, "
+          f"{(whole_s - whole_save_s) * 1e3:.1f} ms the rest) against Circuit.run "
+          f"{run_s * 1e3:.1f} ms (both the first call on fresh buffers: capture, then "
+          f"replay)")
+    qt.destroyQureg(resumed)
+    qt.destroyQureg(whole)
+    return row
+
+
+def _f32_drift(qt, dev, fz) -> dict:
+    """Phase 15, the f32 drift check: the 26q plan run DRIFT_RUNS times in a
+    row through the kernel (``Circuit.run``) and through the plain version of
+    the same passes, from |0>, |1 - calcTotalProb| after each run."""
+    import torch
+
+    from quest_tpu_torch import fusion
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n = N_MAIN
+    env = qt.createQuESTEnv(device=dev)
+    q = qt.createQureg(n, env, 1)
+    plain = qt.Qureg(n, False, q.amps.clone(), env)
+    items = [_run_item(a[0]) for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    _require(len(items) == len(fz), "the drift plan holds more than fused runs")
+    # where the norm goes: each pass of the first run through the kernel and
+    # through the plain version from the same input, the change of
+    # sum |amp|^2 in float64 (folded kinds beside it)
+    x = q.amps.clone()
+    out = torch.empty_like(x)
+    passes = []
+    for nops, prep, kw in items:
+        before = float(torch.linalg.vector_norm(x, dtype=torch.float64) ** 2)
+        FG.fused_run(x, n=n, ops=prep.ops, out=out, prepared=prep, **kw)
+        ref_x = FG.fused_run_plain(x, prep, n=n, **kw)
+        dk = float(torch.linalg.vector_norm(out, dtype=torch.float64) ** 2) - before
+        dp = float(torch.linalg.vector_norm(ref_x, dtype=torch.float64) ** 2) - before
+        kinds = sorted({o[0] for o in prep.ops} & {"lane_u", "window", "krausn"})
+        passes.append({"kernel": dk, "plain": dp, "folds": kinds})
+        x, out = out, x
+        del ref_x
+    del x, out
+    folded = [p for p in passes if p["folds"]]
+    print(f"# segmented drift {n}q f32 per pass of one run: sum |amp|^2 change kernel / "
+          f"plain " + "; ".join(f"{i} {p['kernel']:+.2e} / {p['plain']:+.2e}"
+                                 f"{' ' + '+'.join(p['folds']) if p['folds'] else ''}"
+                                 for i, p in enumerate(passes))
+          + f"; passes with lane_u / window / krausn folds: kernel "
+          f"{sum(p['kernel'] for p in folded):+.3e}, plain "
+          f"{sum(p['plain'] for p in folded):+.3e}; the others: kernel "
+          f"{sum(p['kernel'] for p in passes if not p['folds']):+.3e}, plain "
+          f"{sum(p['plain'] for p in passes if not p['folds']):+.3e}")
+    kern, ref = [], []
+    for _ in range(DRIFT_RUNS):
+        fz.run(q)
+        for _nops, prep, kw in items:
+            plain.amps = FG.fused_run_plain(plain.amps, prep, n=n, **kw)
+        torch.cuda.synchronize()
+        kern.append(abs(1 - qt.calcTotalProb(q)))
+        ref.append(abs(1 - qt.calcTotalProb(plain)))
+    diff = (q.amps - plain.amps).abs().max().item()
+    ratio = kern[-1] / ref[-1] if ref[-1] else float("inf")
+    print(f"# segmented drift {n}q f32: |1 - calcTotalProb| after each of {DRIFT_RUNS} runs: "
+          f"kernel {[f'{v:.3e}' for v in kern]}, plain version "
+          f"{[f'{v:.3e}' for v in ref]}; after {DRIFT_RUNS} runs kernel / plain "
+          f"{ratio:.3f} ({'more' if ratio > 2 else 'not more'} than twice), max |kernel - "
+          f"plain| {diff:.3e}")
+    qt.destroyQureg(q)
+    del plain
+    torch.cuda.empty_cache()
+    return {"runs": DRIFT_RUNS, "kernel": kern, "plain": ref, "ratio": ratio,
+            "max_abs_diff": diff, "passes": passes}
+
+
+def _ckpt_rollback(qt, dev, root: str) -> dict:
+    """Phase 15, part 2: 22q f64 under the default sentinels and one
+    injected bit flip, healed by replay; then the newest generation's
+    payload flipped, and the resume falling back to the one before it."""
+    import os
+
+    import torch
+
+    from quest_tpu_torch import fusion, segments, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.resilience import fault_plan, guard, segmented, sentinel_policy
+
+    n, dt = N_CKPT, torch.float64
+    circ = qt.Circuit(n)
+    qt.random_layers(circ, n, DEPTH_MAIN)
+    fz = circ.fused(max_qubits=5, pallas=True, dtype=dt)
+    every, cuts, runs = _halves(fz, n, f"{n}q f64")
+    env = qt.createQuESTEnv(device=dev)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    clean = fz.run_segmented(qt.createQureg(n, env, 2),
+                             checkpoint_dir=os.path.join(root, "f64_clean"), every_n_items=every)
+    launches = FG.fused_run.launches
+    _require(launches == sum(runs), f"22q f64: the eager segments launched the kernel "
+             f"{launches} times for {sum(runs)} runs")
+    heal_dir = os.path.join(root, "f64_heal")
+    telemetry.reset()
+    t0 = time.perf_counter()
+    with sentinel_policy("default"), fault_plan("state.corrupt:bitflip0:1"):
+        healed = fz.run_segmented(qt.createQureg(n, env, 2), checkpoint_dir=heal_dir,
+                                  every_n_items=every)
+    torch.cuda.synchronize()
+    heal_s = time.perf_counter() - t0
+    replayed = telemetry.counter_value("segmented_rollbacks_total", outcome="replayed")
+    breaches = telemetry.counter_value("sentinel_checks_total", kind="norm", outcome="breach")
+    _require(replayed == 1 and breaches == 1, f"22q f64: {breaches:g} norm breaches, "
+             f"{replayed:g} replayed rollbacks")
+    _require(telemetry.counter_total("engine_fallback_total") == 0, "22q f64: a fallback")
+    _require(torch.equal(healed.amps, clean.amps), "22q f64: the healed run differs")
+    graph_kernels = sum(_graph_kernels(segments.slice_executable(fz, a, b))
+                        for a, b in zip(cuts, cuts[1:]))
+    _require(graph_kernels == sum(runs), f"22q f64: the segment graphs hold {graph_kernels} "
+             f"fused_run nodes for {sum(runs)} runs")
+    newest = segmented._gen_dirs(heal_dir)[-1]
+    shard = sorted(f for f in os.listdir(newest) if f.endswith(".npz"))[0]
+    guard._flip_payload(os.path.join(newest, shard))
+    try:
+        qt.verify_snapshot(newest)
+        caught = None
+    except qt.QuESTChecksumError as e:
+        caught = e
+    _require(caught is not None and caught.shard == shard,
+             "22q f64: verify_snapshot passed a flipped payload")
+    telemetry.reset()
+    resumed = qt.resume_segmented(fz, heal_dir, qt.createQuESTEnv(device=dev))
+    skipped = telemetry.counter_value("segmented_resume_total", outcome="skipped_corrupt")
+    qt305 = telemetry.counter_value("analysis_findings_total", code="QT305",
+                                    severity="warning")
+    _require(skipped == 1 and qt305 == 1, f"22q f64: skipped_corrupt {skipped:g}, QT305 "
+             f"{qt305:g}")
+    _require(torch.equal(resumed.amps, clean.amps), "22q f64: the fallback resume differs")
+    print(f"# segmented {n}q f64 rollback: sentinel_policy('default') and "
+          f"state.corrupt:bitflip0:1: {breaches:g} norm breach, rolled back to the baseline "
+          f"and replayed (segmented_rollbacks_total{{outcome=replayed}} {replayed:g}), healed "
+          f"run = the clean run bit for bit in {heal_s:.3f} s; the eager segments launched "
+          f"the kernel {launches} times, the graphs hold {graph_kernels} fused_run nodes")
+    print(f"# checkpoint {n}q f64: the newest generation's payload flipped -> "
+          f"QuESTChecksumError on {caught.shard} (CRC32 {caught.actual_crc:#010x} != "
+          f"{caught.expected_crc:#010x}); the resume skipped it (skipped_corrupt "
+          f"{skipped:g}, QT305 {qt305:g}) and finished bit for bit from cursor "
+          f"{cuts[-2]}")
+    for r in (clean, healed, resumed):
+        qt.destroyQureg(r)
+    return {"qubits": n, "cuts": cuts, "runs": runs, "launches": launches,
+            "graph_kernels": graph_kernels, "heal_s": heal_s, "replayed": replayed,
+            "skipped_corrupt": skipped}
+
+
+def _ckpt_sharded(qt, dev, root: str) -> dict:
+    """Phase 15, part 3: 22q f32 over N_SHARDS virtual shards: a snapshot of
+    one file a shard, loaded on one device and on the shards, and a resume
+    bit for bit."""
+    import os
+
+    import torch
+
+    from quest_tpu_torch import telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    n, dt = N_CKPT, torch.float32
+    circ = qt.Circuit(n)
+    qt.random_layers(circ, n, DEPTH_MAIN)
+    fz = circ.fused(max_qubits=5, pallas=True, dtype=dt, shard_devices=N_SHARDS)
+    every, cuts, runs = _halves(fz, n, f"{n}q f32 over {N_SHARDS} shards")
+
+    def mesh():
+        env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+        qt.seedQuEST(env, list(CKPT_SEEDS))
+        return env
+
+    d = os.path.join(root, "shards_pre")
+    q = qt.createQureg(n, mesh(), 1)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    cursor = _preempted(qt, fz, q, d, every)
+    launches = FG.fused_run.launches
+    _require(launches == runs[0] * N_SHARDS, f"{n}q shards: the first (eager) segment "
+             f"launched {launches} shard passes for {runs[0]} runs")
+    gen = os.path.join(d, f"gen_{cursor:08d}")
+    files = sorted(f for f in os.listdir(gen) if f.endswith(".npz"))
+    _require(len(files) == N_SHARDS, f"{n}q shards: the snapshot has {len(files)} files")
+    one = qt.loadQureg(gen, qt.createQuESTEnv(device=dev))
+    four = qt.loadQureg(gen, mesh())
+    same_one = torch.equal(one.amps, torch.cat(q.shards, dim=1))
+    same_four = all(torch.equal(a, b) for a, b in zip(four.shards, q.shards))
+    _require(same_one and same_four, f"{n}q shards: loaded on one device {same_one}, on "
+             f"{N_SHARDS} shards {same_four}")
+    for r in (q, one, four):
+        qt.destroyQureg(r)
+    resumed = qt.resume_segmented(fz, d, mesh())
+    whole = fz.run_segmented(qt.createQureg(n, mesh(), 1),
+                             checkpoint_dir=os.path.join(root, "shards_whole"),
+                             every_n_items=every)
+    same = all(torch.equal(a, b) for a, b in zip(resumed.shards, whole.shards))
+    _require(same, f"{n}q shards: the resumed state differs from the whole run")
+    print(f"# checkpoint {n}q f32 over {N_SHARDS} shards: preempted at cursor {cursor}, "
+          f"{len(files)} shard files {files}; loaded on one device and on {N_SHARDS} shards "
+          f"= the source bit for bit; the first (eager) segment made {launches} shard "
+          f"passes; the resume = the uninterrupted run bit for bit")
+    for r in (resumed, whole):
+        qt.destroyQureg(r)
+    return {"qubits": n, "shards": N_SHARDS, "cuts": cuts, "runs": runs,
+            "launches": launches, "files": len(files)}
+
+
+def _ckpt_density(qt, dev, root: str) -> dict:
+    """Phase 15, part 4: a 10-qubit density register, f32 and f64, saved and
+    loaded bit for bit, its trace kept."""
+    import os
+
+    import torch
+
+    out = {}
+    env = qt.createQuESTEnv(device=dev)
+    for dt, prec, tol in ((torch.float32, 1, 1e-4), (torch.float64, 2, 1e-10)):
+        circ = qt.density_circuit(N_CKPT_DENSITY, True)
+        qt.random_layers(circ, N_CKPT_DENSITY, 2)
+        q = qt.createDensityQureg(N_CKPT_DENSITY, env, prec)
+        circ.fused(max_qubits=4, pallas=True, dtype=dt).run(q)
+        d = os.path.join(root, f"density_{str(dt)[6:]}")
+        qt.saveQureg(q, d)
+        back = qt.loadQureg(d, qt.createQuESTEnv(device=dev))
+        trace, trace_back = qt.calcTotalProb(q), qt.calcTotalProb(back)
+        _require(back.is_density_matrix and torch.equal(back.amps, q.amps),
+                 f"density {dt}: the loaded register differs")
+        _require(abs(trace - 1) <= tol and trace_back == trace,
+                 f"density {dt}: trace {trace}, loaded {trace_back}")
+        print(f"# checkpoint density {N_CKPT_DENSITY}q {str(dt)[6:]}: the bench's r4 channel "
+              f"circuit and two random layers, fused; saved and loaded bit for bit, Re "
+              f"tr(rho) {trace:.12f} before and after (limit {tol:g})")
+        out[str(dt)[6:]] = {"trace": trace}
+        qt.destroyQureg(q)
+        qt.destroyQureg(back)
+    return out
+
+
+def _checkpoint_segments_phase(qt, dev, plans: dict) -> dict:
+    """Phase 15: checkpoints and segmented execution on the card (``#
+    checkpoint`` and ``# segmented`` lines; see the module docstring, item
+    15). The snapshots go to a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="quest_checkpoints_")
+    try:
+        out = {"main": _ckpt_main(qt, dev, plans[("main", torch.float32)], root)}
+        _release()
+        out["drift"] = _f32_drift(qt, dev, plans[("main", torch.float32)])
+        _release()
+        out["rollback"] = _ckpt_rollback(qt, dev, root)
+        _release()
+        out["sharded"] = _ckpt_sharded(qt, dev, root)
+        _release()
+        out["density"] = _ckpt_density(qt, dev, root)
+        _release()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"# checkpoint and segments phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _checkpoint_entries(entries: list, phase: dict) -> None:
+    """Phase 15's paths in the ``kernels`` entries, each counted from its
+    eager segments (the counts reset just before them), with the fused_run
+    nodes of its segment graphs: the 26q f32 main path in
+    ``fused_gate_run``, the 22q f64 rollback in ``fused_gate_run_f64``, the
+    22q sharded run in ``fused_gate_run_per_shard``."""
+    m, rb, sh = phase["main"], phase["rollback"], phase["sharded"]
+    add = ((entries[0], "segmented_26q_depth8", m),
+           (entries[1], "segmented_rollback_22q_f64", rb))
+    for e, key, r in add:
+        e["paths"][key] = {k: r[k] for k in ("launches", "graph_kernels", "runs", "cuts")}
+        e["launches"] += r["launches"]
+        e["graph_kernels"] = e.get("graph_kernels", 0) + r["graph_kernels"]
+    entries[0]["checkpoint"] = {k: v for k, v in m.items() if k not in ("cuts", "runs")}
+    entries[0]["f32_drift"] = phase["drift"]
+    entries[4].setdefault("segmented_paths", {})[f"segmented_{N_CKPT}q_shards"] = sh
+    entries[4]["launches"] += sh["launches"]
+
+
 def _sampling_gradients_entries(entries: list, samp_grad: dict) -> None:
     """Phase 13's paths in the f32 and f64 ``kernels`` entries: each
     request's, gradient's and engine's first (eager) call, its counts reset
@@ -5161,6 +5656,9 @@ def main() -> int:
     # -- trajectories and pool phase: seeded ensembles, the replica pool ---
     traj_pool = _trajectories_pool_phase(qt, dev)
 
+    # -- checkpoint and segments phase: snapshots, preemption and resume ---
+    ckpt = _checkpoint_segments_phase(qt, dev, plans)
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -5295,6 +5793,7 @@ def main() -> int:
             e["graph_kernels"] = e.get("graph_kernels", 0) + r["graph_kernels"]
     _sampling_gradients_entries(entries[:2], samp_grad)
     _trajectories_pool_entries(entries[:2], traj_pool)
+    _checkpoint_entries(entries, ckpt)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -5304,7 +5803,8 @@ def main() -> int:
           f"{operators['phase_s']:.1f} s, compiled phase {compiled['phase_s']:.1f} s, "
           f"serving phase {serving['phase_s']:.1f} s, sampling and gradients phase "
           f"{samp_grad['phase_s']:.1f} s, trajectories and pool phase "
-          f"{traj_pool['phase_s']:.1f} s)")
+          f"{traj_pool['phase_s']:.1f} s, checkpoint and segments phase "
+          f"{ckpt['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

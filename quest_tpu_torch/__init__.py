@@ -23,7 +23,11 @@ adjoint-state gradients (``Circuit.gradient``, ``calcGradExpecPauliSum``,
 ``trajectories`` unravels noisy circuits into seeded pure-state ensembles
 (``unravel``, ``applyTrajectoryKraus``, ``run_ensemble``,
 ``ensemble_density``); :class:`EnginePool` serves many structures over
-replicas of Engines with failover and hedging.
+replicas of Engines with failover and hedging. ``checkpoint`` saves and
+loads registers in the JAX package's on-disk format (``saveQureg``,
+``loadQureg``, ``verify_snapshot``, ``writeStateToCSV``);
+``Circuit.run_segmented`` and :func:`resume_segmented` run a tape in
+checkpointed segments that a preempted run resumes bit for bit.
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -40,9 +44,11 @@ from .engine import Engine, EnginePool, P, Param
 from . import gradients, sampling
 from .gradients import gradient_executable, parameter_shift
 from .sampling import applyMidCollapse, applyMidMeasurement, sample_request, sampleQureg
-from . import resilience
-from .resilience import (QuESTBackpressureError, QuESTCancelledError, QuESTHangError,
-                         QuESTIntegrityError, QuESTRetryError, QuESTTimeoutError)
+from . import checkpoint, resilience
+from .checkpoint import loadQureg, saveQureg, verify_snapshot, writeStateToCSV
+from .resilience import (QuESTBackpressureError, QuESTCancelledError, QuESTChecksumError,
+                         QuESTHangError, QuESTIntegrityError, QuESTPreemptionError,
+                         QuESTRetryError, QuESTTimeoutError, resume_segmented)
 from . import trajectories
 from .trajectories import applyTrajectoryKraus, ensemble_density, run_ensemble, unravel
 from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
@@ -75,7 +81,9 @@ __all__ = [
     "Circuit", "random_layers", "density_circuit", "serving_ansatz", "engine", "P",
     "Param", "Engine", "EnginePool", "resilience", "QuESTError", "QuESTTimeoutError",
     "QuESTBackpressureError", "QuESTCancelledError", "QuESTIntegrityError",
-    "QuESTHangError", "QuESTRetryError", "trajectories", "unravel", "applyTrajectoryKraus",
+    "QuESTHangError", "QuESTRetryError", "QuESTChecksumError", "QuESTPreemptionError",
+    "checkpoint", "saveQureg", "loadQureg", "verify_snapshot", "writeStateToCSV",
+    "resume_segmented", "trajectories", "unravel", "applyTrajectoryKraus",
     "run_ensemble", "ensemble_density", "sampling", "gradients", "sampleQureg", "sample_request",
     "applyMidMeasurement", "applyMidCollapse", "gradient_executable", "parameter_shift",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",

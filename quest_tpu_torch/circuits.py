@@ -458,6 +458,19 @@ class Circuit:
         self.compiled().run_register(qureg)
         return qureg
 
+    def run_segmented(self, target, *, checkpoint_dir: str, every_n_items: int = 1,
+                      keep: int = 2) -> Qureg:
+        """Run the tape in segments, checkpointing at frame-identity
+        boundaries, so that a preempted run resumes bit for bit from the
+        newest verified snapshot
+        (:func:`quest_tpu_torch.resilience.segmented.resume_segmented`).
+        ``target`` is a Qureg, or a QuESTEnv on which a fresh |0...0>
+        register is made; ``every_n_items`` spaces the checkpoints in tape
+        items and ``keep`` bounds the generations kept on disk."""
+        from .resilience import segmented
+        return segmented.run_segmented(self, target, checkpoint_dir=checkpoint_dir,
+                                       every_n_items=every_n_items, keep=keep)
+
 
 class _ParamFn:
     """The shared body of :meth:`Circuit.parameterized`: one compiled

@@ -4,7 +4,9 @@ Each failure mode carries its own type, so that a caller -- and the
 Engine's batcher -- can route it: isolate a :class:`PoisonedRequestFault`
 to its request, shed load on :class:`QuESTBackpressureError`, report a
 deadline as :class:`QuESTTimeoutError`, quarantine on
-:class:`QuESTHangError` or :class:`QuESTIntegrityError`.
+:class:`QuESTHangError` or :class:`QuESTIntegrityError`, resume after
+:class:`QuESTPreemptionError`, fall back to an older checkpoint generation
+after :class:`QuESTChecksumError`.
 
 Injected faults (raised by :mod:`.faultinject` at named sites) derive from
 :class:`InjectedFault`; the terminal errors derive from the port's
@@ -20,8 +22,9 @@ from ..validation import QuESTError
 
 __all__ = [
     "QuESTTimeoutError", "QuESTBackpressureError", "QuESTCancelledError",
-    "QuESTIntegrityError", "QuESTHangError", "QuESTRetryError",
-    "InjectedFault", "TransientFault", "KernelCompileFault", "PoisonedRequestFault",
+    "QuESTPreemptionError", "QuESTIntegrityError", "QuESTHangError", "QuESTRetryError",
+    "QuESTChecksumError", "InjectedFault", "TransientFault", "KernelCompileFault",
+    "PoisonedRequestFault",
 ]
 
 
@@ -45,6 +48,20 @@ class QuESTBackpressureError(QuESTError):
 class QuESTCancelledError(QuESTError):
     """The request was dropped by ``Engine.close(drain=False)`` before
     dispatch; its future resolves with this instead of dangling."""
+
+
+class QuESTPreemptionError(QuESTError):
+    """Execution was preempted between segments of a segmented run.
+    Carries ``cursor`` (the tape index of the last durable checkpoint) and
+    ``checkpoint_dir``, which a caller hands straight to
+    :func:`~quest_tpu_torch.resilience.segmented.resume_segmented`."""
+
+    def __init__(self, message: str, func: str = "",
+                 cursor: int | None = None,
+                 checkpoint_dir: str | None = None) -> None:
+        super().__init__(message, func)
+        self.cursor = cursor
+        self.checkpoint_dir = checkpoint_dir
 
 
 class QuESTRetryError(QuESTError):
@@ -76,6 +93,22 @@ class QuESTHangError(QuESTError):
         super().__init__(message, func)
         self.site = site
         self.deadline_ms = deadline_ms
+
+
+class QuESTChecksumError(QuESTError):
+    """A stored payload failed CRC32 verification: the bytes on disk are not
+    the bytes indexed at write time. Carries the ``shard`` file name, the
+    ``expected_crc`` (the index's) and the ``actual_crc`` (the payload's),
+    so a fall-back path (segmented resume, QT305) can report both."""
+
+    def __init__(self, message: str, func: str = "",
+                 shard: str | None = None,
+                 expected_crc: int | None = None,
+                 actual_crc: int | None = None) -> None:
+        super().__init__(message, func)
+        self.shard = shard
+        self.expected_crc = expected_crc
+        self.actual_crc = actual_crc
 
 
 class InjectedFault(RuntimeError):

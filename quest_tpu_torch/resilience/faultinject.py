@@ -1,6 +1,6 @@
 """Seeded, deterministic fault injection at the serving layer's named
-sites (``quest_tpu/resilience/faultinject.py``, for the sites the Engine
-and the EnginePool visit).
+sites (``quest_tpu/resilience/faultinject.py``, for the sites the Engine,
+the EnginePool, checkpoints and segmented execution visit).
 
 Each site calls :func:`fire` (or :func:`check`) once per visit; with no
 plan installed the call returns None after one module boolean. A plan
@@ -25,6 +25,15 @@ site                 kinds               effect
                                          finds its replica dead: the pool
                                          quarantines it and fails the
                                          request over to a peer
+``checkpoint.write`` ``torn, corrupt,``  a shard write: ``io`` fails it
+                     ``io``              (TransientFault, retried);
+                                         ``torn`` truncates the written
+                                         file, ``corrupt`` flips one byte
+                                         of its amplitude payload, for
+                                         verification to catch
+``segment.boundary`` ``preempt``         QuESTPreemptionError between two
+                                         segments of a segmented run, after
+                                         the checkpoint is durable
 ``state.corrupt``    ``bitflip[<N>]``    one bit of an amplitude flipped on
                                          shard N (default 0) by
                                          ``guard.corrupt_amps``, for the
@@ -44,10 +53,11 @@ from typing import Iterator, NamedTuple
 from .. import telemetry
 from ..validation import QuESTError
 from . import sync as _sync
-from .errors import InjectedFault, PoisonedRequestFault, TransientFault
+from .errors import (InjectedFault, PoisonedRequestFault, QuESTPreemptionError,
+                     TransientFault)
 
 __all__ = ["SITES", "FaultSpec", "FaultPlan", "enabled", "active_plan",
-           "install", "clear", "fault_plan", "fire", "check"]
+           "install", "clear", "fault_plan", "fire", "check", "corrupt_file"]
 
 ENV_VAR = "QUEST_FAULTS"
 
@@ -56,11 +66,14 @@ SITES: dict[str, tuple[str, ...]] = {
     "engine.request": ("poison",),
     "engine.dispatch": ("hang", "transient"),
     "pool.replica": ("kill", "hang"),
+    "checkpoint.write": ("torn", "corrupt", "io"),
+    "segment.boundary": ("preempt",),
     "state.corrupt": ("bitflip",),
 }
 
 _EXC: dict[str, type[InjectedFault]] = {
     "transient": TransientFault,
+    "io": TransientFault,
     "poison": PoisonedRequestFault,
 }
 
@@ -219,5 +232,32 @@ def check(site: str) -> None:
     exc = _EXC.get(kind)
     if exc is not None:
         raise exc(site, kind)
+    if kind == "preempt":
+        raise QuESTPreemptionError(f"injected preemption at site {site!r}", site)
     raise QuESTError(f"fault kind {kind!r} at {site!r} needs its own handler "
-                     "(guard.corrupt_amps, watchdog.watched)", "faultinject.check")
+                     "(corrupt_file, guard.corrupt_amps, watchdog.watched)",
+                     "faultinject.check")
+
+
+def corrupt_file(site: str, path: str) -> str | None:
+    """Visit ``site`` and apply a file-level fault to ``path``: ``torn``
+    truncates its tail half, ``corrupt`` flips the byte in its middle; a
+    raisable kind raises. Returns the kind applied, or None."""
+    kind = fire(site)
+    if kind is None:
+        return None
+    if kind in ("torn", "corrupt"):
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            if kind == "torn":
+                f.truncate(max(1, size // 2))
+            else:
+                f.seek(size // 2)
+                b = f.read(1)
+                f.seek(size // 2)
+                f.write(bytes([(b[0] ^ 0xFF) if b else 0xFF]))
+        return kind
+    exc = _EXC.get(kind)
+    if exc is not None:
+        raise exc(site, kind)
+    return kind

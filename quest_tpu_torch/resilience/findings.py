@@ -11,8 +11,12 @@ the serving layer raises).
   ``QUEST_POOL_REPLICAS`` or ``QUEST_HEDGE_MS``,
   QT403 a malformed ``QUEST_SENTINEL`` entry, QT801 a malformed
   ``QUEST_SHOTS`` (``sampling.request``), QT501 a malformed
-  ``QUEST_TRAJECTORIES`` (``trajectories.ensemble``): warnings;
-- QT401 / QT402 / QT404 a sentinel breach (norm, shard checksum, density
+  ``QUEST_TRAJECTORIES`` (``trajectories.ensemble``), QT305 a checkpoint
+  generation that failed verification (``resilience.segmented``, which
+  falls back to an older one): warnings;
+- QT304 a segmented-execution misconfiguration (``every_n_items`` or
+  ``keep`` below 1, a tape that does not end at the identity frame),
+  QT401 / QT402 / QT404 a sentinel breach (norm, shard checksum, density
   trace), QT405 a watchdog deadline, QT602 a blocking boundary crossed
   while holding an instrumented lock: errors.
 """
@@ -26,9 +30,9 @@ from dataclasses import dataclass
 from .. import telemetry
 
 #: severity of each code this package emits
-SEVERITY = {"QT302": "warning", "QT303": "warning", "QT307": "warning",
+SEVERITY = {"QT302": "warning", "QT303": "warning", "QT305": "warning", "QT307": "warning",
             "QT403": "warning", "QT501": "warning", "QT605": "warning", "QT801": "warning",
-            "QT401": "error",
+            "QT304": "error", "QT401": "error",
             "QT402": "error", "QT404": "error", "QT405": "error",
             "QT602": "error"}
 

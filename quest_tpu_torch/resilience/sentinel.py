@@ -42,7 +42,7 @@ from . import sync as _sync
 
 __all__ = ["KINDS", "ENV_VAR", "DEFAULT_SPEC", "SentinelSpec", "SentinelPolicy",
            "enabled", "active_policy", "install", "clear", "sentinel_policy",
-           "tolerance", "check_amps"]
+           "tolerance", "check_amps", "check_qureg"]
 
 ENV_VAR = "QUEST_SENTINEL"
 
@@ -269,3 +269,13 @@ def check_amps(amps, *, density: bool = False, n: int | None = None,
                             where=where)
             findings.append(out)
     return findings
+
+
+def check_qureg(qureg, *, policy: SentinelPolicy | None = None, tick: int = 1,
+                where: str = "") -> list:
+    """:func:`check_amps` over a live register: its state tensor, or its
+    list of shards when it is sharded."""
+    amps = qureg.amps if qureg.shards is None else list(qureg.shards)
+    return check_amps(amps, density=qureg.is_density_matrix,
+                      n=qureg.num_qubits_represented, policy=policy, tick=tick,
+                      where=where)

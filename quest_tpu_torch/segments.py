@@ -1,7 +1,7 @@
 """Whole-segment single-dispatch execution (``quest_tpu/segments.py``).
 
 A *segment* is a maximal tape slice whose two-frame permutation starts AND
-ends at identity (the seams ``resilience.segmented`` checkpoints at in the
+ends at identity (the seams ``resilience.segmented`` checkpoints at, as in the
 JAX package). This module plans the seams and builds the executables that
 run a slice, a chain of slices or the whole request as compiled programs
 (:mod:`._capture`): on the card a slice is ONE CUDA-graph replay, the

@@ -32,7 +32,8 @@ def test_import_pulls_in_no_jax(module):
             "'quest_tpu_torch.ops.reduce', 'quest_tpu_torch.registers', "
             "'quest_tpu_torch.trajectories', 'quest_tpu_torch.trajectories.sample', "
             "'quest_tpu_torch.trajectories.noise', 'quest_tpu_torch.trajectories.ensemble', "
-            "'quest_tpu_torch.engine.pool', 'quest_tpu_torch.resilience.retry'} "
+            "'quest_tpu_torch.engine.pool', 'quest_tpu_torch.resilience.retry', "
+            "'quest_tpu_torch.checkpoint', 'quest_tpu_torch.resilience.segmented'} "
             "<= {m.__name__ for m in mods}; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
@@ -54,14 +55,21 @@ def test_env_raises_without_cuda_unless_cpu_asked():
     assert tq.createQureg(3, env).amps.device.type == "cpu"
 
 
-#: the public names the trajectories-and-pool slice brought to the port,
-#: each where the JAX package exports it
+#: the public names the trajectories-and-pool slice and the checkpoint and
+#: segmented-execution slice brought to the port, each where the JAX
+#: package exports it
 SLICE_NAMES = {
     "quest_tpu_torch": ("EnginePool", "trajectories", "run_ensemble", "applyTrajectoryKraus",
-                        "unravel", "ensemble_density", "QuESTRetryError"),
+                        "unravel", "ensemble_density", "QuESTRetryError",
+                        "checkpoint", "saveQureg", "loadQureg", "verify_snapshot",
+                        "writeStateToCSV", "resume_segmented", "QuESTChecksumError",
+                        "QuESTPreemptionError"),
     "quest_tpu_torch.engine": ("EnginePool", "pool"),
     "quest_tpu_torch.resilience": ("retry", "QuESTRetryError", "RetryPolicy",
-                                   "call_with_retry", "default_policy", "KernelCompileFault"),
+                                   "call_with_retry", "default_policy", "KernelCompileFault",
+                                   "segmented", "segment_plan", "run_segmented",
+                                   "resume_segmented", "QuESTChecksumError",
+                                   "QuESTPreemptionError"),
     "quest_tpu_torch.trajectories": ("unravel", "run_ensemble", "ensemble_density",
                                      "TrajectoryResult", "trajectory_count_default",
                                      "applyTrajectoryKraus", "apply_traj_kraus",
@@ -80,3 +88,5 @@ def test_trajectories_and_pool_names_exported(module):
         assert hasattr(ref, name), f"{name} is not a public name of the JAX package"
         if hasattr(mod, "__all__") and name in getattr(ref, "__all__", ()):
             assert name in mod.__all__, f"{name} missing from {module}.__all__"
+    if module == "quest_tpu_torch":
+        assert callable(mod.Circuit.run_segmented) and callable(ref.Circuit.run_segmented)
