@@ -175,6 +175,35 @@ between them) built below the fold, 26 qubits, in place:
   built for sweeps of that many qubits (``sweep_bits``), the pass's table
   grouped at that width (``group_sweeps``, ``mark_sweeps``).
 
+``drift32`` (named only): the norm that each accumulation walk of the
+3xTF32 products (``quest_mma::mma_3xtf32``, ``csrc/mma.cuh``) loses on
+the card's tensor cores, whose FP32 accumulation truncates. A one-op
+lane_u pass and a one-op window pass on [7, 12) (26 qubits, f32) run
+through builds of the kernel with each walk: (a) the three products
+chained onto the running sum; (b) each product into a zeroed fragment,
+added to the sum by an FP32 add (round to nearest); (c) hi*hi into a
+zeroed fragment a k step, added so, and the two small products chained
+in a second sum (the lane_u and window arms given one); (d) (a) with lo
+rounded to TF32 (``cvt.rna``) in the split, the host's split of U^T
+too; (e) the three products chained into a zeroed fragment a k step,
+hi*hi last, added so; (f) hi*hi into a zeroed fragment d, then
+hi*hi again onto -d (what the truncation of d dropped) with the two
+small products chained after it, both added so (four products a step).
+The checkout's own build (``kernel``) comes first.
+Each ``# drift32`` line gives sum |amp|^2 less
+that of the exact product (the pass in float64 on the card), the error
+over the largest amplitude, and ms; the plain version's line comes
+first.
+
+``driftrun`` (named only): phase 15's drift check (``chip_smoke._f32_drift``)
+through each of ``drift32``'s walks and the checkout's own: the 26q
+depth-8 f32 plan run 8 times from |0>, |1 - calcTotalProb| of the kernel
+against that of the plain version, and the plan's ms a run.
+
+``windowdot32`` (named only): ``window_dot`` in f32 on [7, 11] at 26
+qubits, this checkout's kernel (and with ``--parent`` the parent's, in
+turns), each against the plain version.
+
 With ``--parent``, the sweep passes are followed by the kernel passes of
 the 26-qubit main path's and the QFT's fused runs in that precision
 (``chip_smoke``'s circuits, each pass with its folded frame swaps), each
@@ -1072,6 +1101,330 @@ RIGHT = {"interleaved", "f64 m16n8k8", "f64 ring of 3", "f64 one block per SM",
              f"{a} width {w}" for a, ws in SWEEP_WIDTHS.items() for w in ws}
 
 
+#: the 3xTF32 accumulation walks that ``drift32`` compares, each a body of
+#: ``quest_mma::mma_3xtf32`` (``csrc/mma.cuh``): name -> body
+_WALKS = {
+    "(a) chained": """  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+""",
+    "(b) each product apart": """  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a.lo, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[i] += d[i];
+    d[i] = 0.f;
+  }
+  mma_tf32(d, a.hi, b.lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[i] += d[i];
+    d[i] = 0.f;
+  }
+  mma_tf32(d, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+""",
+    "(e) one fragment a step": """  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+""",
+}
+_WALKS["(f) hi*hi's truncation recovered"] = """  float d[4] = {0.f, 0.f, 0.f, 0.f}, r[4];
+  mma_tf32(d, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = -d[i];
+  mma_tf32(r, a.hi, b.hi);
+  mma_tf32(r, a.lo, b.hi);
+  mma_tf32(r, a.hi, b.lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i] + r[i];
+"""
+#: (c): hi*hi into a zeroed fragment added to c, the small terms chained
+#: in a second accumulator s that the arm adds to c before its store
+_WALK_TWO_ACC = """
+__device__ __forceinline__ void mma_3xtf32_two(float c[4], float s[4], const SplitA& a,
+                                               const SplitB& b) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+  mma_tf32(s, a.lo, b.hi);
+  mma_tf32(s, a.hi, b.lo);
+}
+"""
+_MMA_SIG = ("__device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, "
+            "const SplitB& b) {\n")
+_SPLIT_LO = "  lo = __float_as_uint(x - __uint_as_float(hi));\n"
+#: the lane_u and window arms with a second accumulator, for (c)
+_TWO_ACC_EDITS = [
+    ("float accr[4][4], acci[4][4];", "float accr[4][4], acci[4][4], sacr[4][4], saci[4][4];"),
+    ("\n    for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = 0.f;",
+     "\n    for (int i = 0; i < 4; ++i) accr[j][i] = acci[j][i] = sacr[j][i] = saci[j][i] = 0.f;"),
+    ("quest_mma::mma_3xtf32(accr[j], sr, ur);", "quest_mma::mma_3xtf32_two(accr[j], sacr[j], sr, ur);"),
+    ("quest_mma::mma_3xtf32(accr[j], si, quest_mma::negate(ui));",
+     "quest_mma::mma_3xtf32_two(accr[j], sacr[j], si, quest_mma::negate(ui));"),
+    ("quest_mma::mma_3xtf32(acci[j], sr, ui);", "quest_mma::mma_3xtf32_two(acci[j], saci[j], sr, ui);"),
+    ("quest_mma::mma_3xtf32(acci[j], si, ur);", "quest_mma::mma_3xtf32_two(acci[j], saci[j], si, ur);"),
+    ("      const int col = n0 + 8 * j + 2 * l.t;\n",
+     "      for (int i = 0; i < 4; ++i) {\n        accr[j][i] += sacr[j][i];\n"
+     "        acci[j][i] += saci[j][i];\n      }\n      const int col = n0 + 8 * j + 2 * l.t;\n"),
+    ("float accr[2][4], acci[2][4];", "float accr[2][4], acci[2][4], sacr[2][4], saci[2][4];"),
+    ("for (int i = 0; i < 4; ++i) accr[mt][i] = acci[mt][i] = 0.f;",
+     "for (int i = 0; i < 4; ++i) accr[mt][i] = acci[mt][i] = sacr[mt][i] = saci[mt][i] = 0.f;"),
+    ("quest_mma::mma_3xtf32(accr[mt], ur, br);", "quest_mma::mma_3xtf32_two(accr[mt], sacr[mt], ur, br);"),
+    ("quest_mma::mma_3xtf32(acci[mt], ur, bi);", "quest_mma::mma_3xtf32_two(acci[mt], saci[mt], ur, bi);"),
+    ("quest_mma::mma_3xtf32(acci[mt], ui, br);", "quest_mma::mma_3xtf32_two(acci[mt], saci[mt], ui, br);"),
+    ("quest_mma::mma_3xtf32(accr[mt], ui, quest_mma::negate(bi));",
+     "quest_mma::mma_3xtf32_two(accr[mt], sacr[mt], ui, quest_mma::negate(bi));"),
+    ("        const uint32_t o0 = base + (static_cast<uint32_t>(16 * mt + l.g) << lo) + 2 * l.t;\n",
+     "        for (int i = 0; i < 4; ++i) {\n          accr[mt][i] += sacr[mt][i];\n"
+     "          acci[mt][i] += saci[mt][i];\n        }\n"
+     "        const uint32_t o0 = base + (static_cast<uint32_t>(16 * mt + l.g) << lo) + 2 * l.t;\n"),
+]
+
+
+def _with_walk(header: str, body: str) -> str:
+    """``header`` (``mma.cuh``) with ``mma_3xtf32``'s body replaced."""
+    i = header.index(_MMA_SIG) + len(_MMA_SIG)
+    return header[:i] + body + header[header.index("\n}\n", i) + 1:]
+
+
+def _edit(text: str, edits) -> str:
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"drift variant: anchor {old[:40]!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
+
+
+def _drift_variants(header: str, kernel: str) -> dict:
+    """{variant: (mma.cuh, fused_gates.cu)} of the accumulation walks
+    ``drift32`` and ``driftrun`` read, (a)-(f)."""
+    out = {name: (_with_walk(header, body), kernel) for name, body in _WALKS.items()}
+    two = _with_walk(header, _WALKS["(a) chained"]).replace(
+        "\n// cp.async:", _WALK_TWO_ACC + "\n// cp.async:", 1)
+    out["(c) hi*hi apart, small terms in a second sum"] = (two, _edit(kernel, _TWO_ACC_EDITS))
+    rna = _edit(_with_walk(header, _WALKS["(a) chained"]),
+                [(_SPLIT_LO, "  lo = tf32_rna(x - __uint_as_float(hi));\n")])
+    out["(d) lo rounded to TF32 (rna)"] = (rna, kernel)
+    order = ["(a) chained", "(b) each product apart",
+             "(c) hi*hi apart, small terms in a second sum", "(d) lo rounded to TF32 (rna)",
+             "(e) one fragment a step", "(f) hi*hi's truncation recovered"]
+    return {k: out[k] for k in order}
+
+
+def _build_dirs(tmp: str, sources: dict, lib: str) -> dict:
+    """Build ``lib`` (``fused_gates`` or ``window_dot``) once per entry of
+    ``sources`` ({name: {file name: text}}), each in a directory of its own
+    under ``tmp``, all nvcc processes at once; {name: loaded library}."""
+    from quest_tpu_torch import _build
+
+    import chip_smoke as CS
+
+    procs = {}
+    for i, (name, files) in enumerate(sources.items()):
+        d = os.path.join(tmp, f"{lib}{i}")
+        os.makedirs(d)
+        for fname, text in files.items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        so = os.path.join(d, f"lib{lib}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", d, "-o", so,
+             os.path.join(d, f"{lib}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {lib} {name!r}:\n{log}")
+        print(f"# {lib} {name}: ptxas {CS._ptxas_kernels(log)}")
+        if lib == "fused_gates":
+            libs[name] = _load(so)
+        else:
+            libs[name] = ctypes.CDLL(so)
+            for fn, (args, res) in _build.SIGNATURES["window_dot"].items():
+                getattr(libs[name], fn).argtypes = args
+                getattr(libs[name], fn).restype = res
+    return libs
+
+
+def _rna_lo_split(w):
+    """``ops.fused_gates.tf32_split`` with lo rounded to TF32 as hi is:
+    the host's half of variant (d)."""
+    import numpy as np
+
+    w = np.ascontiguousarray(w, dtype=np.float32)
+    rna = lambda v: ((v.view(np.uint32) + np.uint32(0x1000))  # noqa: E731
+                     & np.uint32(0xffffe000)).view(np.float32)
+    hi = rna(w)
+    return hi, rna(np.ascontiguousarray(w - hi))
+
+
+def _drift32(tmp: str, W) -> None:
+    """The norm each 3xTF32 accumulation walk loses (``# drift32`` lines):
+    a one-op lane_u pass (the Haar 128 x 128 unitary ``W``) and a one-op
+    span-5 window pass (``_window_pass``) on a random 26-qubit f32 state,
+    through each of ``_drift_variants``' builds, the plain version and the
+    exact product (the same pass in float64 on the card). Each line gives
+    sum |amp|^2 of the output less that of the exact product, the max
+    error over the largest amplitude, and the pass's ms."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from quest_tpu_torch import _build
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    csrc = _build._PKG / _build.CSRC
+    variants = _drift_variants((csrc / "mma.cuh").read_text(),
+                               (csrc / "fused_gates.cu").read_text())
+    libs = {"kernel": _build.library("fused_gates"),
+            **_build_dirs(tmp, {k: {"mma.cuh": h, "fused_gates.cu": c}
+                                for k, (h, c) in variants.items()}, "fused_gates")}
+    dev, dt, n = torch.device("cuda:0"), torch.float32, N_QUBITS
+    tb = FG.HOPPER_TILE_BITS[dt]
+    rng = np.random.RandomState(11)
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=dt, device=dev)
+    st /= st.norm()
+    x = torch.empty_like(st)
+
+    def norm(t):
+        return float((t.double() ** 2).sum())
+
+    for what, make in (("lane_u", lambda: FG.PreparedRun(
+            (("lane_u", FG.HashableMatrix(W)),), tb)), ("window [7, 12)",
+                                                       lambda: _window_pass(FG, tb))):
+        prep = make()
+        table, coeffs = prep.device_tables(dev, dt)
+        own = {}
+        if what == "lane_u":  # (d): the host splits U^T with lo rounded too
+            split = FG.tf32_split
+            FG.tf32_split = _rna_lo_split
+            try:
+                own["(d) lo rounded to TF32 (rna)"] = make().device_tables(dev, dt)[1]
+            finally:
+                FG.tf32_split = split
+        exact = FG.fused_run_plain(st.double(), prep, n=n, tile_bits=tb)
+        plain = FG.fused_run_plain(st, prep, n=n, tile_bits=tb)
+        e2 = norm(exact)
+        print(f"# drift32 {what}, {n}q f32: input sum |amp|^2 {norm(st):.9f}, exact product "
+              f"{e2:.9f}; plain version {norm(plain) - e2:+.4e} (max error "
+              f"{CS._rel_err(plain.double(), exact)[1]:.3e} of the largest)")
+        del plain
+
+        def run(name):
+            err = libs[name].quest_fused_run_f32(
+                x.data_ptr(), x.data_ptr(), n, n, 0, tb, table.data_ptr(),
+                int(table.shape[0]), own.get(name, coeffs).data_ptr(), 0, tb, 0, tb, 0, 0,
+                prep.staged, torch.cuda.current_stream().cuda_stream, 1)
+            if err:
+                raise RuntimeError(f"launch failed ({err})")
+
+        for name in libs:
+            x.copy_(st)
+            run(name)
+            torch.cuda.synchronize()
+            d2 = norm(x) - e2
+            rel = CS._rel_err(x.double(), exact)[1]
+            CS._require(rel <= 1e-5, f"drift32 {what} {name}: {rel} of the largest")
+            ms = CS._cuda_ms(lambda: run(name), REPS)
+            print(f"# drift32 {what}, {name}: sum |amp|^2 less the exact product's "
+                  f"{d2:+.4e} (relative {d2 / e2:+.4e}), max error {rel:.3e} of the largest, "
+                  f"{ms:.4f} ms")
+        del exact
+        torch.cuda.empty_cache()
+
+
+def _drift_runs(tmp: str) -> None:
+    """Phase 15's drift check (``chip_smoke._f32_drift``, no limit) through
+    each accumulation walk of ``_drift_variants`` and this checkout's: the
+    26q depth-8 f32 plan run DRIFT_RUNS times from |0> through a build of
+    the kernel with that walk, beside the plain version, then the plan's ms
+    a run (``# driftrun`` lines)."""
+    import torch
+
+    import chip_smoke as CS
+    import quest_tpu_torch as qt
+    from quest_tpu_torch import _build
+
+    csrc = _build._PKG / _build.CSRC
+    variants = _drift_variants((csrc / "mma.cuh").read_text(),
+                               (csrc / "fused_gates.cu").read_text())
+    libs = {"kernel": _build.library("fused_gates"),
+            **_build_dirs(tmp, {k: {"mma.cuh": h, "fused_gates.cu": c}
+                                for k, (h, c) in variants.items()}, "fused_gates")}
+    dev = torch.device("cuda:0")
+    try:
+        for name, lib in libs.items():
+            _build._loaded["fused_gates"] = lib
+            circ = qt.Circuit(CS.N_MAIN)  # a plan and graphs of its own
+            qt.random_layers(circ, CS.N_MAIN, CS.DEPTH_MAIN)
+            fz = circ.fused(max_qubits=5, pallas=True, dtype=torch.float32)
+            d = CS._f32_drift(qt, dev, fz, limit=None)
+            q = qt.createQureg(CS.N_MAIN, qt.createQuESTEnv(device=dev), 1)
+            CS._warm_run(fz, q)
+            ms = CS._cuda_ms(lambda: fz.run(q), REPS)
+            print(f"# driftrun {name}: after {d['runs']} runs |1 - calcTotalProb| kernel "
+                  f"{d['kernel'][-1]:.4e}, plain {d['plain'][-1]:.4e}, kernel / plain "
+                  f"{d['ratio']:.3f}; the plan {ms:.4f} ms a run")
+            qt.destroyQureg(q)
+            del fz
+            torch.cuda.empty_cache()
+    finally:
+        _build._loaded["fused_gates"] = libs["kernel"]
+
+
+def _window_dot32(tmp: str, parent: str | None) -> None:
+    """``window_dot`` in f32 on the window [7, 11] of a 26-qubit state
+    through this checkout's kernel and, with ``--parent``, the parent's
+    (kernel, parent, parent, kernel; ``# window_dot32`` lines), the two
+    held against the plain version."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from quest_tpu_torch import _build
+    from quest_tpu_torch.ops import window_dot as WD
+
+    srcs = {}
+    for name, root in (("kernel", _build._PKG / _build.CSRC),
+                       *((("parent", Path(parent).resolve() / "quest_tpu_torch" / "csrc"),)
+                         if parent else ())):
+        srcs[name] = {f: (root / f).read_text() for f in ("window_dot.cu", "mma.cuh")}
+    libs = _build_dirs(tmp, srcs, "window_dot")
+    dev, n, lo, hi = torch.device("cuda:0"), N_QUBITS, 7, 11
+    rng = np.random.RandomState(13)
+    q, r = np.linalg.qr(rng.randn(32, 32) + 1j * rng.randn(32, 32))
+    u = q * (np.diag(r) / np.abs(np.diag(r)))
+    m = torch.as_tensor(np.stack([u.real, u.imag]), dtype=torch.float32, device=dev)
+    st = torch.as_tensor(rng.randn(2, 1 << n), dtype=torch.float32, device=dev)
+    st /= st.norm()
+    ref = WD.window_dot_plain(st, m, n=n, lo=lo, hi=hi)
+    x = st.clone()
+
+    def run(name):
+        err = libs[name].quest_window_dot_f32(x.data_ptr(), m.data_ptr(), n, lo, hi - lo + 1,
+                                              0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"window_dot launch failed ({err})")
+
+    for name in libs:
+        x.copy_(st)
+        run(name)
+        torch.cuda.synchronize()
+        rel = CS._rel_err(x, ref)[1]
+        CS._require(rel <= 1e-5, f"window_dot32 {name} against plain: {rel}")
+        print(f"# window_dot32 {name} against plain: {rel:.3e} of the largest")
+    for name in ["kernel", *(["parent", "parent"] if parent else []), "kernel"]:
+        print(f"# window_dot32 [7, 11], {n}q f32, {name}: "
+              f"{CS._cuda_ms(lambda: run(name), REPS):.4f} ms")
+
+
 def _variant_sources(src: str) -> dict:
     """{variant: (the pass it is timed on, its source)}."""
     out = {}
@@ -1211,11 +1564,15 @@ def _path_passes(dt, libs: dict, tol: float) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout whose f64 passes to time beside")
+    ap.add_argument("--no-variants", action="store_true",
+                    help="time only this checkout's kernel (and the parent's), no variant "
+                         "builds")
     ap.add_argument("--passes",
                     default="f32,f64,krausn,krausn32,window64,window32,diag32,diag64,"
                             "sweep32,sweep64",
                     help="which passes to time: f32, f64 (lane_u), krausn (f64), krausn32, "
-                         "window64, window32, diag32, diag64, sweep32, sweep64 (default: all)")
+                         "window64, window32, diag32, diag64, sweep32, sweep64 (default), "
+                         "and drift32, driftrun, windowdot32 (only when named)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -1230,7 +1587,8 @@ def main() -> int:
     passes = args.passes.split(",")
     csrc = _build._PKG / _build.CSRC
     variants = _variant_sources((csrc / "fused_gates.cu").read_text())
-    sources = {name: (text, csrc) for name, (pn, text) in variants.items() if pn in passes}
+    sources = {name: (text, csrc) for name, (pn, text) in variants.items()
+               if pn in passes and not args.no_variants}
     if args.parent:
         pc = Path(args.parent).resolve() / "quest_tpu_torch" / "csrc"
         sources["parent"] = ((pc / "fused_gates.cu").read_text(), pc)
@@ -1258,6 +1616,12 @@ def main() -> int:
         q, r = np.linalg.qr(rng.randn(128, 128) + 1j * rng.randn(128, 128))
         u = q * (np.diag(r) / np.abs(np.diag(r)))
         W = np.stack([u.real.T, u.imag.T, u.real.T + u.imag.T])
+        if "drift32" in passes:
+            _drift32(tmp, W)
+        if "driftrun" in passes:
+            _drift_runs(tmp)
+        if "windowdot32" in passes:
+            _window_dot32(tmp, args.parent)
         for pn, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12),
                             ("krausn", torch.float64, 1e-12), ("krausn32", torch.float32, 1e-5),
                             ("window64", torch.float64, 1e-12), ("window32", torch.float32, 1e-5),

@@ -274,7 +274,8 @@ no result, without them. Phases, in order:
    split into read, CRC32 and host to card, the segmented run's ms against
    ``Circuit.run``'s; the f32 drift check (the plan run 8 times through the
    kernel and through the plain version of its passes, |1 - calcTotalProb|
-   after each, and each pass's change of the norm in one run); 22q f64
+   after each, and each pass's change of the norm in one run; the kernel's
+   drift after 8 runs must stay within twice the plain version's); 22q f64
    under ``sentinel_policy("default")`` and ``state.corrupt:bitflip0:1``,
    healed by one replayed rollback bit for bit, then the newest
    generation's payload flipped: ``verify_snapshot`` raises
@@ -282,8 +283,24 @@ no result, without them. Phases, in order:
    and ends bit for bit; 22q f32 over N_SHARDS virtual shards: 4 shard
    files, loaded on one device and on the shards equal to the source, the
    resume equal to the uninterrupted run; a 10-qubit density register, f32
-   and f64, saved and loaded bit for bit with its trace; then the script's
-   time.
+   and f64, saved and loaded bit for bit with its trace.
+16. Sharded density (``_sharded_density_phase``, ``# sharded density``
+   lines): the bench's 14q density circuits r3 and r4 on a register over
+   N_SHARDS virtual shards of cuda:0, f32 then f64 (28 flattened qubits,
+   26 local): the plan of ``Circuit.fused(max_qubits=4, pallas=True,
+   shard_devices=N_SHARDS)``; each run's pass and each barrier channel's
+   kraus1 pass on each shard through the kernel against the plain version
+   with the shard's index; the run with the counts reset just before it
+   (launches = (runs + barrier channels) x shards, zero fallbacks, the
+   barrier channels on the kernel route, collective permutes = the
+   collective transposes + two a barrier whose column qubit is sharded);
+   the gathered state against the one-device run of phase 5's plan
+   (1e-5 / 1e-12 of the largest amplitude) and the trace (1e-4 / 1e-10 of
+   1); channel-ops/sec; each collective permute beside its bytes bound;
+   the r4 state's readouts (trace, purity, outcome probabilities,
+   fidelity, a Pauli product, inner product and distance against the
+   one-device state, a density amplitude, a diagonal operator's
+   expectation) against complex128 evaluations; then the script's time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
 records and the register sweeps they take (the 2x2 arm's, at the
@@ -327,7 +344,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 67e12
 #: dense TF32 on the tensor cores, and the rate of an f32 product done as
 #: 3xTF32 (three TF32 passes): window_dot's f32 route for spans >= 3 and
-#: the fused-run kernel's f32 lane_u fold
+#: the fused-run kernel's f32 lane_u, krausn and window folds
 PEAK_TF32_FLOPS = 494.7e12
 TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 #: lane_u passes of the lane_u phase at N_MAIN qubits, f32: a Haar 128x128
@@ -4951,10 +4968,12 @@ def _ckpt_main(qt, dev, fz, root: str) -> dict:
     return row
 
 
-def _f32_drift(qt, dev, fz) -> dict:
+def _f32_drift(qt, dev, fz, limit: float | None = 2.0) -> dict:
     """Phase 15, the f32 drift check: the 26q plan run DRIFT_RUNS times in a
     row through the kernel (``Circuit.run``) and through the plain version of
-    the same passes, from |0>, |1 - calcTotalProb| after each run."""
+    the same passes, from |0>, |1 - calcTotalProb| after each run; fails if
+    the kernel drifts more than ``limit`` times the plain version's way
+    (None: only reads it)."""
     import torch
 
     from quest_tpu_torch import fusion
@@ -5008,6 +5027,12 @@ def _f32_drift(qt, dev, fz) -> dict:
           f"{[f'{v:.3e}' for v in ref]}; after {DRIFT_RUNS} runs kernel / plain "
           f"{ratio:.3f} ({'more' if ratio > 2 else 'not more'} than twice), max |kernel - "
           f"plain| {diff:.3e}")
+    # the 3xTF32 folds' truncating accumulation once lost ~1e-5 of norm a
+    # run (csrc/mma.cuh): the kernel may drift at most twice the plain
+    # version's way
+    _require(limit is None or ratio <= limit,
+             f"f32 drift after {DRIFT_RUNS} runs: kernel / plain {ratio:.3f} "
+             f"(kernel {kern[-1]:.3e}, plain {ref[-1]:.3e}), more than {limit}")
     qt.destroyQureg(q)
     del plain
     torch.cuda.empty_cache()
@@ -5208,6 +5233,339 @@ def _checkpoint_segments_phase(qt, dev, plans: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"# checkpoint and segments phase: {out['phase_s']:.1f} s")
     return out
+
+
+def _shard_kraus1(name: str, args, nl: int, tb: int):
+    """(op, fused_run keywords, column qubit sharded) of a barrier channel's
+    kraus1 pass on one shard of the sharded density register, as
+    ``ops.density.apply_channel_shards`` places it: its column qubit t + n,
+    when sharded, moved into the top local slot (the next one down where
+    the row qubit holds it) by a collective permute before the pass."""
+    from quest_tpu_torch.ops import density as DN
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    rows, ks = _channel_kraus(name, args)
+    t, c = rows[0], rows[0] + N_DENSITY
+    sharded = c >= nl
+    if sharded:
+        c = DN.column_slot(nl, t)
+    op, swaps = DN.kraus1_pass(N_DENSITY, t, tb, tuple((1.0, FG.HashableMatrix(k)) for k in ks),
+                               col=c)
+    return op, dict(tile_bits=tb, **swaps), sharded
+
+
+def _sharded_density_path(qt, dev, rng, dt, with_krausn: bool, one_plan) -> dict:
+    """Phase 16, one configuration: the bench's 14q density circuit (r3 or
+    r4) on a register sharded over N_SHARDS virtual shards of ``dev`` in
+    ``dt``: the plan of ``Circuit.fused(max_qubits=4, pallas=True,
+    shard_devices=N_SHARDS)``; each run's pass and each barrier channel's
+    kraus1 pass on each shard through the kernel against the plain version
+    (with the shard's index); the run with the counts reset just before it
+    (launches = (runs + barrier channels) x shards, zero fallbacks, the
+    barriers on the kernel route, ``grouped_permute`` = the collective
+    transposes + two a barrier whose column qubit is sharded); the gathered
+    state against the one-device run of phase 5's plan ``one_plan`` and the
+    trace; channel-ops/sec; each collective permute beside its bound."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import density as DN
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.parallel import exchange as X
+
+    f32 = dt == torch.float32
+    prec, tol_kernel, tol, tol_trace = (1, 1e-5, 1e-5, 1e-4) if f32 else (2, 1e-12, 1e-12, 1e-10)
+    tag = "r4" if with_krausn else "r3"
+    label = f"sharded density {tag} {str(dt)[6:]}"
+    nsv = 2 * N_DENSITY
+    nl = nsv - (N_SHARDS - 1).bit_length()
+    steps, t_step = {}, time.perf_counter()
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = now - t_step
+        t_step = now
+
+    itemsize = torch.finfo(dt).bits // 8
+    env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    circ = qt.density_circuit(N_DENSITY, with_krausn)
+    t0 = time.perf_counter()
+    fz = circ.fused(max_qubits=4, pallas=True, dtype=dt, shard_devices=N_SHARDS)
+    plan_s = time.perf_counter() - t0
+    runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+    barriers = [(f.__name__, a) for f, a, _ in fz._tape
+                if f not in (fusion._apply_pallas_run, fusion._apply_frame_swap)]
+    ts = fusion.tape_transpose_stats(fz._tape, nl)
+    btb = FG.hopper_tile_bits(nl, dt)
+    kraus_passes = [(name, a, *_shard_kraus1(name, a, nl, btb)) for name, a in barriers]
+    print(f"# {label}: {N_DENSITY}q density ({nsv} flattened qubits) over {N_SHARDS} shards "
+          f"of {dev} (local_n {nl}), {len(circ)} entries -> {len(runs)} fused runs at "
+          f"tile_bits {runs[0].tile_bits}, {len(fz._tape) - len(runs) - len(barriers)} frame "
+          f"swaps, barrier channels {[f'{n}{a}' for n, a in barriers]} (column qubit sharded: "
+          f"{[k[4] for k in kraus_passes]}); transposes {ts['collective_transposes']} "
+          f"collective, {ts['local_transposes']} local; planned in {plan_s:.2f} s")
+    _require(runs and all(k[4] is not None for k in kraus_passes), f"{label}: plan")
+
+    # each pass on each shard: kernel against plain (the shard's index),
+    # timed, on a random state drawn on the card (2^28 host draws took ~15 s)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.randint(2 ** 31)))
+    st = [torch.randn((2, 1 << nl), generator=gen, dtype=dt, device=dev)
+          for _ in range(N_SHARDS)]
+    norm = sum(float((x * x).sum()) for x in st) ** 0.5
+    for x in st:
+        x /= norm
+    out = torch.empty_like(st[0])
+    res = {"ms": [], "plain_ms": [], "bound_ms": [], "by_ops": [], "max_abs_err": 0.0,
+           "max_rel_err": 0.0, "kinds": set()}
+    items = []
+    for run in runs:
+        kw = dict(tile_bits=run.tile_bits, **_swaps(run.load_swap_k, run.load_swap_hi,
+                                                      run.store_swap_k, run.store_swap_hi))
+        for k, h in (("load_swap_k", "load_swap_hi"), ("store_swap_k", "store_swap_hi")):
+            hi = run.tile_bits if kw[h] is None else kw[h]
+            if kw[k] and hi + kw[k] > nl:  # a collective, not in the pass
+                kw[k], kw[h] = 0, None
+        items.append((run.prepare(), dict(n=nsv, local_n=nl, **kw), True))
+    for _name, _a, op, kw, _sh in kraus_passes:
+        items.append((FG.PreparedRun((op,), btb), dict(n=nl, **kw), False))
+    for i, (prep, kw, roles) in enumerate(items):
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, nl, itemsize), f32)
+        for r, shard in enumerate(st):
+            extra = dict(shard_index=r) if roles else {}
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ref = FG.fused_run_plain(shard, prep, **kw, **extra)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = _cuda_ms(lambda: FG.fused_run(shard, ops=prep.ops, out=out, prepared=prep,
+                                               **kw, **extra), 3)
+            err, rel = _rel_err(out, ref)
+            del ref
+            _require(rel <= tol_kernel, f"{label} pass {i} shard {r}: error {err} ({rel} "
+                                        f"relative) > {tol_kernel}")
+            res["ms"].append(ms)
+            res["plain_ms"].append(e0.elapsed_time(e1))
+            res["bound_ms"].append(max(b_bytes, b_ops))
+            res["by_ops"].append(b_ops > b_bytes)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel)
+        res["kinds"].update(o[0] for o in prep.ops)
+    print(f"# {label} passes: {len(runs)} runs + {len(kraus_passes)} barrier kraus1 passes "
+          f"x {N_SHARDS} shards, kinds {sorted(res['kinds'])}: per shard pass "
+          f"{sum(res['ms']) / len(res['ms']):.4f} ms mean, bound "
+          f"{sum(res['bound_ms']) / len(res['ms']):.4f} ms mean, plain "
+          f"{sum(res['plain_ms']) / len(res['ms']):.2f} ms mean; max_abs_err "
+          f"{res['max_abs_err']:.3e} ({res['max_rel_err']:.3e} of the largest, limit "
+          f"{tol_kernel:g})")
+    del st, out
+    torch.cuda.empty_cache()
+    step("passes")
+
+    # the circuit on the sharded register, counts reset just before it
+    q = qt.createDensityQureg(N_DENSITY, env, prec)
+    qt.initPlusState(q)
+    telemetry.reset()
+    FG.fused_run.launches = 0
+    fz.run(q)
+    torch.cuda.synchronize()
+    launches = FG.fused_run.launches
+    passes = telemetry.counter_value("pallas_pass_total", kind="fused_run")
+    fallbacks = telemetry.counter_total("engine_fallback_total")
+    grouped = telemetry.counter_value("exchange_calls_total", kind="grouped_permute")
+    routes = {r: telemetry.counter_value("channel_route_total", route=r)
+              for r in ("superop", "kernel", "engine")}
+    relocated = sum(1 for k in kraus_passes if k[4])
+    want = (len(runs) + len(barriers)) * N_SHARDS
+    print(f"# {label} run: launches {launches} ((runs {len(runs)} + barrier channels "
+          f"{len(barriers)}) x {N_SHARDS} shards), pallas_pass_total{{fused_run}} {passes:g}, "
+          f"engine_fallback_total {fallbacks:g}, channel routes {routes}, "
+          f"exchange_calls_total{{grouped_permute}} {grouped:g} (collective transposes "
+          f"{ts['collective_transposes']} + 2 x {relocated} relocated column qubits)")
+    _require(launches == want == passes, f"{label}: launches {launches} != {want}")
+    _require(fallbacks == 0, f"{label}: engine fallback")
+    _require(routes["kernel"] == len(barriers) and routes["engine"] == routes["superop"] == 0,
+             f"{label}: barrier routes {routes}")
+    _require(grouped == ts["collective_transposes"] + 2 * relocated,
+             f"{label}: collective permutes {grouped}")
+    res.update(launches=launches, runs=len(runs), barrier_channels=len(barriers),
+               collective_transposes=ts["collective_transposes"],
+               relocated_channels=relocated)
+
+    # the gathered state against phase 5's plan run on one device
+    one = qt.createQuESTEnv(device=dev)
+    ref = qt.createDensityQureg(N_DENSITY, one, prec)
+    qt.initPlusState(ref)
+    one_plan.run(ref)
+    torch.cuda.synchronize()
+    gathered = torch.cat(q.shards, dim=1)
+    diff, rel = _rel_err(gathered, ref.amps)
+    del gathered
+    trace, trace_ref = qt.calcTotalProb(q), qt.calcTotalProb(ref)
+    print(f"# {label} check: max |sharded - one-device run of phase 5's plan| {diff:.3e} "
+          f"({rel:.3e} of the largest, limit {tol:g}); calcTotalProb {trace:.12f} (one "
+          f"device {trace_ref:.12f}, limit {tol_trace:g} from 1)")
+    _require(rel <= tol, f"{label}: gathered state {diff} ({rel} relative)")
+    _require(abs(trace - 1) <= tol_trace, f"{label}: trace {trace}")
+    res.update(max_abs_diff_vs_one_device=diff, trace=trace)
+    step("run and check")
+
+    # channel-ops/sec, and each collective permute beside its bound
+    reps = 3
+    _warm_run(fz, q)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fz.run(q)
+    torch.cuda.synchronize()
+    circuit_s = (time.perf_counter() - t0) / reps
+    _require(abs(qt.calcTotalProb(q) - 1) <= tol_trace, f"{label}: trace after reps")
+    spare = q.shard_spare_buffers()
+    bound_perm = 2.0 * 2 * (1 << nsv) * itemsize / HBM_BYTES_PER_S * 1e3
+    blocks = sorted({(r.tile_bits - k, r.tile_bits if h is None else h, k)
+                     for r in runs for k, h in ((r.load_swap_k, r.load_swap_hi),
+                                                (r.store_swap_k, r.store_swap_hi))
+                     if k and (r.tile_bits if h is None else h) + k > nl})
+    for name, a, op, kw, sh in kraus_passes:
+        if sh:
+            t = _channel_kraus(name, a)[0][0]
+            blocks.append((DN.column_slot(nl, t), t + N_DENSITY, 1))
+    perm = []
+    for lo, hi, k in sorted(set(blocks)):
+        source = list(range(nsv))
+        for j in range(k):
+            source[lo + j], source[hi + j] = hi + j, lo + j
+        ms = _cuda_ms(lambda: X.dist_permute_bits(q.shards, n=nsv, source=source, out=spare), 3)
+        perm.append({"block": [lo, hi, k], "ms": ms, "bound_ms": bound_perm})
+    copy_ms = _cuda_ms(lambda: spare[0].copy_(q.shards[0]), 10)
+    res.update(channel_ops_per_sec=len(circ) / circuit_s, circuit_ms=circuit_s * 1e3,
+               permutes=perm, copy_ms=copy_ms)
+    print(f"# {label} channel-ops/sec: {len(circ) / circuit_s:.2f} ({len(circ)} entries, "
+          f"{circuit_s * 1e3:.3f} ms per circuit; per-shard passes "
+          f"{sum(res['ms']):.3f} ms); collective permutes "
+          f"{json.dumps([{'block': r['block'], 'ms': round(r['ms'], 4)} for r in perm])} each "
+          f"against a bound of {bound_perm:.4f} ms (2 x state bytes / 3.35 TB/s); one "
+          f"shard's copy_ {copy_ms:.4f} ms")
+    step("timing")
+    print(f"# {label}: {sum(steps.values()):.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in steps.items()) + ")")
+    q.shard_spares = None
+    res.update(qureg=q, ref=ref, seconds=steps)
+    return res
+
+
+def _sharded_density_readouts(qt, dev, q, ref, dt) -> list:
+    """Phase 16's readouts of the sharded r4 state ``q`` (``ref``: the same
+    state on one device), each against an evaluation from its definition
+    in complex128 of the gathered state (limits 1e-4 f32 / 1e-10 f64), each
+    call timed on the card's clock."""
+    import numpy as np
+    import torch
+
+    lim = 1e-4 if dt == torch.float32 else 1e-10
+    prec = 1 if dt == torch.float32 else 2
+    nd, dim = N_DENSITY, 1 << N_DENSITY
+    a = _c128(q.shards)
+    kd = torch.arange(dim, device=dev)
+    diag = a[kd * dim + kd]
+    pure = qt.createQureg(nd, q.env, prec)
+    prng = np.random.RandomState(71)
+    v = prng.randn(dim) + 1j * prng.randn(dim)
+    v /= np.linalg.norm(v)
+    qt.initStateFromAmps(pure, v.real, v.imag)
+    psi = _c128(pure.shards)
+    op = qt.createDiagonalOp(nd, q.env)
+    ph = np.linspace(0.0, 3.0, dim)
+    qt.initDiagonalOp(op, np.cos(ph), np.sin(ph))
+    dop = _c128(op.pieces).to(dev)  # as the op holds them (the global precision's dtype)
+    b = _c128([ref.amps])
+    work = qt.createDensityQureg(nd, q.env, prec)
+    cases = [
+        ("calcTotalProb", lambda: qt.calcTotalProb(q), float(diag.real.sum())),
+        ("calcPurity", lambda: qt.calcPurity(q), float(a.abs().square().sum())),
+        ("calcProbOfOutcome", lambda: qt.calcProbOfOutcome(q, nd - 1, 1),
+         float(diag.real[(kd >> (nd - 1)) & 1 == 1].sum())),
+        ("calcProbOfAllOutcomes", lambda: qt.calcProbOfAllOutcomes(q, READ_TARGETS_DENSITY),
+         _outcomes_ref(diag.real, kd, READ_TARGETS_DENSITY).cpu().numpy()),
+        ("calcFidelity", lambda: qt.calcFidelity(q, pure),
+         float((psi.conj() * (a.view(dim, dim).T @ psi)).sum().real)),
+        ("calcExpecPauliProd", lambda: qt.calcExpecPauliProd(q, *READ_PROD_DENSITY, work),
+         _pauli_trace_ref(a, dim, kd, *READ_PROD_DENSITY)),
+        ("calcDensityInnerProduct", lambda: qt.calcDensityInnerProduct(q, ref),
+         float((a.conj() * b).sum().real)),
+        ("calcHilbertSchmidtDistance", lambda: qt.calcHilbertSchmidtDistance(q, ref),
+         float((a - b).abs().square().sum().sqrt())),
+        ("getDensityAmp", lambda: qt.getDensityAmp(q, 5, dim - 3),
+         complex(a[(dim - 3) * dim + 5].item())),
+        ("calcExpecDiagonalOp", lambda: qt.calcExpecDiagonalOp(q, op),
+         complex((diag * dop).sum().item())),
+    ]
+    del b
+    rows = []
+    for fn, call, want in cases:
+        got = call()
+        torch.cuda.synchronize()
+        err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+        _require(err <= lim, f"sharded density readout {fn} {dt}: {got} against {want}, "
+                             f"error {err} > {lim}")
+        ms = _clock_ms(call, 3)
+        rows.append({"function": fn, "error": err, "ms": ms})
+        print(f"# sharded density readout {fn} {str(dt)[6:]}: error {err:.3e} (limit "
+              f"{lim:g}) against the complex128 evaluation, {ms:.4f} ms")
+    for x in (pure, work):
+        qt.destroyQureg(x)
+    del a, diag, psi
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sharded_density_phase(qt, dev, plans: dict) -> dict:
+    """Phase 16: the bench's 14q density circuits r3 and r4 over N_SHARDS
+    virtual shards of ``dev``, f32 then f64 (``_sharded_density_path``, held
+    against phase 5's one-device plans ``plans[(dt, tag)]``), and the r4
+    state's readouts (``_sharded_density_readouts``)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(83)
+    out = {}
+    for ddt in (torch.float32, torch.float64):
+        for tag, with_krausn in (("r3", False), ("r4", True)):
+            r = _sharded_density_path(qt, dev, rng, ddt, with_krausn, plans[(ddt, tag)])
+            q, ref = r.pop("qureg"), r.pop("ref")
+            if tag == "r4":
+                r["readouts"] = _sharded_density_readouts(qt, dev, q, ref, ddt)
+            qt.destroyQureg(q)
+            qt.destroyQureg(ref)
+            out[(ddt, tag)] = r
+            _release()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# sharded density phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _sharded_density_entries(entries: list, phase: dict) -> None:
+    """Phase 16's paths in the per-shard kernel's ``kernels`` entries, each
+    driven with the counts reset just before it."""
+    import torch
+
+    for e, ddt in ((entries[4], torch.float32), (entries[5], torch.float64)):
+        for tag in ("r3", "r4"):
+            r = phase[(ddt, tag)]
+            n = len(r["ms"])
+            e.setdefault("sharded_density_paths", {})[f"density_{N_DENSITY}q_{tag}"] = {
+                "launches": r["launches"], "runs": r["runs"],
+                "barrier_channels": r["barrier_channels"], "shards": N_SHARDS,
+                "ms": sum(r["ms"]) / n, "bound_ms": sum(r["bound_ms"]) / n,
+                "plain_ms": sum(r["plain_ms"]) / n, "max_abs_err": r["max_abs_err"],
+                "channel_ops_per_sec": r["channel_ops_per_sec"],
+                "circuit_ms": r["circuit_ms"], "collective_permutes": r["permutes"],
+                "copy_one_shard_ms": r["copy_ms"],
+                "max_abs_diff_vs_one_device": r["max_abs_diff_vs_one_device"],
+                "readouts": r.get("readouts")}
+            e["launches"] += r["launches"]
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
 
 
 def _checkpoint_entries(entries: list, phase: dict) -> None:
@@ -5659,6 +6017,11 @@ def main() -> int:
     # -- checkpoint and segments phase: snapshots, preemption and resume ---
     ckpt = _checkpoint_segments_phase(qt, dev, plans)
 
+    # -- sharded density phase: the density circuits over 4 shards --------
+    sharded_density = _sharded_density_phase(
+        qt, dev, {(ddt, tag): density[(ddt, tag)]["plan"]
+                  for ddt in (torch.float32, torch.float64) for tag in ("r3", "r4")})
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -5794,6 +6157,7 @@ def main() -> int:
     _sampling_gradients_entries(entries[:2], samp_grad)
     _trajectories_pool_entries(entries[:2], traj_pool)
     _checkpoint_entries(entries, ckpt)
+    _sharded_density_entries(entries, sharded_density)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -5804,7 +6168,8 @@ def main() -> int:
           f"serving phase {serving['phase_s']:.1f} s, sampling and gradients phase "
           f"{samp_grad['phase_s']:.1f} s, trajectories and pool phase "
           f"{traj_pool['phase_s']:.1f} s, checkpoint and segments phase "
-          f"{ckpt['phase_s']:.1f} s)")
+          f"{ckpt['phase_s']:.1f} s, sharded density phase "
+          f"{sharded_density['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@ ops.reduce and ops.measure), sharded state vectors included.
 Where two registers take part and one is sharded while the other lies on
 one device, the second is re-cut into the first's layout by
 device-to-device copies (``state_init._in_layout``) before the reduction,
-as the JAX package's arrays meet whatever their shardings.
+as the JAX package's arrays meet whatever their shardings. A sharded
+density matrix reduces per shard where the one-device reduction runs over
+all amplitudes (purity, inner products, distances); its trace, outcome
+probabilities and diagonal expectation values read its diagonal, gathered
+onto the first shard's device (``ops.reduce.density_diagonal_shards``)
+and then summed in the one-device order.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from .datatypes import PauliHamil
 from .ops import apply as K, cplx, diagonal as D, measure as M, reduce as R
 from .parallel.scheduler import engine as _engine
 from .registers import Qureg
-from .state_init import _in_layout, _pieces
+from .state_init import _in_layout, _pieces, _whole
 
 __all__ = [
     "calcTotalProb", "calcProbOfOutcome", "calcProbOfAllOutcomes",
@@ -47,12 +52,19 @@ def _inner(bra: list, ket: list):
     return R.inner_product_shards(bra, ket)
 
 
+def _trace(pieces: list, n: int) -> torch.Tensor:
+    """Re tr(rho) of an n-qubit density matrix given as its pieces."""
+    if len(pieces) == 1:
+        return R.total_prob_density(pieces[0], n=n)
+    return R.total_prob_density_shards(pieces, n=n)
+
+
 def calcTotalProb(qureg: Qureg) -> float:
     """sum |amp|^2 (state-vector) or Re tr(rho) (density) (QuEST.h:2516)."""
+    if qureg.is_density_matrix:
+        return float(_trace(_pieces(qureg), qureg.num_qubits_represented))
     if qureg.shards is not None:
         return float(R.total_prob_shards(qureg.shards))
-    if qureg.is_density_matrix:
-        return float(R.total_prob_density(qureg.amps, n=qureg.num_qubits_represented))
     return float(R.total_prob_statevec(qureg.amps))
 
 
@@ -61,6 +73,11 @@ def calcProbOfOutcome(qureg: Qureg, target: int, outcome: int) -> float:
     func = "calcProbOfOutcome"
     V.validate_target(qureg, target, func)
     V.validate_outcome(outcome, func)
+    if qureg.shards is not None and qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        return float(M.density_prob_of_outcome(
+            None, n=n, target=target, outcome=outcome,
+            diag=R.density_diagonal_shards(qureg.shards, n=n)[0]))
     if qureg.shards is not None:
         return float(R.prob_of_outcome_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
                                               target=target, outcome=outcome))
@@ -77,7 +94,11 @@ def calcProbOfAllOutcomes(qureg: Qureg, targets) -> np.ndarray:
     func = "calcProbOfAllOutcomes"
     V.validate_multi_targets(qureg, targets, func)
     targets = tuple(int(t) for t in targets)
-    if qureg.shards is not None:
+    if qureg.shards is not None and qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        p = M.density_prob_of_all_outcomes(
+            None, n=n, targets=targets, diag=R.density_diagonal_shards(qureg.shards, n=n)[0])
+    elif qureg.shards is not None:
         p = M.prob_of_all_outcomes_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
                                           targets=targets)
     elif qureg.is_density_matrix:
@@ -105,12 +126,17 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
     V.validate_density_matr(rho1, func)
     V.validate_density_matr(rho2, func)
     V.validate_matching_qureg_dims(rho1, rho2, func)
-    return float(R.density_inner_product(rho1.amps, _pieces_like(rho1, rho2)[0]))
+    a, b = _pieces(rho1), _pieces_like(rho1, rho2)
+    if len(a) == 1:
+        return float(R.density_inner_product(a[0], b[0]))
+    return float(R.density_inner_product_shards(a, b))
 
 
 def calcPurity(qureg: Qureg) -> float:
     """Tr(rho^2) (QuEST.h:4247)."""
     V.validate_density_matr(qureg, "calcPurity")
+    if qureg.shards is not None:
+        return float(R.total_prob_shards(qureg.shards))
     return float(R.purity_density(qureg.amps))
 
 
@@ -119,10 +145,13 @@ def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
     func = "calcFidelity"
     V.validate_second_qureg_state_vec(pure_state, func)
     V.validate_matching_qureg_dims(qureg, pure_state, func)
-    pure = _pieces_like(qureg, pure_state)
     if qureg.is_density_matrix:
-        return float(R.density_fidelity(qureg.amps, pure[0],
-                                        n=qureg.num_qubits_represented))
+        n = qureg.num_qubits_represented
+        whole = _whole(pure_state, qureg.device, qureg.dtype)
+        if qureg.shards is not None:
+            return float(R.density_fidelity_shards(qureg.shards, whole, n=n))
+        return float(R.density_fidelity(qureg.amps, whole, n=n))
+    pure = _pieces_like(qureg, pure_state)
     re, im = _inner(_pieces(qureg), pure)
     return float(re) ** 2 + float(im) ** 2
 
@@ -133,7 +162,10 @@ def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
     V.validate_density_matr(a, func)
     V.validate_density_matr(b, func)
     V.validate_matching_qureg_dims(a, b, func)
-    return float(R.hilbert_schmidt_distance(a.amps, _pieces_like(a, b)[0]))
+    x, y = _pieces(a), _pieces_like(a, b)
+    if len(x) == 1:
+        return float(R.hilbert_schmidt_distance(x[0], y[0]))
+    return float(R.hilbert_schmidt_distance_shards(x, y))
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +217,7 @@ def calcExpecPauliProd(qureg: Qureg, targets, paulis, workspace: Qureg) -> float
         workspace.put(work[0])
     if qureg.is_density_matrix:
         # Tr(P rho): the reference takes densmatr_calcTotalProb of P.rho
-        return float(R.total_prob_density(workspace.amps, n=qureg.num_qubits_represented))
+        return float(_trace(_pieces(workspace), qureg.num_qubits_represented))
     return float(_inner(_pieces(qureg), _pieces_like(qureg, workspace))[0])
 
 
@@ -203,7 +235,7 @@ def _expec_pauli_sum(pieces: list, coeffs, *, codes, n: int, density: bool,
     for t, term in enumerate(codes):
         work = _pauli_prod(pieces, range(len(term)), term, nsv=nsv, eng=eng)
         if density:
-            val = R.total_prob_density(work[0], n=n)
+            val = _trace(work, n)
         else:
             val = _inner(pieces, work)[0]
         total = total + coeffs[t] * val.to(total.device)
@@ -311,5 +343,10 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
     dim = 1 << qureg.num_qubits_represented
     V._assert(0 <= row < dim and 0 <= col < dim,
               "Invalid amplitude index. Note amplitudes are zero indexed.", func)
-    re, im = qureg.amps[:, col * dim + row].tolist()
+    index = col * dim + row
+    if qureg.shards is not None:  # index -> (shard, offset)
+        c = qureg.num_amps_total // len(qureg.shards)
+        re, im = qureg.shards[index // c][:, index % c].tolist()
+    else:
+        re, im = qureg.amps[:, index].tolist()
     return complex(re, im)

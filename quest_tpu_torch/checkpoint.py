@@ -324,10 +324,6 @@ def loadQureg(directory: str, env: QuESTEnv) -> Qureg:
         raise QuESTError(f"checkpoint metadata is inconsistent: dtype {meta['dtype']!r}, "
                          f"{n} qubits, density {density}, {num_amps} amplitudes")
     sharded = sharded_over(env, num_amps)
-    if density and sharded:
-        raise QuESTError("A density matrix cannot be sharded over several devices yet "
-                         "(a later slice of the port); load it on an env of one device.",
-                         "loadQureg")
     d = env.num_ranks if sharded else 1
     c = num_amps // d
     hosts = _load_ranges(directory, meta, [(r * c, (r + 1) * c) for r in range(d)])

@@ -32,6 +32,17 @@
 // as TF32, dropping its low 13 bits; a product is hi*hi + hi*lo + lo*hi,
 // summed in FP32: lo*lo and the bits dropped from lo, each about 2^-21 of
 // the product or less, are lost.
+//
+// The tensor core's FP32 accumulation truncates: mma.sync rounds c + a b
+// toward zero, not to nearest. Chained onto one running sum, every k step
+// shrinks the sum by up to a unit in its last place, always toward zero:
+// a one-signed loss of norm (3.1e-6 a one-op lane_u pass of 96 chained
+// products, 7.6e-7 a span-5 window pass; chip_lane_u_breakdown.py
+// drift32). So mma_3xtf32 never chains onto the caller's sum: each of the
+// three products goes into a zeroed fragment, whose truncation is a unit
+// of that product, not of the sum, and reaches the sum by an FP32 add,
+// which rounds to nearest (45x / 10x less loss a pass; the 26q f32 main
+// path drifts 1.75x its plain version after 8 runs, not 14.7x).
 
 #pragma once
 
@@ -179,11 +190,25 @@ __device__ __forceinline__ SplitB load_b_split(const float* p) {
   return SplitB{{v.x, v.y}, {v.z, v.w}};
 }
 
-// c += a b in 3xTF32: the small terms first, then hi*hi
+// c += a b in 3xTF32, each product into a zeroed fragment added to c (see
+// above): the small terms first, then hi*hi
 __device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a, const SplitB& b) {
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, a.lo, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[i] += d[i];
+    d[i] = 0.f;
+  }
+  mma_tf32(d, a.hi, b.lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[i] += d[i];
+    d[i] = 0.f;
+  }
+  mma_tf32(d, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
 }
 
 // cp.async: a 16-byte copy from global to shared memory that does not

@@ -5,15 +5,22 @@ Every channel is either a factor diagonal (dephasing) or one superoperator
 on qubits (T, T+n) of the flattened state, routed by
 ``ops.density.apply_channel``. The Kraus operators of the built-in channels
 come from the canonical table ``channels.py``. ``mixDensityMatrix`` is a
-weighted sum of two registers (``ops.init.weighted_sum``).
+weighted sum of two registers (``ops.init.weighted_sum``), the second
+re-cut into the first's layout where the two are cut differently. On a
+sharded register the channels run through its per-gate engine over shards
+(``ops.density.apply_channel_shards``); dephasing is a diagonal there too,
+with no communication.
 """
 
 from __future__ import annotations
 
 from . import validation as V
+from .ops import cplx
 from .ops import density as DN
 from .ops import init as I
+from .parallel.scheduler import engine as _engine
 from .registers import Qureg
+from .state_init import _in_layout, _pieces, _put_pieces
 
 __all__ = [
     "mixDephasing", "mixTwoQubitDephasing", "mixDepolarising", "mixDamping",
@@ -31,7 +38,17 @@ def _record(qureg, text):
 def _channel(qureg, superop, targets):
     """The channel on the register; the kernel route writes into its spare
     buffer, which then becomes the state, as a fused run with a folded swap
-    does (so a compiled replay leaves no state in its graph's pool)."""
+    does (so a compiled replay leaves no state in its graph's pool). A
+    sharded register: each shard's spare, where the kernel route runs."""
+    if qureg.shards is not None:
+        new, in_spares = DN.apply_channel_shards(
+            qureg.shards, superop, n=qureg.num_qubits_represented, targets=tuple(targets),
+            eng=_engine(qureg), spares=qureg.shard_spare_buffers())
+        if in_spares:
+            qureg.swap_shard_spares()
+        else:
+            qureg.put_shards(new)
+        return
     out = DN.apply_channel(qureg.amps, superop, n=qureg.num_qubits_represented,
                            targets=tuple(targets), out=qureg.spare_buffer())
     if out is qureg.spare:
@@ -46,8 +63,11 @@ def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
     V.validate_density_matr(qureg, func)
     V.validate_target(qureg, target, func)
     V.validate_one_qubit_dephase_prob(prob, func)
-    qureg.put(DN.apply_dephasing(qureg.amps, prob, n=qureg.num_qubits_represented,
-                                 target=target))
+    n = qureg.num_qubits_represented
+    if qureg.shards is not None:
+        _dephase_shards(qureg, DN.dephase_factors_1q(prob), (target, target + n))
+    else:
+        qureg.put(DN.apply_dephasing(qureg.amps, prob, n=n, target=target))
     _record(qureg, f"mixDephasing({prob:g}) on q[{target}]")
 
 
@@ -57,9 +77,20 @@ def mixTwoQubitDephasing(qureg: Qureg, q1: int, q2: int, prob: float) -> None:
     V.validate_density_matr(qureg, func)
     V.validate_unique_targets(qureg, q1, q2, func)
     V.validate_two_qubit_dephase_prob(prob, func)
-    qureg.put(DN.apply_two_qubit_dephasing(qureg.amps, prob,
-                                           n=qureg.num_qubits_represented, q1=q1, q2=q2))
+    n = qureg.num_qubits_represented
+    if qureg.shards is not None:
+        _dephase_shards(qureg, DN.dephase_factors_2q(prob), (q1, q2, q1 + n, q2 + n))
+    else:
+        qureg.put(DN.apply_two_qubit_dephasing(qureg.amps, prob, n=n, q1=q1, q2=q2))
     _record(qureg, f"mixTwoQubitDephasing({prob:g}) on q[{q1}],q[{q2}]")
+
+
+def _dephase_shards(qureg, factors, qubits) -> None:
+    """A dephasing diagonal on a sharded register: the engine over shards'
+    diagonal, the sharded qubits' bits read from the shard index."""
+    d = cplx.from_complex(factors, qureg.dtype, qureg.device)
+    qureg.put_shards(_engine(qureg).apply_diagonal(
+        qureg.shards, d, n=qureg.num_qubits_in_state_vec, targets=tuple(qubits)))
 
 
 def mixDepolarising(qureg: Qureg, target: int, prob: float) -> None:
@@ -109,9 +140,12 @@ def mixDensityMatrix(combine: Qureg, prob: float, other: Qureg) -> None:
     V.validate_density_matr(other, func)
     V.validate_matching_qureg_dims(combine, other, func)
     V.validate_probability(prob, 1.0, func)
-    combine.put(I.weighted_sum(1 - prob, combine.amps, prob,
-                               other.amps.to(combine.device, combine.dtype),
-                               0.0, combine.amps))
+    mine = _pieces(combine)
+    theirs = (_in_layout(other, mine, combine.dtype)
+              if combine.shards is not None or other.shards is not None
+              else [other.amps.to(combine.device, combine.dtype)])
+    _put_pieces(combine, [I.weighted_sum(1 - prob, a, prob, b, 0.0, a)
+                          for a, b in zip(mine, theirs)])
     _record(combine, f"mixDensityMatrix({prob:g})")
 
 

@@ -290,8 +290,10 @@ class Engine:
         #: True when batches replay in sequence over the sharded state
         self.sharded = sharded_over(env, self.num_amps)
         if self.sharded and circuit.is_density_matrix:
-            raise ValueError("a density register cannot be sharded over several "
-                             "devices yet; serve it on a one-device env")
+            from ..validation import QuESTError
+            raise QuESTError("An Engine cannot serve a density register sharded over "
+                             "several devices yet (serving over shards is a later slice "
+                             "of the port); serve it on a one-device env.", "Engine")
         self.device = env.device
 
         if isinstance(initial, str):

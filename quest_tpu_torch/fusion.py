@@ -1263,10 +1263,13 @@ def _apply_ops_via_engine(qureg, ops: tuple) -> None:
 
 
 def _apply_ops_via_shard_engine(qureg, ops: tuple) -> None:
-    """:func:`_apply_ops_via_engine` on a sharded state vector: each op
-    through the register's per-gate engine over shards
-    (``parallel.scheduler``)."""
+    """:func:`_apply_ops_via_engine` on a sharded register: each op through
+    the register's per-gate engine over shards (``parallel.scheduler``); a
+    kraus op as its Kraus sum, each term's K on the row qubits and conj(K)
+    on the column qubits through the engine's exchanges."""
     from .ops import cplx
+    from .ops.density import kraus_sum_shards
+    from .ops.fused_gates import _KRAUS, kraus_parts
     from .parallel.scheduler import engine
 
     eng, nsv = engine(qureg), qureg.num_qubits_in_state_vec
@@ -1287,6 +1290,10 @@ def _apply_ops_via_shard_engine(qureg, ops: tuple) -> None:
                                      n=nsv, targets=targets, controls=controls)
         elif op[0] == "swap" and not op[3]:
             new = eng.apply_swap(qureg.shards, n=nsv, qb1=op[1], qb2=op[2])
+        elif op[0] in _KRAUS:
+            rows, cols, terms = kraus_parts(op)
+            new = kraus_sum_shards(eng, qureg.shards, [(s, k.arr) for s, k in terms],
+                                   nsv=nsv, rows=rows, cols=cols)
         else:
             raise ValueError(f"no route over shards for op {op[0]!r}")
         qureg.put_shards(new)

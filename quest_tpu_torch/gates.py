@@ -10,8 +10,11 @@ The unitaries apply through four primitives
 ``ops.apply.apply_swap``: the points that ``fusion.capture`` patches to
 record a gate instead of applying it. On a sharded register the
 primitives (and ``swapGate``) route through the register's per-gate
-engine over shards (``parallel.scheduler``). Measurement draws from the
-env's host Mersenne Twister as the reference does, sharded or not.
+engine over shards (``parallel.scheduler``), a density register's shadow
+op too: its qubits q + n are the sharded zone, reached by pair exchanges
+and relocations, and sharded controls are shard-index predicates.
+Measurement draws from the env's host Mersenne Twister as the reference
+does, sharded or not.
 """
 
 from __future__ import annotations
@@ -61,9 +64,14 @@ def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
     m = cplx.as_planar(matrix, 3, qureg.dtype, qureg.device)
     if qureg.shards is not None:
-        qureg.put_shards(_engine(qureg).apply_matrix(
-            qureg.shards, m, n=nsv, targets=targets, controls=controls,
-            control_states=states))
+        eng = _engine(qureg)
+        shards = eng.apply_matrix(qureg.shards, m, n=nsv, targets=targets,
+                                  controls=controls, control_states=states)
+        if qureg.is_density_matrix:
+            shards = eng.apply_matrix(shards, m, n=nsv, targets=_shift(targets, n),
+                                      controls=_shift(controls, n), control_states=states,
+                                      conj=True)
+        qureg.put_shards(shards)
         return
     amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=targets,
                           controls=controls, control_states=states)
@@ -80,8 +88,13 @@ def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
     d = (cplx.as_planar(diag, 2, qureg.dtype, qureg.device) if cplx.is_planar(diag, 2)
          else cplx.from_complex(np.asarray(diag).reshape(-1), qureg.dtype, qureg.device))
     if qureg.shards is not None:
-        qureg.put_shards(_engine(qureg).apply_diagonal(
-            qureg.shards, d, n=nsv, targets=targets, controls=controls))
+        eng = _engine(qureg)
+        shards = eng.apply_diagonal(qureg.shards, d, n=nsv, targets=targets,
+                                    controls=controls)
+        if qureg.is_density_matrix:
+            shards = eng.apply_diagonal(shards, d, n=nsv, targets=_shift(targets, n),
+                                        controls=_shift(controls, n), conj=True)
+        qureg.put_shards(shards)
         return
     amps = D.apply_diagonal(qureg.amps, d, n=nsv, targets=targets,
                             controls=controls)
@@ -95,9 +108,13 @@ def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
     if qureg.shards is not None:
-        qureg.put_shards(_engine(qureg).apply_x(
-            qureg.shards, n=nsv, targets=targets, controls=controls,
-            control_states=states))
+        eng = _engine(qureg)
+        shards = eng.apply_x(qureg.shards, n=nsv, targets=targets, controls=controls,
+                             control_states=states)
+        if qureg.is_density_matrix:
+            shards = eng.apply_x(shards, n=nsv, targets=_shift(targets, n),
+                                 controls=_shift(controls, n), control_states=states)
+        qureg.put_shards(shards)
         return
     amps = K.apply_x_class(qureg.amps, n=nsv, targets=targets,
                            controls=controls, control_states=states)
@@ -112,8 +129,13 @@ def _apply_gate_parity_phase(qureg: Qureg, theta, qubits, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     qubits, controls = tuple(qubits), tuple(controls)
     if qureg.shards is not None:
-        qureg.put_shards(_engine(qureg).apply_parity_phase(
-            qureg.shards, theta, n=nsv, qubits=qubits, controls=controls))
+        eng = _engine(qureg)
+        shards = eng.apply_parity_phase(qureg.shards, theta, n=nsv, qubits=qubits,
+                                        controls=controls)
+        if qureg.is_density_matrix:
+            shards = eng.apply_parity_phase(shards, theta, n=nsv, qubits=_shift(qubits, n),
+                                            controls=_shift(controls, n), conj=True)
+        qureg.put_shards(shards)
         return
     amps = D.apply_parity_phase(qureg.amps, theta, n=nsv, qubits=qubits,
                                 controls=controls)
@@ -474,8 +496,11 @@ def swapGate(qureg: Qureg, qb1: int, qb2: int) -> None:
     V.validate_unique_targets(qureg, qb1, qb2, "swapGate")
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     if qureg.shards is not None:
-        qureg.put_shards(_engine(qureg).apply_swap(qureg.shards, n=nsv, qb1=qb1,
-                                                   qb2=qb2))
+        eng = _engine(qureg)
+        shards = eng.apply_swap(qureg.shards, n=nsv, qb1=qb1, qb2=qb2)
+        if qureg.is_density_matrix:
+            shards = eng.apply_swap(shards, n=nsv, qb1=qb1 + n, qb2=qb2 + n)
+        qureg.put_shards(shards)
     else:
         amps = K.apply_swap(qureg.amps, n=nsv, qb1=qb1, qb2=qb2)
         if qureg.is_density_matrix:
@@ -559,6 +584,11 @@ def multiControlledMultiQubitUnitary(qureg: Qureg, controls, targets, u) -> None
 # ---------------------------------------------------------------------------
 
 def _prob_of_outcome(qureg: Qureg, target: int, outcome: int) -> float:
+    if qureg.shards is not None and qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        return float(M.density_prob_of_outcome(
+            None, n=n, target=target, outcome=outcome,
+            diag=R.density_diagonal_shards(qureg.shards, n=n)[0]))
     if qureg.shards is not None:
         return float(R.prob_of_outcome_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
                                               target=target, outcome=outcome))
@@ -572,6 +602,11 @@ def _prob_of_outcome(qureg: Qureg, target: int, outcome: int) -> float:
 
 
 def _collapse(qureg: Qureg, target: int, outcome: int, prob: float) -> None:
+    if qureg.shards is not None and qureg.is_density_matrix:
+        qureg.put_shards(M.density_collapse_shards(
+            qureg.shards, prob, n=qureg.num_qubits_represented, target=target,
+            outcome=outcome))
+        return
     if qureg.shards is not None:
         qureg.put_shards(M.collapse_shards(qureg.shards, prob,
                                            n=qureg.num_qubits_in_state_vec,

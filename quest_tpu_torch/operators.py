@@ -14,9 +14,11 @@ operators apply their own torch ops and stay fusion barriers, as in the
 JAX package. A ``DiagonalOp`` holds its elements in the global
 precision's dtype, cast to the register's at apply time.
 
-On a sharded state vector everything runs shard by shard or through the
-per-gate engine over shards; phase functions, projectors and diagonals
-need no communication.
+On a sharded register everything runs shard by shard or through the
+per-gate engine over shards, a density register's shadow on the qubits
+q + n too; phase functions, projectors and diagonals need no
+communication. ``setQuregToPauliHamil`` builds the operator on the first
+shard's device and cuts it into the shards.
 """
 
 from __future__ import annotations
@@ -70,8 +72,11 @@ def _apply_matrix_gate(qureg: Qureg, matrix, targets, controls=()):
     operator entry stays a fusion barrier, as in the JAX package."""
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     m = cplx.from_complex(matrix, qureg.dtype, qureg.device)
-    if qureg.shards is not None:  # a state vector: M|psi>
+    if qureg.shards is not None:
         _apply_sharded(qureg, m, targets, controls)
+        if qureg.is_density_matrix:
+            _apply_sharded(qureg, m, tuple(q + n for q in targets),
+                           tuple(c + n for c in controls), conj=True)
         return
     amps = K.apply_matrix(qureg.amps, m, n=nsv, targets=tuple(targets),
                           controls=tuple(controls))
@@ -82,14 +87,15 @@ def _apply_matrix_gate(qureg: Qureg, matrix, targets, controls=()):
     qureg.put(amps)
 
 
-def _apply_sharded(qureg: Qureg, m, targets, controls) -> None:
-    """M|psi> on a sharded state vector, through the per-gate engine over
-    shards (``parallel.scheduler``)."""
+def _apply_sharded(qureg: Qureg, m, targets, controls, conj: bool = False) -> None:
+    """M (``conj``: its conjugate) on the flattened qubits ``targets`` of a
+    sharded register, through the per-gate engine over shards
+    (``parallel.scheduler``)."""
     from .parallel.scheduler import engine
 
     qureg.put_shards(engine(qureg).apply_matrix(
         qureg.shards, m, n=qureg.num_qubits_in_state_vec, targets=tuple(targets),
-        controls=tuple(controls)))
+        controls=tuple(controls), conj=conj))
 
 
 def applyMatrix2(qureg: Qureg, target: int, u) -> None:
@@ -259,9 +265,14 @@ def setQuregToPauliHamil(qureg: Qureg, hamil: PauliHamil) -> None:
     V.validate_density_matr(qureg, func)
     V.validate_pauli_hamil(hamil, func)
     V.validate_hamil_matches_qureg(qureg, hamil, func)
-    qureg.put(I.density_from_pauli_hamil(
+    rho = I.density_from_pauli_hamil(
         hamil.pauli_codes, hamil.term_coeffs, n=qureg.num_qubits_represented,
-        dtype=qureg.dtype, device=qureg.device))
+        dtype=qureg.dtype, device=qureg.device)
+    if qureg.shards is not None:
+        from .state_init import _recut
+        qureg.put_shards(_recut([rho], qureg.shards, qureg.dtype))
+    else:
+        qureg.put(rho)
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +324,10 @@ def applyProjector(qureg: Qureg, target: int, outcome: int) -> None:
     V.validate_outcome(outcome, func)
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     if qureg.shards is not None:
-        qureg.put_shards(M.project_shards(qureg.shards, n=nsv, target=target,
-                                          outcome=outcome))
+        shards = M.project_shards(qureg.shards, n=nsv, target=target, outcome=outcome)
+        if qureg.is_density_matrix:
+            shards = M.project_shards(shards, n=nsv, target=target + n, outcome=outcome)
+        qureg.put_shards(shards)
     else:
         amps = M.project_statevec(qureg.amps, n=nsv, target=target, outcome=outcome)
         if qureg.is_density_matrix:
@@ -334,8 +347,13 @@ def _apply_phase(qureg, apply, qubits_flat, *args, **kwargs) -> None:
     nsv = qureg.num_qubits_in_state_vec
     row = tuple(int(q) for q in qubits_flat)
     if qureg.shards is not None:
-        qureg.put_shards(PF.apply_phase_shards(apply, qureg.shards, *args, n=nsv,
-                                               qubits=row, conj=False, **kwargs))
+        shards = PF.apply_phase_shards(apply, qureg.shards, *args, n=nsv, qubits=row,
+                                       conj=False, **kwargs)
+        if qureg.is_density_matrix:
+            shifted = tuple(q + qureg.num_qubits_represented for q in row)
+            shards = PF.apply_phase_shards(apply, shards, *args, n=nsv, qubits=shifted,
+                                           conj=True, **kwargs)
+        qureg.put_shards(shards)
         return
     amps = apply(qureg.amps, *args, n=nsv, qubits=row, conj=False, **kwargs)
     if qureg.is_density_matrix:
@@ -591,7 +609,10 @@ def applyDiagonalOp(qureg: Qureg, op: DiagonalOp) -> None:
     V.validate_diag_op_init(op, func)
     V.validate_diag_op_matches_qureg(qureg, op, func)
     elems = [e.to(qureg.dtype) for e in _elems_for(qureg, op)]
-    if qureg.shards is not None:
+    if qureg.shards is not None and qureg.is_density_matrix:
+        qureg.put_shards(D.apply_full_diagonal_to_density_shards(
+            qureg.shards, elems[0], n=qureg.num_qubits_represented))
+    elif qureg.shards is not None:
         qureg.put_shards([D.apply_full_diagonal(s, e) for s, e in zip(qureg.shards, elems)])
     elif qureg.is_density_matrix:
         qureg.put(D.apply_full_diagonal_to_density(
@@ -607,7 +628,11 @@ def calcExpecDiagonalOp(qureg: Qureg, op: DiagonalOp) -> complex:
     V.validate_diag_op_init(op, func)
     V.validate_diag_op_matches_qureg(qureg, op, func)
     elems = [e.to(qureg.dtype) for e in _elems_for(qureg, op)]
-    if qureg.shards is not None:
+    if qureg.shards is not None and qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        re, im = R.expec_diag_op_density(None, elems[0], n=n,
+                                         diag=R.density_diagonal_shards(qureg.shards, n=n))
+    elif qureg.shards is not None:
         re, im = R.expec_diag_op_shards(qureg.shards, elems)
     elif qureg.is_density_matrix:
         re, im = R.expec_diag_op_density(qureg.amps, elems[0],
@@ -632,8 +657,13 @@ def _apply_sub_diag(qureg: Qureg, targets, op: SubDiagonalOp, func: str,
     nsv = qureg.num_qubits_in_state_vec
     d = cplx.from_complex(np.asarray(op.elems), qureg.dtype, qureg.device)
     if qureg.shards is not None:
-        qureg.put_shards(engine(qureg).apply_diagonal(qureg.shards, d, n=nsv,
-                                                      targets=targets))
+        eng = engine(qureg)
+        shards = eng.apply_diagonal(qureg.shards, d, n=nsv, targets=targets)
+        if shadow and qureg.is_density_matrix:
+            n = qureg.num_qubits_represented
+            shards = eng.apply_diagonal(shards, d, n=nsv,
+                                        targets=tuple(q + n for q in targets), conj=True)
+        qureg.put_shards(shards)
         return
     amps = D.apply_diagonal(qureg.amps, d, n=nsv, targets=targets)
     if shadow and qureg.is_density_matrix:

@@ -20,6 +20,14 @@ targets T is the superoperator sum_k conj(K_k) (x) K_k on qubits
 
 The route taken is counted in ``channel_route_total{route}``. Purely
 diagonal channels (dephasing) are one elementwise diagonal pass.
+
+On a sharded register (:func:`apply_channel_shards`) the same split runs
+through the register's per-gate engine over shards, whose column qubits
+t + n lie in the sharded zone: the superoperator through its relocations;
+the ``kraus1`` pass per shard, its column qubit first moved into a local
+slot by a collective permute (``parallel.exchange.dist_permute_bits``) and
+back after (QuEST_cpu_distributed.c:535-868 exchanges half chunks for the
+same channels); the per-term engine through its pair exchanges.
 """
 
 from __future__ import annotations
@@ -111,17 +119,17 @@ def _kraus_sum_kernel(amps: torch.Tensor, terms, n: int, t: int,
                         out=torch.empty_like(amps) if out is None else out)
 
 
-def kraus1_pass(n: int, t: int, lq: int, terms) -> tuple[tuple, dict]:
+def kraus1_pass(n: int, t: int, lq: int, terms, col: int | None = None) -> tuple[tuple, dict]:
     """The ``kraus1`` op of a channel on row qubit t of an n-qubit density
     register, in the frame of a pass at tile bits ``lq``, and that pass's
-    folded swaps (``fused_run`` keywords). The column qubit t+n usually
-    lies above the tile; a 1-bit block swap relocates it to the top slot
-    lq-1, as the JAX package's ``_kraus_sum_pallas`` does. Where the row
-    qubit is at lq-1 or above the tile (JAX refuses it there, which at its
-    2^19 tile no single-card register reaches; the Hopper tile is 2^13),
-    the pair swap relocates the row qubit (t >= lq) or the column qubit
-    (t = lq-1) to slot lq-2."""
-    r, c = t, t + n
+    folded swaps (``fused_run`` keywords). The column qubit t+n (``col``
+    where a shard holds it elsewhere) usually lies above the tile; a 1-bit
+    block swap relocates it to the top slot lq-1, as the JAX package's
+    ``_kraus_sum_pallas`` does. Where the row qubit is at lq-1 or above
+    the tile (JAX refuses it there, which at its 2^19 tile no single-card
+    register reaches; the Hopper tile is 2^13), the pair swap relocates the
+    row qubit (t >= lq) or the column qubit (t = lq-1) to slot lq-2."""
+    r, c = t, t + n if col is None else col
     hi = pair = None
     if c >= lq:
         if t == lq - 1:
@@ -133,6 +141,78 @@ def kraus1_pass(n: int, t: int, lq: int, terms) -> tuple[tuple, dict]:
     k = 0 if hi is None else 1
     return ("kraus1", r, c, terms), dict(load_swap_k=k, load_swap_hi=hi, store_swap_k=k,
                                          store_swap_hi=hi, pair_swap=pair)
+
+
+def apply_channel_shards(shards, superop, *, n: int, targets: tuple, eng,
+                         spares: list) -> tuple[list, bool]:
+    """:func:`apply_channel` on a sharded n-qubit density register through
+    ``eng``, its per-gate engine over shards (``parallel.scheduler``), by
+    the same routes: the superoperator on (T, T+n) up to
+    ``_SUPEROP_MAX_QUBITS`` flattened qubits (while the targets fit the
+    shard's local qubits); above it a 1-target channel as one ``kraus1``
+    pass of the fused-run kernel per shard, the column qubit t+n moved
+    into a local slot and back by collective permutes when it is sharded,
+    the state ping-ponging between the shards and ``spares`` (a buffer of
+    each shard's size); every other channel by the per-term engine.
+    Returns (the new shards, True when they are ``spares``)."""
+    from ..parallel import exchange as X
+    from ..parallel.mesh import local_qubit_count
+    from . import fused_gates as FG
+
+    nsv = 2 * n
+    nl = local_qubit_count(nsv, shards)
+    targets = tuple(targets)
+    cols = tuple(q + n for q in targets)
+    dt, dev = shards[0].dtype, shards[0].device
+    if nsv <= _SUPEROP_MAX_QUBITS and 2 * len(targets) <= nl:
+        telemetry.inc("channel_route_total", route="superop")
+        so = cplx.from_complex(superop, dt, dev)
+        return eng.apply_matrix(shards, so, n=nsv, targets=targets + cols), False
+    terms = choi_kraus(superop)
+    if (nsv > _SUPEROP_MAX_QUBITS and len(targets) == 1
+            and shards[0].shape[-1] >= 2 * FG._LANES):
+        telemetry.inc("channel_route_total", route="kernel")
+        t, c = targets[0], cols[0]
+        lq = FG.hopper_tile_bits(nl, dt)
+        terms_h = tuple((float(sg), FG.HashableMatrix(k)) for sg, k in terms)
+        state, free = list(shards), list(spares)
+        source = None
+        if c >= nl:  # the column qubit into a local slot, collectively
+            slot = column_slot(nl, t)
+            source = list(range(nsv))
+            source[slot], source[c] = c, slot
+            state, free = X.dist_permute_bits(state, n=nsv, source=source, out=free), state
+            c = slot
+        op, swaps = kraus1_pass(n, t, lq, terms_h, col=c)
+        for a, o in zip(state, free):
+            FG.fused_run(a, n=nl, ops=(op,), tile_bits=lq, **swaps, out=o)
+        state, free = free, state
+        if source is not None:
+            state, free = X.dist_permute_bits(state, n=nsv, source=source, out=free), state
+        return state, state[0] is spares[0]
+    telemetry.inc("channel_route_total", route="engine")
+    return kraus_sum_shards(eng, shards, terms, nsv=nsv, rows=targets, cols=cols), False
+
+
+def column_slot(nl: int, t: int) -> int:
+    """The local qubit that a 1-target channel's sharded column qubit is
+    moved into for its ``kraus1`` pass on shards of ``nl`` local qubits: the
+    top one, or the next one down where the row qubit ``t`` holds it."""
+    return nl - 1 if nl - 1 != t else nl - 2
+
+
+def kraus_sum_shards(eng, shards: list, terms, *, nsv: int, rows: tuple,
+                     cols: tuple) -> list:
+    """``_apply_kraus_sum`` over shards through the engine ``eng``: two
+    ``apply_matrix`` passes per term over every shard, summed a shard."""
+    dt, dev = shards[0].dtype, shards[0].device
+    out = [None] * len(shards)
+    for sign, k in terms:
+        km = cplx.from_complex(k, dt, dev)
+        y = eng.apply_matrix(shards, km, n=nsv, targets=rows)
+        y = eng.apply_matrix(y, km, n=nsv, targets=cols, conj=True)
+        out = [_acc_kraus_term(o, sign, v) for o, v in zip(out, y)]
+    return out
 
 
 def _acc_kraus_term(out, sign, term):

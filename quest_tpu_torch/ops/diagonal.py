@@ -109,6 +109,30 @@ def apply_full_diagonal_to_density(amps: torch.Tensor, elems: torch.Tensor, *,
     return torch.stack([re, im]).reshape(2, -1)
 
 
+def apply_full_diagonal_to_density_shards(shards, elems: torch.Tensor, *, n: int) -> list:
+    """:func:`apply_full_diagonal_to_density` shard by shard: ``elems``
+    (2, 2^n) indexed by the row bits, the low n of the flat index, so a
+    shard holding whole columns takes every row's factor once a column;
+    a tiny register with less than a column a shard takes the factors of
+    its rows."""
+    dim, c = 1 << n, shards[0].shape[-1]
+    out = []
+    for r, s in enumerate(shards):
+        e = elems.to(device=s.device, dtype=s.dtype)
+        if c % dim == 0:
+            out.append(_rows_times(s.reshape(2, c // dim, dim), e).reshape(2, -1))
+        else:
+            rows = torch.arange(r * c, (r + 1) * c, device=s.device) % dim
+            out.append(apply_full_diagonal(s, e[:, rows]))
+    return out
+
+
+def _rows_times(t: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """(2, cols, rows) planar ``t`` times the row factors ``e`` (2, rows)."""
+    er, ei = e[0][None, :], e[1][None, :]
+    return torch.stack([t[0] * er - t[1] * ei, t[0] * ei + t[1] * er])
+
+
 def pauli_z_diagonal(codes, coeffs, *, offset: int, size: int, device) -> torch.Tensor:
     """Elements [offset, offset + size) of the diagonal of sum_t c_t P_t, a
     Hamiltonian of I and Z terms only, in float64 on ``device``

@@ -85,6 +85,29 @@ def density_from_pure(pure_amps: torch.Tensor) -> torch.Tensor:
     return torch.stack([re, im]).reshape(2, -1)
 
 
+def density_shards_from_pure(pure_amps: torch.Tensor, devices, dtype) -> list:
+    """:func:`density_from_pure` cut into shards on ``devices``: shard r the
+    flat indices [r C, (r+1) C). While the mesh has at most 2^n devices a
+    shard is whole columns, built on its device from the whole state (the
+    rows) and its columns' amplitudes, element for element as the
+    one-device product; a tiny register is built whole and cut."""
+    dim = pure_amps.shape[-1]
+    c = dim * dim // len(devices)
+    if c % dim:
+        whole = density_from_pure(pure_amps.to(dtype))
+        return [whole[:, r * c:(r + 1) * c].to(d) for r, d in enumerate(devices)]
+    m = c // dim
+    out = []
+    for r, d in enumerate(devices):
+        p = pure_amps.to(device=d, dtype=dtype)
+        pr, pi = p[0], p[1]
+        cr, ci = pr[r * m:(r + 1) * m], pi[r * m:(r + 1) * m]
+        re = cr[:, None] * pr[None, :] + ci[:, None] * pi[None, :]
+        im = cr[:, None] * pi[None, :] - ci[:, None] * pr[None, :]
+        out.append(torch.stack([re, im]).reshape(2, -1))
+    return out
+
+
 def density_init_classical(num_amps: int, dtype: torch.dtype, device,
                            index: int) -> torch.Tensor:
     """rho = |s><s|: a single 1 at the diagonal flat index s * (2^n + 1)."""

@@ -40,10 +40,14 @@ def prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets) -> torch.Tensor
     return _group_outcome_probs(amps[0] * amps[0] + amps[1] * amps[1], n, tuple(targets))
 
 
-def density_prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets) -> torch.Tensor:
+def density_prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets,
+                                 diag: torch.Tensor | None = None) -> torch.Tensor:
     """The outcome distribution of a density matrix: its diagonal's real
-    parts grouped as :func:`prob_of_all_outcomes` groups |amp|^2."""
-    diag = torch.diagonal(amps[0].reshape(1 << n, 1 << n))
+    parts grouped as :func:`prob_of_all_outcomes` groups |amp|^2. A sharded
+    one passes its gathered diagonal's real part as ``diag`` (``amps``
+    None)."""
+    if diag is None:
+        diag = torch.diagonal(amps[0].reshape(1 << n, 1 << n))
     return _group_outcome_probs(diag, n, tuple(targets))
 
 
@@ -76,12 +80,14 @@ def prob_of_all_outcomes_shards(shards, *, n: int, targets) -> torch.Tensor:
 
 
 def density_prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,
-                            outcome: int) -> torch.Tensor:
+                            outcome: int, diag: torch.Tensor | None = None) -> torch.Tensor:
     """Tr(rho P_outcome): the sum of the diagonal elements whose bit
-    ``target`` equals ``outcome`` (densmatr_calcProbOfOutcome)."""
+    ``target`` equals ``outcome`` (densmatr_calcProbOfOutcome). A sharded
+    register passes its gathered diagonal's real part as ``diag``."""
     shape, axis_of = grouped_axes(n, (target,))
-    d = torch.diagonal(amps[0].reshape(1 << n, 1 << n)).reshape(shape)
-    return _csum(d.select(axis_of[target], outcome))
+    if diag is None:
+        diag = torch.diagonal(amps[0].reshape(1 << n, 1 << n))
+    return _csum(diag.reshape(shape).select(axis_of[target], outcome))
 
 
 def _keep_mask(n: int, qubits, outcome: int, dtype, device):
@@ -131,6 +137,18 @@ def collapse_shards(shards, prob: float, *, n: int, target: int,
     scale = 1.0 / math.sqrt(prob)
     return [s * scale if (r >> (target - nl)) & 1 == outcome else torch.zeros_like(s)
             for r, s in enumerate(shards)]
+
+
+def density_collapse_shards(shards, prob: float, *, n: int, target: int,
+                            outcome: int) -> list:
+    """:func:`density_collapse` of a sharded density matrix: the row qubit
+    ``target`` and the column qubit ``target + n`` projected as
+    :func:`project_shards` projects (a sharded one zeroes whole shards),
+    then the shards scaled by 1/prob; no communication."""
+    out = project_shards(shards, n=2 * n, target=target, outcome=outcome)
+    out = project_shards(out, n=2 * n, target=target + n, outcome=outcome)
+    scale = 1.0 / prob
+    return [s * scale for s in out]
 
 
 def project_statevec(amps: torch.Tensor, *, n: int, target: int,

@@ -11,7 +11,10 @@ whose rounding error grows O(log N) instead of O(N).
 A sharded state (a list of shards, shard r the amplitudes [r C, (r+1) C))
 reduces per shard, each on its device, and the D partial sums then
 cascade in shard order: for power-of-two shards the same pairing as the
-whole state's cascade.
+whole state's cascade. A sharded density matrix's diagonal (its 2^n
+entries, spread over the shards) is gathered onto the first shard's
+device (:func:`density_diagonal_shards`), and the one-device reductions
+of the diagonal then run on it in their own order.
 """
 
 from __future__ import annotations
@@ -160,11 +163,15 @@ def expec_diag_op_statevec(amps: torch.Tensor, elems: torch.Tensor):
     return _csum(p * elems[0]), _csum(p * elems[1])
 
 
-def expec_diag_op_density(amps: torch.Tensor, elems: torch.Tensor, *, n: int):
-    """Tr(rho D) = sum_r rho[r,r] d_r, (re, im) (densmatr_calcExpecDiagonalOp)."""
+def expec_diag_op_density(amps: torch.Tensor, elems: torch.Tensor, *, n: int,
+                          diag: torch.Tensor | None = None):
+    """Tr(rho D) = sum_r rho[r,r] d_r, (re, im) (densmatr_calcExpecDiagonalOp).
+    A sharded register passes its gathered (2, 2^n) diagonal as ``diag``."""
     dim = 1 << n
-    t = amps.reshape(2, dim, dim)
-    dr, di = torch.diagonal(t[0]), torch.diagonal(t[1])
+    if diag is None:
+        t = amps.reshape(2, dim, dim)
+        diag = torch.stack([torch.diagonal(t[0]), torch.diagonal(t[1])])
+    dr, di = diag[0], diag[1]
     er, ei = elems[0], elems[1]
     return _csum(dr * er - di * ei), _csum(dr * ei + di * er)
 
@@ -175,3 +182,74 @@ def expec_diag_op_shards(shards, elem_shards):
     device, cascaded in shard order."""
     parts = [expec_diag_op_statevec(s, e) for s, e in zip(shards, elem_shards)]
     return _csum_parts([p[0] for p in parts]), _csum_parts([p[1] for p in parts])
+
+
+def density_diagonal_shards(shards, *, n: int) -> torch.Tensor:
+    """The (2, 2^n) diagonal rho[i, i] (flat index i (2^n + 1)) of a sharded
+    n-qubit density matrix, on the first shard's device: each shard's
+    entries taken where it holds them, in order. While the mesh has at
+    most 2^n devices a shard holds whole columns, and its entries are the
+    diagonal of one square block of its (columns, rows) view."""
+    dim, c = 1 << n, shards[0].shape[-1]
+    dev = shards[0].device
+    parts = []
+    for r, s in enumerate(shards):
+        if c % dim == 0:
+            m = c // dim
+            block = s.reshape(2, m, dim)[:, :, r * m:(r + 1) * m]
+            part = torch.diagonal(block, dim1=1, dim2=2)
+        else:  # fewer amplitudes a shard than a column: a tiny register
+            lo, hi = r * c, (r + 1) * c
+            idx = [i * (dim + 1) - lo for i in range(dim) if lo <= i * (dim + 1) < hi]
+            part = s[:, idx]
+        parts.append(part.to(dev))
+    return torch.cat(parts, dim=1)
+
+
+def total_prob_density_shards(shards, *, n: int) -> torch.Tensor:
+    """Re(trace(rho)) of a sharded density matrix, summed as
+    :func:`total_prob_density` sums the whole diagonal."""
+    return _csum(density_diagonal_shards(shards, n=n)[0])
+
+
+def hilbert_schmidt_distance_shards(a_shards, b_shards) -> torch.Tensor:
+    """:func:`hilbert_schmidt_distance` of two sharded density matrices of
+    one layout: each shard pair's sum on its device, cascaded in order."""
+    parts = []
+    for a, b in zip(a_shards, b_shards):
+        d = a - b
+        parts.append(_csum(d[0] * d[0] + d[1] * d[1]))
+    return torch.sqrt(_csum_parts(parts))
+
+
+def density_inner_product_shards(a_shards, b_shards) -> torch.Tensor:
+    """:func:`density_inner_product` of two sharded density matrices of one
+    layout, each shard pair's partial cascaded in shard order."""
+    return _csum_parts([density_inner_product(a, b) for a, b in zip(a_shards, b_shards)])
+
+
+def density_fidelity_shards(shards, pure: torch.Tensor, *, n: int) -> torch.Tensor:
+    """:func:`density_fidelity` of a sharded density matrix: shard r holds
+    whole columns c of rho (the mesh at most 2^n devices), so it adds
+    rho[:, c] psi_c over its columns into a partial (rho psi) on its
+    device; the partials are summed in shard order on the first shard's
+    device. ``pure`` is the whole (2, 2^n) state vector. A tiny register
+    with less than a column a shard is gathered whole."""
+    dim = 1 << n
+    m = shards[0].shape[-1] // dim
+    dev = shards[0].device
+    if shards[0].shape[-1] % dim:
+        whole = torch.cat([s.to(dev) for s in shards], dim=1)
+        return density_fidelity(whole, pure.to(dev), n=n)
+    vr = vi = None
+    for r, s in enumerate(shards):
+        p = pure.to(s.device)
+        cols = p[:, r * m:(r + 1) * m]
+        t = s.reshape(2, m, dim)
+        with _full_fp32_matmul():
+            pr = (t[0].T @ cols[0] - t[1].T @ cols[1]).to(dev)
+            pi = (t[0].T @ cols[1] + t[1].T @ cols[0]).to(dev)
+        vr = pr if vr is None else vr + pr
+        vi = pi if vi is None else vi + pi
+    p = pure.to(dev)
+    return _csum(p[0] * vr + p[1] * vi)

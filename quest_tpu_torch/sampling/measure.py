@@ -43,9 +43,9 @@ _P_FLOOR = 1e-30
 
 def _one_device(qureg, func: str) -> None:
     if qureg.shards is not None:
-        raise NotImplementedError(
-            f"{func}: a register sharded over several devices is not measured mid-circuit "
-            "yet (sampling over shards is a later slice of the port)")
+        raise V.QuESTNotPortedError(
+            "a register sharded over several devices is not measured mid-circuit "
+            "yet (sampling over shards is a later slice of the port)", func)
 
 
 def _keep(outcome, dtype, device) -> torch.Tensor:

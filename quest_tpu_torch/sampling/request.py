@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from ..validation import QuESTError
+from ..validation import QuESTError, QuESTNotPortedError
 from . import sampler as _sampler
 
 if TYPE_CHECKING:
@@ -255,9 +255,9 @@ def sampleQureg(qureg: Qureg, targets=None, shots: int | None = None, seed: int 
     if int(shots) < 1:
         raise QuESTError(f"shots must be >= 1, got {shots}", func)
     if qureg.shards is not None:
-        raise NotImplementedError(
-            f"{func}: a register sharded over several devices is not sampled yet "
-            "(sampling over shards is a later slice of the port)")
+        raise QuESTNotPortedError(
+            "a register sharded over several devices is not sampled yet "
+            "(sampling over shards is a later slice of the port)", func)
     table = _sampler.sample_jit(qureg.amps, seed, n=n,
                                 targets=tuple(int(t) for t in targets), shots=int(shots),
                                 site=int(site), density=qureg.is_density_matrix)

@@ -8,9 +8,11 @@ arrays are immutable, builds a new one). Every other function binds a new
 tensor. On a sharded register (``registers.Qureg.shards``) each shard is
 built on its own device, and ``setAmps`` writes into the shards the slice
 covers. ``cloneQureg``, ``initPureState`` and ``setWeightedQureg`` take
-state vectors of any two layouts (one device, or a mesh of any size): the
+registers of any two layouts (one device, or a mesh of any size): the
 source is gathered, scattered or re-cut into the target's layout by
-device-to-device copies.
+device-to-device copies. A density matrix made from a pure state
+(``initPureState``) is built shard by shard from the whole state vector,
+gathered onto each shard's device (2^n amplitudes, not 4^n).
 """
 
 from __future__ import annotations
@@ -80,8 +82,11 @@ def initClassicalState(qureg: Qureg, state_index: int) -> None:
     """Set the register to computational basis state |stateInd> (QuEST.h:196)."""
     V.validate_state_index(qureg, state_index, "initClassicalState")
     if qureg.shards is not None:
+        # a density matrix's |s><s| is the one at flat index s (2^n + 1)
+        flat = state_index * ((1 << qureg.num_qubits_represented) + 1
+                              if qureg.is_density_matrix else 1)
         qureg.put_shards(I.shards_classical(qureg.num_amps_total, qureg.dtype,
-                                            _devices(qureg), state_index))
+                                            _devices(qureg), flat))
     elif qureg.is_density_matrix:
         qureg.put(I.density_init_classical(qureg.num_amps_total, qureg.dtype,
                                            qureg.device, state_index))
@@ -99,10 +104,11 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
     V.validate_second_qureg_state_vec(pure, func)
     V.validate_matching_qureg_dims(qureg, pure, func)
     if qureg.is_density_matrix:
-        V._assert(pure.shards is None,
-                  "A density matrix cannot be set from a state vector sharded over "
-                  "several devices yet (a later slice of the port).", func)
-        qureg.put(I.density_from_pure(pure.amps.to(qureg.dtype)))
+        whole = _whole(pure, qureg.device, qureg.dtype)
+        if qureg.shards is not None:
+            qureg.put_shards(I.density_shards_from_pure(whole, _devices(qureg), qureg.dtype))
+        else:
+            qureg.put(I.density_from_pure(whole))
     else:
         _put_pieces(qureg, _in_layout(pure, _pieces(qureg), qureg.dtype))
     if qureg.qasm_log:
@@ -207,6 +213,13 @@ def _in_layout(source: Qureg, like: list, dtype: torch.dtype) -> list:
     device-to-device ``copy_`` of the source blocks it overlaps. Nothing
     goes through host memory."""
     return _recut(_pieces(source), like, dtype)
+
+
+def _whole(source: Qureg, device, dtype: torch.dtype) -> torch.Tensor:
+    """``source``'s amplitudes as one new tensor of ``dtype`` on ``device``,
+    gathered from its shards by device-to-device copies."""
+    like = torch.empty((2, source.num_amps_total), device=device)
+    return _recut(_pieces(source), [like], dtype)[0]
 
 
 def _recut(src: list, like: list, dtype: torch.dtype) -> list:

@@ -32,6 +32,12 @@ class QuESTError(Exception):
         super().__init__(message if not func else f"{func}: {message}")
 
 
+class QuESTNotPortedError(QuESTError, NotImplementedError):
+    """Raised by an entry that refuses an input a later slice of the port
+    takes (a register sharded over several devices where the entry runs
+    on one): a QuESTError that is also a NotImplementedError."""
+
+
 def _default_handler(err_msg: str, err_func: str) -> None:
     raise QuESTError(err_msg, err_func)
 

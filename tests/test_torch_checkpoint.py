@@ -160,6 +160,36 @@ def test_quest_tpu_density_snapshot_loads_in_port(tmp_path, prec):
     assert abs(tq.calcTotalProb(q) - 1) < (1e-12 if prec == "f64" else 1e-6)
 
 
+@pytest.mark.parametrize("prec", list(PRECS))
+@pytest.mark.parametrize("jenv", ["one", "eight"])
+def test_sharded_density_snapshots_both_ways(tmp_path, jenv, prec):
+    """A density register on 4 shards saves 4 shard files that quest_tpu
+    loads (on one device or eight) bit for bit; quest_tpu's density
+    snapshot loads onto the port's 4 shards bit for bit, with its trace;
+    and the port's own snapshot loads back onto the shards and onto one
+    device."""
+    n = 4
+    q = _port(n, True, PRECS[prec], TENV4, seed=12)
+    assert len(q.shards) == 4
+    d = str(tmp_path / "port")
+    tq.saveQureg(q, d)
+    assert len(json.load(open(os.path.join(d, "qureg.json")))["shards"]) == 4
+    jqr = jq.loadQureg(d, JENV if jenv == "one" else JENV8)
+    assert jqr.is_density_matrix
+    np.testing.assert_array_equal(np.asarray(jqr.amps), _port_host(q))
+    for env in (TENV4, TENV):
+        back = tq.loadQureg(d, env)
+        assert back.is_density_matrix and (back.shards is None) == (env is TENV)
+        np.testing.assert_array_equal(_port_host(back), _port_host(q))
+    jsrc = _jax(n, True, PRECS[prec], JENV if jenv == "one" else JENV8, seed=13)
+    dj = str(tmp_path / "jax")
+    jq.saveQureg(jsrc, dj)
+    mine = tq.loadQureg(dj, TENV4)
+    assert mine.is_density_matrix and len(mine.shards) == 4
+    np.testing.assert_array_equal(_port_host(mine), np.asarray(jsrc.amps))
+    assert abs(tq.calcTotalProb(mine) - 1) < (1e-12 if prec == "f64" else 1e-6)
+
+
 # -- the same bytes -----------------------------------------------------------
 
 @pytest.mark.parametrize("prec", list(PRECS))
@@ -325,15 +355,20 @@ def test_rejection_creates_nothing_and_keeps_rng(tmp_path, monkeypatch, kind):
 
 
 def test_missing_snapshot_and_density_on_shards_refused(tmp_path):
-    with pytest.raises(QuESTError, match="no checkpoint"):
-        tq.loadQureg(str(tmp_path / "nowhere"), TENV)
-    d = str(tmp_path / "ck")
-    tq.saveQureg(_port(3, True, 2), d)
+    """A missing snapshot is refused and changes nothing; a density
+    snapshot, once refused on a mesh, now loads onto its shards (and
+    restores the env's seeds)."""
     env = _seeded(tq, tq.createQuESTEnv(devices=["cpu"] * 4))
     env.seeds = [7]
-    with pytest.raises(QuESTError, match="density matrix cannot be sharded"):
-        tq.loadQureg(d, env)
+    with pytest.raises(QuESTError, match="no checkpoint"):
+        tq.loadQureg(str(tmp_path / "nowhere"), env)
     assert env.seeds == [7]
+    d = str(tmp_path / "ck")
+    src = _port(3, True, 2)
+    tq.saveQureg(src, d)
+    q = tq.loadQureg(d, env)
+    assert q.is_density_matrix and len(q.shards) == 4
+    np.testing.assert_array_equal(_port_host(q), _port_host(src))
 
 
 # -- the checkpoint.write site ----------------------------------------------------

@@ -27,6 +27,7 @@ from quest_tpu_torch.interop import ops_from_reference
 from quest_tpu_torch.ops import fused_gates as FG
 
 from .helpers import assert_amps_close
+from .test_torch_lane_u import mma_round, tf32x3_walk
 from .test_torch_kraus_dmma import (G, _bench_krausn, _bits, _deposit, _exact,
                                     _group_bases, _kraus_terms, _masks)
 
@@ -61,9 +62,11 @@ def _krausn_tf32_model(x, mask, split, three=True):
     offsets summed from single mask bits as the kernel sums them, split
     into TF32 hi and lo, and its split B values of column n = g of each
     n8 tile from the host's table. Each mma.sync
-    m16n8k8 is its 8 exact products summed onto the FP32 accumulator and
-    rounded once, in the kernel's order: xr Sr^T, xr Si^T, xi Sr^T, xi
-    (-Si^T), each product lo*hi, hi*lo, hi*hi (3xTF32) or hi*hi alone. The
+    m16n8k8 is its 8 exact products summed onto its FP32 accumulator and
+    rounded toward zero, as the card's tensor cores round, in the kernel's
+    order: xr Sr^T, xr Si^T, xi Sr^T, xi (-Si^T), each product in the
+    kernel's accumulation walk (``test_torch_lane_u.tf32x3_walk``), in
+    3xTF32 or hi*hi alone. The
     C fragments go to base(group) + dep(d) for the groups in the tile.
     Returns (out, how often each amplitude was written)."""
     tile = x.shape[1]
@@ -78,15 +81,11 @@ def _krausn_tf32_model(x, mask, split, three=True):
     written = np.zeros(tile, dtype=int)
 
     def mma(acc, a, b):
-        return (acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64)
-                ).astype(np.float32)
+        return mma_round(acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64),
+                         "truncate")
 
     def product(acc, a, b):
-        (ah, al), (bh, bl) = a, b
-        if three:
-            acc = mma(acc, al, bh)
-            acc = mma(acc, ah, bl)
-        return mma(acc, ah, bh)
+        return tf32x3_walk(acc, a, b, mma, three=three)
 
     sweep, wm = 32 * N8, 2 * N8
     for q, warp, j8 in itertools.product(range((groups + sweep - 1) // sweep), range(16),

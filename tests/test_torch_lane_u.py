@@ -111,27 +111,51 @@ def _tf32(v):
             & np.uint32(0xffffe000)).view(np.float32)
 
 
-def _kernel_model(xr, xi, split, three=True):
+def mma_round(v, mode):
+    """float64 sums ``v`` to float32 as an FP32 accumulator holds them:
+    ``"truncate"`` rounds toward zero, as the tensor cores' ``mma.sync``
+    does; ``"nearest"``, as an FP32 add does."""
+    f = np.asarray(v).astype(np.float32)
+    if mode == "truncate":
+        over = np.abs(f.astype(np.float64)) > np.abs(v)
+        f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def tf32x3_walk(acc, a, b, mma, *, walk="apart", three=True):
+    """``acc`` + a b for split operands a = (hi, lo), b = (hi, lo) in the
+    accumulation walk of ``quest_mma::mma_3xtf32`` (``csrc/mma.cuh``), each
+    ``mma(c, x, y)`` one mma.sync (c + x y, rounded as the accumulator
+    rounds). ``"apart"``, the kernel's: lo*hi, hi*lo, hi*hi each into a
+    zeroed fragment, added to acc by an FP32 add. ``"chained"``, the walk
+    before: the same products onto acc itself. ``three=False`` drops the
+    small products."""
+    (ah, al), (bh, bl) = a, b
+    small = ((al, bh), (ah, bl)) if three else ()
+    for x, y in small + ((ah, bh),):
+        acc = mma(acc, x, y) if walk == "chained" else acc + mma(np.zeros_like(acc), x, y)
+    return acc
+
+
+def _kernel_model(xr, xi, split, three=True, walk="apart", mode="truncate"):
     """The f32 kernel's lane_u arithmetic on rows (xr, xi) of a tile: the
     k steps in its order (chunk j of 16 columns, then h), each step's A
     fragment from columns 16 j + 4 t + 2 h (+1) split as the kernel splits
     it, the B fragments from the host's split block, each mma.sync m16n8k8
-    as 8 exact products summed onto the FP32 accumulator and rounded once,
-    in the kernel's order: out_r += xr Ur^T + xi (-Ui^T), out_i += xr Ui^T +
-    xi Ur^T, each product lo*hi, hi*lo, hi*hi (3xTF32) or hi*hi alone."""
+    as 8 exact products summed onto its FP32 accumulator and rounded once
+    (``mode``: toward zero, as the card does, or to nearest), in the
+    kernel's order: out_r += xr Ur^T + xi (-Ui^T), out_i += xr Ui^T + xi
+    Ur^T, each product in the accumulation ``walk`` of
+    :func:`tf32x3_walk`, in 3xTF32 or hi*hi alone."""
     rows = xr.shape[0]
     acc = {"r": np.zeros((rows, LANES), np.float32), "i": np.zeros((rows, LANES), np.float32)}
 
-    def mma(key, a, b):
-        acc[key] = (acc[key].astype(np.float64)
-                    + a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+    def mma(c, a, b):
+        return mma_round(c.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64),
+                         mode)
 
     def product(key, a, b):
-        (ah, al), (bh, bl) = a, b
-        if three:
-            mma(key, al, bh)
-            mma(key, ah, bl)
-        mma(key, ah, bh)
+        acc[key] = tf32x3_walk(acc[key], a, b, mma, walk=walk, three=three)
 
     for j in range(8):
         for h in range(2):
@@ -176,6 +200,23 @@ def test_tf32x3_model_within_card_limit(seed):
     one_r, one_i = _kernel_model(x[0], x[1], split, three=False)
     err1 = max(np.abs(one_r - exact.real).max(), np.abs(one_i - exact.imag).max()) / scale
     assert err1 > 1e-5 > err, (err1, err)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fold", ["lane_u", "window"])
+def test_chained_walk_loses_norm_under_truncation(fold, seed):
+    """With each mma.sync rounded toward zero, as the card's tensor cores
+    round, the 3xTF32 walk that chains every product onto one running sum
+    loses norm on every f32 tile (one sign) and, over the tiles, ten times
+    or more what the FP32 product rounded to nearest changes it: the fault
+    the kernel's walk repairs. Rounded to nearest, the same
+    walk shows nothing, which is why a model that rounds so never saw
+    it."""
+    from .test_torch_window_tf32 import fold_norm_changes
+
+    ch = fold_norm_changes(fold, seed)
+    assert all(d < 0 for d in ch["chained"]), ch
+    assert -sum(ch["chained"]) >= 10 * np.abs(ch["plain"]).sum(), ch
 
 
 # ---------------------------------------------------------------------------

@@ -87,11 +87,22 @@ def test_cuda_mesh_raises_without_cuda():
         tq.createQuESTEnv(devices=["cuda:0"] * 2)
 
 
-def test_density_register_on_a_mesh_raises():
-    _, tenv = _envs(4)
-    with pytest.raises(tq.QuESTError, match="later slice"):
-        tq.createDensityQureg(4, tenv, 2)
-    assert tq.createDensityQureg(4, tq.createQuESTEnv(device="cpu"), 2).shards is None
+@pytest.mark.parametrize("n", [2, 4])
+def test_density_register_on_a_mesh_matches_reference_layout(n):
+    """A density register on 4 shards is its flattened 2n-qubit state cut
+    as quest_tpu cuts it: 4 shards of 4^n / 4 amplitudes, shard r the flat
+    indices [r C, (r+1) C), in |0><0|; one device keeps it whole."""
+    jenv, tenv = _envs(4)
+    jqr, tqr = jq.createDensityQureg(n, jenv, 2), tq.createDensityQureg(n, tenv, 2)
+    assert tqr.amps is None and len(tqr.shards) == 4
+    assert len(jqr.amps.sharding.device_set) == 4
+    c = (1 << (2 * n)) // 4
+    assert all(s.shape == (2, c) for s in tqr.shards)
+    for r, piece in enumerate(sorted(jqr.amps.addressable_shards,
+                                     key=lambda p: p.index[1].start or 0)):
+        assert (piece.index[1].start or 0) == r * c
+        np.testing.assert_array_equal(np.asarray(piece.data), tqr.shards[r].numpy())
+    assert tq.createDensityQureg(n, tq.createQuESTEnv(device="cpu"), 2).shards is None
 
 
 @pytest.mark.parametrize("d", [4, 8])
@@ -137,8 +148,12 @@ def test_refused_calls_raise():
     q = tq.createQureg(6, tenv, 2)
     one = tq.createQuESTEnv(device="cpu")
     rho = tq.createDensityQureg(6, one, 2)
-    with pytest.raises(tq.QuESTError, match="later slice"):
-        tq.initPureState(rho, q)  # a density matrix from a sharded state
+    tq.initDebugState(q)
+    tq.initPureState(rho, q)  # a density matrix from a sharded state
+    v = state_to_numpy(q)[0] + 1j * state_to_numpy(q)[1]
+    np.testing.assert_allclose(state_to_numpy(rho)[0].reshape(64, 64).T
+                               + 1j * state_to_numpy(rho)[1].reshape(64, 64).T,
+                               np.outer(v, v.conj()), atol=TOL)
     with pytest.raises(tq.QuESTError):
         tq.calcPurity(q)
     with pytest.raises(tq.QuESTError):
