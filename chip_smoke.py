@@ -300,7 +300,33 @@ no result, without them. Phases, in order:
    the r4 state's readouts (trace, purity, outcome probabilities,
    fidelity, a Pauli product, inner product and distance against the
    one-device state, a density amplitude, a diagonal operator's
-   expectation) against complex128 evaluations; then the script's time.
+   expectation) against complex128 evaluations;
+17. sampling, gradients and serving over shards
+   (``_sharded_serving_phase``, ``# sharded sampling``, ``# sharded
+   gradients`` and ``# sharded serving`` lines), on N_SHARDS virtual
+   shards of cuda:0: ``sample_request`` on the sharded phase's 26q plans,
+   f32 and f64, over every qubit and over SAMPLE_SUBSET (its qubit 25
+   sharded) at 1024 and 2^20 shots -- the eager request launching the
+   kernel once a run a shard, zero fallbacks, its graph holding as many
+   fused_run nodes, the table equal to the shot stage on the final shards
+   and to the CPU's sharded sampler on the same shards copied to the host
+   bit for bit, the shot stage's rise of ``max_memory_allocated`` below
+   one shard's bytes (nothing gathered), the subset's 2^20 shots against
+   the float64 marginal by chi-square, ms a request beside phase 13's
+   one-device request; the MID_MEASURE circuit planned for the shards with
+   ``applyMidMeasurement`` on its qubit 7 (local) and 19 (sharded): the
+   outcome and the state against the one-device plan (1e-5 / 1e-12 of the
+   largest amplitude); ``serving_ansatz(26, 2)``'s gradient over the
+   shards against phase 13's one-device gradient (1e-5 / 1e-10 of the
+   largest |g|), ms, capture s and MiB; ``Engine.submit_grad`` on the
+   shards (GRAD_SHARDED_ENGINE, 4 requests) against one-device
+   ``Circuit.gradient``; the 14q r3 density circuit with a Param
+   rotation after each Hadamard served by an Engine on the shards (8
+   requests f32, 4 f64): launches = (runs + barrier channels) x shards,
+   zero fallbacks, a batch equal to a loop bit for bit, within 1e-5 /
+   1e-12 of the largest entry of a one-device Engine, requests/s beside
+   it, and the same stream through a one-replica EnginePool; then the
+   script's time.
 
 Every ``# ... pass`` line gives the pass's records, its 2x2 and swap
 records and the register sweeps they take (the 2x2 arm's, at the
@@ -5630,6 +5656,494 @@ def _sampling_gradients_entries(entries: list, samp_grad: dict) -> None:
     entries[1]["gradients"]["parameter_shift_20q_1"] = grads["shift"]
 
 
+#: phase 17: the sharded qubit of its mid-circuit measurement (the top of
+#: MID_MEASURE's width, at or above the shard boundary), the requests of its
+#: gradient Engine and of its density Engine, and the limits its checks
+#: hold, f32 / f64
+MID_SHARDED = MID_MEASURE[0] - 1
+#: the gradient Engine's ansatz over shards (GRAD_ANSATZ's 20 qubits, its
+#: depth cut from 4 to 2 for the phase's time: at depth 4 the build of its
+#: 160-slot program took 10-15 s a precision) and its requests
+GRAD_SHARDED_ENGINE, GRAD_SHARDED_REQUESTS = (GRAD_ANSATZ[0], 2), 4
+#: the density Engine's requests, f32 / f64: the batch's states stay on the
+#: card while a one-device Engine serves the same stream, and eight f64
+#: states (4 GiB each) beside that Engine's buffers and graph pool did not
+#: fit the card's 80 GB
+SERVE_DENSITY_REQUESTS = {"float32": 8, "float64": 4}
+PHASE17_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _density_serving_circuit(qt):
+    """The bench's 14q r3 density circuit with a Param rotation after each
+    of its four Hadamards (``rotateY(q, P("t{q}"))``): the structure the
+    phase's density Engine serves with each request's angles."""
+    from quest_tpu_torch.engine import P
+
+    base = qt.density_circuit(N_DENSITY, False)
+    circ = qt.Circuit(N_DENSITY, is_density_matrix=True)
+    for i, (f, a, kw) in enumerate(base._tape):
+        circ.append(f, *a, **kw)
+        if i < 4:
+            circ.rotateY(i, P(f"t{i}"))
+    return circ
+
+
+def _sharded_sampling(qt, dev, plans: dict, one: dict) -> dict:
+    """Phase 17, sampling over shards (``# sharded sampling`` lines):
+    ``sample_request`` on the sharded path's 26q plans (f32, f64), over
+    every qubit and over SAMPLE_SUBSET (qubit 25 sharded), at each of
+    SAMPLE_SHOTS; then applyMidMeasurement over the shards on a local and
+    a sharded qubit against one device. ``one``: phase 13's sampling
+    results, for the one-device ms a request."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2 as chi2_dist
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.ops import measure as M
+    from quest_tpu_torch.sampling import sampler as sp
+    from quest_tpu_torch.sampling.request import sample_request
+
+    card = _card_line()
+    env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    env1 = qt.createQuESTEnv(device=dev)
+    seed_t = torch.tensor(SAMPLE_SEED, dtype=torch.int64, device=dev)
+    out: dict = {}
+    for dt in (torch.float32, torch.float64):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        fz = plans[("sharded", dt)]
+        runs = sum(f is fusion._apply_pallas_run for f, _, _ in fz._tape)
+        zs = list(qt.createQureg(N_MAIN, env, prec).shards)
+        shard_bytes = zs[0].numel() * zs[0].element_size()
+        state = fz.compiled_request(donate=False)(zs)
+        host = [s.cpu() for s in state]
+        cpu_tables: dict = {}
+        for targets in (tuple(range(N_MAIN)), SAMPLE_SUBSET):
+            t = len(targets)
+            for shots in SAMPLE_SHOTS:
+                exe = sample_request(fz, targets=targets, shots=shots, donate=False)
+                telemetry.reset()
+                FG.fused_run.launches = 0
+                got = exe(zs, seed_t)["shots"]
+                torch.cuda.synchronize(dev)
+                launches = FG.fused_run.launches
+                dispatches = telemetry.counter_value("device_dispatch_total", route="request")
+                fallbacks = telemetry.counter_total("engine_fallback_total")
+                _require(launches == runs * N_SHARDS and dispatches == 1 and fallbacks == 0,
+                         f"sharded sampling {name} {t}q {shots}: the eager request launched the "
+                         f"kernel {launches} times for {runs} runs x {N_SHARDS} shards, in "
+                         f"{dispatches:g} dispatches, {fallbacks:g} fallbacks")
+                again = exe(zs, seed_t)["shots"]  # captures the request's graph
+                graph_kernels = _graph_kernels(exe)
+                _require(graph_kernels == runs * N_SHARDS,
+                         f"sharded sampling {name} {t}q: the request's graph holds "
+                         f"{graph_kernels} fused_run nodes, for {runs} runs x {N_SHARDS}")
+                _require(torch.equal(got, again) and int(got.min()) >= 0
+                         and int(got.max()) < (1 << t),
+                         f"sharded sampling {name} {t}q {shots}: a shot out of range, or a "
+                         "replay that differs from the eager request")
+                # the shot stage alone on the request's final shards: its
+                # table, and the rise of the card's peak memory during it
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                base_mem = torch.cuda.memory_allocated(dev)
+                stage = sp.sample_statevec(state, n=N_MAIN, targets=targets, shots=shots,
+                                           seed=seed_t)
+                torch.cuda.synchronize(dev)
+                rise = torch.cuda.max_memory_allocated(dev) - base_mem
+                _require(torch.equal(stage, got), f"sharded sampling {name} {t}q {shots}: the "
+                                                  "shot stage on the final shards differs")
+                _require(rise < shard_bytes,
+                         f"sharded sampling {name} {t}q {shots}: the shot stage raised the "
+                         f"card's peak memory by {rise} bytes, one shard holds {shard_bytes}")
+                # the CPU's sharded sampler on the same shards, bit for bit.
+                # Over every qubit it takes ~4 s on the host, so it runs once
+                # a target set, at the most shots: a shot's draw depends on
+                # its counter alone, so a table of fewer shots is that
+                # table's first shots
+                key = (dt, t)
+                if key not in cpu_tables:
+                    cpu_tables[key] = sp.sample_statevec(
+                        host, n=N_MAIN, targets=targets, shots=max(SAMPLE_SHOTS),
+                        seed=SAMPLE_SEED)
+                cpu = cpu_tables[key][:shots]
+                _require(torch.equal(cpu, got.cpu()),
+                         f"sharded sampling {name} {t}q {shots}: the card's table differs from "
+                         f"the CPU's sharded sampler on the same shards in "
+                         f"{int((cpu != got.cpu()).sum())} shots")
+                chi = None
+                if t < N_MAIN and shots == max(SAMPLE_SHOTS):
+                    exact = M.prob_of_all_outcomes_shards(
+                        [s.double() for s in state], n=N_MAIN, targets=targets).cpu().numpy()
+                    emp = np.bincount(got.cpu().numpy(), minlength=1 << t).astype(np.float64)
+                    exp = shots * exact / exact.sum()
+                    live = exp > 0
+                    stat = float(np.sum((emp[live] - exp[live]) ** 2 / exp[live]))
+                    dof = int(live.sum()) - 1
+                    chi = (stat, float(chi2_dist.sf(stat, dof)), dof)
+                    _require(chi[1] >= 1e-6 and emp[~live].sum() == 0,
+                             f"sharded sampling {name}: chi-square {stat:.1f} over {dof} dof, "
+                             f"p-value {chi[1]:.3g} < 1e-6, or a shot of probability 0")
+                ms = _cuda_ms(lambda: exe(zs, seed_t), 3)
+                one_ms = one.get((dt, t, shots), {}).get("ms")
+                out[(dt, t, shots)] = {
+                    "launches": launches, "runs": runs, "graph_kernels": graph_kernels,
+                    "ms": ms, "one_device_ms": one_ms, "shot_stage_peak_rise_bytes": rise,
+                    "shard_bytes": shard_bytes, "chi2": chi}
+                print(f"# sharded sampling {name} {N_MAIN}q depth {DEPTH_MAIN} over {N_SHARDS} "
+                      f"shards, {t} targets, {shots} shots: the eager request launched the "
+                      f"kernel {launches} times (runs {runs} x {N_SHARDS}), 0 fallbacks, its graph "
+                      f"holds {graph_kernels} fused_run nodes; shots in range, = the shot stage "
+                      f"on the final shards, = the CPU's sharded sampler on the same shards bit "
+                      f"for bit" + (f"; chi-square {chi[0]:.1f} ({chi[2]} dof, p-value "
+                                    f"{chi[1]:.3g})" if chi else "")
+                      + f"; the shot stage raised peak memory by {rise / 2 ** 20:.1f} MiB (one "
+                        f"shard {shard_bytes / 2 ** 20:.0f} MiB); {ms:.3f} ms a request against "
+                        f"{one_ms if one_ms is None else round(one_ms, 3)} ms on one device "
+                        f"(phase 13) [{card}]")
+                del exe, got, again, stage, cpu
+        del zs, state, host, cpu_tables
+        _release()
+
+        # a mid-circuit measurement on a local and on a sharded qubit
+        n, depth, mq = MID_MEASURE
+        tol = PHASE17_TOL[name]
+        for target in (mq, MID_SHARDED):
+            c = qt.Circuit(n)
+            qt.random_layers(c, n, depth)
+            c.applyMidMeasurement(target, SAMPLE_SEED, site=1)
+            for q in range(3):
+                c.hadamard(q)
+            sh_plan = c.fused(max_qubits=5, pallas=True, dtype=dt, shard_devices=N_SHARDS)
+            one_plan = c.fused(max_qubits=5, pallas=True, dtype=dt)
+            sh_runs = sum(f is fusion._apply_pallas_run for f, _, _ in sh_plan._tape)
+            qs, q1 = qt.createQureg(n, env, prec), qt.createQureg(n, env1, prec)
+            telemetry.reset()
+            FG.fused_run.launches = 0
+            sh_plan.run(qs)
+            torch.cuda.synchronize(dev)
+            launches = FG.fused_run.launches
+            fallbacks = telemetry.counter_total("engine_fallback_total")
+            one_plan.run(q1)
+            p_sh, p_one = qt.calcProbOfOutcome(qs, target, 1), qt.calcProbOfOutcome(q1, target, 1)
+            diff, rel = _rel_err(torch.cat(qs.shards, dim=1), q1.amps)
+            sharded = target >= qs.num_local_qubits
+            _require(launches == sh_runs * N_SHARDS and fallbacks == 0,
+                     f"sharded mid-circuit {name} qubit {target}: {launches} launches for "
+                     f"{sh_runs} runs x {N_SHARDS}, {fallbacks:g} fallbacks")
+            _require(round(p_sh) == round(p_one) and abs(p_sh - round(p_sh)) <= 1e-4
+                     and rel <= tol,
+                     f"sharded mid-circuit {name} qubit {target}: outcome P(1) {p_sh} against "
+                     f"{p_one} on one device, state {rel:.3e} of the largest amplitude "
+                     f"(limit {tol:g})")
+            out[(dt, "mid", target)] = {"launches": launches, "runs": sh_runs,
+                                        "outcome": int(round(p_sh)), "max_rel_diff": rel,
+                                        "sharded_qubit": sharded}
+            print(f"# sharded sampling {name} mid-circuit measurement: {n}q "
+                  f"random_layers({depth}) over {N_SHARDS} shards, applyMidMeasurement on "
+                  f"qubit {target} ({'sharded' if sharded else 'local'}), {sh_runs} runs: "
+                  f"{launches} launches, 0 fallbacks; outcome {int(round(p_sh))} as on one "
+                  f"device, the state within {rel:.3e} of the largest amplitude of the "
+                  f"one-device run (limit {tol:g}) [{card}]")
+            del qs, q1
+        _release()
+    return out
+
+
+def _sharded_gradients(qt, dev, one: dict) -> dict:
+    """Phase 17, gradients over shards (``# sharded gradients`` lines):
+    ``serving_ansatz(26, 2)`` fused (the circuit of phase 13's full-width
+    gradient) differentiated on N_SHARDS virtual shards, f32 and f64,
+    against phase 13's one-device gradients ``one``; then
+    ``Engine.submit_grad`` on the shards at GRAD_SHARDED_ENGINE against
+    one-device ``Circuit.gradient``."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import telemetry
+    from quest_tpu_torch.engine import Engine
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    card = _card_line()
+    env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    env1 = qt.createQuESTEnv(device=dev)
+    out: dict = {}
+
+    def params(circ, seed):
+        r = np.random.RandomState(seed)
+        return dict(zip(circ.param_names, r.uniform(0, 2 * np.pi, len(circ.param_names))))
+
+    steps, t_step = {}, time.perf_counter()
+
+    def step(what):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[what] = round(now - t_step, 2)
+        t_step = now
+
+    n26, depth26 = GRAD_FULL
+    hamil26 = tfim_hamil(qt, n26, 2026)
+    circ26 = qt.serving_ansatz(n26, depth26).fused(max_qubits=5)
+    prm26 = params(circ26, 26)
+    for dt, gtol in ((torch.float32, 1e-5), (torch.float64, 1e-10)):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        ref = one[(dt, "full")]["out"]
+        zs = list(qt.createQureg(n26, env, prec).shards)
+        gx = circ26.gradient(hamil26, donate=False, dtype=dt)
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        t0 = time.perf_counter()
+        first = gx(zs, prm26)
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        launches = FG.fused_run.launches
+        res = gx(zs, prm26)  # the capture
+        same = torch.equal(first["value"], res["value"]) and all(
+            torch.equal(first["grads"][k], res["grads"][k]) for k in res["grads"])
+        _require(same, f"sharded gradients {name}: the graph replay differs from the eager run")
+        cap_s, cap_b = gx.captures[-1] if gx.captures else (0.0, 0)
+        ms = _clock_ms(lambda: gx(zs, prm26), 1)  # one replay of the captured graph
+        gmax = _grad_max(ref)
+        err = max(abs(float(res["grads"][k]) - float(ref["grads"][k])) for k in ref["grads"])
+        dv = abs(float(res["value"]) - float(ref["value"]))
+        _require(err <= gtol * gmax and dv <= (1e-4 if dt == torch.float32 else 1e-10),
+                 f"sharded gradients {name}: grads {err:.3e} from one device's ({err / gmax:.3e} "
+                 f"of the largest |g|, limit {gtol:g}), value {dv:.3e}")
+        out[(dt, "full")] = {
+            "launches": launches, "slots": gx.num_slots, "value": float(res["value"]),
+            "one_device_value": float(ref["value"]), "max_rel_grad_diff": err / gmax,
+            "ms": ms, "one_device_ms": one[(dt, "full")]["ms"], "cold_s": cold_s,
+            "capture_s": cap_s, "capture_mib": cap_b / 2 ** 20}
+        print(f"# sharded gradients {name} serving_ansatz({n26}, {depth26}) fused over "
+              f"{N_SHARDS} shards: {gx.num_slots} slots, TFIM {hamil26.num_sum_terms} terms; value "
+              f"{float(res['value']):.12f} (one device {float(ref['value']):.12f}); grads within "
+              f"{err / gmax:.3e} of the largest |g| of phase 13's one-device gradient (limit "
+              f"{gtol:g}); {launches} kernel launches (the dense blocks on the engine over "
+              f"shards); {ms:.2f} ms a gradient against {one[(dt, 'full')]['ms']:.2f} ms on one "
+              f"device; cold {cold_s:.2f} s, capture {cap_s:.2f} s, the graph holds "
+              f"{cap_b / 2 ** 20:.1f} MiB [{card}]")
+        del zs, gx, first, res
+        _release()
+        step(f"{n26}q {name}")
+
+    n, depth = GRAD_SHARDED_ENGINE
+    hamil = tfim_hamil(qt, n, 2020)
+    raw = qt.serving_ansatz(n, depth)
+    sweep = [params(raw, 300 + i) for i in range(GRAD_SHARDED_REQUESTS)]
+    for dt, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        eng = Engine(raw, env, precision_code=prec, max_batch=GRAD_SHARDED_REQUESTS,
+                     max_delay_ms=20.0, hamiltonian=hamil)
+        # the first pass builds (an eager request, then the capture), the
+        # second only replays; the counts are read over the first pass
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        first = [f.result(600) for f in [eng.submit_grad(p) for p in sweep]]
+        torch.cuda.synchronize(dev)
+        launches = FG.fused_run.launches
+        fallbacks = telemetry.counter_total("engine_fallback_total")
+        _require(fallbacks == 0, f"sharded gradients {name} engine: {fallbacks:g} fallbacks")
+        t0 = time.perf_counter()
+        got = [f.result(600) for f in [eng.submit_grad(p) for p in sweep]]
+        batch_s = time.perf_counter() - t0
+        eng.close(timeout=600)
+        _require(all(torch.equal(a[0], b[0]) for a, b in zip(first, got)),
+                 f"sharded gradients {name} engine: a replayed request differs from its build")
+        step(f"engine {name}")
+        gx = raw.gradient(hamil, donate=False, dtype=dt)
+        zero = qt.createQureg(n, env1, prec).amps
+        refs = [gx(zero, p) for p in sweep]
+        err = max(abs(float(g[k]) - float(r["grads"][k])) / _grad_max(r)
+                  for (_, g), r in zip(got, refs) for k in g)
+        dv = max(abs(float(v) - float(r["value"])) for (v, _), r in zip(got, refs))
+        _require(err <= tol, f"sharded gradients {name} engine: {err:.3e} of the largest |g| "
+                             f"from one device (limit {tol:g})")
+        out[(dt, "engine")] = {"requests": len(sweep), "requests_per_s": len(sweep) / batch_s,
+                               "max_rel_err": err, "max_value_diff": dv, "launches": launches}
+        step(f"one device {name}")
+        print(f"# sharded gradients {name} engine: serving_ansatz({n}, {depth}) over "
+              f"{N_SHARDS} shards, {len(sweep)} submit_grad requests in sequence: within "
+              f"{err:.3e} of the largest |g| of one-device Circuit.gradient (limit {tol:g}), "
+              f"values within {dv:.3e}; {launches} kernel launches in the first pass, 0 "
+              f"fallbacks; {len(sweep) / batch_s:.2f} requests/s warm; seconds "
+              f"{steps} [{card}]")
+        del zero, gx, refs, got, first
+        _release()
+    out["seconds"] = steps
+    return out
+
+
+def _sharded_serving(qt, dev) -> dict:
+    """Phase 17, density serving over shards (``# sharded serving`` lines):
+    ``_density_serving_circuit`` planned for N_SHARDS shards, served by an
+    Engine on the shards (a batch of SERVE_DENSITY_REQUESTS equal to a loop
+    of single requests bit for bit, launches = (runs + barrier channels) x
+    shards, zero fallbacks), held against a one-device Engine over the
+    one-device plan, and the same stream through a one-replica
+    EnginePool."""
+    import numpy as np
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.engine import Engine
+    from quest_tpu_torch.ops import fused_gates as FG
+
+    card = _card_line()
+    env = qt.createQuESTEnv(devices=[dev] * N_SHARDS)
+    env1 = qt.createQuESTEnv(device=dev)
+    circ = _density_serving_circuit(qt)
+    r = np.random.RandomState(2017)
+    stream = [dict(zip(circ.param_names, r.uniform(0, 2 * np.pi, len(circ.param_names))))
+              for _ in range(max(SERVE_DENSITY_REQUESTS.values()))]
+    out: dict = {}
+    for dt in (torch.float32, torch.float64):
+        name, prec = str(dt)[6:], (1 if dt == torch.float32 else 2)
+        tol = PHASE17_TOL[name]
+        sweep = stream[:SERVE_DENSITY_REQUESTS[name]]
+        steps, t_step = {}, time.perf_counter()
+
+        def step(what):
+            nonlocal t_step
+            now = time.perf_counter()
+            steps[what] = round(now - t_step, 2)
+            t_step = now
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        sh_plan = circ.fused(max_qubits=4, pallas=True, dtype=dt, shard_devices=N_SHARDS)
+        one_plan = circ.fused(max_qubits=4, pallas=True, dtype=dt)
+        runs = sum(f is fusion._apply_pallas_run for f, _, _ in sh_plan._tape)
+        chans = sum(getattr(f, "__name__", "").startswith("mix") for f, _, _ in sh_plan._tape)
+        eng = Engine(sh_plan, env, precision_code=prec, max_batch=len(sweep),
+                     max_delay_ms=50.0)
+        step("plan")
+        telemetry.reset()
+        FG.fused_run.launches = 0
+        first = eng.run(sweep[0], 600)
+        torch.cuda.synchronize(dev)
+        launches = FG.fused_run.launches
+        fallbacks = telemetry.counter_total("engine_fallback_total")
+        want = (runs + chans) * N_SHARDS
+        _require(launches == want and fallbacks == 0,
+                 f"sharded serving {name}: the first request launched the kernel {launches} "
+                 f"times for (runs {runs} + barrier channels {chans}) x {N_SHARDS}, "
+                 f"{fallbacks:g} fallbacks")
+        del first
+        eng.run(sweep[0], 600)  # the capture
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        batch = [f.result(600) for f in eng.submit_many(sweep)]
+        torch.cuda.synchronize(dev)
+        batch_s = time.perf_counter() - t0
+        same = True
+        for p, b in zip(sweep, batch):
+            single = eng.run(p, 600)
+            same &= all(torch.equal(x, y) for x, y in zip(b, single))
+            del single
+        eng.close(timeout=600)
+        del eng
+        _release()  # the batch's states stay; the engine's buffers and graphs go
+        step("sharded engine")
+        _require(same, f"sharded serving {name}: a batch differs from a loop of single "
+                       "requests")
+        one = Engine(one_plan, env1, precision_code=prec, max_batch=1)
+        one.run(sweep[0], 600)
+        one.run(sweep[0], 600)
+        torch.cuda.synchronize(dev)
+        err, one_s = 0.0, 0.0
+        for p, b in zip(sweep, batch):
+            t0 = time.perf_counter()
+            ref = one.run(p, 600)
+            torch.cuda.synchronize(dev)
+            one_s += time.perf_counter() - t0
+            err = max(err, _rel_err(torch.cat(b, dim=1), ref)[1])
+            del ref
+        one.close(timeout=600)
+        del one
+        _release()
+        step("one-device engine")
+        _require(err <= tol, f"sharded serving {name}: {err:.3e} of the largest entry from the "
+                             f"one-device Engine (limit {tol:g})")
+        pool = qt.EnginePool(env, replicas=1, precision_code=prec, max_batch=1)
+        try:
+            t0 = time.perf_counter()
+            pooled = True
+            for p, b in zip(sweep, batch):
+                got = pool.submit(sh_plan, p, timeout=600).result(600)
+                pooled &= all(torch.equal(x, y) for x, y in zip(b, got))
+                del got
+            pool_s = time.perf_counter() - t0
+        finally:
+            pool.close()
+        _require(pooled, f"sharded serving {name}: the pool's states differ from the Engine's")
+        step("pool")
+        peak = torch.cuda.max_memory_allocated(dev)
+        nreq = len(sweep)
+        out[dt] = {"launches": launches, "runs": runs, "barrier_channels": chans,
+                   "requests": nreq, "requests_per_s": nreq / batch_s,
+                   "one_device_requests_per_s": nreq / one_s, "pool_requests_per_s":
+                   nreq / pool_s, "max_rel_diff_vs_one_device": err,
+                   "peak_memory_gib": peak / 2 ** 30, "seconds": steps}
+        print(f"# sharded serving {name}: {N_DENSITY}q r3 density circuit with 4 Param "
+              f"rotations over {N_SHARDS} shards ({runs} runs, {chans} barrier channels): the "
+              f"first request launched the kernel {launches} times, 0 fallbacks; a batch of "
+              f"{nreq} = a loop of single requests bit for bit, within {err:.3e} of the largest "
+              f"entry of the one-device Engine (limit {tol:g}); {nreq / batch_s:.2f} requests/s "
+              f"against {nreq / one_s:.2f} on one device; a one-replica EnginePool "
+              f"{nreq / pool_s:.2f} requests/s, its states = the Engine's; the card's peak "
+              f"memory {peak / 2 ** 30:.1f} GiB (the batch's {nreq} states held); seconds "
+              f"{steps} [{card}]")
+        del batch
+        _release()
+    return out
+
+
+def _sharded_serving_phase(qt, dev, plans: dict, samp_grad: dict) -> dict:
+    """Phase 17: sampling, mid-circuit measurement, gradients and serving
+    over N_SHARDS virtual shards of ``dev`` (``# sharded sampling``, ``#
+    sharded gradients``, ``# sharded serving`` lines), each held against
+    phase 13's one-device runs or a one-device run of its own."""
+    t0 = time.perf_counter()
+    out = {"sampling": _sharded_sampling(qt, dev, plans, samp_grad["sampling"])}
+    out["sampling_s"] = time.perf_counter() - t0
+    out["gradients"] = _sharded_gradients(qt, dev, samp_grad["gradients"])
+    out["gradients_s"] = time.perf_counter() - t0 - out["sampling_s"]
+    out["serving"] = _sharded_serving(qt, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    out["serving_s"] = out["phase_s"] - out["sampling_s"] - out["gradients_s"]
+    print(f"# sharded serving phase: {out['phase_s']:.1f} s (sampling {out['sampling_s']:.1f} "
+          f"s, gradients {out['gradients_s']:.1f} s, serving {out['serving_s']:.1f} s)")
+    return out
+
+
+def _sharded_serving_entries(entries: list, phase: dict) -> None:
+    """Phase 17's paths in the per-shard kernel's ``kernels`` entries, each
+    counted from its first (eager) call with the counts reset just before
+    it: every sampling request and mid-circuit measurement launches the
+    kernel once a run a shard, the density Engine once a run and a barrier
+    channel a shard; the gradient paths' counts as read over their first
+    pass (they run on the engine over shards, which launches no kernel)."""
+    import torch
+
+    samp, grads, serve = phase["sampling"], phase["gradients"], phase["serving"]
+    for e, ddt in ((entries[4], torch.float32), (entries[5], torch.float64)):
+        reqs = {f"request_{k[1]}_targets_{k[2]}_shots": v for k, v in samp.items()
+                if k[0] == ddt and k[1] != "mid"}
+        mids = {f"mid_measurement_{MID_MEASURE[0]}q_qubit_{k[2]}": v for k, v in samp.items()
+                if k[0] == ddt and k[1] == "mid"}
+        e["sharded_sampling_paths"] = dict(reqs, **mids)
+        e["sharded_gradient_paths"] = {
+            f"serving_ansatz_{GRAD_FULL[0]}q_{GRAD_FULL[1]}": grads[(ddt, "full")],
+            f"engine_submit_grad_{GRAD_SHARDED_ENGINE[0]}q_{GRAD_SHARDED_ENGINE[1]}":
+                grads[(ddt, "engine")]}
+        e["sharded_serving_paths"] = {f"density_{N_DENSITY}q_r3_params": serve[ddt]}
+        e["launches"] += (sum(v["launches"] for v in reqs.values())
+                          + sum(v["launches"] for v in mids.values()) + serve[ddt]["launches"]
+                          + sum(v["launches"] for v in e["sharded_gradient_paths"].values()))
+        e["graph_kernels"] = e.get("graph_kernels", 0) + sum(
+            v["graph_kernels"] for v in reqs.values())
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -6022,6 +6536,9 @@ def main() -> int:
         qt, dev, {(ddt, tag): density[(ddt, tag)]["plan"]
                   for ddt in (torch.float32, torch.float64) for tag in ("r3", "r4")})
 
+    # -- sharded serving phase: sampling, gradients, serving over 4 shards -
+    sharded_serving = _sharded_serving_phase(qt, dev, plans, samp_grad)
+
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
     f64_paths = {"statevec_26q_depth8_f64": main64}
@@ -6158,6 +6675,7 @@ def main() -> int:
     _trajectories_pool_entries(entries[:2], traj_pool)
     _checkpoint_entries(entries, ckpt)
     _sharded_density_entries(entries, sharded_density)
+    _sharded_serving_entries(entries, sharded_serving)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -6169,7 +6687,8 @@ def main() -> int:
           f"{samp_grad['phase_s']:.1f} s, trajectories and pool phase "
           f"{traj_pool['phase_s']:.1f} s, checkpoint and segments phase "
           f"{ckpt['phase_s']:.1f} s, sharded density phase "
-          f"{sharded_density['phase_s']:.1f} s)")
+          f"{sharded_density['phase_s']:.1f} s, sharded serving phase "
+          f"{sharded_serving['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -95,9 +95,8 @@ def calcProbOfAllOutcomes(qureg: Qureg, targets) -> np.ndarray:
     V.validate_multi_targets(qureg, targets, func)
     targets = tuple(int(t) for t in targets)
     if qureg.shards is not None and qureg.is_density_matrix:
-        n = qureg.num_qubits_represented
-        p = M.density_prob_of_all_outcomes(
-            None, n=n, targets=targets, diag=R.density_diagonal_shards(qureg.shards, n=n)[0])
+        p = M.density_prob_of_all_outcomes_shards(qureg.shards, n=qureg.num_qubits_represented,
+                                                  targets=targets)
     elif qureg.shards is not None:
         p = M.prob_of_all_outcomes_shards(qureg.shards, n=qureg.num_qubits_in_state_vec,
                                           targets=targets)
@@ -242,13 +241,18 @@ def _expec_pauli_sum(pieces: list, coeffs, *, codes, n: int, density: bool,
     return total
 
 
-def expec_pauli_sum_amps(amps: torch.Tensor, coeffs, *, codes, n: int,
-                         density: bool) -> torch.Tensor:
-    """sum_t c_t <P_t> of the planar ``amps`` (one device), the body of
-    :func:`calcExpecPauliSum` as a function of a tensor: ``codes`` is a
-    sequence of code tuples (codes[t][q] on qubit q), ``coeffs`` their
-    weights; a 0-d tensor of the state's dtype. The JAX package's
-    ``expec_pauli_sum_amps``, which sampling and gradients reuse."""
+def expec_pauli_sum_amps(amps, coeffs, *, codes, n: int, density: bool) -> torch.Tensor:
+    """sum_t c_t <P_t> of the planar ``amps`` (one tensor, or a sharded
+    state's list of shards: each term through the engine over shards), the
+    body of :func:`calcExpecPauliSum` as a function of a state: ``codes``
+    is a sequence of code tuples (codes[t][q] on qubit q), ``coeffs`` their
+    weights; a 0-d tensor of the state's dtype on its (first) device. The
+    JAX package's ``expec_pauli_sum_amps``, which sampling and gradients
+    reuse."""
+    if isinstance(amps, (list, tuple)):
+        from .parallel.scheduler import DistributedScheduler
+        return _expec_pauli_sum(list(amps), coeffs, codes=codes, n=n, density=density,
+                                eng=DistributedScheduler())
     return _expec_pauli_sum([amps], coeffs, codes=codes, n=n, density=density)
 
 
@@ -295,11 +299,9 @@ def calcGradExpecPauliSum(qureg: Qureg, circuit, all_pauli_codes, term_coeffs,
     V._assert(not qureg.is_density_matrix,
               "calcGradExpecPauliSum needs a state-vector register (the adjoint sweep "
               "differentiates pure states).", func)
-    V._assert(qureg.shards is None,
-              "calcGradExpecPauliSum needs a register on one device (gradients over "
-              "shards are a later slice of the port).", func)
+    amps = qureg.amps if qureg.shards is None else list(qureg.shards)
     out = gradient_executable(circuit, (all_pauli_codes, term_coeffs),
-                              donate=False)(qureg.amps, params)
+                              donate=False)(amps, params)
     return float(out["value"]), {k: float(v) for k, v in out["grads"].items()}
 
 

@@ -20,9 +20,12 @@ angles) arrive at once. Three mechanisms make them cheap:
   Param barriers between the runs are torch ops on each lane's own
   values. A short batch is padded to ``max_batch`` with the last request's
   values, so one graph serves every batch, and a request computes the same
-  bits whether or not it was coalesced. A sharded env replays the
-  requests of a batch in sequence instead, through
-  ``Circuit.parameterized``.
+  bits whether or not it was coalesced. A sharded env (a state vector or
+  a density register over the mesh) replays the requests of a batch in
+  sequence instead, through ``Circuit.parameterized``, whose program runs
+  on the shards: a ``finalize`` (a shot table, an expectation, the
+  adjoint gradient) takes the list of shards and returns its output on
+  the first shard's device.
 - **Executable reuse across structures**: both executables come from the
   process-global LRU (:mod:`.cache`) at every dispatch, keyed by the
   circuit's structure fingerprint: a second Engine over a structure-equal
@@ -229,8 +232,10 @@ class Engine:
     recorded with :class:`~quest_tpu_torch.engine.params.Param` placeholders
     (constant angles are lifted to runtime values too). ``env`` supplies
     the devices: None means ``createQuESTEnv()``, the card; a mesh of more
-    than one device shards the state and replays batches in sequence.
-    ``initial`` is ``"zero"``, ``"plus"`` or a planar (2, 2^nsv) array.
+    than one device shards the state (a state vector or a density
+    register) and replays batches in sequence.
+    ``initial`` is ``"zero"``, ``"plus"`` or a planar (2, 2^nsv) array
+    (on a sharded env also a list of its shards).
     ``finalize``, a function of the final state that ``torch.func.vmap``
     carries and that returns a tensor or a dict, tuple or list of them
     (a shot table: ``sampling.sample_reduce``), is composed into the
@@ -289,11 +294,6 @@ class Engine:
         self.num_amps = 1 << nsv
         #: True when batches replay in sequence over the sharded state
         self.sharded = sharded_over(env, self.num_amps)
-        if self.sharded and circuit.is_density_matrix:
-            from ..validation import QuESTError
-            raise QuESTError("An Engine cannot serve a density register sharded over "
-                             "several devices yet (serving over shards is a later slice "
-                             "of the port); serve it on a one-device env.", "Engine")
         self.device = env.device
 
         if isinstance(initial, str):
@@ -308,6 +308,13 @@ class Engine:
             else:
                 raise ValueError(f"initial must be 'zero', 'plus' or an array, "
                                  f"got {initial!r}")
+        elif self.sharded and isinstance(initial, (list, tuple)):
+            # a sharded initial state as its shards (a companion engine's)
+            amps = [torch.as_tensor(c, dtype=self.dtype, device=d)
+                    for c, d in zip(initial, env.devices)]
+            if len(amps) != env.num_ranks or sum(a.shape[-1] for a in amps) != self.num_amps:
+                raise ValueError(f"initial shards do not hold (2, {self.num_amps}) over "
+                                 f"{env.num_ranks} devices")
         else:
             amps = torch.as_tensor(initial, dtype=self.dtype, device=env.device)
             if tuple(amps.shape) != (2, self.num_amps):

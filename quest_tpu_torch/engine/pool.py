@@ -286,14 +286,6 @@ class EnginePool:
         with self._cv:
             if self._closed:
                 raise RuntimeError("EnginePool is closed")
-        if getattr(circuit, "is_density_matrix", False) and self._env.num_ranks > 1:
-            from ..registers import sharded_over
-            from ..validation import QuESTError
-            if sharded_over(self._env, 1 << (2 * circuit.num_qubits)):
-                raise QuESTError("An EnginePool cannot serve a density register sharded "
-                                 "over several devices yet (serving over shards is a "
-                                 "later slice of the port); serve it on a one-device env.",
-                                 "EnginePool.submit")
         self.admission.admit(tenant, priority, len(params_list))
         telemetry.inc("pool_requests_total", len(params_list), tenant=tenant,
                       priority=priority)

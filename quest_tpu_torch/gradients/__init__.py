@@ -12,7 +12,9 @@
   replays a parameter; never the serving route).
 
 Serving: ``Engine.submit_grad(params)`` batches optimizer steps into one
-lane-batched gradient program (``Engine(..., hamiltonian=...)``).
+lane-batched gradient program (``Engine(..., hamiltonian=...)``). On a
+sharded register the state, the costate and every bracket stay a list of
+shards, and each dagger reaches the engine over shards gate by gate.
 """
 
 from .adjoint import (GradExecutable, check_differentiable, grad_reduce,  # noqa: F401

@@ -57,7 +57,8 @@ from ..engine.params import _SlotRef
 from ..ops import reduce as R
 from ..registers import Qureg
 from ..validation import QuESTError
-from .expectation import apply_hamiltonian, expectation_value, hamiltonian_terms
+from .expectation import (apply_hamiltonian, expectation_value, hamiltonian_terms, shell_of,
+                          state_of)
 
 __all__ = ["grad_reduce", "gradient_executable", "plan_backward", "check_differentiable",
            "GradExecutable"]
@@ -207,12 +208,17 @@ def _apply_steps(shell: Qureg, steps) -> None:
 
 def _bracket(lam_amps, phi_amps, steps, num_qubits: int, part: str):
     """Re or Im of <lambda|Op|phi>, Op the steps program (the identity when
-    empty); ``phi_amps`` is left as it was (the engine makes new tensors)."""
+    empty); ``phi_amps`` is left as it was (the engine makes new tensors).
+    Both states are tensors, or lists of shards of one layout (each shard
+    pair's partial cascaded in shard order)."""
     if steps:
-        shell = Qureg(num_qubits, False, phi_amps, env=None)
+        shell = shell_of(phi_amps, num_qubits)
         _apply_steps(shell, steps)
-        phi_amps = shell.amps
-    re, im = R.inner_product(lam_amps, phi_amps)
+        phi_amps = state_of(shell)
+    if isinstance(lam_amps, (list, tuple)):
+        re, im = R.inner_product_shards(lam_amps, phi_amps)
+    else:
+        re, im = R.inner_product(lam_amps, phi_amps)
     return re if part == "re" else im
 
 
@@ -254,6 +260,16 @@ def _apply_event_dagger(shell: Qureg, ev) -> None:
         G._apply_gate_x(shell, inv.targets, inv.controls, inv.states)
     elif inv.kind == "parity":
         G._apply_gate_parity_phase(shell, inv.theta, inv.targets, inv.controls)
+    elif inv.kind == "swap" and shell.shards is not None:
+        # over shards: the engine's swap, or a controlled one as its matrix
+        if inv.controls:
+            swap = np.eye(4)[[0, 2, 1, 3]]
+            G._apply_gate_matrix(shell, swap, inv.targets, inv.controls)
+        else:
+            from ..parallel.scheduler import engine
+            shell.put_shards(engine(shell).apply_swap(
+                shell.shards, n=shell.num_qubits_in_state_vec, qb1=inv.targets[0],
+                qb2=inv.targets[1]))
     elif inv.kind == "swap":
         shell.put(K.apply_swap(shell.amps, n=shell.num_qubits_in_state_vec,
                                qb1=inv.targets[0], qb2=inv.targets[1],
@@ -412,19 +428,21 @@ def _cached_reduce(lifted, num_qubits, codes, coeffs, dtype):
         lam = apply_hamiltonian(amps, codes=codes, coeffs=coeffs, num_qubits=num_qubits)
         value = expectation_value(amps, lam)
         grads = [None] * slot_count
-        phi = Qureg(num_qubits, False, amps, env=None)
-        lamq = Qureg(num_qubits, False, lam, env=None)
+        # shells of the state (its shards, on a sharded register: each
+        # dagger then reaches the engine over shards gate by gate)
+        phi = shell_of(amps, num_qubits)
+        lamq = shell_of(lam, num_qubits)
         for plan in reversed(plans):
             if plan.param:
                 view = dict(plan.view)
                 vals = {f: (values[v.index] if isinstance(v, _SlotRef) else v)
                         for f, v in view.items()}
                 for field, coef, part, steps, comp in plan.post:
-                    g = coef * _bracket(lamq.amps, phi.amps, steps, num_qubits, part)
+                    g = coef * _bracket(state_of(lamq), state_of(phi), steps, num_qubits, part)
                     _accumulate(grads, view[field], g, comp)
                 _dagger_param(phi, plan.name, vals)
                 for field, coef, part, steps, comp in plan.pre:
-                    g = coef * _bracket(lamq.amps, phi.amps, steps, num_qubits, part)
+                    g = coef * _bracket(state_of(lamq), state_of(phi), steps, num_qubits, part)
                     _accumulate(grads, view[field], g, comp)
                 _dagger_param(lamq, plan.name, vals)
             else:

@@ -16,7 +16,8 @@ import torch
 
 from ..parallel.mesh import local_qubit_count
 from .layout import grouped_axes
-from .reduce import _csum, csum_rows, total_prob_statevec
+from . import reduce as _reduce
+from .reduce import _csum, csum_rows, density_diagonal_parts, total_prob_chunked
 
 
 def _group_outcome_probs(p: torch.Tensor, n: int, targets) -> torch.Tensor:
@@ -51,32 +52,127 @@ def density_prob_of_all_outcomes(amps: torch.Tensor, *, n: int, targets,
     return _group_outcome_probs(diag, n, tuple(targets))
 
 
-def prob_of_all_outcomes_shards(shards, *, n: int, targets) -> torch.Tensor:
-    """:func:`prob_of_all_outcomes` of a sharded state vector. Each shard
-    groups its local targets (a per-shard marginal, on its device); its
-    index gives the bits of the sharded targets, as in
-    ``ops.reduce.prob_of_outcome_shards``. Each shard's marginal is placed
-    at the outcomes its index selects, and the D vectors are cascaded in
-    shard order. Returns (2^t,) on the first shard's device."""
-    nl = local_qubit_count(n, shards)
-    targets = tuple(targets)
-    local = [(k, q) for k, q in enumerate(targets) if q < nl]
-    dev = shards[0].device
-    # outcome index of each local outcome, before the sharded targets' bits
+def _sq(a: torch.Tensor) -> torch.Tensor:
+    """|amp|^2 of a planar (2, ...) tensor."""
+    return a[0] * a[0] + a[1] * a[1]
+
+
+def _local_marginal(x: torch.Tensor, nl: int, targets: tuple, planar: bool) -> torch.Tensor:
+    """One shard's outcome marginal over ``targets`` (all local), on its
+    device: (2^t,). ``x`` is the shard's planar amplitudes (``planar``) or
+    its real probabilities. A planar shard of more than 2^CHUNK_BITS
+    amplitudes is reduced a piece at a time: the pieces fix its highest
+    non-target qubits, each piece is grouped and summed alone, and the
+    piece sums cascade in order. Those qubits are the most significant
+    bits of the grouped rest, so in f32 the bits are those of
+    :func:`prob_of_all_outcomes` on the whole shard, and no temporary is
+    larger than a piece."""
+    if not targets:
+        return (total_prob_chunked(x) if planar else _csum(x)).reshape(1)
+    if not planar:
+        return _group_outcome_probs(x, nl, targets)
+    rest = sorted((q for q in range(nl) if q not in targets), reverse=True)
+    c = min(max(nl - _reduce.CHUNK_BITS, 0), len(rest))
+    if c == 0:
+        return prob_of_all_outcomes(x, n=nl, targets=targets)
+    top = rest[:c]  # the chunk qubits, highest first
+    shape, axis_of = grouped_axes(nl, tuple(targets) + tuple(top))
+    view = x.reshape((2,) + shape)
+    fixed = {axis_of[q] for q in top}
+    keep = {a: i for i, a in enumerate(a for a in range(len(shape)) if a not in fixed)}
+    targ_axes = [keep[axis_of[q]] for q in reversed(targets)]  # MSB first
+    rest_axes = [i for i in range(len(keep)) if i not in targ_axes]
+    pieces = []
+    for v in range(1 << c):
+        idx = [slice(None)] * len(shape)
+        for j, q in enumerate(top):
+            idx[axis_of[q]] = (v >> (c - 1 - j)) & 1
+        p = _sq(view[(slice(None),) + tuple(idx)])
+        pieces.append(csum_rows(p.permute(targ_axes + rest_axes).reshape(1 << len(targets), -1)))
+    return csum_rows(torch.stack(pieces, dim=1))
+
+
+def prob_sources(shards, *, n: int, density: bool = False):
+    """``(sources, nl, planar)``: what each shard's outcome probabilities
+    come from, as a sharded vector of nl local qubits. A state vector's
+    shards themselves (|amp|^2 taken as needed); a density matrix's
+    diagonal entries (``ops.reduce.density_diagonal_parts``), each shard's
+    on its own device (a sharded diagonal of n - d local qubits), or one
+    source of n local qubits for a register of less than a column a
+    shard."""
+    if not density:
+        return list(shards), local_qubit_count(n, shards), True
+    parts = density_diagonal_parts(shards, n=n)
+    return [p[0] for p in parts], n - (len(parts) - 1).bit_length(), False
+
+
+def marginal_groups(sources, *, nl: int, targets, planar: bool) -> list:
+    """The outcome marginal over ``targets`` of a sharded probability vector,
+    kept on the shards: one part for each value g of the sharded targets'
+    bits (bit j of g the j-th sharded target in ``targets`` order), the
+    (2^l,) marginal over the l local targets (in ``targets`` order) of the
+    shards whose index has those bits, summed on the first of them in shard
+    order. With no sharded target it is one part, the whole marginal, on
+    the first shard's device. In f32 the parts hold the bits of the
+    one-device marginal: the shards a part sums differ in the top bits of
+    the grouped rest, which the one-device cascade adds last, in order."""
+    targets = tuple(int(q) for q in targets)
+    local = tuple(q for q in targets if q < nl)
+    sharded = [q for q in targets if q >= nl]
+    members: dict = {}
+    for r in range(len(sources)):
+        g = sum(((r >> (q - nl)) & 1) << j for j, q in enumerate(sharded))
+        members.setdefault(g, []).append(r)
+    parts = []
+    for g in range(1 << len(sharded)):
+        ms = [_local_marginal(sources[r], nl, local, planar) for r in members[g]]
+        if len(ms) == 1:
+            parts.append(ms[0])
+        else:
+            dev = ms[0].device
+            parts.append(csum_rows(torch.stack([m.to(dev) for m in ms], dim=1)))
+    return parts
+
+
+def assemble_marginal(parts, *, nl: int, targets) -> torch.Tensor:
+    """:func:`marginal_groups`' parts as the (2^t,) marginal on the first
+    part's device: each part's entries placed at the outcomes its local
+    targets and its sharded bits select."""
+    targets = tuple(int(q) for q in targets)
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    local = [k for k, q in enumerate(targets) if q < nl]
+    sharded = [k for k, q in enumerate(targets) if q >= nl]
     ol = torch.arange(1 << len(local), device=dev)
     base = torch.zeros_like(ol)
-    for j, (k, _) in enumerate(local):
+    for j, k in enumerate(local):
         base |= ((ol >> j) & 1) << k
-    full = []
-    for r, s in enumerate(shards):
-        if local:
-            m = prob_of_all_outcomes(s, n=nl, targets=tuple(q for _, q in local))
-        else:
-            m = total_prob_statevec(s).reshape(1)
-        hi = sum(((r >> (q - nl)) & 1) << k for k, q in enumerate(targets) if q >= nl)
-        full.append(torch.zeros(1 << len(targets), dtype=m.dtype, device=dev)
-                    .index_copy(0, base | hi, m.to(dev)))
-    return csum_rows(torch.stack(full).T.contiguous())
+    full = torch.zeros(1 << len(targets), dtype=parts[0].dtype, device=dev)
+    for g, part in enumerate(parts):
+        hi = sum(((g >> j) & 1) << k for j, k in enumerate(sharded))
+        full.index_copy_(0, base | hi, part.to(dev))
+    return full
+
+
+def prob_of_all_outcomes_shards(shards, *, n: int, targets) -> torch.Tensor:
+    """:func:`prob_of_all_outcomes` of a sharded state vector, on the first
+    shard's device: :func:`marginal_groups` (each shard groups its local
+    targets on its device; the sharded targets' bits come from the shard
+    index), the parts placed at their outcomes. With every target local it
+    is the D per-shard marginals cascaded in shard order."""
+    nl = local_qubit_count(n, shards)
+    parts = marginal_groups(list(shards), nl=nl, targets=targets, planar=True)
+    return assemble_marginal(parts, nl=nl, targets=targets)
+
+
+def density_prob_of_all_outcomes_shards(shards, *, n: int, targets) -> torch.Tensor:
+    """:func:`density_prob_of_all_outcomes` of a sharded density matrix: the
+    marginal of its diagonal, each shard's entries grouped on its device
+    (:func:`prob_sources`), on the first shard's device."""
+    sources, nl, _ = prob_sources(shards, n=n, density=True)
+    parts = marginal_groups(sources, nl=nl, targets=targets, planar=False)
+    return assemble_marginal(parts, nl=nl, targets=targets)
 
 
 def density_prob_of_outcome(amps: torch.Tensor, *, n: int, target: int,

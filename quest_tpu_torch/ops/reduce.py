@@ -12,9 +12,11 @@ A sharded state (a list of shards, shard r the amplitudes [r C, (r+1) C))
 reduces per shard, each on its device, and the D partial sums then
 cascade in shard order: for power-of-two shards the same pairing as the
 whole state's cascade. A sharded density matrix's diagonal (its 2^n
-entries, spread over the shards) is gathered onto the first shard's
-device (:func:`density_diagonal_shards`), and the one-device reductions
-of the diagonal then run on it in their own order.
+entries, spread over the shards) is read where each shard holds it
+(:func:`density_diagonal_parts`): its trace so, the readouts that need
+the whole diagonal on the first shard's device
+(:func:`density_diagonal_shards`), where the one-device reductions of the
+diagonal run in their own order.
 """
 
 from __future__ import annotations
@@ -129,9 +131,34 @@ def _csum_parts(parts) -> torch.Tensor:
     return _csum(torch.stack([p.to(parts[0].device) for p in parts]))
 
 
+#: the amplitudes a shard's norm and marginal reductions, and the sharded
+#: sampler's row scans, take at a time: beyond it a shard is reduced in
+#: contiguous pieces, whose partial sums cascade as the whole shard's
+#: would, so no temporary grows with the shard. 2^21: on the H100 a 26q
+#: shot stage over 4 shards replays 30% faster than at 2^20 and no faster
+#: at 2^22, and its temporaries (~28 bytes an entry) stay within one
+#: f32 shard's bytes beside 2^20 shots
+CHUNK_BITS = 21
+
+
+def total_prob_chunked(amps: torch.Tensor) -> torch.Tensor:
+    """:func:`total_prob_statevec` of one planar tensor, taken in pieces of
+    2^CHUNK_BITS amplitudes (the top index bits select the piece) whose
+    sums cascade in order: the adjacent-pair cascade's bits in f32, and no
+    temporary larger than a piece."""
+    m = amps.shape[-1]
+    if m <= 1 << CHUNK_BITS:
+        return total_prob_statevec(amps)
+    w = 1 << CHUNK_BITS
+    return _csum(torch.stack([total_prob_statevec(amps[:, i:i + w])
+                              for i in range(0, m, w)]))
+
+
 def total_prob_shards(shards) -> torch.Tensor:
-    """sum |amp|^2 of a sharded state vector."""
-    return _csum_parts([total_prob_statevec(s) for s in shards])
+    """sum |amp|^2 of a sharded state vector: each shard's sum on its device
+    (:func:`total_prob_chunked`), cascaded in shard order on the first
+    shard's device; a 0-d tensor, read by nobody until the caller does."""
+    return _csum_parts([total_prob_chunked(s) for s in shards])
 
 
 def inner_product_shards(bra_shards, ket_shards):
@@ -184,32 +211,42 @@ def expec_diag_op_shards(shards, elem_shards):
     return _csum_parts([p[0] for p in parts]), _csum_parts([p[1] for p in parts])
 
 
-def density_diagonal_shards(shards, *, n: int) -> torch.Tensor:
-    """The (2, 2^n) diagonal rho[i, i] (flat index i (2^n + 1)) of a sharded
-    n-qubit density matrix, on the first shard's device: each shard's
-    entries taken where it holds them, in order. While the mesh has at
-    most 2^n devices a shard holds whole columns, and its entries are the
-    diagonal of one square block of its (columns, rows) view."""
+def density_diagonal_parts(shards, *, n: int) -> list:
+    """Each shard's entries of the diagonal rho[i, i] (flat index i (2^n +
+    1)) of a sharded n-qubit density matrix, as (2, k) tensors on the
+    shard's own device, in shard order. While the mesh has at most 2^n
+    devices a shard holds whole columns, and its entries are the diagonal
+    of one square block of its (columns, rows) view: shard r holds the
+    diagonal's [r m, (r+1) m), a sharded diagonal of n - d local qubits.
+    A register of less than a column a shard gives one part, its whole
+    diagonal on the first shard's device: a diagonal of n local qubits."""
     dim, c = 1 << n, shards[0].shape[-1]
+    if c % dim == 0:
+        m = c // dim
+        return [torch.diagonal(s.reshape(2, m, dim)[:, :, r * m:(r + 1) * m], dim1=1, dim2=2)
+                for r, s in enumerate(shards)]
     dev = shards[0].device
     parts = []
     for r, s in enumerate(shards):
-        if c % dim == 0:
-            m = c // dim
-            block = s.reshape(2, m, dim)[:, :, r * m:(r + 1) * m]
-            part = torch.diagonal(block, dim1=1, dim2=2)
-        else:  # fewer amplitudes a shard than a column: a tiny register
-            lo, hi = r * c, (r + 1) * c
-            idx = [i * (dim + 1) - lo for i in range(dim) if lo <= i * (dim + 1) < hi]
-            part = s[:, idx]
-        parts.append(part.to(dev))
-    return torch.cat(parts, dim=1)
+        lo, hi = r * c, (r + 1) * c
+        idx = [i * (dim + 1) - lo for i in range(dim) if lo <= i * (dim + 1) < hi]
+        parts.append(s[:, idx].to(dev))
+    return [torch.cat(parts, dim=1)]
+
+
+def density_diagonal_shards(shards, *, n: int) -> torch.Tensor:
+    """The (2, 2^n) diagonal of a sharded n-qubit density matrix on the first
+    shard's device: :func:`density_diagonal_parts` joined in order."""
+    dev = shards[0].device
+    return torch.cat([p.to(dev) for p in density_diagonal_parts(shards, n=n)], dim=1)
 
 
 def total_prob_density_shards(shards, *, n: int) -> torch.Tensor:
-    """Re(trace(rho)) of a sharded density matrix, summed as
-    :func:`total_prob_density` sums the whole diagonal."""
-    return _csum(density_diagonal_shards(shards, n=n)[0])
+    """Re(trace(rho)) of a sharded density matrix: each shard's diagonal
+    entries summed on its device, the partial sums cascaded in shard order
+    (the diagonal never gathered; in f32 the bits of the whole diagonal's
+    cascade)."""
+    return _csum_parts([_csum(p[0]) for p in density_diagonal_parts(shards, n=n)])
 
 
 def hilbert_schmidt_distance_shards(a_shards, b_shards) -> torch.Tensor:

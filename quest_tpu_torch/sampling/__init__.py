@@ -8,7 +8,9 @@
 - :mod:`.sampler` -- the inverse-CDF shot stage: S shots of a request as
   one fixed-shape computation over the outcome marginal (a two-level
   block CDF in a fixed order of float32 adds, float32 draws, the
-  compensated normalizer).
+  compensated normalizer); over shards the marginal stays on the shards,
+  and only the block totals and each shot's row search cross
+  (``draw_outcomes_shards``).
 - :mod:`.measure` -- ``applyMidMeasurement`` / ``applyMidCollapse``:
   measurement and collapse as recordable tape entries (fusion barriers,
   segment seams) with a branch-free one-hot collapse.
@@ -23,11 +25,12 @@ from .request import (  # noqa: F401
     shots_default, to_host,
 )
 from .sampler import (  # noqa: F401
-    draw_outcomes, marginal_probs, sample_density, sample_statevec,
+    draw_outcomes, draw_outcomes_shards, marginal_probs, sample_density, sample_statevec,
 )
 
 __all__ = [
     "applyMidCollapse", "applyMidMeasurement", "DEFAULT_SHOTS", "draw_outcomes",
+    "draw_outcomes_shards",
     "expectation_reduce", "marginal_probs", "sample_density", "sample_reduce",
     "sample_request", "sample_statevec", "sampleQureg", "shots_default", "to_host",
 ]

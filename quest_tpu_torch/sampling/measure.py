@@ -15,8 +15,14 @@ runs inside a captured replay like any gate:
   lift, so S seeds replay one executable, and under the Engine's
   ``torch.func.vmap`` each lane draws from its own seed.
 
-A register sharded over several devices is refused here: sampling and
-measurement over shards are a later slice of the port.
+Over shards (``_zero_prob_shards``, ``_collapse_shards``) the outcome's
+probability and the total are reduced shard by shard and cascaded in
+shard order on the first shard's device, where the outcome is drawn from
+the same stream as on one device; each shard then collapses on its own
+device: by the one-hot mask on a local target, and on a sharded one by a
+0/1 factor from its index bit, so a shard on the other branch is zeroed.
+Nothing is read back to the host, and nothing moves between shards but
+the 0-d outcome and scale.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ from typing import TYPE_CHECKING
 import torch
 
 from .. import validation as V
-from ..ops import reduce as R
+from ..ops import measure as M, reduce as R
 from ..ops.layout import grouped_axes
+from ..parallel.mesh import local_qubit_count
 from . import rng
 from .sampler import shot_key
 
@@ -39,13 +46,6 @@ __all__ = ["applyMidMeasurement", "applyMidCollapse"]
 #: probability floor of the renormalisation: a branch this small is
 #: numerical cancellation, not physics
 _P_FLOOR = 1e-30
-
-
-def _one_device(qureg, func: str) -> None:
-    if qureg.shards is not None:
-        raise V.QuESTNotPortedError(
-            "a register sharded over several devices is not measured mid-circuit "
-            "yet (sampling over shards is a later slice of the port)", func)
 
 
 def _keep(outcome, dtype, device) -> torch.Tensor:
@@ -93,6 +93,83 @@ def _zero_prob(amps, n, target, density):
     return p0, R.total_prob_statevec(amps)
 
 
+def _zero_prob_shards(shards, n, target, density):
+    """:func:`_zero_prob` of a sharded register: P(outcome 0 on ``target``)
+    and the total, each shard's partial on its device (a density matrix's
+    from the diagonal entries it holds), cascaded in shard order on the
+    first shard's device."""
+    if not density:
+        return (R.prob_of_outcome_shards(shards, n=n, target=target, outcome=0),
+                R.total_prob_shards(shards))
+    parts, nl, _ = M.prob_sources(shards, n=n, density=True)
+    if target < nl:
+        shape, axis_of = grouped_axes(nl, (target,))
+        p0 = R._csum_parts([R._csum(x.reshape(shape).select(axis_of[target], 0))
+                            for x in parts])
+    else:
+        keep = [R._csum(x) for r, x in enumerate(parts) if not (r >> (target - nl)) & 1]
+        p0 = R._csum_parts(keep)
+    return p0, R.total_prob_density_shards(shards, n=n)
+
+
+def _collapse_shards(shards, *, nsv, qubits, outcome, scale):
+    """Each shard times the one-hot of ``outcome`` over ``qubits`` (of the
+    nsv-qubit flattened state) and ``scale``, on its own device: a local
+    qubit masks its axis, a sharded one contributes its shard-index bit's
+    0/1 factor. ``outcome`` is an int or a 0-d tensor, ``scale`` a 0-d
+    tensor, on the first shard's device (moved, never read)."""
+    nl = local_qubit_count(nsv, shards)
+    local = tuple(q for q in qubits if q < nl)
+    out = []
+    for r, s in enumerate(shards):
+        dev = s.device
+        o = outcome.to(dev) if isinstance(outcome, torch.Tensor) else outcome
+        f = scale.to(dev)
+        for q in qubits:
+            if q >= nl:
+                hit = o == ((r >> (q - nl)) & 1)
+                f = f * (hit.to(s.dtype) if isinstance(hit, torch.Tensor) else float(hit))
+        if local:
+            shape, axis_of = grouped_axes(nl, local)
+            keep = _keep(o, s.dtype, dev)
+            mask = None
+            for q in local:
+                m = [1] * len(shape)
+                m[axis_of[q]] = 2
+                v = keep.reshape(m)
+                mask = v if mask is None else mask * v
+            out.append((s.reshape((2,) + shape) * mask * f).reshape(s.shape))
+        else:
+            out.append(s * f)
+    return out
+
+
+def _apply_outcome(qureg, target, outcome, p_sel) -> None:
+    """Collapse ``qureg`` on ``target`` to the 0-d ``outcome`` and
+    renormalise by ``p_sel`` (clamped), branch-free: on its tensor or on
+    each of its shards."""
+    n = qureg.num_qubits_represented
+    density = qureg.is_density_matrix
+    if qureg.shards is None:
+        fn = _collapse_density if density else _collapse_statevec
+        qureg.put(fn(qureg.amps, n=n, target=target, outcome=outcome, p_sel=p_sel))
+        return
+    p = torch.clamp(p_sel, min=_P_FLOOR)
+    scale = (1.0 / p) if density else torch.rsqrt(p)
+    qubits = (target, target + n) if density else (target,)
+    qureg.put_shards(_collapse_shards(qureg.shards, nsv=qureg.num_qubits_in_state_vec,
+                                      qubits=qubits, outcome=outcome,
+                                      scale=scale.to(qureg.dtype)))
+
+
+def _probs(qureg, target):
+    if qureg.shards is None:
+        return _zero_prob(qureg.amps, qureg.num_qubits_represented, target,
+                          qureg.is_density_matrix)
+    return _zero_prob_shards(qureg.shards, qureg.num_qubits_represented, target,
+                             qureg.is_density_matrix)
+
+
 def applyMidMeasurement(qureg: Qureg, target: int, seed: object, site: int = 0) -> None:
     """Measure ``target`` mid-circuit on the device: draw the outcome from
     the qubit's marginal with the stream ``fold_in(PRNGKey(seed), site)``
@@ -106,16 +183,12 @@ def applyMidMeasurement(qureg: Qureg, target: int, seed: object, site: int = 0) 
     of one tape carry distinct sites."""
     func = "applyMidMeasurement"
     V.validate_target(qureg, target, func)
-    _one_device(qureg, func)
     target = int(target)
-    p0, total = _zero_prob(qureg.amps, qureg.num_qubits_represented, target,
-                           qureg.is_density_matrix)
+    p0, total = _probs(qureg, target)
     u = rng.uniform(shot_key(seed, site, qureg.device))
     outcome = (u.to(p0.dtype) * total >= p0).to(torch.int64)
     p_sel = torch.where(outcome == 0, p0, total - p0)
-    fn = _collapse_density if qureg.is_density_matrix else _collapse_statevec
-    qureg.put(fn(qureg.amps, n=qureg.num_qubits_represented, target=target,
-                 outcome=outcome, p_sel=p_sel))
+    _apply_outcome(qureg, target, outcome, p_sel)
     if qureg.qasm_log is not None:
         qureg.qasm_log.record_comment(f"midMeasurement site {int(site)} on qubit {target}")
 
@@ -129,14 +202,10 @@ def applyMidCollapse(qureg: Qureg, target: int, outcome: int) -> None:
     func = "applyMidCollapse"
     V.validate_target(qureg, target, func)
     V.validate_outcome(outcome, func)
-    _one_device(qureg, func)
     target, outcome = int(target), int(outcome)
-    p0, total = _zero_prob(qureg.amps, qureg.num_qubits_represented, target,
-                           qureg.is_density_matrix)
+    p0, total = _probs(qureg, target)
     p_sel = p0 if outcome == 0 else total - p0
-    fn = _collapse_density if qureg.is_density_matrix else _collapse_statevec
-    qureg.put(fn(qureg.amps, n=qureg.num_qubits_represented, target=target,
-                 outcome=outcome, p_sel=p_sel))
+    _apply_outcome(qureg, target, outcome, p_sel)
     if qureg.qasm_log is not None:
         qureg.qasm_log.record_comment(f"midCollapse of qubit {target} to outcome {outcome}")
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from ..validation import QuESTError, QuESTNotPortedError
+from ..validation import QuESTError
 from . import sampler as _sampler
 
 if TYPE_CHECKING:
@@ -85,8 +85,9 @@ def to_host(res):
 def sample_reduce(*, n: int, targets, shots: int, site: int = 0, density: bool = False):
     """A ``reduce(amps, seed=0)`` producing the (S,) int32 shot table over
     ``targets``: the terminal stage of a one-dispatch sampling request (or
-    an Engine's ``finalize``, which draws with seed 0). Cached per spec,
-    so its identity is stable in the executable cache's keys."""
+    an Engine's ``finalize``, which draws with seed 0). ``amps`` is a
+    state tensor or a sharded state's list of shards. Cached per spec, so
+    its identity is stable in the executable cache's keys."""
     from ..engine import cache as _ec
     targets = tuple(int(t) for t in targets)
     key = ("sample_reduce", int(n), targets, int(shots), int(site), bool(density))
@@ -105,7 +106,8 @@ def sample_reduce(*, n: int, targets, shots: int, site: int = 0, density: bool =
 def expectation_reduce(*, n: int, codes, coeffs, density: bool = False):
     """A ``reduce(amps)`` computing ``sum_t c_t <P_t>``: the
     ``calcExpecPauliSum`` contraction (``calculations.expec_pauli_sum_amps``)
-    as a request's terminal stage. Cached per spec."""
+    as a request's terminal stage, on a state tensor or a sharded state's
+    shards (the sharded Pauli-sum route). Cached per spec."""
     from ..engine import cache as _ec
     codes_t = tuple(tuple(int(c) for c in row) for row in
                     np.asarray(codes, dtype=np.int64).reshape(-1, n))
@@ -155,7 +157,7 @@ class _SlottedRequest:
                 t = vals[_SEED]
                 vals[_SEED] = torch.where(to_device(pick, torch.bool, t.device), seed, t)
             body(shell, BoundValues(vals, index))
-            return reduce(shell.amps, seed)
+            return reduce(shell.amps if shell.shards is None else list(shell.shards), seed)
 
         self._kinds = kinds
         self._values: dict = {}
@@ -169,11 +171,12 @@ class _SlottedRequest:
 
     def __call__(self, amps, seed):
         from ..engine.params import stack_values
-        vals = self._values.get(amps.device)
+        dev = _sampler._first(amps).device
+        vals = self._values.get(dev)
         if vals is None:
-            vals = self._values[amps.device] = stack_values(
-                self._lifted, [self._host], amps.device, stacked=False)
-        return self._exe(amps, _sampler.seed_tensor(seed, amps.device),
+            vals = self._values[dev] = stack_values(self._lifted, [self._host], dev,
+                                                    stacked=False)
+        return self._exe(amps, _sampler.seed_tensor(seed, dev),
                          *(vals.tensors[k] for k in self._kinds))
 
 
@@ -185,6 +188,10 @@ def sample_request(circuit: Circuit, *, targets=None, shots: int | None = None,
     executable called as ``fn(amps, seed)`` giving ``{"shots": (S,)
     int32}`` (and ``"expec"`` with a Pauli sum), on the state's device;
     one call counts one ``device_dispatch_total{route="request"}``.
+    ``amps`` may be a sharded state's list of shards (plan the tape with
+    ``fused(..., shard_devices=D)``): the tape, the shots and the
+    expectation then run on the shards, and the outputs land on the first
+    shard's device.
 
     A tape with no value slot runs through ``request_executable`` with the
     sampler as its terminal reduce; a tape with slots (Params, lifted
@@ -228,7 +235,7 @@ def sample_request(circuit: Circuit, *, targets=None, shots: int | None = None,
             inner = segments.request_executable(circuit, donate=donate, reduce=reduce)
 
             def fn(amps, seed, _inner=inner):
-                return _inner(amps, _sampler.seed_tensor(seed, amps.device))
+                return _inner(amps, _sampler.seed_tensor(seed, _sampler._first(amps).device))
 
             fn.num_segments, fn.program = inner.num_segments, inner.program
         fn.num_dispatches = 1
@@ -254,11 +261,8 @@ def sampleQureg(qureg: Qureg, targets=None, shots: int | None = None, seed: int 
         shots = shots_default()
     if int(shots) < 1:
         raise QuESTError(f"shots must be >= 1, got {shots}", func)
-    if qureg.shards is not None:
-        raise QuESTNotPortedError(
-            "a register sharded over several devices is not sampled yet "
-            "(sampling over shards is a later slice of the port)", func)
-    table = _sampler.sample_jit(qureg.amps, seed, n=n,
+    amps = qureg.amps if qureg.shards is None else list(qureg.shards)
+    table = _sampler.sample_jit(amps, seed, n=n,
                                 targets=tuple(int(t) for t in targets), shots=int(shots),
                                 site=int(site), density=qureg.is_density_matrix)
     out = table.cpu().numpy()

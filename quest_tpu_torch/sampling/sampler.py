@@ -23,6 +23,30 @@ is a branch-free two-level inverse-CDF search.
 - A count is a binary search of log2(width) gathers: on a non-decreasing
   table it equals the JAX package's ``sum(draw >= cdf)``.
 
+Over shards (a list of shard tensors, :func:`draw_outcomes_shards`) the
+state and its 2^t marginal stay where they are:
+
+- with every target local, each shard's marginal is summed with the
+  others' in shard order on the first device, and the draw is the
+  one-device draw of that marginal;
+- with sharded targets, the marginal is one part a value of the sharded
+  targets' bits, on that value's first shard (``ops.measure.
+  marginal_groups``; over every qubit in order, a shard's own |amp|^2).
+  The (B, L) split takes B >= D and every sharded target among the block
+  bits, so each block lies in one part: the rows' CDFs are built there
+  (2^CHUNK_BITS entries at a time), only the B block totals cross to the
+  first device, where their CDF is scanned and each shot finds its block,
+  and then its row is searched on the part's device: one ``searchsorted``
+  of every shot a piece, on keys that order (row, CDF value), whose counts
+  summed over the pieces are the row's offset plus the shot's count. A
+  part's rows are scanned twice (once for their totals, once for the
+  search), so no more than a piece of them is ever held.
+
+In f32 a part has the one-device marginal's bits and the norm the
+one-device cascade's, so where the split is the same (over every qubit in
+order) a sharded table equals the one-device table; a dyadic circuit's
+tables are equal for any targets.
+
 The shot count and target set are static (the program's shape); the seed
 is a runtime value: a tensor, copied into a captured graph's buffer, or a
 lifted ``'seed'`` slot, so S seeds replay one captured program.
@@ -35,8 +59,8 @@ import torch
 from ..ops import measure as M, reduce as R
 from . import rng
 
-__all__ = ["marginal_probs", "draw_outcomes", "sample_statevec", "sample_density",
-           "shot_key", "seed_tensor", "cdf_tables", "sample_jit"]
+__all__ = ["marginal_probs", "draw_outcomes", "draw_outcomes_shards", "sample_statevec",
+           "sample_density", "shot_key", "seed_tensor", "cdf_tables", "sample_jit"]
 
 
 def seed_tensor(seed, device) -> torch.Tensor:
@@ -93,6 +117,11 @@ def _add_scan(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _row_cdf(rows: torch.Tensor) -> torch.Tensor:
+    """The non-decreasing fixed-order CDF along the last axis."""
+    return _monotone(_add_scan(rows))
+
+
 def _monotone(x: torch.Tensor) -> torch.Tensor:
     """The running maximum along the last axis (exact whatever the order):
     a scan of non-negative terms made non-decreasing, so a count of its
@@ -106,9 +135,8 @@ def cdf_tables(p: torch.Tensor) -> tuple:
     t = int(p.shape[-1]).bit_length() - 1
     bb = _block_bits(t)
     B, L = 1 << bb, 1 << (t - bb)
-    row_cdf = _monotone(_add_scan(p.reshape(B, L)))
-    block_cdf = _monotone(_add_scan(row_cdf[:, -1]))
-    return row_cdf, block_cdf
+    row_cdf = _row_cdf(p.reshape(B, L))
+    return row_cdf, _row_cdf(row_cdf[:, -1])
 
 
 def _count_le(cdf: torch.Tensor, x: torch.Tensor, base, width: int) -> torch.Tensor:
@@ -146,25 +174,131 @@ def draw_outcomes(p: torch.Tensor, u: torch.Tensor, *, norm=None) -> torch.Tenso
     return (b * L + j).to(torch.int32)
 
 
-def sample_statevec(amps: torch.Tensor, *, n: int, targets: tuple, shots: int, seed,
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [0, 2^32) of float32 values, in their order: x <= y
+    exactly when key(x) <= key(y) (-0.0 taken as +0.0; no NaN)."""
+    b = (x.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+    b ^= (b >> 63) & 0x7FFFFFFF  # a negative value's magnitude bits reversed
+    return b.add_(1 << 31)
+
+
+def _shard_block_bits(t: int, devices: int, sharded_pos) -> int:
+    """The block-count exponent over shards: the mesh term of
+    :func:`_block_bits`, raised until every sharded target's outcome bit is
+    a block bit (so each block lies in one part of the marginal)."""
+    return max(_block_bits(t, devices), t - min(sharded_pos))
+
+
+def draw_outcomes_shards(shards, u: torch.Tensor, *, n: int, targets: tuple, norm,
+                         density: bool = False) -> torch.Tensor:
+    """:func:`draw_outcomes` over a sharded state (see the module docstring):
+    the (S,) int32 outcomes on the first shard's device, ``u`` there too;
+    ``n`` is the register's qubit count. Branch-free: no host read."""
+    targets = tuple(int(q) for q in targets)
+    dev = shards[0].device
+    sources, nl, planar = M.prob_sources(shards, n=n, density=density)
+    t = len(targets)
+    sharded = [k for k, q in enumerate(targets) if q >= nl]
+    if not sharded:
+        p = M.marginal_groups(sources, nl=nl, targets=targets, planar=planar)[0]
+        return draw_outcomes(p.to(torch.float32), u, norm=norm)
+    bb = _shard_block_bits(t, len(shards), sharded)
+    B, L = 1 << bb, 1 << (t - bb)
+    G = 1 << len(sharded)
+    Bg = B // G
+    if planar and targets == tuple(range(n)):
+        # every qubit in order: a part is one shard's |amp|^2, never held whole
+        def rows(g, r0, r1):
+            return M._sq(sources[g][:, r0 * L:r1 * L]).to(torch.float32).reshape(-1, L)
+    else:
+        parts = [x.to(torch.float32) for x in
+                 M.marginal_groups(sources, nl=nl, targets=targets, planar=planar)]
+
+        def rows(g, r0, r1):
+            return parts[g][r0 * L:r1 * L].reshape(-1, L)
+    # block b -> (its part g, its row within the part): the sharded targets'
+    # bits of b, and its other bits compacted
+    b = torch.arange(B, device=dev)
+    lo = t - bb
+    grp = torch.zeros_like(b)
+    for j, k in enumerate(sharded):
+        grp |= ((b >> (k - lo)) & 1) << j
+    idx = torch.zeros_like(b)
+    for j, i in enumerate(i for i in range(bb) if i + lo not in sharded):
+        idx |= ((b >> i) & 1) << j
+    step = max(1, (1 << R.CHUNK_BITS) // L)
+    spans = [(r0, min(r0 + step, Bg)) for r0 in range(0, Bg, step)]
+    # pass 1: the block totals, the only part of the marginal that crosses
+    # (each piece's last column copied out: no piece's CDF outlives its scan)
+    tots = [torch.cat([_row_cdf(rows(g, r0, r1))[:, -1].clone() for r0, r1 in spans]).to(dev)
+            for g in range(G)]
+    block_cdf = _monotone(_add_scan(torch.cat(tots)[grp * Bg + idx]))
+    total = norm.to(torch.float32) if isinstance(norm, torch.Tensor) else \
+        torch.full((), float(norm), dtype=torch.float32, device=dev)
+    draws = u.to(torch.float32) * total
+    bs = torch.clamp(_count_le(block_cdf, draws, 0, B), max=B - 1)
+    prev = torch.gather(block_cdf, 0, torch.clamp(bs - 1, min=0))
+    rest = draws - torch.where(bs > 0, prev, torch.zeros_like(prev))
+    del draws, prev
+    # pass 2: each shot's row searched where its part lies. A shot's key is
+    # (its block's row, counted part by part) << 32 | its draw's order key,
+    # a piece's the same of its rows' CDF entries, so a piece's keys are
+    # sorted and one searchsorted of every shot's key counts, for a shot
+    # of a later row, the whole piece, for an earlier one nothing, and for
+    # one of the piece's rows the rows before it and its own entries <= its
+    # draw. Summed over every piece: the row times L plus that count.
+    row = grp[bs] * Bg + idx[bs]
+    key = (row << 32) + _order_key(rest)
+    del rest
+    count = None
+    for g in range(G):
+        acc = here = None
+        for r0, r1 in spans:
+            cdf = _row_cdf(rows(g, r0, r1))
+            if here is None:  # the shots' keys on the part's device, once
+                here = key.to(cdf.device)
+            rid = torch.arange(g * Bg + r0, g * Bg + r1, dtype=torch.int64, device=cdf.device)
+            keys = _order_key(cdf).add_((rid << 32).unsqueeze(1)).reshape(-1)
+            del cdf, rid
+            hit = torch.searchsorted(keys, here, right=True)
+            del keys
+            acc = hit if acc is None else acc.add_(hit)
+        count = acc.to(dev) if count is None else count.add_(acc.to(dev))
+    j = torch.clamp(count - row * L, max=L - 1)
+    return (bs * L + j).to(torch.int32)
+
+
+def _first(amps) -> torch.Tensor:
+    return amps[0] if isinstance(amps, (list, tuple)) else amps
+
+
+def sample_statevec(amps, *, n: int, targets: tuple, shots: int, seed,
                     site: int = 0) -> torch.Tensor:
     """S = ``shots`` outcome draws over ``targets`` of a planar state
-    vector: the (S,) int32 shot table. ``seed`` is an int or an integer
-    tensor (a lifted seed slot); ``site`` decorrelates the sampling sites
-    of one tape."""
+    vector, or of a sharded one's list of shards: the (S,) int32 shot table
+    (on the first shard's device). ``seed`` is an int or an integer tensor
+    (a lifted seed slot); ``site`` decorrelates the sampling sites of one
+    tape."""
+    u = rng.uniform(shot_key(seed, site, _first(amps).device), (int(shots),))
+    if isinstance(amps, (list, tuple)):
+        norm = R.total_prob_shards(amps).to(torch.float32)
+        return draw_outcomes_shards(list(amps), u, n=n, targets=tuple(targets), norm=norm)
     p = marginal_probs(amps, n=n, targets=tuple(targets))
     norm = R.total_prob_statevec(amps).to(torch.float32)
-    u = rng.uniform(shot_key(seed, site, amps.device), (int(shots),))
     return draw_outcomes(p, u, norm=norm)
 
 
-def sample_density(amps: torch.Tensor, *, n: int, targets: tuple, shots: int, seed,
+def sample_density(amps, *, n: int, targets: tuple, shots: int, seed,
                    site: int = 0) -> torch.Tensor:
-    """:func:`sample_statevec` of a density register: the marginal from the
-    diagonal, the normalizer Re tr(rho)."""
+    """:func:`sample_statevec` of a density register (its tensor or its
+    shards): the marginal from the diagonal, the normalizer Re tr(rho)."""
+    u = rng.uniform(shot_key(seed, site, _first(amps).device), (int(shots),))
+    if isinstance(amps, (list, tuple)):
+        norm = R.total_prob_density_shards(list(amps), n=n).to(torch.float32)
+        return draw_outcomes_shards(list(amps), u, n=n, targets=tuple(targets), norm=norm,
+                                    density=True)
     p = marginal_probs(amps, n=n, targets=tuple(targets), density=True)
     norm = R.total_prob_density(amps, n=n).to(torch.float32)
-    u = rng.uniform(shot_key(seed, site, amps.device), (int(shots),))
     return draw_outcomes(p, u, norm=norm)
 
 
@@ -180,7 +314,8 @@ class _SampleProgram:
         fn = sample_density if density else sample_statevec
 
         def body(shell, seed):
-            return fn(shell.amps, n=n, targets=targets, shots=shots, seed=seed, site=site)
+            amps = shell.amps if shell.shards is None else list(shell.shards)
+            return fn(amps, n=n, targets=targets, shots=shots, seed=seed, site=site)
 
         self.program = Program([(None, [Replay(body, n, density)])])
         self._spare: dict = {}
@@ -189,24 +324,30 @@ class _SampleProgram:
         self.program.close()
         self._spare.clear()
 
-    def __call__(self, amps: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-        key = (amps.device, amps.dtype)
-        spare = self._spare.get(key)
-        if spare is None:
-            spare = self._spare[key] = torch.empty(1, dtype=amps.dtype, device=amps.device)
-        _, _, out = self.program.run((amps,), (spare,), None, (seed,))
+    def __call__(self, amps, seed: torch.Tensor) -> torch.Tensor:
+        xs = tuple(amps) if isinstance(amps, (list, tuple)) else (amps,)
+        spares = []
+        for x in xs:
+            key = (x.device, x.dtype)
+            spare = self._spare.get(key)
+            if spare is None:
+                spare = self._spare[key] = torch.empty(1, dtype=x.dtype, device=x.device)
+            spares.append(spare)
+        _, _, out = self.program.run(xs, tuple(spares), None, (seed,))
         return out
 
 
-def sample_jit(amps: torch.Tensor, seed, *, n: int, targets: tuple, shots: int,
+def sample_jit(amps, seed, *, n: int, targets: tuple, shots: int,
                site: int = 0, density: bool = False) -> torch.Tensor:
     """The eager entry point: one compiled program per (shape, targets,
-    shots, site, route), kept in the executable cache, drawing all S shots
-    on the state's device; ``amps`` is only read. Returns the (S,) int32
-    table on that device."""
+    shots, site, route, layout), kept in the executable cache, drawing all
+    S shots on the state's device (a sharded state's list of shards: on
+    its shards, the table on the first one's device); ``amps`` is only
+    read. Returns the (S,) int32 table."""
     from ..engine import cache as _ec
     targets = tuple(int(t) for t in targets)
-    key = ("sample_jit", int(n), targets, int(shots), int(site), bool(density))
+    layout = len(amps) if isinstance(amps, (list, tuple)) else 1
+    key = ("sample_jit", int(n), targets, int(shots), int(site), bool(density), layout)
     prog = _ec.executables().get_or_create(
         key, lambda: _SampleProgram(int(n), targets, int(shots), int(site), bool(density)))
-    return prog(amps, seed_tensor(seed, amps.device))
+    return prog(amps, seed_tensor(seed, _first(amps).device))

@@ -191,7 +191,9 @@ def _shot_finalize(*, n: int, targets: tuple, shots: int, shot_seed: int):
     the device (the Engine's finalize). The draws are SHARED across the
     lanes of a batch (one static ``shot_seed``): common random numbers --
     each table is still an unbiased sample of its own trajectory's
-    outcome distribution. Cached so that a warm Engine key reuses it."""
+    outcome distribution. On a sharded env it draws from the trajectory's
+    shards (``sampler.draw_outcomes_shards``). Cached so that a warm Engine
+    key reuses it."""
     from ..engine import cache as _ec
     from ..sampling import sampler as _sampler
     key = ("ensemble_shot_finalize", n, targets, int(shots), int(shot_seed))

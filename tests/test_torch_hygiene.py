@@ -16,7 +16,8 @@ import quest_tpu_torch as tq
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke", "chip_lane_u_breakdown"])
+@pytest.mark.parametrize("module", ["quest_tpu_torch", "chip_smoke", "chip_lane_u_breakdown",
+                                    "chip_phase_times"])
 def test_import_pulls_in_no_jax(module):
     # every module of the port, found by walking the package
     code = (f"import sys, json, importlib, pkgutil, {module}, quest_tpu_torch; "

@@ -520,11 +520,12 @@ def test_sampling_input_validation():
         rq.sample_request(c, pauli_codes=[3, 0])
     with pytest.raises(QuESTError):
         sampling.expectation_reduce(n=2, codes=[3, 0, 1, 1], coeffs=[1.0])
+    # a register over shards is sampled and collapsed (tests/test_torch_sharded_sampling.py
+    # holds the results against one device and quest_tpu's mesh)
     sharded = tq.createQureg(4, tq.createQuESTEnv(devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError):
-        tq.sampleQureg(sharded, shots=4)
-    with pytest.raises(NotImplementedError):
-        tq.applyMidCollapse(sharded, 0, 0)
+    assert np.array_equal(tq.sampleQureg(sharded, shots=4), np.zeros(4, np.int32))
+    tq.applyMidCollapse(sharded, 0, 0)
+    assert abs(tq.calcTotalProb(sharded) - 1.0) <= 1e-12
 
 
 def test_sampler_adds_no_host_sync_and_counts_shots():

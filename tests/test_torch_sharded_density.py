@@ -560,9 +560,11 @@ def test_circuit_run_and_compiled_replays_on_sharded_density(d):
 # ---------------------------------------------------------------------------
 
 def test_refused_entries_raise_typed_errors():
-    """The entries that take a density register but not yet one over
-    shards (later slices of the port) each raise a QuESTError naming it,
-    and leave the register as it was."""
+    """The entries that refuse a density register by design, on any layout
+    as in quest_tpu, refuse one over shards with a QuESTError naming why,
+    and leave the register as it was. (The Engine, ``EnginePool.submit``,
+    ``sampleQureg`` and ``applyMidMeasurement`` serve it:
+    tests/test_torch_sharded_sampling.py.)"""
     n = 4
     _, tenv = _envs(4)
     q = tq.createDensityQureg(n, tenv, 2)
@@ -571,25 +573,16 @@ def test_refused_entries_raise_typed_errors():
     c = tq.Circuit(n, is_density_matrix=True)
     c.hadamard(0)
     c.mixDephasing(1, 0.1)
-    pool = tq.EnginePool(tenv, replicas=1)
-    # entry -> (the call, what its message names)
+    # entry -> (the call, what its message names): by design on any density
+    # register, as in quest_tpu
     refused = {
-        "Engine": (lambda: tq.Engine(c, tenv), "later slice"),
-        "EnginePool.submit": (lambda: pool.submit(c, timeout=5.0), "later slice"),
-        "sampleQureg": (lambda: tq.sampleQureg(q, shots=8, seed=1), "later slice"),
-        "applyMidMeasurement": (lambda: tq.sampling.applyMidMeasurement(q, 0, seed=1),
-                                "later slice"),
-        # by design on any density register, as in quest_tpu
         "applyTrajectoryKraus": (lambda: tq.applyTrajectoryKraus(
             q, [0], [np.eye(2)], seed=1, site=0), "pure states"),
         "calcGradExpecPauliSum": (lambda: tq.calcGradExpecPauliSum(
             q, c, [3, 0, 0, 0], [1.0]), "state-vector register"),
     }
-    try:
-        for name, (call, why) in refused.items():
-            with pytest.raises(tq.QuESTError) as err:
-                call()
-            assert why in str(err.value), (name, str(err.value))
-    finally:
-        pool.close()
+    for name, (call, why) in refused.items():
+        with pytest.raises(tq.QuESTError) as err:
+            call()
+        assert why in str(err.value), (name, str(err.value))
     np.testing.assert_array_equal(state_to_numpy(q), before)
