@@ -1,6 +1,6 @@
 """Time chip_smoke.py's later phases alone, from one checkout.
 
-    python3 chip_phase_times.py --root DIR [--phases 13,14,15,17] [--out FILE]
+    python3 chip_phase_times.py --root DIR [--phases 13,14,15,17,18,engine] [--out FILE]
 
 Imports ``chip_smoke`` and ``quest_tpu_torch`` from DIR (this checkout, or
 another commit unpacked there with ``git archive``), builds the kernels
@@ -9,14 +9,18 @@ runs the chosen phases: 13 (sampling and gradients), 14 (trajectories and
 the pool), 15 (checkpoints and segments), 17 (sampling, gradients and
 serving over shards, on the sharded path's plans; it reads phase 13's
 one-device figures when 13 ran first), ``17s`` (phase 17's sampling
-alone) and ``pieces`` (the sharded shot stage alone on a random 26q state
-over 4 shards, f32 and f64, at 1024 and 2^20 shots, for pieces of
+alone), 18 (the explicit scheduler over shards, on the sharded path's
+plans), ``engine`` (the 26q raw tape gate by gate on the default sharded
+route, f32 and f64, medians of 5 warm circuits) and ``pieces`` (the
+sharded shot stage alone on a random 26q state over 4 shards, f32 and
+f64, at 1024 and 2^20 shots, for pieces of
 2^20-2^23 entries (``ops.reduce.CHUNK_BITS``): its peak memory rise, its
 ms as a CUDA-graph replay and eager, the tables equal at every size).
 Each phase's helper functions are timed on the host's clock (cumulative
 seconds and calls). Prints, and appends to FILE, one JSON
 line: ``{"root", "card", "phases": {phase: s}, "steps": {fn: [s, calls]}}``
-(the ``pieces`` rows under ``phases["pieces_rows"]``).
+(the ``pieces`` and ``engine`` rows under ``phases["pieces_rows"]`` and
+``phases["engine_rows"]``).
 
 To compare two commits, run each in its own process in one call on the
 card, in the order parent, change, change, parent. Needs one card.
@@ -38,6 +42,7 @@ STEPS = {
     "15": ("_ckpt_main", "_f32_drift", "_ckpt_rollback", "_ckpt_sharded", "_ckpt_density"),
     "17": ("_sharded_sampling", "_sharded_gradients", "_sharded_serving"),
     "17s": ("_sharded_sampling",),
+    "18": ("_explicit_scheduler_phase", "_gathered"),
     "all": ("_release", "_cuda_ms", "_clock_ms", "_graph_kernels", "_require"),
 }
 
@@ -125,6 +130,45 @@ def _pieces(dev) -> dict:
     return rows
 
 
+def _engine_replay(qt, cs, dev) -> dict:
+    """The ``engine`` phase: the main path's 26q depth-8 raw tape replayed
+    gate by gate on the default sharded route (the env's per-gate engine
+    over ``N_SHARDS`` virtual shards, no ``explicit_mesh``), f32 and f64:
+    the median, min and max ms of 5 warm circuits, each timed alone by
+    CUDA events (``# engine replay`` lines). Uses only the package's API,
+    so it runs against any commit."""
+    import statistics
+
+    import torch
+
+    circ = qt.Circuit(cs.N_MAIN)
+    qt.random_layers(circ, cs.N_MAIN, cs.DEPTH_MAIN)
+    env = qt.createQuESTEnv(devices=[dev] * cs.N_SHARDS)
+    fn = circ.as_fn()
+    rows = {}
+    for prec in (1, 2):
+        q = qt.createQureg(cs.N_MAIN, env, prec)
+        qt.initPlusState(q)
+        q.put_shards(fn(q.shards))
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            q.put_shards(fn(q.shards))
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        key = "f32" if prec == 1 else "f64"
+        rows[key] = {"median": statistics.median(times), "min": min(times), "max": max(times)}
+        print(f"# engine replay {key}: {cs.N_MAIN}q depth {cs.DEPTH_MAIN}, {len(circ)} gates "
+              f"over {cs.N_SHARDS} shards on the default route: {rows[key]['median']:.3f} ms "
+              f"a circuit (median of 5, {min(times):.3f}-{max(times):.3f})", flush=True)
+        qt.destroyQureg(q)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="the checkout to import from")
@@ -163,7 +207,7 @@ def main() -> int:
     plans = {}
     for dt in (torch.float32, torch.float64):
         plans[("main", dt)] = circ.fused(max_qubits=5, pallas=True, dtype=dt)
-        if "17" in phases or "17s" in phases:
+        if "17" in phases or "17s" in phases or "18" in phases:
             plans[("sharded", dt)] = circ.fused(max_qubits=5, pallas=True, dtype=dt,
                                                 shard_devices=cs.N_SHARDS)
     seconds = {"build": build_s, "plans": time.perf_counter() - t0 - build_s}
@@ -180,8 +224,12 @@ def main() -> int:
             cs._sharded_serving_phase(qt, dev, plans, samp_grad)
         elif p == "17s":
             cs._sharded_sampling(qt, dev, plans, samp_grad["sampling"])
+        elif p == "18":
+            cs._explicit_scheduler_phase(qt, dev, plans)
         elif p == "pieces":
             seconds["pieces_rows"] = _pieces(dev)
+        elif p == "engine":
+            seconds["engine_rows"] = _engine_replay(qt, cs, dev)
         else:
             raise SystemExit(f"chip_phase_times: unknown phase {p!r}")
         seconds[p] = time.perf_counter() - t0

@@ -490,6 +490,30 @@ def _clock_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _rep_ms(fn, reps: int) -> dict:
+    """Median, min and max ms of ``fn()`` over ``reps`` calls, each timed
+    alone by CUDA events; the caller has warmed ``fn`` up."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return {"median": statistics.median(times), "min": min(times), "max": max(times),
+            "reps": reps}
+
+
+def _range(t: dict) -> str:
+    return f"{t['median']:.3f} ms (median of {t['reps']}, {t['min']:.3f}-{t['max']:.3f})"
+
+
 #: the port's kernels as their names show in a profiler trace of the card
 TRACE_NAMES = {"fused_run": ("fused_run_kernel",),
                "window_dot": ("window_mma_kernel", "window_fma_kernel")}
@@ -6144,6 +6168,304 @@ def _sharded_serving_entries(entries: list, phase: dict) -> None:
             v["graph_kernels"] for v in reqs.values())
 
 
+#: phase 18: the planner's circuit (qubits, depth, meta shards) and the
+#: collective permute timed at each pipeline depth (its block swap: bits
+#: [lo, lo+k) with the top k, so every shard bit crosses)
+PLAN_BIG = (34, 8, 8)
+PIPE_DEPTHS = (1, 2, 4)
+PIPE_SWAP = (10, 2)
+#: warm repetitions of each phase-18 circuit and of each permute depth
+REPS_18 = 3
+PIPE_REPS = 7
+
+
+def _gathered(q) -> "torch.Tensor":
+    import torch
+    return torch.cat(list(q.shards), dim=1)
+
+
+def _explicit_scheduler_phase(qt, dev, plans: dict) -> dict:
+    """Phase 18: the explicit distributed scheduler over N_SHARDS virtual
+    shards of ``dev`` (``# explicit scheduler ...`` lines): the main path's
+    raw tape in f32, deferred and immediate, each against its own
+    ``plan_circuit`` on meta shards and the default sharded route; the f64
+    and f32 fused plans of the sharded path on the per-shard kernel joined
+    by the scheduler's counted frame transposes (their launches driven
+    with the counts reset, then the kernel against its plain version on
+    the plan's first run); one collective permute of the f64 state at
+    each pipeline depth against depth 1 and its bytes bound; and the 34q
+    plan on meta shards (host seconds, no card memory). Every circuit and
+    permute is timed as the median of warm repetitions."""
+    import torch
+
+    from quest_tpu_torch import fusion, telemetry
+    from quest_tpu_torch.ops import fused_gates as FG
+    from quest_tpu_torch.parallel import exchange as X
+    from quest_tpu_torch.parallel.scheduler import comm_chunks, plane_unit_scale
+
+    t0 = time.perf_counter()
+    n, d = N_MAIN, N_SHARDS
+    env = qt.createQuESTEnv(devices=[dev] * d)
+    circ = qt.Circuit(n)
+    qt.random_layers(circ, n, DEPTH_MAIN)
+    out: dict = {}
+
+    def plan_of(c, dt, **kw):
+        st = qt.plan_circuit(c, env.devices, dtype=dt, **kw)
+        st.pop("comm_volume")
+        return st
+
+    # 1. the raw tape in f32: deferred and immediate, the default route;
+    # each timed over REPS_18 warm circuits after its first (checked) run
+    ref = qt.createQureg(n, env, 1)
+    qt.initPlusState(ref)
+    fn = circ.as_fn()
+    ref.put_shards(fn(ref.shards))
+    torch.cuda.synchronize()
+    want = _gathered(ref)
+    scale = want.abs().max().item()
+    default_t = _rep_ms(lambda: ref.put_shards(fn(ref.shards)), REPS_18)
+    for mode, defer in (("deferred", True), ("immediate", False)):
+        planned = plan_of(circ, torch.float32, defer=defer)
+        q = qt.createQureg(n, env, 1)
+        qt.initPlusState(q)
+        with qt.explicit_mesh(env.devices, defer=defer) as sched:
+            q.put_shards(fn(q.shards))
+            torch.cuda.synchronize()
+            stats = dict(sched.stats, chunks_by_kind_link=dict(sched.stats["chunks_by_kind_link"]))
+            err = (_gathered(q) - want).abs().max().item() / scale
+            t = _rep_ms(lambda: q.put_shards(fn(q.shards)), REPS_18)
+        units = comm_chunks(stats)
+        print(f"# explicit scheduler raw tape f32 {mode}: {n}q depth {DEPTH_MAIN} over {d} "
+              f"shards, {len(circ)} gates: {_range(t)} a circuit (default sharded route "
+              f"{_range(default_t)}); chunk units {units} (planned on meta "
+              f"{comm_chunks(planned)}); relocation swaps {stats['relocation_swaps']}, "
+              f"batches {stats['relocation_batches']}, pair exchanges "
+              f"{stats['pair_exchanges']}, rank permutes {stats['rank_permutes']}, "
+              f"reconcile collectives {stats['reconcile_collectives']}, local "
+              f"{stats['local']}, comm-free {stats['comm_free']}; against the default "
+              f"route {err:.3e} of the largest")
+        _require(stats == planned, f"explicit {mode}: executed stats {stats} != plan {planned}")
+        _require(err <= 1e-5, f"explicit {mode}: state {err} from the default route")
+        out[("raw", mode)] = {"ms": t, "chunk_units": units, "stats": stats,
+                              "max_rel_err": err}
+        qt.destroyQureg(q)
+    out["raw_default_ms"] = default_t
+    _require(out[("raw", "deferred")]["chunk_units"]
+             <= 0.6 * out[("raw", "immediate")]["chunk_units"],
+             "deferred chunk units above 0.6x the immediate ones")
+    qt.destroyQureg(ref)
+    del want
+    torch.cuda.empty_cache()
+
+    # 2. and 3. the fused plans on the per-shard kernel under the
+    # scheduler: f64, then f32 (priced at 2x and 1x); each against the
+    # default sharded route after one run from the same state, then timed
+    for dt, lim in ((torch.float64, 1e-10), (torch.float32, 1e-6)):
+        tag = "f64" if dt == torch.float64 else "f32"
+        fz = plans[("sharded", dt)]
+        runs = [a[0] for f, a, _ in fz._tape if f is fusion._apply_pallas_run]
+        planned = plan_of(fz, dt)
+        prec = 2 if dt == torch.float64 else 1
+        ref = qt.createQureg(n, env, prec)
+        qt.initPlusState(ref)
+        q = qt.createQureg(n, env, prec)
+        qt.initPlusState(q)
+        first = [s.clone() for s in q.shards]
+        fn = fz.as_fn()
+        with qt.explicit_mesh(env.devices) as sched:
+            telemetry.reset()
+            FG.fused_run.launches = 0
+            q.put_shards(fn(q.shards))
+            torch.cuda.synchronize()
+            launches = FG.fused_run.launches
+            fallbacks = telemetry.counter_total("engine_fallback_total")
+            stats = dict(sched.stats, chunks_by_kind_link=dict(sched.stats["chunks_by_kind_link"]))
+        ref.put_shards(fn(ref.shards))
+        torch.cuda.synchronize()
+        err = ((_gathered(q) - _gathered(ref)).abs().max().item()
+               / _gathered(ref).abs().max().item())
+        with qt.explicit_mesh(env.devices):
+            t = _rep_ms(lambda: q.put_shards(fn(q.shards)), REPS_18)
+        default_t = _rep_ms(lambda: ref.put_shards(fn(ref.shards)), REPS_18)
+        # the per-shard kernel against its plain version on the plan's first run
+        run, kerr, kabs = runs[0], 0.0, 0.0
+        prep = run.prepare()
+        nl = n - (d - 1).bit_length()
+        kw = dict(tile_bits=run.tile_bits, **_swaps(run.load_swap_k, run.load_swap_hi,
+                                                      run.store_swap_k, run.store_swap_hi))
+        for k, h in (("load_swap_k", "load_swap_hi"), ("store_swap_k", "store_swap_hi")):
+            hi = run.tile_bits if kw[h] is None else kw[h]
+            if kw[k] and hi + kw[k] > nl:
+                kw[k], kw[h] = 0, None
+        dst = torch.empty_like(first[0])
+        pass_ms, plain_ms = [], []
+        for r, shard in enumerate(first):
+            FG.fused_run(shard, n=n, ops=run.ops, out=dst, prepared=prep, local_n=nl,
+                         shard_index=r, **kw)
+            plain = FG.fused_run_plain(shard, prep, n=n, local_n=nl, shard_index=r, **kw)
+            a, r_ = _rel_err(dst, plain)
+            kabs, kerr = max(kabs, a), max(kerr, r_)
+            del plain
+            pass_ms.append(_cuda_ms(lambda: FG.fused_run(
+                shard, n=n, ops=run.ops, out=dst, prepared=prep, local_n=nl, shard_index=r,
+                **kw), 3))
+            plain_ms.append(_clock_ms(lambda: FG.fused_run_plain(
+                shard, prep, n=n, local_n=nl, shard_index=r, **kw), 1))
+        b_bytes, b_ops = _bound_ms(_pass_work(prep, nl, 4 * prec), prec == 1)
+        scale = plane_unit_scale(q.shards)
+        print(f"# explicit scheduler {tag} fused plan: {len(runs)} runs over {d} shards: "
+              f"launches {launches} (runs x shards {len(runs) * d}), fallbacks "
+              f"{fallbacks:.0f}; frame transposes {stats['frame_transpose_collectives']} "
+              f"collectives, {stats['frame_transpose_chunks']} chunk units at {scale}x "
+              f"(planned {planned['frame_transpose_collectives']}, "
+              f"{planned['frame_transpose_chunks']}; {stats['chunks_by_kind_link']}); "
+              f"{_range(t)} a circuit (default sharded route {_range(default_t)}); against "
+              f"the default route {err:.3e} of the largest; first run's per-shard kernel "
+              f"against its plain version {kerr:.3e}; its shard passes "
+              f"{sum(pass_ms) / d:.4f} ms (bound {max(b_bytes, b_ops):.4f} ms by "
+              f"{'operations' if b_ops > b_bytes else 'bytes'}, plain "
+              f"{sum(plain_ms) / d:.2f} ms)")
+        _require(launches == len(runs) * d and fallbacks == 0, f"explicit {tag}: launches")
+        _require(stats == planned, f"explicit {tag}: stats {stats} against plan {planned}")
+        if dt == torch.float64:
+            _require(stats["frame_transpose_collectives"] == 8
+                     and stats["frame_transpose_chunks"] == 24.0,
+                     f"explicit f64: frame transposes {stats}")
+        _require(err <= lim, f"explicit {tag}: state {err} from the default route")
+        _require(kerr <= (1e-12 if prec == 2 else 1e-5),
+                 f"explicit {tag}: per-shard kernel {kerr} from its plain version")
+        out[tag] = {"launches": launches, "runs": len(runs), "ms": t["median"],
+                    "ms_range": t, "default_ms": default_t["median"],
+                    "default_ms_range": default_t, "max_rel_err": err,
+                    "kernel_rel_err": kerr, "kernel_abs_err": kabs,
+                    "pass_ms": sum(pass_ms) / d, "pass_bound_ms": max(b_bytes, b_ops),
+                    "pass_plain_ms": sum(plain_ms) / d, "pass_by_ops": b_ops > b_bytes,
+                    "frame_transpose_collectives": stats["frame_transpose_collectives"],
+                    "frame_transpose_chunks": stats["frame_transpose_chunks"]}
+        for x in (q, ref):
+            qt.destroyQureg(x)
+        del first, dst
+        torch.cuda.empty_cache()
+
+    # 4. one collective permute of the f64 state at each pipeline depth
+    lo, k = PIPE_SWAP
+    source = list(range(n))
+    for j in range(k):
+        source[lo + j], source[n - k + j] = n - k + j, lo + j
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    st = [torch.randn(2, 1 << nl, generator=gen, dtype=torch.float64).to(dev)
+          for _ in range(d)]
+    bound = 2 * sum(s.numel() * s.element_size() for s in st) / HBM_BYTES_PER_S * 1e3
+    base = [torch.empty_like(s) for s in st]
+    X.dist_permute_bits(st, n=n, source=source, out=base, pipeline=1)
+    rows = {}
+    for depth in PIPE_DEPTHS:
+        o = [torch.empty_like(s) for s in st]
+        telemetry.reset()
+        with qt.explicit_mesh(env.devices):  # where the launch is timed
+            X.dist_permute_bits(st, n=n, source=source, out=o, pipeline=depth)
+            torch.cuda.synchronize()
+            pm = _rep_ms(lambda: X.dist_permute_bits(st, n=n, source=source, out=o,
+                                                     pipeline=depth), PIPE_REPS)
+        hist = telemetry.histogram("comm_collective_ms", kind="grouped_permute",
+                                   pipeline=depth)
+        same = all(torch.equal(a, b) for a, b in zip(o, base))
+        rows[depth] = {"ms": pm["median"], "ms_range": pm, "bit_identical": same,
+                       "histogram_ms": hist["sum"] / hist["count"]}
+        print(f"# explicit scheduler permute f64 depth {depth}: {_range(pm)} (the "
+              f"comm_collective_ms histogram's mean {rows[depth]['histogram_ms']:.3f} over "
+              f"{hist['count']}), bound {bound:.3f} ms (2 x state bytes at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), bit-identical to depth 1: {same}")
+        _require(same, f"pipelined permute at depth {depth} differs from depth 1")
+        del o
+    out["permute"] = {"rows": rows, "bound_ms": bound,
+                      "units": X.permute_collective_stats(n, source, env.devices)}
+    del st, base
+    torch.cuda.empty_cache()
+    out["sites"] = _pipeline_sites(dev)
+
+    # 5. the 34q plan on meta shards: host seconds, no card memory
+    big = qt.Circuit(PLAN_BIG[0])
+    qt.random_layers(big, PLAN_BIG[0], PLAN_BIG[1])
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    t1 = time.perf_counter()
+    st = qt.plan_circuit(big, (dev,) * PLAN_BIG[2])
+    plan_s = time.perf_counter() - t1
+    moved = torch.cuda.memory_reserved(dev) - reserved
+    print(f"# explicit scheduler plan_circuit {PLAN_BIG[0]}q depth {PLAN_BIG[1]} over "
+          f"{PLAN_BIG[2]} meta shards: {plan_s:.3f} s on the host, chunk units "
+          f"{comm_chunks(st)}, card memory reserved moved by {moved} bytes")
+    _require(moved == 0, "plan_circuit reserved card memory")
+    out["plan_big"] = {"s": plan_s, "chunk_units": comm_chunks(st)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# explicit scheduler phase: {out['phase_s']:.1f} s")
+    return out
+
+
+#: phase 18's pipelined launch sites: a 20q f64 state over 4 shards
+#: (qubits 18, 19 sharded), each site with local and sharded controls
+PIPE_SITE_N = 20
+
+
+def _pipeline_sites(dev) -> dict:
+    """Every exchange launch site of ``parallel.exchange`` on the card at
+    depths 2 and 4 against depth 1, bit for bit: the pipelined transfers
+    run on the side stream there (``# explicit scheduler pipeline sites``)."""
+    import torch
+
+    from quest_tpu_torch.parallel import exchange as X
+
+    n, d = PIPE_SITE_N, N_SHARDS
+    gen = torch.Generator(device="cpu").manual_seed(181)
+    st = [torch.randn(2, 1 << (n - 2), generator=gen, dtype=torch.float64).to(dev)
+          for _ in range(d)]
+    u = torch.linalg.qr(torch.randn(2, 2, dtype=torch.complex128, generator=gen))[0]
+    u = torch.stack([u.real, u.imag]).to(dev)
+    diag = torch.stack([torch.cos(torch.arange(4.0)), torch.sin(torch.arange(4.0))]).to(
+        dev, torch.float64)
+    sites = {
+        "pair_exchange": lambda p: X.dist_apply_matrix1(
+            st, u, n=n, target=19, controls=(1, 18), control_states=(1, 0), pipeline=p),
+        "x_permute": lambda p: X.dist_apply_x(
+            st, n=n, targets=(19, 17, 3), controls=(0,), control_states=(1,), pipeline=p),
+        "grouped_permute": lambda p: X.dist_permute_bits(
+            st, n=n, source=(19, 1, 2) + tuple(range(3, 17)) + (18, 17, 0), pipeline=p),
+        "diag_phase": lambda p: X.dist_apply_diag_phase(
+            st, diag, n=n, targets=(19, 16), controls=(1,), pipeline=p),
+        "parity_phase": lambda p: X.dist_apply_parity_phase(
+            st, 0.37, n=n, qubits=(18, 15, 1), controls=(0,), pipeline=p),
+        "swap_odd_parity": lambda p: X.dist_swap(st, n=n, qb1=4, qb2=19, pipeline=p),
+        "swap_rank_permute": lambda p: X.dist_swap(st, n=n, qb1=18, qb2=19, pipeline=p),
+    }
+    res = {}
+    for name, fn in sites.items():
+        base = torch.cat(fn(1), dim=1)
+        res[name] = all(torch.equal(base, torch.cat(fn(p), dim=1)) for p in (2, 4))
+        _require(res[name], f"pipelined {name} differs from depth 1 on the card")
+    torch.cuda.synchronize()
+    print(f"# explicit scheduler pipeline sites {n}q f64 over {d} shards, depths 2 and 4 "
+          f"bit-identical to depth 1: {res}")
+    return res
+
+
+def _explicit_scheduler_entries(entries: list, phase: dict) -> None:
+    """Phase 18's fused plans in the per-shard kernel's entries (f32, f64):
+    their launches from the runs driven with the counts reset just before
+    them."""
+    for e, tag in ((entries[4], "f32"), (entries[5], "f64")):
+        p = phase[tag]
+        e["explicit_scheduler_paths"] = {
+            f"fused_26q_depth8_{tag}": {k: p[k] for k in (
+                "launches", "runs", "ms", "ms_range", "default_ms", "default_ms_range",
+                "max_rel_err", "kernel_rel_err", "kernel_abs_err",
+                "frame_transpose_collectives", "frame_transpose_chunks", "pass_ms",
+                "pass_bound_ms", "pass_plain_ms")}}
+        e["launches"] += p["launches"]
+        e["max_abs_err"] = max(e["max_abs_err"], p["kernel_abs_err"])
+
+
 def _entry(name, replaces, paths: dict, errs: list, copy_ms: float) -> dict:
     """One line of the ``{"kernels": [...]}`` JSON from the paths' pass
     stats: ms, plain and bound are means over every timed pass."""
@@ -6538,6 +6860,11 @@ def main() -> int:
 
     # -- sharded serving phase: sampling, gradients, serving over 4 shards -
     sharded_serving = _sharded_serving_phase(qt, dev, plans, samp_grad)
+    _release()
+
+    # -- explicit scheduler phase: deferred layouts, counted collectives ---
+    explicit = _explicit_scheduler_phase(qt, dev, plans)
+    _release()
 
     f32_paths = {"statevec_26q_depth8": main, "gate_surface_26q": surface}
     f32_paths.update({f"density_14q_{t}": density[(torch.float32, t)] for t in ("r3", "r4")})
@@ -6676,6 +7003,7 @@ def main() -> int:
     _checkpoint_entries(entries, ckpt)
     _sharded_density_entries(entries, sharded_density)
     _sharded_serving_entries(entries, sharded_serving)
+    _explicit_scheduler_entries(entries, explicit)
     print("# kernels: " + json.dumps({e["name"]: {
         "launches": e["launches"], "graph_kernels": e.get("graph_kernels", 0),
         "traced_runs": e.get("traced_runs", 0),
@@ -6688,7 +7016,8 @@ def main() -> int:
           f"{traj_pool['phase_s']:.1f} s, checkpoint and segments phase "
           f"{ckpt['phase_s']:.1f} s, sharded density phase "
           f"{sharded_density['phase_s']:.1f} s, sharded serving phase "
-          f"{sharded_serving['phase_s']:.1f} s)")
+          f"{sharded_serving['phase_s']:.1f} s, explicit scheduler phase "
+          f"{explicit['phase_s']:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

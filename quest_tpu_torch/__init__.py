@@ -28,6 +28,10 @@ loads registers in the JAX package's on-disk format (``saveQureg``,
 ``loadQureg``, ``verify_snapshot``, ``writeStateToCSV``);
 ``Circuit.run_segmented`` and :func:`resume_segmented` run a tape in
 checkpointed segments that a preempted run resumes bit for bit.
+``explicit_mesh(env.devices)`` routes a sharded register through the
+explicit distributed scheduler (deferred layouts, batched relocations,
+collective reconciliation, counted in chunk units), and ``plan_circuit``
+plans a Circuit under it on meta tensors (``parallel``).
 
 This package imports ``torch`` and never ``jax`` or ``quest_tpu``.
 """
@@ -57,6 +61,8 @@ from .environment import (QuESTEnv, createQuESTEnv, destroyQuESTEnv,
                           syncQuESTSuccess)
 from .gates import *  # noqa: F401,F403
 from .gates import __all__ as _gates_all
+from . import parallel
+from .parallel import explicit_mesh, plan_circuit
 from .operators import *  # noqa: F401,F403
 from .operators import __all__ as _operators_all
 from .registers import (Qureg, copyStateFromGPU, copyStateToGPU, copySubstateFromGPU,
@@ -87,4 +93,5 @@ __all__ = [
     "run_ensemble", "ensemble_density", "sampling", "gradients", "sampleQureg", "sample_request",
     "applyMidMeasurement", "applyMidCollapse", "gradient_executable", "parameter_shift",
     "invalidQuESTInputError", "invalid_quest_input_error", "set_input_error_handler",
+    "parallel", "explicit_mesh", "plan_circuit",
 ]

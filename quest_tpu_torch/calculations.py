@@ -23,7 +23,7 @@ from . import matrices, validation as V
 from ._capture import to_device
 from .datatypes import PauliHamil
 from .ops import apply as K, cplx, diagonal as D, measure as M, reduce as R
-from .parallel.scheduler import engine as _engine
+from .parallel.scheduler import engine
 from .registers import Qureg
 from .state_init import _in_layout, _pieces, _whole
 
@@ -208,7 +208,7 @@ def calcExpecPauliProd(qureg: Qureg, targets, paulis, workspace: Qureg) -> float
     V.validate_matching_qureg_types(qureg, workspace, func)
     V.validate_matching_qureg_dims(qureg, workspace, func)
     work = _in_layout(qureg, _pieces(workspace), qureg.dtype)
-    eng = _engine(workspace) if workspace.shards is not None else None
+    eng = engine(workspace, scheduled=False) if workspace.shards is not None else None
     work = _pauli_prod(work, targets, paulis, nsv=qureg.num_qubits_in_state_vec, eng=eng)
     if workspace.shards is not None:
         workspace.put_shards(work)
@@ -252,7 +252,8 @@ def expec_pauli_sum_amps(amps, coeffs, *, codes, n: int, density: bool) -> torch
     if isinstance(amps, (list, tuple)):
         from .parallel.scheduler import DistributedScheduler
         return _expec_pauli_sum(list(amps), coeffs, codes=codes, n=n, density=density,
-                                eng=DistributedScheduler())
+                                eng=DistributedScheduler(tuple(a.device for a in amps),
+                                                         allow_defer=False))
     return _expec_pauli_sum([amps], coeffs, codes=codes, n=n, density=density)
 
 
@@ -268,7 +269,7 @@ def calcExpecPauliSum(qureg: Qureg, all_pauli_codes, term_coeffs, workspace: Qur
     V.validate_pauli_codes(codes.ravel(), func)
     V.validate_matching_qureg_types(qureg, workspace, func)
     V.validate_matching_qureg_dims(qureg, workspace, func)
-    eng = _engine(qureg) if qureg.shards is not None else None
+    eng = engine(qureg, scheduled=False) if qureg.shards is not None else None
     total = _expec_pauli_sum(_pieces(qureg), term_coeffs,
                              codes=[tuple(int(c) for c in row) for row in codes],
                              n=qureg.num_qubits_represented,

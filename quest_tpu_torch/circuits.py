@@ -101,6 +101,97 @@ def _capture_safe(f) -> bool:
     return False
 
 
+#: modules whose tape entries route every state access through the
+#: explicit scheduler's coordinate map: safe to run under a deferred layout
+_DEFER_SAFE_MODULES = ("quest_tpu_torch.gates", "quest_tpu_torch.decoherence",
+                       "quest_tpu_torch.operators")
+
+#: entries of those modules that read or write the state in raw flat order
+#: (a whole 2^N diagonal, a wholesale overwrite): they still reconcile
+_DEFER_BARRIER_NAMES = {"applyDiagonalOp", "setQuregToPauliHamil"}
+
+
+def _defer_safe(f) -> bool:
+    """True if tape entry ``f`` may run while the scheduler's deferred
+    layout is not the identity: gate, channel and operator entries map
+    their coordinates through the scheduler (phase functions, projectors
+    and sub-diagonal ops through ``map_diagonal_qubits``), as do fused
+    dense and diagonal blocks. Everything else (inits, whole-state
+    diagonals, fused runs, frame swaps, measurement and trajectory sites)
+    assumes the identity layout, and the replay reconciles before it."""
+    from . import fusion
+
+    if getattr(f, "__module__", None) in _DEFER_SAFE_MODULES:
+        return getattr(f, "__name__", "") not in _DEFER_BARRIER_NAMES
+    return f is fusion._apply_dense_block
+
+
+def _tape_accesses(tape, num_qubits, is_density, dtype):
+    """Per-entry logical-qubit access sets for the deferred scheduler's
+    Belady eviction (None at a barrier), and the aligned per-entry subsets
+    used in a relocation-forcing role, which the relocation batcher
+    prefetches: ``(accesses, dense)``, as the JAX package's. Non-diagonal
+    matrix targets, X targets and channel rows and columns relocate;
+    controls, parity members, diagonal targets and uncontrolled SWAPs
+    (virtual) never do. Fused blocks expose their qubits; other entries
+    are captured against a spy register; a density entry's row events
+    gain their shadow's column coordinates."""
+    from . import fusion
+
+    def event_dense(ev):
+        if ev.kind == "x":
+            return set(ev.targets)
+        if ev.kind == "swap":
+            return set(ev.targets) if ev.controls else set()
+        if ev.kind == "channel":
+            return set(ev.targets)
+        if ev.kind == "matrix":
+            m = np.asarray(ev.matrix)
+            if np.any(m - np.diag(np.diag(m)) != 0):
+                return set(ev.targets)
+            return set()
+        return set()  # diag / parity / aux: comm-free under any layout
+
+    def shadowed(qs):
+        return qs | {q + num_qubits for q in qs} if is_density else qs
+
+    out, dense_out = [], []
+    for f, args, kwargs in tape:
+        if not _defer_safe(f):
+            out.append(None)
+            dense_out.append(None)
+            continue
+        if f is fusion._apply_dense_block:
+            qs = shadowed(set(args[0].qubits))
+            out.append(frozenset(qs))
+            dense_out.append(frozenset(qs))
+            continue
+        if getattr(f, "__name__", "") == "_apply_gate_diag":
+            # a DiagBlock entry: (diag, qubits)
+            out.append(frozenset(shadowed(set(args[1]))))
+            dense_out.append(frozenset())
+            continue
+        events = fusion.capture(f, args, kwargs, num_qubits, dtype,
+                                is_density=is_density, aux=True)
+        if events is None:
+            out.append(None)
+            dense_out.append(None)
+            continue
+        qs, ds = set(), set()
+        for ev in events:
+            sup, d = set(ev.support), event_dense(ev)
+            if is_density and (not ev.extended or ev.kind == "channel"):
+                # a channel event carries row targets; its columns are
+                # accessed too
+                sup |= {q + num_qubits for q in sup}
+                d |= {q + num_qubits for q in d}
+            qs |= sup
+            ds |= d
+        out.append(frozenset(qs))
+        dense_out.append(frozenset(ds))
+    return out, dense_out
+
+
 def _resolve(name):
     for mod_name in _TAPEABLE_MODULES:
         mod = importlib.import_module(f".{mod_name}", __package__)
@@ -190,34 +281,87 @@ class Circuit:
         place)."""
         return self._replay_fn(None)
 
-    def _replay_body(self, lifted, lo: int = 0, hi: int | None = None):
+    def _replay_body(self, lifted, lo: int = 0, hi: int | None = None, *,
+                     segment: int | None = None, pin: bool = False):
         """``body(shell, values=None)`` applying ``tape[lo:hi]`` to a shell
         register; with a lifted tape (``engine.params.LiftedTape``) the
         body substitutes the bound values into the slotted entries first,
         so gate matrices assemble on the device from them. Slicing
         composes with plain replay only (lifted entries index the whole
-        tape)."""
+        tape).
+
+        On a sharded register under an explicit scheduler over its mesh
+        (``parallel.scheduler``) the replay is one deferred span, as the
+        JAX package's replay: ``begin_defer`` (journaled as ("segment",
+        ``segment``) when given), the tape's lookahead, a reconciliation
+        before every entry that is not defer-safe (:func:`_defer_safe`),
+        ``end_defer`` at the end and ``abort_defer`` on an exception.
+        ``pin`` runs the body under the scheduler mode live when it was
+        made (``scheduler.pinned``): a compiled executable's, whose cache
+        key holds that mode."""
+        from .parallel import scheduler as _dist
+
         if lifted is not None and (lo != 0 or hi is not None):
             raise ValueError("sliced replay requires lifted=None")
         tape = tuple(self._tape[lo:hi])
         entries = tuple(lifted.entries) if lifted is not None else None
+        n, is_density = self.num_qubits, self.is_density_matrix
+        lookahead_cell = []  # the access sets, made at the first deferred run
+        mode_key = _dist.mode() if pin else None
 
-        def body(shell, values=None):
+        def replay(shell, values):
             if entries is None:
                 steps = tape
             else:
                 from .engine.params import materialize_entry
                 steps = [materialize_entry(e, values) for e in entries]
-            for f, args, kwargs in steps:
-                f(shell, *args, **kwargs)
+            sched = _dist.active()
+            if sched is not None and (shell.shards is None
+                                      or not sched.covers(shell.shards)):
+                sched = None
+            if sched is None:
+                for f, args, kwargs in steps:
+                    f(shell, *args, **kwargs)
+                return
+            nsv = shell.num_qubits_in_state_vec
+            started = sched.begin_defer(segment=segment)
+            try:
+                if started:
+                    if not lookahead_cell:
+                        lookahead_cell.append(_tape_accesses(tape, n, is_density,
+                                                             shell.dtype))
+                    sched.set_lookahead(*lookahead_cell[0])
+                for i, (f, args, kwargs) in enumerate(steps):
+                    if sched.deferring:
+                        sched.advance(i)
+                        if not _defer_safe(f):
+                            shell.put_shards(sched.reconcile(shell.shards, nsv))
+                    f(shell, *args, **kwargs)
+                if started:
+                    shell.put_shards(sched.end_defer(shell.shards, nsv))
+                    sched.set_lookahead(None)
+            except BaseException:
+                if started:
+                    # the state is being discarded; a stale layout must not
+                    # reach the next replay
+                    sched.abort_defer()
+                raise
+
+        def body(shell, values=None):
+            if not pin:
+                return replay(shell, values)
+            with _dist.pinned(mode_key):
+                return replay(shell, values)
 
         return body
 
     def _replay_fn(self, lifted, lo: int = 0, hi: int | None = None):
         """The eager replay as ``fn(amps, values=None) -> amps`` (a state
         tensor or a sharded state's list of shards), the JAX package's
-        replay body; ``as_fn`` is ``_replay_fn(None)``."""
-        body = self._replay_body(lifted, lo, hi)
+        replay body; ``as_fn`` is ``_replay_fn(None)``. A sliced replay
+        labels its deferred span with ``lo``, as the JAX package's."""
+        sliced = lo != 0 or hi is not None
+        body = self._replay_body(lifted, lo, hi, segment=lo if sliced else None)
         n, is_density = self.num_qubits, self.is_density_matrix
 
         def fn(amps, values=None):
@@ -232,11 +376,13 @@ class Circuit:
         return fn
 
     def _replay(self, lo: int, hi: int, *, eager_only: bool = False,
-                route: str | None = None):
-        """``tape[lo:hi]`` as one piece of a compiled program."""
+                route: str | None = None, segment: int | None = None):
+        """``tape[lo:hi]`` as one piece of a compiled program, pinned to the
+        scheduler mode live now (see :meth:`_replay_body`)."""
         from ._capture import Replay
-        return Replay(self._replay_body(None, lo, hi), self.num_qubits,
-                      self.is_density_matrix, eager_only=eager_only, route=route)
+        return Replay(self._replay_body(None, lo, hi, segment=segment, pin=True),
+                      self.num_qubits, self.is_density_matrix, eager_only=eager_only,
+                      route=route)
 
     def compiled(self, donate: bool = True):
         """The tape as one compiled executable ``fn(amps) -> amps``
@@ -247,11 +393,16 @@ class Circuit:
         of shard tensors. A host-bound entry (``_capture_safe``) splits the
         program, and runs eagerly between its pieces as the item route.
         Cached in the process-global bounded LRU
-        (``engine.cache.executables()``), keyed on the tape revision."""
+        (``engine.cache.executables()``), keyed on the tape revision and
+        the active explicit scheduler's mode, which the executable runs
+        under wherever it is called (``parallel.scheduler.pinned``); its
+        decisions and stats are made at the eager run and at a capture,
+        never at a graph replay."""
         from . import segments
         from ._capture import Executable, Program
         from .engine import cache as _ec
-        key = ("circuit", self._exec_token(), donate)
+        from .parallel import scheduler as _dist
+        key = ("circuit", self._exec_token(), donate, _dist.mode())
 
         def build():
             return Executable(Program([(None, segments._pieces(self, 0, len(self._tape)))]),
@@ -316,9 +467,10 @@ class Circuit:
         if bad:
             raise QuESTError(f"parameterized replays the tape as one program, and "
                              f"{bad} cannot be captured into it", "parameterized")
+        from .parallel import scheduler as _dist
         lifted = self.lifted()
         fp = self.fingerprint()
-        key = ("param", fp, donate, reduce)
+        key = ("param", fp, donate, reduce, _dist.mode())
 
         def build():
             return _ParamFn(self, lifted, donate, reduce)
@@ -343,7 +495,9 @@ class Circuit:
 
     def fused(self, max_qubits: int = 5, dtype=None, pallas: bool = False,
               tile_bits: int | None = None,
-              shard_devices: int | None = None) -> "Circuit":
+              shard_devices: int | None = None,
+              comm_pipeline: int | None = None,
+              comm_pipeline_dcn: int | None = None) -> "Circuit":
         """A new Circuit whose tape is the fusion plan of this one.
 
         ``pallas=True`` plans fused gate runs (one pass of the fused-run
@@ -359,7 +513,12 @@ class Circuit:
         devices (a power of 2): the tile is chosen for the shard's size, so
         every run executes per shard, and the frames are planned twice,
         plainly and aligned to the shard boundary, keeping the plan with
-        fewer collective transposes (``fusion.plan_pallas_sharded``)."""
+        fewer collective transposes (``fusion.plan_pallas_sharded``).
+
+        ``comm_pipeline`` / ``comm_pipeline_dcn`` are stamped on every run
+        and frame swap: the depths their frame transposes run at under the
+        explicit scheduler (``parallel.exchange``), outranking the
+        scheduler's and the env's."""
         from . import fusion
         from .ops.fused_gates import LANE_BITS, hopper_tile_bits
         from .precision import as_torch_dtype, real_dtype
@@ -386,6 +545,12 @@ class Circuit:
             p = fusion.plan(tuple(self._tape), self.num_qubits, dt,
                             max_qubits=max_qubits, pallas_tile_bits=tb,
                             is_density=self.is_density_matrix)
+        for item in p.items:
+            if isinstance(item, (fusion.PallasRun, fusion.FrameSwap)):
+                if comm_pipeline is not None:
+                    item.comm_pipeline = int(comm_pipeline)
+                if comm_pipeline_dcn is not None:
+                    item.comm_pipeline_dcn = int(comm_pipeline_dcn)
         # stamp each frame-carrying item with its frame-identity segment
         # (the seams of the segment programs), as the JAX package does
         from . import segments as _segments
@@ -413,7 +578,8 @@ class Circuit:
         from . import segments
         from ._capture import Executable, Program
         from .engine import cache as _ec
-        key = ("circuit_blocks", self._exec_token(), max_gates, donate)
+        from .parallel import scheduler as _dist
+        key = ("circuit_blocks", self._exec_token(), max_gates, donate, _dist.mode())
 
         def build():
             groups = [("block", segments._pieces(b, 0, len(b)))
@@ -487,7 +653,7 @@ class _ParamFn:
         self._lock = threading.RLock()
         self._values = None
         self._reduce = reduce
-        self._body = circuit._replay_body(lifted)
+        self._body = circuit._replay_body(lifted, pin=True)
         piece = Replay(self._run, circuit.num_qubits, circuit.is_density_matrix,
                        on_build=lambda: telemetry.inc("engine_trace_total",
                                                       kind="param_replay"))

@@ -3,9 +3,10 @@
 A copy of ``quest_tpu/fusion.py``'s planner, for state-vector and
 density tapes, so that at the same tile geometry the two packages emit the
 same plan item for item. Each tape entry is replayed once against a spy
-register with the gate primitives patched to record (kind, operands,
-qubits) instead of touching any state; entries that don't route through
-them act as fusion barriers and run unchanged.
+register with the gate primitives diverted, in the planning thread only
+(:mod:`._spy`), to record (kind, operands, qubits) instead of touching any
+state; entries that don't route through them act as fusion barriers and
+run unchanged.
 
 Density tapes plan over the flattened 2n-qubit state: every captured row
 op gains its conj-shadow twin on q + n (``_shadow_pop``), decoherence
@@ -34,9 +35,11 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 from torch._C._functorch import is_batchedtensor
 
 from . import precision, telemetry
+from ._spy import recording
 
 
 # ---------------------------------------------------------------------------
@@ -77,14 +80,19 @@ class _SpyAmps:
 
 
 class _SpyQureg:
-    """Minimal stand-in satisfying validation + the patched primitives."""
+    """Minimal stand-in satisfying validation + the diverted primitives."""
 
-    def __init__(self, num_qubits: int, dtype, is_density: bool = False):
+    def __init__(self, num_qubits: int, dtype, is_density: bool = False,
+                 aux: bool = False):
         self.num_qubits_represented = int(num_qubits)
         self.is_density_matrix = bool(is_density)
         self.amps = _SpyAmps(dtype)
         self.qasm_log = None
         self.env = None
+        if aux:
+            # the operators build their host constants here before the
+            # diverted appliers record them
+            self.device = torch.device("cpu")
         #: an unsharded register: swapGate and the operators read this
         #: before they choose their route
         self.shards = None
@@ -113,8 +121,8 @@ class _SpyQureg:
 
 @contextlib.contextmanager
 def _channel_capture_ctx(events: list):
-    """Patch the density-channel appliers in :mod:`.ops.density` to record
-    events: Kraus channels (``apply_channel``, row targets) and dephasing
+    """Divert the density-channel appliers of :mod:`.ops.density` to record
+    events, in this thread (:mod:`._spy`): Kraus channels (``apply_channel``, row targets) and dephasing
     diagonals (``_diag_dispatch``, flattened 2n coordinates)."""
     from .ops import density as DN
 
@@ -130,18 +138,14 @@ def _channel_capture_ctx(events: list):
                                 extended=True))
         return amps
 
-    saved = (DN.apply_channel, DN._diag_dispatch)
-    DN.apply_channel = cap_channel
-    DN._diag_dispatch = cap_dens_diag
-    try:
+    with recording({DN.apply_channel: cap_channel, DN._diag_dispatch: cap_dens_diag}):
         yield
-    finally:
-        DN.apply_channel, DN._diag_dispatch = saved
 
 
 @contextlib.contextmanager
 def _capture_ctx(events: list):
-    """Patch the gate primitives in :mod:`.gates` to record events."""
+    """Divert the gate primitives of :mod:`.gates` to record events, in
+    this thread (:mod:`._spy`)."""
     from . import gates as G
     from .ops import apply as K
 
@@ -166,18 +170,10 @@ def _capture_ctx(events: list):
         events.append(GateEvent("swap", (qb1, qb2), tuple(controls)))
         return amps
 
-    saved = (G._apply_gate_matrix, G._apply_gate_diag, G._apply_gate_x,
-             G._apply_gate_parity_phase, K.apply_swap)
-    G._apply_gate_matrix = cap_matrix
-    G._apply_gate_diag = cap_diag
-    G._apply_gate_x = cap_x
-    G._apply_gate_parity_phase = cap_parity
-    K.apply_swap = cap_swap
-    try:
+    with recording({G._apply_gate_matrix: cap_matrix, G._apply_gate_diag: cap_diag,
+                    G._apply_gate_x: cap_x, G._apply_gate_parity_phase: cap_parity,
+                    K.apply_swap: cap_swap}):
         yield
-    finally:
-        (G._apply_gate_matrix, G._apply_gate_diag, G._apply_gate_x,
-         G._apply_gate_parity_phase, K.apply_swap) = saved
 
 
 def _entry_has_params(args, kwargs) -> bool:
@@ -193,7 +189,7 @@ def _entry_has_params(args, kwargs) -> bool:
 
 
 def capture(fn, args, kwargs, num_qubits: int, dtype,
-            is_density: bool = False) -> Optional[list]:
+            is_density: bool = False, aux: bool = False) -> Optional[list]:
     """Replay one tape entry against a spy register; return its GateEvents,
     or None if the entry doesn't route through the capturable primitives
     (it then acts as a fusion barrier and runs unchanged).
@@ -202,13 +198,22 @@ def capture(fn, args, kwargs, num_qubits: int, dtype,
     row op only (shadows are derived in planning). On a density tape an
     entry that fails it (a decoherence channel, whose validation demands a
     density register) gets a second attempt against a density spy with the
-    channel appliers patched."""
+    channel appliers diverted.
+
+    ``aux=True`` also diverts the operator-level appliers
+    (:func:`_aux_capture_ctx`), so phase-function, projector, sub-diagonal
+    and matrixN entries yield access-only 'aux' events: the explicit
+    scheduler's lookahead (``circuits._tape_accesses``), never the
+    fuser's. Any active explicit scheduler is suspended meanwhile."""
+    from .parallel import scheduler as _dist
+
     if getattr(fn, "_fusion_barrier", False):
         return None  # a mid-circuit measurement or collapse: never fused
+    aux_ctx = _aux_capture_ctx if aux else _null_ctx
     events: list = []
-    shell = _SpyQureg(num_qubits, dtype)
+    shell = _SpyQureg(num_qubits, dtype, aux=aux)
     try:
-        with _capture_ctx(events):
+        with _dist.explicit_mesh(None), _capture_ctx(events), aux_ctx(events):
             fn(shell, *args, **kwargs)
         return events if events else None
     except Exception:  # any entry the spy cannot replay is a barrier
@@ -216,13 +221,51 @@ def capture(fn, args, kwargs, num_qubits: int, dtype,
     if not is_density:
         return None
     events = []
-    shell = _SpyQureg(num_qubits, dtype, is_density=True)
+    shell = _SpyQureg(num_qubits, dtype, is_density=True, aux=aux)
     try:
-        with _capture_ctx(events), _channel_capture_ctx(events):
+        with _dist.explicit_mesh(None), _capture_ctx(events), \
+                _channel_capture_ctx(events), aux_ctx(events):
             fn(shell, *args, **kwargs)
     except Exception:
         return None
     return events if events else None
+
+
+@contextlib.contextmanager
+def _null_ctx(events):
+    yield
+
+
+@contextlib.contextmanager
+def _aux_capture_ctx(events: list):
+    """Divert the operator-level appliers (phase functions, diagonals,
+    projections, raw matrix applications) to record access-only 'aux'
+    events (support coordinates, no operator data), in this thread."""
+    from .ops import apply as KA
+    from .ops import diagonal as DG
+    from .ops import measure as MS
+    from .ops import phasefunc as PFK
+
+    def cap_phase(amps, *a, **kw):
+        events.append(GateEvent("aux", tuple(kw["qubits"])))
+        return amps
+
+    def cap_diag(amps, d, *, targets, **kw):
+        events.append(GateEvent("aux", tuple(targets)))
+        return amps
+
+    def cap_project(amps, *, target, **kw):
+        events.append(GateEvent("aux", (target,)))
+        return amps
+
+    def cap_matrix(amps, m, *, targets, controls=(), **kw):
+        events.append(GateEvent("aux", tuple(targets), tuple(controls)))
+        return amps
+
+    with recording({PFK.apply_poly_phase: cap_phase, PFK.apply_named_phase: cap_phase,
+                    DG.apply_diagonal: cap_diag, MS.project_statevec: cap_project,
+                    KA.apply_matrix: cap_matrix}):
+        yield
 
 
 def event_dagger(ev: GateEvent) -> GateEvent:
@@ -389,6 +432,11 @@ class PallasRun:
     #: the index of the frame-identity segment the run belongs to, stamped
     #: by ``segments.stamp_plan`` (None on an unstamped plan)
     seg: int | None = None
+    #: the comm-pipeline depths of the run's frame transposes under the
+    #: explicit scheduler (``Circuit.fused(comm_pipeline=,
+    #: comm_pipeline_dcn=)``; None: the scheduler's and the env's)
+    comm_pipeline: int | None = None
+    comm_pipeline_dcn: int | None = None
     #: the folded, encoded form of ``ops`` (ops.fused_gates.PreparedRun),
     #: built at first execution and reused by every replay
     prepared: object = field(default=None, repr=False, compare=False)
@@ -410,6 +458,9 @@ class FrameSwap:
     hi: int | None = None
     #: the frame-identity segment index (``segments.stamp_plan``)
     seg: int | None = None
+    #: as PallasRun's
+    comm_pipeline: int | None = None
+    comm_pipeline_dcn: int | None = None
 
 
 def _window(qubits) -> tuple:
@@ -1096,9 +1147,23 @@ def _apply_pallas_sharded(qureg, run: PallasRun) -> None:
     transpose before or after (:func:`_frame_permute`). A run the shards
     cannot execute (:func:`_sharded_run_plan`) replays its ops through the
     per-gate engine over shards, the reason counted in
-    ``engine_fallback_total``."""
-    from .ops.fused_gates import fused_run
+    ``engine_fallback_total``.
 
+    Under the explicit scheduler (the JAX package's
+    ``_sched_df_pallas_run``) every frame transpose of the run is counted
+    by it (``count_frame_permute``, priced by ``plane_unit_scale``: f64 at
+    2x, f32 at 1x) and one reaching a sharded qubit runs as its grouped
+    permute (:func:`_sched_frame_permute`). An f32 register's runs take
+    the same per-shard kernel, where the JAX package replays them through
+    its per-gate engine (``engine_fallback_total{reason=
+    explicit_scheduler}``): the port's f32 plan stats differ from the
+    JAX package's there on purpose."""
+    from .ops.fused_gates import fused_run
+    from .parallel.scheduler import active, engine
+
+    sched = engine(qureg)
+    sched = sched if sched is active() else None
+    nsv = qureg.num_qubits_in_state_vec
     tb = run.tile_bits
     lk, sk = run.load_swap_k, run.store_swap_k
     lh = tb if run.load_swap_hi is None else run.load_swap_hi
@@ -1112,33 +1177,65 @@ def _apply_pallas_sharded(qureg, run: PallasRun) -> None:
         if sk:
             _frame_permute(qureg, tb, sk, sh)
         return
+
+    def transpose(k: int, hi: int, folded: bool) -> None:
+        if sched is None:
+            if not folded:
+                _frame_permute(qureg, tb, k, hi)
+        elif not folded:
+            _sched_frame_permute(qureg, sched, tb, k, hi, run)
+        else:  # counted by the scheduler, run inside the kernel's pass
+            telemetry.inc("pallas_pass_total", kind="frame_swap")
+            sched.count_frame_permute(qureg.shards, n=nsv, lo1=tb - k, lo2=hi, k=k)
+
     fold_l = bool(lk) and lh + lk <= n_local
     fold_s = bool(sk) and sh + sk <= n_local
-    if lk and not fold_l:
-        _frame_permute(qureg, tb, lk, lh)
+    if lk:
+        transpose(lk, lh, fold_l)
     prep = run.prepare()
     outs = qureg.shard_spare_buffers() if fold_l or fold_s else [None] * len(qureg.shards)
     for r, (shard, out) in enumerate(zip(qureg.shards, outs)):
-        fused_run(shard, n=qureg.num_qubits_in_state_vec, local_n=n_local,
-                  shard_index=r, ops=run.ops, tile_bits=tb,
+        fused_run(shard, n=nsv, local_n=n_local, shard_index=r, ops=run.ops, tile_bits=tb,
                   load_swap_k=lk if fold_l else 0, load_swap_hi=lh,
                   store_swap_k=sk if fold_s else 0, store_swap_hi=sh,
                   out=out, prepared=prep)
     if fold_l or fold_s:
         qureg.swap_shard_spares()
-    if sk and not fold_s:
-        _frame_permute(qureg, tb, sk, sh)
+    if sk:
+        transpose(sk, sh, fold_s)
+
+
+def _sched_frame_permute(qureg, sched, tile_bits: int, k: int, hi: int,
+                         item) -> None:
+    """One frame transpose of a sharded register through the explicit
+    scheduler's counted grouped permute (into the shards' spare buffers),
+    at the plan item's pipeline depths."""
+    telemetry.inc("pallas_pass_total", kind="frame_swap")
+    spares = qureg.shard_spare_buffers()
+    new = sched.apply_frame_permute(
+        qureg.shards, n=qureg.num_qubits_in_state_vec, lo1=tile_bits - k, lo2=hi, k=k,
+        pipeline=item.comm_pipeline, pipeline_dcn=item.comm_pipeline_dcn, out=spares)
+    if new[0] is spares[0]:
+        qureg.swap_shard_spares()
+    else:
+        qureg.put_shards(new)
 
 
 def _apply_frame_swap(qureg, fs: FrameSwap) -> None:
     """Tape entry of a FrameSwap: one relabeling pass into the register's
     spare buffer, which then becomes the state, as a run with a folded
-    swap does (on a sharded register, :func:`_frame_permute`)."""
+    swap does (on a sharded register, :func:`_frame_permute`, or under the
+    explicit scheduler its counted grouped permute)."""
     from .ops.fused_gates import swap_bit_blocks
+    from .parallel.scheduler import active, engine
 
     if qureg.shards is not None:
-        _frame_permute(qureg, fs.tile_bits, fs.k,
-                       fs.tile_bits if fs.hi is None else fs.hi)
+        hi = fs.tile_bits if fs.hi is None else fs.hi
+        eng = engine(qureg)
+        if eng is active():
+            _sched_frame_permute(qureg, eng, fs.tile_bits, fs.k, hi, fs)
+        else:
+            _frame_permute(qureg, fs.tile_bits, fs.k, hi)
         return
     telemetry.inc("pallas_pass_total", kind="frame_swap")
     swap = dict(n=qureg.num_qubits_in_state_vec, lo1=fs.tile_bits - fs.k,

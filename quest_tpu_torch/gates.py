@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import matrices, validation as V
+from ._spy import spy_point
 from .datatypes import SubDiagonalOp, Vector
 from .ops import apply as K, cplx, diagonal as D, measure as M, reduce as R
 from .parallel.scheduler import engine as _engine
@@ -57,6 +58,7 @@ def _shift(qs, n):
     return tuple(q + n for q in qs)
 
 
+@spy_point
 def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
     """U on a state-vector; U . U^dagger on a density matrix via the
     conj-shadow (QuEST.c:184-193)."""
@@ -82,6 +84,7 @@ def _apply_gate_matrix(qureg: Qureg, matrix, targets, controls=(), states=()):
     qureg.put(amps)
 
 
+@spy_point
 def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls = tuple(targets), tuple(controls)
@@ -104,6 +107,7 @@ def _apply_gate_diag(qureg: Qureg, diag, targets, controls=()):
     qureg.put(amps)
 
 
+@spy_point
 def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     targets, controls, states = tuple(targets), tuple(controls), tuple(states)
@@ -125,6 +129,7 @@ def _apply_gate_x(qureg: Qureg, targets, controls=(), states=()):
     qureg.put(amps)
 
 
+@spy_point
 def _apply_gate_parity_phase(qureg: Qureg, theta, qubits, controls=()):
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     qubits, controls = tuple(qubits), tuple(controls)

@@ -199,7 +199,7 @@ def _apply_pauli_sum(in_qureg, codes, coeffs, out_qureg):
 
     n = in_qureg.num_qubits_represented
     pieces = _pieces(in_qureg)
-    eng = engine(in_qureg) if in_qureg.shards is not None else None
+    eng = engine(in_qureg, scheduled=False) if in_qureg.shards is not None else None
     out = [torch.zeros_like(p) for p in pieces]
     for t in range(codes.shape[0]):
         work = _pauli_prod(pieces, range(n), codes[t],
@@ -324,9 +324,15 @@ def applyProjector(qureg: Qureg, target: int, outcome: int) -> None:
     V.validate_outcome(outcome, func)
     n, nsv = qureg.num_qubits_represented, qureg.num_qubits_in_state_vec
     if qureg.shards is not None:
-        shards = M.project_shards(qureg.shards, n=nsv, target=target, outcome=outcome)
+        from .parallel.scheduler import engine
+        # a projection is diagonal: under a deferred layout its target maps
+        # to its physical position, never reconciling
+        eng = engine(qureg)
+        (t_row,) = eng.map_diagonal_qubits(nsv, (target,))
+        shards = M.project_shards(qureg.shards, n=nsv, target=t_row, outcome=outcome)
         if qureg.is_density_matrix:
-            shards = M.project_shards(shards, n=nsv, target=target + n, outcome=outcome)
+            (t_col,) = eng.map_diagonal_qubits(nsv, (target + n,))
+            shards = M.project_shards(shards, n=nsv, target=t_col, outcome=outcome)
         qureg.put_shards(shards)
     else:
         amps = M.project_statevec(qureg.amps, n=nsv, target=target, outcome=outcome)
@@ -347,11 +353,17 @@ def _apply_phase(qureg, apply, qubits_flat, *args, **kwargs) -> None:
     nsv = qureg.num_qubits_in_state_vec
     row = tuple(int(q) for q in qubits_flat)
     if qureg.shards is not None:
-        shards = PF.apply_phase_shards(apply, qureg.shards, *args, n=nsv, qubits=row,
+        from .parallel.scheduler import engine
+        # index algebra: under a deferred layout the qubits map to their
+        # physical positions, never reconciling
+        eng = engine(qureg)
+        shards = PF.apply_phase_shards(apply, qureg.shards, *args, n=nsv,
+                                       qubits=eng.map_diagonal_qubits(nsv, row),
                                        conj=False, **kwargs)
         if qureg.is_density_matrix:
             shifted = tuple(q + qureg.num_qubits_represented for q in row)
-            shards = PF.apply_phase_shards(apply, shards, *args, n=nsv, qubits=shifted,
+            shards = PF.apply_phase_shards(apply, shards, *args, n=nsv,
+                                           qubits=eng.map_diagonal_qubits(nsv, shifted),
                                            conj=True, **kwargs)
         qureg.put_shards(shards)
         return

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .._spy import spy_point
 from .layout import grouped_axes, inverse_permutation
 
 # A float32 matmul on the card may run in TF32 (about three decimal digits)
@@ -60,6 +61,7 @@ def _sub(tensor, controls, states):
     return tensor[(slice(None),) + tuple(states)]
 
 
+@spy_point
 def apply_matrix(amps: torch.Tensor, matrix: torch.Tensor, *, n: int,
                  targets: tuple, controls: tuple = (),
                  control_states: tuple = (), conj: bool = False) -> torch.Tensor:
@@ -99,6 +101,7 @@ def apply_x_class(amps: torch.Tensor, *, n: int, targets: tuple,
     return _ungroup(tensor, inv)
 
 
+@spy_point
 def apply_swap(amps: torch.Tensor, *, n: int, qb1: int, qb2: int,
                controls: tuple = ()) -> torch.Tensor:
     """SWAP as an axis transposition (statevec_swapQubitAmps,

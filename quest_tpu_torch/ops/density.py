@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from .._spy import spy_point
 from . import apply, cplx, diagonal
 
 
@@ -75,6 +76,7 @@ def choi_kraus(superop) -> list[tuple[float, np.ndarray]]:
     return out
 
 
+@spy_point
 def apply_channel(amps: torch.Tensor, superop, *, n: int,
                   targets: tuple[int, ...],
                   out: torch.Tensor | None = None) -> torch.Tensor:
@@ -157,6 +159,7 @@ def apply_channel_shards(shards, superop, *, n: int, targets: tuple, eng,
     Returns (the new shards, True when they are ``spares``)."""
     from ..parallel import exchange as X
     from ..parallel.mesh import local_qubit_count
+    from ..parallel.scheduler import active
     from . import fused_gates as FG
 
     nsv = 2 * n
@@ -164,6 +167,17 @@ def apply_channel_shards(shards, superop, *, n: int, targets: tuple, eng,
     targets = tuple(targets)
     cols = tuple(q + n for q in targets)
     dt, dev = shards[0].dtype, shards[0].device
+    if eng is active():
+        # the explicit scheduler's routes, as the JAX package's: the
+        # superoperator, or the Kraus sum, through its relocations
+        eng.stats["channel_superops"] += 1
+        if nsv <= _SUPEROP_MAX_QUBITS:
+            telemetry.inc("channel_route_total", route="superop")
+            so = cplx.from_complex(superop, dt, dev)
+            return eng.apply_matrix(shards, so, n=nsv, targets=targets + cols), False
+        telemetry.inc("channel_route_total", route="engine")
+        return kraus_sum_shards(eng, shards, choi_kraus(superop), nsv=nsv, rows=targets,
+                                cols=cols), False
     if nsv <= _SUPEROP_MAX_QUBITS and 2 * len(targets) <= nl:
         telemetry.inc("channel_route_total", route="superop")
         so = cplx.from_complex(superop, dt, dev)
@@ -259,6 +273,7 @@ def dephase_factors_2q(prob: float) -> np.ndarray:
     return d
 
 
+@spy_point
 def _diag_dispatch(amps: torch.Tensor, d: np.ndarray, *, n: int,
                    targets: tuple) -> torch.Tensor:
     """A dephasing diagonal ``d`` (numpy complex) on flattened-state

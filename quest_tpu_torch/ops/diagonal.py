@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._capture import to_device
+from .._spy import spy_point
 
 
 def _index(num: int, device) -> torch.Tensor:
@@ -40,6 +41,7 @@ def _apply_factor(amps, fr, fi, ok):
     return torch.stack([re, im])
 
 
+@spy_point
 def apply_diagonal(amps: torch.Tensor, diag: torch.Tensor, *, n: int,
                    targets: tuple, controls: tuple = (),
                    conj: bool = False) -> torch.Tensor:

@@ -879,7 +879,8 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     ``out`` (a different buffer).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version. ``prepared`` is the run's cached fold and op table."""
+    plain version; a meta tensor (the planner's) returns unchanged.
+    ``prepared`` is the run's cached fold and op table."""
     lh = tile_bits if load_swap_hi is None else load_swap_hi
     sh = tile_bits if store_swap_hi is None else store_swap_hi
     local_n = n if local_n is None else local_n
@@ -894,6 +895,10 @@ def fused_run(amps: torch.Tensor, *, n: int, ops: tuple, tile_bits: int,
     if dst is not amps and (dst.shape != amps.shape or dst.dtype != amps.dtype
                             or dst.device != amps.device):
         raise ValueError("out must match the state's shape, dtype and device")
+    if amps.device.type == "meta":
+        # the planner's abstract evaluation (parallel.scheduler.plan_circuit):
+        # shapes and decisions only, nothing to launch
+        return dst
     if ((load_swap_k or store_swap_k or pair_swap)
             and dst.data_ptr() == amps.data_ptr()):
         raise ValueError("a folded frame swap runs out of place: pass out=")

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from .._spy import spy_point
 from ..parallel.mesh import local_qubit_count
 from .layout import grouped_axes
 from . import reduce as _reduce
@@ -247,6 +248,7 @@ def density_collapse_shards(shards, prob: float, *, n: int, target: int,
     return [s * scale for s in out]
 
 
+@spy_point
 def project_statevec(amps: torch.Tensor, *, n: int, target: int,
                      outcome: int) -> torch.Tensor:
     """Unnormalised projection of ``target`` on ``outcome`` (applyProjector,

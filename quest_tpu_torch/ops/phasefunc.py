@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .._capture import to_device
+from .._spy import spy_point
 from ..datatypes import phaseFunc
 
 #: sentinel divergence parameters match the reference kernel defaults
@@ -107,6 +108,7 @@ def _apply_overrides(phase, reg_inds, override_inds, override_phases):
     return phase
 
 
+@spy_point
 def apply_poly_phase(amps, coeffs, override_inds, override_phases, *,
                      n: int, reg_sizes: tuple, qubits: tuple, encoding: int,
                      exponents: tuple, num_terms_per_reg: tuple,
@@ -149,6 +151,7 @@ def apply_poly_phase(amps, coeffs, override_inds, override_phases, *,
     return _phase_to_factor(amps, phase)
 
 
+@spy_point
 def apply_named_phase(amps, params, override_inds, override_phases, *,
                       n: int, reg_sizes: tuple, qubits: tuple, encoding: int,
                       func_name: int, conj: bool, offset: int = 0) -> torch.Tensor:

@@ -66,6 +66,8 @@ def window_dot(amps: torch.Tensor, matrix: torch.Tensor, *, n: int, lo: int,
     conjugate) to the window [lo, hi] of the planar (2, 2^n) state, in
     place; returns ``amps``. Counted in ``pallas_pass_total{window_dot}``."""
     _check(amps, matrix, n, lo, hi)
+    if amps.device.type == "meta":  # the planner's abstract evaluation
+        return amps
     telemetry.inc("pallas_pass_total", kind="window_dot")
     if amps.device.type == "cpu":
         amps.copy_(window_dot_plain(amps, matrix, n=n, lo=lo, hi=hi, conj=conj))

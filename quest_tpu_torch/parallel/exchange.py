@@ -23,11 +23,30 @@ sharded controls (a shard-index predicate: a shard whose bits miss keeps
 its amplitudes, and nothing travels), as the JAX package splits them.
 Counters: ``exchange_calls_total{kind}`` with the JAX package's kinds
 (``pair_exchange``, ``x_permute``, ``grouped_permute``,
-``swap_rank_permute``, ``swap_odd_parity``). The JAX package's comm
-``pipeline`` depth is later work.
+``swap_rank_permute``, ``swap_odd_parity``).
+
+**The comm pipeline.** Every routine takes a ``pipeline`` depth: the
+explicit argument, else ``QUEST_COMM_PIPELINE`` (:func:`resolve_pipeline`),
+clamped to what the site can slice (:func:`effective_comm_pipeline`). At
+depth d > 1 a routine moves each shard in d column slices in
+:func:`_pipeline_schedule`'s order: the transfer of slice k+1 is issued
+before slice k's blend, and on a card the transfers run on a side stream,
+each awaited through an event by the blend that reads it. Every slice's
+arithmetic is the monolithic launch's on the same amplitudes, so every
+depth is bit-identical to depth 1, and the chunk-unit prices
+(:func:`permute_collective_stats`) do not depend on it. A bit permutation
+has no blend to overlap: its copies are issued slice by slice. Each launch
+sets the gauge ``comm_pipeline_depth`` and, when telemetry is on and the
+launch is eager (not inside a graph capture, not on meta tensors) and
+inside an ``explicit_mesh`` context, times itself into the histogram
+``comm_collective_ms{kind,pipeline}`` without waiting for the card
+(:func:`_launch`).
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import torch
 
@@ -38,7 +57,123 @@ from .mesh import local_qubit_count
 
 __all__ = ["dist_apply_matrix1", "dist_apply_x", "dist_apply_diag_phase",
            "dist_apply_parity_phase", "dist_apply_local_matrix", "dist_swap",
-           "dist_permute_bits", "permute_collective_stats"]
+           "dist_permute_bits", "permute_collective_stats",
+           "comm_pipeline_default", "comm_pipeline_dcn_default",
+           "resolve_pipeline", "resolve_pipeline_dcn",
+           "effective_comm_pipeline"]
+
+
+# ---------------------------------------------------------------------------
+# pipeline depth
+# ---------------------------------------------------------------------------
+
+#: the env knob of the default depth (1 = one monolithic launch); a plan's
+#: ``Circuit.fused(comm_pipeline=)`` and ``explicit_mesh(comm_pipeline=)``
+#: outrank it
+_PIPE_ENV = "QUEST_COMM_PIPELINE"
+_DEF_COMM_PIPELINE = 1
+_PIPE_ENV_WARNED: set = set()
+
+#: the per-link-class override: collectives on a DCN shard bit run at this
+#: depth; unset, they inherit the base depth
+_PIPE_DCN_ENV = "QUEST_COMM_PIPELINE_DCN"
+_PIPE_DCN_ENV_WARNED: set = set()
+
+
+def comm_pipeline_default() -> int:
+    """The env-resolved comm-pipeline depth (warn-once QT206 on a malformed
+    ``QUEST_COMM_PIPELINE``)."""
+    from ..resilience.findings import env_int
+    return env_int(_PIPE_ENV, _DEF_COMM_PIPELINE, minimum=1, code="QT206",
+                   warned=_PIPE_ENV_WARNED, noun="pipeline depth")
+
+
+def resolve_pipeline(pipeline) -> int:
+    """The explicit ``pipeline`` argument if given, else the env default."""
+    return int(pipeline) if pipeline is not None else comm_pipeline_default()
+
+
+def comm_pipeline_dcn_default():
+    """The env-resolved DCN depth, or None when ``QUEST_COMM_PIPELINE_DCN``
+    is unset (inherit the base depth); a malformed value warns once
+    (QT210)."""
+    from ..resilience.findings import env_int
+    if not os.environ.get(_PIPE_DCN_ENV, "").strip():
+        return None
+    return env_int(_PIPE_DCN_ENV, 1, minimum=1, code="QT210", warned=_PIPE_DCN_ENV_WARNED,
+                   noun="DCN pipeline depth")
+
+
+def resolve_pipeline_dcn(pipeline_dcn, pipeline=None) -> int:
+    """Depth of a DCN-riding collective: the explicit ``pipeline_dcn``, else
+    ``QUEST_COMM_PIPELINE_DCN``, else the base resolution of ``pipeline``."""
+    if pipeline_dcn is not None:
+        return int(pipeline_dcn)
+    env = comm_pipeline_dcn_default()
+    if env is not None:
+        return env
+    return resolve_pipeline(pipeline)
+
+
+def effective_comm_pipeline(depth: int, limit: int, *, site: str = "exchange") -> int:
+    """The one clamp from a requested depth to what a launch site can slice:
+    the largest power of two neither above the request nor above ``limit``
+    (the site's slice count ceiling). ``site`` only labels the caller."""
+    del site
+    depth = max(1, int(depth))
+    depth = 1 << (depth.bit_length() - 1)
+    limit = max(1, int(limit))
+    limit = 1 << (limit.bit_length() - 1)
+    return min(depth, limit)
+
+
+def _pipeline_schedule(nslices, transfer, compute, src=None):
+    """The software-pipelined transfer/compute order over ``nslices``
+    slices; returns the outputs of ``compute`` in slice order.
+    ``transfer(j)`` issues slice j's transfer; ``compute(k, landed)``
+    consumes the transfer that output slice k needs, ``src(k)`` (identity
+    unless the collective permutes the slice index). Prologue: slice 0's
+    transfer; steady state: transfer k+1 before compute k; epilogue: the
+    last compute. Every transfer is issued once and consumed once."""
+    if src is None:
+        src = lambda k: k  # noqa: E731
+    inflight = {}
+
+    def ensure(j):
+        if j not in inflight:
+            inflight[j] = transfer(j)
+
+    ensure(src(0))
+    outs = []
+    for k in range(nslices):
+        if k + 1 < nslices:
+            ensure(src(k + 1))
+        outs.append(compute(k, inflight.pop(src(k))))
+    assert not inflight
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# transfers and launch bookkeeping
+# ---------------------------------------------------------------------------
+
+_SIDE: dict = {}
+
+
+def _capturing(device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _side_stream(device):
+    """The side stream of a card for pipelined transfers; None elsewhere
+    and inside a graph capture (the slices then go in order on the
+    caller's stream)."""
+    if device.type != "cuda" or _capturing(device):
+        return None
+    s = _SIDE.get(device.index)
+    if s is None:
+        s = _SIDE[device.index] = torch.cuda.Stream(device=device)
+    return s
 
 
 def _fetch(src: torch.Tensor, device) -> torch.Tensor:
@@ -46,6 +181,71 @@ def _fetch(src: torch.Tensor, device) -> torch.Tensor:
     dst = torch.empty(src.shape, dtype=src.dtype, device=device)
     dst.copy_(src)
     return dst
+
+
+class _Landed:
+    """A transfer issued on a side stream: ``get()`` makes the caller's
+    stream wait for it and returns the copy."""
+
+    __slots__ = ("t", "ev")
+
+    def __init__(self, t, ev):
+        self.t, self.ev = t, ev
+
+    def get(self):
+        if self.ev is not None:
+            torch.cuda.current_stream(self.t.device).wait_event(self.ev)
+        return self.t
+
+
+def _issue(src: torch.Tensor, device, stream) -> _Landed:
+    """Copy ``src`` to ``device``: on ``stream`` (after the work queued on
+    both cards' current streams), or in order when ``stream`` is None."""
+    if stream is None:
+        return _Landed(_fetch(src, device), None)
+    dst = torch.empty(src.shape, dtype=src.dtype, device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    if src.device != device and src.device.type == "cuda":
+        stream.wait_stream(torch.cuda.current_stream(src.device))
+    with torch.cuda.stream(stream):
+        dst.copy_(src, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return _Landed(dst, ev)
+
+
+def _launch(kind: str, eff: int, shards, run, out=None):
+    """Run one launch ``run()``: set the ``comm_pipeline_depth`` gauge and,
+    when telemetry is on and the launch is eager and inside an
+    ``explicit_mesh`` context, time it into
+    ``comm_collective_ms{kind,pipeline}``: on a card by two CUDA events on
+    the first shard's stream, read later (``telemetry.observe_later``, so
+    the launch never waits for the card), on the CPU by the wall clock.
+    The default sharded route is not timed. Meta shards (the planner's,
+    ``scheduler.plan_circuit``) have no values to compute: the launch
+    returns them (or ``out``) as they are."""
+    from .scheduler import active
+
+    telemetry.set_gauge("comm_pipeline_depth", int(eff))
+    dev = shards[0].device
+    if dev.type == "meta":
+        return list(shards) if out is None else list(out)
+    if not telemetry.enabled() or active() is None or _capturing(dev):
+        return run()
+    labels = dict(kind=kind, pipeline=int(eff))
+    if dev.type == "cuda":
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record(torch.cuda.current_stream(dev))
+        res = run()
+        e1.record(torch.cuda.current_stream(dev))
+        telemetry.observe_later("comm_collective_ms",
+                                lambda: (e1.synchronize(), e0.elapsed_time(e1))[1],
+                                ready=e1.query, **labels)
+        return res
+    t0 = time.perf_counter()
+    res = run()
+    telemetry.observe("comm_collective_ms", (time.perf_counter() - t0) * 1e3, **labels)
+    return res
 
 
 def _rank_bit(r: int, q: int, nl: int) -> int:
@@ -57,11 +257,13 @@ def _ctrl_pred(r: int, shard_controls, shard_states, nl: int) -> bool:
     return all(_rank_bit(r, c, nl) == s for c, s in zip(shard_controls, shard_states))
 
 
-def _apply_local_ctrl_mask(own, new, local_controls, local_states):
-    """``new`` where every local control holds its state, else ``own``."""
+def _apply_local_ctrl_mask(own, new, local_controls, local_states, offset: int = 0):
+    """``new`` where every local control holds its state, else ``own``;
+    ``offset`` is the in-shard index of column 0 (a pipelined slice tests
+    its controls on the shard's index)."""
     if not local_controls:
         return new
-    j = torch.arange(own.shape[1], device=own.device)
+    j = torch.arange(offset, offset + own.shape[1], device=own.device)
     ok = torch.ones(own.shape[1], dtype=torch.bool, device=own.device)
     for c, s in zip(local_controls, local_states):
         ok &= ((j >> c) & 1) == s
@@ -80,53 +282,80 @@ def _split_controls(controls, states, nl):
 # 1-qubit dense gate (compactUnitary / unitary class)
 # ---------------------------------------------------------------------------
 
+def _columns(t: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    return t[:, k * s:(k + 1) * s]
+
+
 def dist_apply_matrix1(shards, matrix, *, n: int, target: int,
                        controls: tuple = (), control_states: tuple = (),
-                       conj: bool = False) -> list:
+                       conj: bool = False, pipeline=None) -> list:
     """U (planar (2, 2, 2)) on ``target``. A sharded target: each shard
     fetches its pair shard (shard index XOR the target's bit) and blends,
-    new(bit b) = m[b, b] own + m[b, 1-b] pair, the reference's traffic. A
-    local target: the per-shard engine, no communication."""
+    new(bit b) = m[b, b] own + m[b, 1-b] pair, the reference's traffic; at
+    depth d > 1 in d column slices, the pair's slice k+1 in flight while
+    slice k blends. A local target: the per-shard engine, no
+    communication."""
     nl = local_qubit_count(n, shards)
+    eff, kind = 1, "local_matrix"
     if target >= nl:
         telemetry.inc("exchange_calls_total", kind="pair_exchange")
+        eff = effective_comm_pipeline(resolve_pipeline(pipeline), 1 << nl,
+                                      site="pair_exchange")
+        kind = "pair_exchange"
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
-    out = []
-    for r, own in enumerate(shards):
-        if not _ctrl_pred(r, sc, ss, nl):
-            out.append(own)
-            continue
-        m = matrix.to(own.device)
-        if target < nl:
-            out.append(K.apply_matrix(own, m, n=nl, targets=(target,),
-                                      controls=tuple(lc), control_states=tuple(ls),
-                                      conj=conj))
-            continue
-        mr, mi = m[0], -m[1] if conj else m[1]
-        b = _rank_bit(r, target, nl)
-        pair = _fetch(shards[r ^ (1 << (target - nl))], own.device)
-        re = (mr[b, b] * own[0] - mi[b, b] * own[1]
-              + mr[b, 1 - b] * pair[0] - mi[b, 1 - b] * pair[1])
-        im = (mr[b, b] * own[1] + mi[b, b] * own[0]
-              + mr[b, 1 - b] * pair[1] + mi[b, 1 - b] * pair[0])
-        out.append(_apply_local_ctrl_mask(own, torch.stack([re, im]), lc, ls))
-    return out
+
+    def run():
+        out = []
+        for r, own in enumerate(shards):
+            if not _ctrl_pred(r, sc, ss, nl):
+                out.append(own)
+                continue
+            m = matrix.to(own.device)
+            if target < nl:
+                out.append(K.apply_matrix(own, m, n=nl, targets=(target,),
+                                          controls=tuple(lc), control_states=tuple(ls),
+                                          conj=conj))
+                continue
+            mr, mi = m[0], -m[1] if conj else m[1]
+            b = _rank_bit(r, target, nl)
+            pair = shards[r ^ (1 << (target - nl))]
+
+            def blend(own_s, pair_s, off):
+                re = (mr[b, b] * own_s[0] - mi[b, b] * own_s[1]
+                      + mr[b, 1 - b] * pair_s[0] - mi[b, 1 - b] * pair_s[1])
+                im = (mr[b, b] * own_s[1] + mi[b, b] * own_s[0]
+                      + mr[b, 1 - b] * pair_s[1] + mi[b, 1 - b] * pair_s[0])
+                return _apply_local_ctrl_mask(own_s, torch.stack([re, im]), lc, ls, off)
+
+            if eff == 1:
+                out.append(blend(own, _fetch(pair, own.device), 0))
+                continue
+            s, side = own.shape[1] // eff, _side_stream(own.device)
+            out.append(torch.cat(_pipeline_schedule(
+                eff, lambda j: _issue(_columns(pair, j, s), own.device, side),
+                lambda k, got: blend(_columns(own, k, s), got.get(), k * s)), dim=1))
+        return out
+
+    return _launch(kind, eff, shards, run)
 
 
 def dist_apply_local_matrix(shards, matrix, *, n: int, targets: tuple,
                             controls: tuple = (), control_states: tuple = (),
-                            conj: bool = False) -> list:
+                            conj: bool = False, pipeline=None) -> list:
     """A dense gate whose targets are all local: the per-shard engine (the
     reference's *Local fast path, QuEST_cpu_distributed.c:372-377), sharded
-    controls a shard-index predicate."""
+    controls a shard-index predicate. ``pipeline`` is accepted as at every
+    site; there is no transfer, so the launch is monolithic."""
+    del pipeline
     nl = local_qubit_count(n, shards)
     if any(t >= nl for t in targets):
         raise ValueError(f"targets {targets} are not all below the {nl} local qubits")
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
-    return [K.apply_matrix(own, matrix.to(own.device), n=nl, targets=tuple(targets),
-                           controls=tuple(lc), control_states=tuple(ls), conj=conj)
-            if _ctrl_pred(r, sc, ss, nl) else own
-            for r, own in enumerate(shards)]
+    return _launch("local_matrix", 1, shards, lambda: [
+        K.apply_matrix(own, matrix.to(own.device), n=nl, targets=tuple(targets),
+                       controls=tuple(lc), control_states=tuple(ls), conj=conj)
+        if _ctrl_pred(r, sc, ss, nl) else own
+        for r, own in enumerate(shards)])
 
 
 # ---------------------------------------------------------------------------
@@ -134,26 +363,53 @@ def dist_apply_local_matrix(shards, matrix, *, n: int, targets: tuple,
 # ---------------------------------------------------------------------------
 
 def dist_apply_x(shards, *, n: int, targets: tuple, controls: tuple = (),
-                 control_states: tuple = ()) -> list:
+                 control_states: tuple = (), pipeline=None) -> list:
     """Multi-controlled multi-target NOT: the sharded target bits are one
     whole-shard exchange (shard r takes shard r XOR their mask), the local
-    ones a flip inside the shard (reference :1109-1152)."""
+    ones a flip inside the shard (reference :1109-1152). At depth d > 1 the
+    exchange moves d column slices; a local target at or above the slice
+    width selects which slice feeds output slice k (an XOR of k), one
+    below it flips inside the slice, as the JAX package slices it."""
     nl = local_qubit_count(n, shards)
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
     local_t = tuple(t for t in targets if t < nl)
     mask = sum(1 << (t - nl) for t in targets if t >= nl)
+    eff = 1
     if mask:
         telemetry.inc("exchange_calls_total", kind="x_permute")
-    out = []
-    for r, own in enumerate(shards):
-        if not _ctrl_pred(r, sc, ss, nl):
-            out.append(own)
-            continue
-        new = _fetch(shards[r ^ mask], own.device) if mask else own
-        if local_t:
-            new = K.apply_x_class(new, n=nl, targets=local_t)
-        out.append(_apply_local_ctrl_mask(own, new, lc, ls))
-    return out
+        eff = effective_comm_pipeline(resolve_pipeline(pipeline), 1 << nl,
+                                      site="x_permute")
+
+    def run():
+        out = []
+        for r, own in enumerate(shards):
+            if not _ctrl_pred(r, sc, ss, nl):
+                out.append(own)
+                continue
+            if eff == 1:
+                new = _fetch(shards[r ^ mask], own.device) if mask else own
+                if local_t:
+                    new = K.apply_x_class(new, n=nl, targets=local_t)
+                out.append(_apply_local_ctrl_mask(own, new, lc, ls))
+                continue
+            peer, s = shards[r ^ mask], own.shape[1] // eff
+            s_bits = s.bit_length() - 1
+            lo_t = tuple(t for t in local_t if t < s_bits)
+            hi_mask = sum(1 << (t - s_bits) for t in local_t if t >= s_bits)
+            side = _side_stream(own.device)
+
+            def compute(k, got):
+                new_s = got.get()
+                if lo_t:
+                    new_s = K.apply_x_class(new_s, n=s_bits, targets=lo_t)
+                return _apply_local_ctrl_mask(_columns(own, k, s), new_s, lc, ls, k * s)
+
+            out.append(torch.cat(_pipeline_schedule(
+                eff, lambda j: _issue(_columns(peer, j, s), own.device, side), compute,
+                src=lambda k: k ^ hi_mask), dim=1))
+        return out
+
+    return _launch("x_permute" if mask else "local_x", eff, shards, run)
 
 
 # ---------------------------------------------------------------------------
@@ -190,18 +446,19 @@ def _permute_decompose(n: int, source, nl: int):
     return rho_src, sorted(Q_c), L_in, L_out, dest
 
 
-def permute_collective_stats(n: int, source, mesh) -> dict:
+def permute_collective_stats(n: int, source, mesh, unit_scale: float = 1.0) -> dict:
     """The cost model of :func:`dist_permute_bits`, as the JAX package's:
     its collectives and chunk units ((send + recv) per half shard). A
     relabel re-routes whole shards (2 units); m crossing bits move
-    (2^m - 1)/2^m of each shard each way (2 (1 - 2^-m) units)."""
+    (2^m - 1)/2^m of each shard each way (2 (1 - 2^-m) units).
+    ``unit_scale`` restates the units for a wider state (2 for f64)."""
     nl = local_qubit_count(n, mesh)
     rho_src, Q_c, _, _, _ = _permute_decompose(n, source, nl)
     m = len(Q_c)
     units = (2.0 if rho_src is not None else 0.0)
     units += 2.0 * (1.0 - 0.5 ** m) if m else 0.0
     return {"relabel_ppermute": rho_src is not None, "crossing_bits": m,
-            "chunk_units": units,
+            "chunk_units": units * unit_scale,
             "collectives": int(rho_src is not None) + int(m > 0)}
 
 
@@ -224,14 +481,41 @@ def _field(x: int, lo: int, L: int) -> int:
     return (x >> lo) & ((1 << L) - 1)
 
 
-def _permute(shards, n: int, source, out=None) -> list:
+def _slice_index(bits: list, depth_bits: int, k: int) -> tuple:
+    """Slice k of 2^depth_bits over axes of ``bits`` bits each (the top
+    axis first): the index that fixes the top ``depth_bits`` bits of the
+    axes' joint index to k's."""
+    idx, left = [], depth_bits
+    for L in bits:
+        if left <= 0:
+            idx.append(slice(None))
+        elif left >= L:
+            left -= L
+            idx.append((k >> left) & ((1 << L) - 1))
+        else:
+            w = 1 << (L - left)
+            d = k & ((1 << left) - 1)
+            idx.append(slice(d * w, (d + 1) * w))
+            left = 0
+    return tuple(idx)
+
+
+def _permute_limit(n: int, source, nl: int) -> int:
+    """How many slices a permute can be cut into: the bits that stay local
+    (2^(nl - m) for m crossing bits, the JAX package's limit)."""
+    return 1 << sum(r[2] for r in _runs(tuple(source), n, nl) if r[0] < nl and r[1] < nl)
+
+
+def _permute(shards, n: int, source, out=None, eff: int = 1) -> list:
     """new_bit[q] = old_bit[source[q]] over the shards, in one pass: the
     JAX package's relabel, grouped all-to-all and local transpose composed
     into one strided copy per (source shard, destination shard) piece. A
     destination takes a piece from each source whose sharded bits agree
     with it (2^m sources for m crossing bits), every piece a ``copy_``
-    from the source's device into the destination shard. ``out`` (new
-    tensors when None) must not alias ``shards``."""
+    from the source's device into the destination shard. At ``eff`` > 1
+    every piece is copied in ``eff`` slices of the bits that stay local,
+    slice k of every piece before slice k+1. ``out`` (new tensors when
+    None) must not alias ``shards``."""
     nl = local_qubit_count(n, shards)
     runs = _runs(tuple(source), n, nl)
     ll = [r for r in runs if r[0] < nl and r[1] < nl]
@@ -242,6 +526,7 @@ def _permute(shards, n: int, source, out=None) -> list:
     perm = [0] + [1 + ll_old.index(r) for r in ll_new]
     if out is None:
         out = [torch.empty_like(s) for s in shards]
+    pieces = []
     for rd, dst in enumerate(out):
         dview = dst.view((dst.shape[0],) + tuple(1 << r[2] for r in new_axes))
         for rs, src in enumerate(shards):
@@ -255,95 +540,146 @@ def _permute(shards, n: int, source, out=None) -> list:
                          for r in old_axes)
             didx = tuple(_field(rs, r[1] - nl, r[2]) if r[1] >= nl else slice(None)
                          for r in new_axes)
-            piece = sview[(slice(None),) + sidx].permute(perm)
-            dview[(slice(None),) + didx].copy_(piece)
+            pieces.append((dview[(slice(None),) + didx],
+                           sview[(slice(None),) + sidx].permute(perm)))
+    if eff == 1:
+        for d, p in pieces:
+            d.copy_(p)
+        return out
+    bits, depth_bits = [r[2] for r in ll_new], eff.bit_length() - 1
+    for k in range(eff):
+        idx = (slice(None),) + _slice_index(bits, depth_bits, k)
+        for d, p in pieces:
+            d[idx].copy_(p[idx])
     return out
 
 
-def dist_permute_bits(shards, *, n: int, source, out=None) -> list:
+def dist_permute_bits(shards, *, n: int, source, out=None, pipeline=None) -> list:
     """Apply an arbitrary bit permutation of the index,
     ``new_bit[q] = old_bit[source[q]]``, in one pass over the shards (see
     :func:`_permute`): the reconciliation primitive of the JAX package,
-    here also every frame transpose that reaches a sharded qubit."""
+    here also every frame transpose that reaches a sharded qubit. Planes
+    ride along, whatever their count."""
     source = tuple(source)
     if all(source[q] == q for q in range(n)):
         return list(shards)
     telemetry.inc("exchange_calls_total", kind="grouped_permute")
-    return _permute(shards, n, source, out)
+    nl = local_qubit_count(n, shards)
+    m = sum(1 for q in range(nl, n) if source[q] < nl)
+    eff = (effective_comm_pipeline(resolve_pipeline(pipeline), _permute_limit(n, source, nl),
+                                   site="grouped_permute") if m else 1)
+    return _launch("grouped_permute", eff, shards,
+                   lambda: _permute(shards, n, source, out, eff), out)
 
 
 # ---------------------------------------------------------------------------
 # diagonal and parity phases (no communication)
 # ---------------------------------------------------------------------------
 
+def _phase_slices(eff: int, own, phase) -> torch.Tensor:
+    """``phase(own_s, off)`` over ``own`` whole or in ``eff`` column slices."""
+    if eff == 1:
+        return phase(own, 0)
+    s = own.shape[1] // eff
+    return torch.cat([phase(_columns(own, k, s), k * s) for k in range(eff)], dim=1)
+
+
 def dist_apply_diag_phase(shards, diag, *, n: int, targets: tuple,
                           controls: tuple = (), control_states: tuple = (),
-                          conj: bool = False) -> list:
+                          conj: bool = False, pipeline=None) -> list:
     """diag (planar (2, 2^t)) on ``targets``, entry bit k = targets[k]'s
     bit. A sharded target's bit is a constant of the shard, so each shard
     applies the slice of the diagonal its index selects: no traffic
-    (QuEST_cpu.c:3235-3285)."""
+    (QuEST_cpu.c:3235-3285). At depth d > 1 the phase runs in d column
+    slices, a target at or above the slice width a constant of the
+    slice."""
     nl = local_qubit_count(n, shards)
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
-    local = [(k, t) for k, t in enumerate(targets) if t < nl]
-    out = []
-    for r, own in enumerate(shards):
-        if not _ctrl_pred(r, sc, ss, nl):
-            out.append(own)
-            continue
-        off = sum(_rank_bit(r, t, nl) << k for k, t in enumerate(targets) if t >= nl)
-        # the entry index, built where the diagonal lives (no host copy)
-        j = torch.arange(1 << len(local), device=diag.device)
-        sel = torch.full_like(j, off)
-        for b, (k, _) in enumerate(local):
-            sel |= ((j >> b) & 1) << k
-        sub = diag[:, sel].to(own.device)
-        new = D.apply_diagonal(own, sub, n=nl, targets=tuple(t for _, t in local),
-                               conj=conj)
-        out.append(_apply_local_ctrl_mask(own, new, lc, ls))
-    return out
+    eff = effective_comm_pipeline(resolve_pipeline(pipeline), 1 << nl, site="diag_phase")
+
+    def run():
+        out = []
+        for r, own in enumerate(shards):
+            if not _ctrl_pred(r, sc, ss, nl):
+                out.append(own)
+                continue
+
+            def phase(own_s, off, r=r):
+                w = own_s.shape[1].bit_length() - 1
+                const = sum((_rank_bit(r, t, nl) if t >= nl else (off >> t) & 1) << k
+                            for k, t in enumerate(targets) if t >= w)
+                local = [(k, t) for k, t in enumerate(targets) if t < w]
+                # the entry index, built where the diagonal lives (no host copy)
+                j = torch.arange(1 << len(local), device=diag.device)
+                sel = torch.full_like(j, const)
+                for b, (k, _) in enumerate(local):
+                    sel |= ((j >> b) & 1) << k
+                sub = diag[:, sel].to(own_s.device)
+                new = D.apply_diagonal(own_s, sub, n=w, targets=tuple(t for _, t in local),
+                                       conj=conj)
+                return _apply_local_ctrl_mask(own_s, new, lc, ls, off)
+
+            out.append(_phase_slices(eff, own, phase))
+        return out
+
+    return _launch("diag_phase", eff, shards, run)
 
 
 def dist_apply_parity_phase(shards, theta: float, *, n: int, qubits: tuple,
                             controls: tuple = (), control_states: tuple = (),
-                            conj: bool = False) -> list:
+                            conj: bool = False, pipeline=None) -> list:
     """exp(-i theta/2 Z x...x Z): no communication; the sharded qubits'
     parity is a constant of the shard, and an odd one is the same phase at
-    -theta (the reference's mask-parity kernel, QuEST_cpu.c:3235-3285)."""
+    -theta (the reference's mask-parity kernel, QuEST_cpu.c:3235-3285). At
+    depth d > 1 in d column slices, as :func:`dist_apply_diag_phase`."""
     nl = local_qubit_count(n, shards)
     lc, ls, sc, ss = _split_controls(controls, control_states, nl)
-    local_q = tuple(q for q in qubits if q < nl)
+    eff = effective_comm_pipeline(resolve_pipeline(pipeline), 1 << nl, site="parity_phase")
     if not isinstance(theta, torch.Tensor):  # a tensor is a runtime value
         theta = float(theta)
     theta = -theta if conj else theta
-    out = []
-    for r, own in enumerate(shards):
-        if not _ctrl_pred(r, sc, ss, nl):
-            out.append(own)
-            continue
-        par = sum(_rank_bit(r, q, nl) for q in qubits if q >= nl) & 1
-        new = D.apply_parity_phase(own, -theta if par else theta, n=nl,
-                                   qubits=local_q)
-        out.append(_apply_local_ctrl_mask(own, new, lc, ls))
-    return out
+
+    def run():
+        out = []
+        for r, own in enumerate(shards):
+            if not _ctrl_pred(r, sc, ss, nl):
+                out.append(own)
+                continue
+
+            def phase(own_s, off, r=r):
+                w = own_s.shape[1].bit_length() - 1
+                par = sum(_rank_bit(r, q, nl) if q >= nl else (off >> q) & 1
+                          for q in qubits if q >= w) & 1
+                new = D.apply_parity_phase(own_s, -theta if par else theta, n=w,
+                                           qubits=tuple(q for q in qubits if q < w))
+                return _apply_local_ctrl_mask(own_s, new, lc, ls, off)
+
+            out.append(_phase_slices(eff, own, phase))
+        return out
+
+    return _launch("parity_phase", eff, shards, run)
 
 
 # ---------------------------------------------------------------------------
 # qubit-amplitude swap (the relocation primitive)
 # ---------------------------------------------------------------------------
 
-def dist_swap(shards, *, n: int, qb1: int, qb2: int) -> list:
+def dist_swap(shards, *, n: int, qb1: int, qb2: int, pipeline=None) -> list:
     """SWAP(qb1, qb2) in the reference's three regimes (:1424-1459): both
     local, a swap inside each shard; both sharded, whole shards exchanged
     (``swap_rank_permute``); mixed, each shard sends the half whose local
     bit differs from its shard bit and keeps the other (``swap_odd_parity``,
-    half the traffic of a full exchange)."""
+    half the traffic of a full exchange). The sharded regimes are
+    :func:`_permute`, sliced at depth d > 1."""
     nl = local_qubit_count(n, shards)
     lo, hi = min(qb1, qb2), max(qb1, qb2)
     if hi < nl:
-        return [K.apply_swap(s, n=nl, qb1=lo, qb2=hi) for s in shards]
-    telemetry.inc("exchange_calls_total",
-                  kind="swap_rank_permute" if lo >= nl else "swap_odd_parity")
+        return _launch("swap_local", 1, shards,
+                       lambda: [K.apply_swap(s, n=nl, qb1=lo, qb2=hi) for s in shards])
+    kind = "swap_rank_permute" if lo >= nl else "swap_odd_parity"
+    telemetry.inc("exchange_calls_total", kind=kind)
     source = list(range(n))
     source[lo], source[hi] = hi, lo
-    return _permute(shards, n, source)
+    eff = effective_comm_pipeline(resolve_pipeline(pipeline),
+                                  _permute_limit(n, source, nl), site=kind)
+    return _launch(kind, eff, shards, lambda: _permute(shards, n, source, None, eff))

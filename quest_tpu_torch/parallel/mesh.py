@@ -23,3 +23,31 @@ def shard_info(n: int, mesh) -> tuple[int, int]:
     """(num_local_qubits, num_shard_qubits)."""
     nl = local_qubit_count(n, mesh)
     return nl, n - nl
+
+
+def slice_chip_bits(mesh, num_slices: int) -> int:
+    """Number of intra-slice (ICI) shard bits of a slice-major topology:
+    the shard index's low bits address chips within a slice, its top
+    log2(num_slices) bits cross slices (DCN). A slice count that does not
+    split the mesh into equal power-of-two slices raises ValueError."""
+    ns = max(int(num_slices), 1)
+    if ns & (ns - 1):
+        raise ValueError(
+            f"num_slices must be a power of two (got {ns}): slice-major "
+            f"device order splits the shard bits at a bit boundary")
+    size = 1 if mesh is None else len(mesh)
+    if ns > size or size % ns:
+        raise ValueError(
+            f"num_slices={ns} does not partition the {size}-device mesh "
+            f"into equal power-of-two slices")
+    return ((size // ns) - 1).bit_length()
+
+
+def shard_bit_link(n: int, mesh, num_slices: int, qubit: int) -> str | None:
+    """Which interconnect a comm op on sharded ``qubit`` rides: 'ici' (the
+    low shard bits, within a slice) or 'dcn' (the top log2(num_slices)
+    shard bits, across slices); None for a local qubit."""
+    nl = local_qubit_count(n, mesh)
+    if qubit < nl:
+        return None
+    return "ici" if (qubit - nl) < slice_chip_bits(mesh, num_slices) else "dcn"

@@ -11,7 +11,9 @@ the serving layer raises).
   ``QUEST_POOL_REPLICAS`` or ``QUEST_HEDGE_MS``,
   QT403 a malformed ``QUEST_SENTINEL`` entry, QT801 a malformed
   ``QUEST_SHOTS`` (``sampling.request``), QT501 a malformed
-  ``QUEST_TRAJECTORIES`` (``trajectories.ensemble``), QT305 a checkpoint
+  ``QUEST_TRAJECTORIES`` (``trajectories.ensemble``), QT206 / QT210 a
+  malformed ``QUEST_COMM_PIPELINE`` / ``QUEST_COMM_PIPELINE_DCN``
+  (``parallel.exchange``), QT305 a checkpoint
   generation that failed verification (``resilience.segmented``, which
   falls back to an older one): warnings;
 - QT304 a segmented-execution misconfiguration (``every_n_items`` or
@@ -30,7 +32,7 @@ from dataclasses import dataclass
 from .. import telemetry
 
 #: severity of each code this package emits
-SEVERITY = {"QT302": "warning", "QT303": "warning", "QT305": "warning", "QT307": "warning",
+SEVERITY = {"QT206": "warning", "QT210": "warning", "QT302": "warning", "QT303": "warning", "QT305": "warning", "QT307": "warning",
             "QT403": "warning", "QT501": "warning", "QT605": "warning", "QT801": "warning",
             "QT304": "error", "QT401": "error",
             "QT402": "error", "QT404": "error", "QT405": "error",

@@ -149,7 +149,7 @@ class _SlottedRequest:
         # which entries of the seed kind's tensor take the request's seed
         pick = np.array([s.name is not None for (kind, _), s in zip(index, lifted.slots)
                          if kind == _SEED], dtype=bool)
-        body = circuit._replay_body(lifted)
+        body = circuit._replay_body(lifted, pin=True)
 
         def whole(shell, seed, *tensors):
             vals = dict(zip(kinds, tensors))
@@ -218,7 +218,10 @@ def sample_request(circuit: Circuit, *, targets=None, shots: int | None = None,
         expec_red = expectation_reduce(n=n, codes=pauli_codes, coeffs=coeffs, density=density)
 
     from ..engine import cache as _ec
-    key = ("sample_request", circuit._exec_token(), shot_red, expec_red, donate)
+    from ..parallel import scheduler as _dist
+    # a request pins the scheduler mode it was built under
+    key = ("sample_request", circuit._exec_token(), shot_red, expec_red, donate,
+           _dist.mode())
 
     def build():
         def reduce(amps, seed):

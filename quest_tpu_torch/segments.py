@@ -216,20 +216,29 @@ def stamp_plan(plan, nsv: int) -> int:
 
 # -- segment programs --------------------------------------------------------
 
-def _pieces(circuit, lo: int, hi: int) -> list:
+def _pieces(circuit, lo: int, hi: int, segment: int | None = None) -> list:
     """``tape[lo:hi]`` as Replays: one per capturable span between
-    host-bound entries, and each host-bound entry an eager item."""
+    host-bound entries, and each host-bound entry an eager item. Under an
+    explicit scheduler each piece is a deferred span (a host-bound entry
+    is a barrier there, so the spans reconcile where the JAX package's one
+    replay would); ``segment`` labels the first one in the journal, as
+    the JAX package labels a segment program's replay."""
     from .circuits import _capture_safe
 
     tape = circuit._tape
     out, start = [], lo
+
+    def label():
+        return segment if not out else None
+
     for i in range(lo, hi + 1):
         if i < hi and _capture_safe(tape[i][0]):
             continue
         if start < i:
-            out.append(circuit._replay(start, i))
+            out.append(circuit._replay(start, i, segment=label()))
         if i < hi:
-            out.append(circuit._replay(i, i + 1, eager_only=True, route="item"))
+            out.append(circuit._replay(i, i + 1, eager_only=True, route="item",
+                                       segment=label()))
         start = i + 1
     return out
 
@@ -240,10 +249,11 @@ def slice_executable(circuit, lo: int, hi: int, donate: bool = True):
     LRU keyed on the circuit's tape revision and the slice."""
     from ._capture import Executable, Program
     from .engine import cache as _ec
-    key = ("segment", circuit._exec_token(), lo, hi, donate)
+    from .parallel import scheduler as _dist
+    key = ("segment", circuit._exec_token(), lo, hi, donate, _dist.mode())
 
     def build():
-        return Executable(Program([(None, _pieces(circuit, lo, hi))]), donate)
+        return Executable(Program([(None, _pieces(circuit, lo, hi, segment=lo))]), donate)
 
     return _ec.executables().get_or_create(key, build)
 
@@ -280,7 +290,8 @@ def chain_executable(circuit, max_items: int | None = None, donate: bool = True)
     from ._capture import Executable, Program
     from .circuits import _capture_safe
     from .engine import cache as _ec
-    key = ("segment_chain", circuit._exec_token(), max_items, donate)
+    from .parallel import scheduler as _dist
+    key = ("segment_chain", circuit._exec_token(), max_items, donate, _dist.mode())
 
     def build():
         nsv = (2 if circuit.is_density_matrix else 1) * circuit.num_qubits
@@ -288,9 +299,9 @@ def chain_executable(circuit, max_items: int | None = None, donate: bool = True)
         groups = []
         for a, b in zip(cuts, cuts[1:]):
             if b - a == 1 and not _capture_safe(circuit._tape[a][0]):
-                groups.append((None, _pieces(circuit, a, b)))
+                groups.append((None, _pieces(circuit, a, b, segment=a)))
             else:
-                groups.append(("segment", _pieces(circuit, a, b)))
+                groups.append(("segment", _pieces(circuit, a, b, segment=a)))
         exe = Executable(Program(groups), donate)
         exe.num_segments = len(groups)
         return exe
@@ -330,14 +341,15 @@ def request_executable(circuit, donate: bool = True, reduce=None):
             f"{sorted(set(bad))} cannot be captured into it; use "
             "compiled_segments, which runs such entries as items",
             "request_executable")
-    key = ("request_chain", circuit._exec_token(), donate, reduce)
+    from .parallel import scheduler as _dist
+    key = ("request_chain", circuit._exec_token(), donate, reduce, _dist.mode())
 
     def build():
         nsv = (2 if circuit.is_density_matrix else 1) * circuit.num_qubits
         bounds = identity_boundaries(circuit._tape, nsv)
         if bounds[-1] != len(circuit._tape):
             bounds.append(len(circuit._tape))
-        bodies = tuple(circuit._replay_body(None, a, b)
+        bodies = tuple(circuit._replay_body(None, a, b, segment=a, pin=True)
                        for a, b in zip(bounds, bounds[1:]))
 
         def whole(shell, *extra, _bodies=bodies, _reduce=reduce):

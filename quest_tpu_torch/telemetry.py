@@ -15,7 +15,17 @@ needs:
 - ``exchange_calls_total{kind}``: one per exchange between the shards of
   a register (``parallel.exchange``), ``kind`` = ``pair_exchange``,
   ``x_permute``, ``grouped_permute``, ``swap_rank_permute`` or
-  ``swap_odd_parity``, as the JAX package counts its collectives.
+  ``swap_odd_parity``, as the JAX package counts its collectives;
+- the explicit scheduler's series (``parallel.scheduler``):
+  ``comm_chunk_units_total{kind,link}`` (chunk units of each counted
+  collective, summing to ``comm_chunks`` of its stats),
+  ``comm_ops_total{kind=virtual_swap}``, the gauge
+  ``comm_pipeline_depth`` (the depth of the last exchange launch) and the
+  histogram ``comm_collective_ms{kind,pipeline}`` (each eager exchange
+  launch inside an ``explicit_mesh`` context, while :func:`enabled`: on a
+  card its device time between two CUDA events on the first shard's
+  stream, read when the histogram is read, :func:`observe_later`; on the
+  CPU its wall time).
 
 - ``device_dispatch_total{route}``: one per dispatch of a compiled
   route (``Circuit.compiled`` and its kin), ``route`` = ``circuit`` (one
@@ -70,11 +80,16 @@ a replay launches is read from its graph's kernel nodes.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 from collections import deque
 
 _lock = threading.Lock()
+#: whether the timed series are recorded (``QUEST_TELEMETRY=0`` turns them
+#: off); counters always count
+_enabled = os.environ.get("QUEST_TELEMETRY", "1").strip() != "0"
 _counters: dict[str, float] = {}
 _gauges: dict[str, float] = {}
 _hists: dict[str, dict] = {}
@@ -133,8 +148,45 @@ def observe(name: str, value: float, **labels) -> None:
             h["max"] = max(h["max"], v)
 
 
+#: observations whose value the device has yet to produce:
+#: (name, labels, value(), ready()) resolved when a histogram is read
+_pending: list = []
+_MAX_PENDING = 1024
+
+
+def observe_later(name: str, value, ready=None, **labels) -> None:
+    """Record an observation whose value ``value()`` can only be read once
+    the device has run (a CUDA event pair, ``ready()`` True once it has):
+    resolved when a histogram is read, which waits for the device. When
+    :data:`_MAX_PENDING` wait, those that are ready resolve and the
+    oldest that are not are dropped, so neither the launch that made it
+    nor a later one waits for the device."""
+    with _lock:
+        _pending.append((name, labels, value, ready))
+        full = len(_pending) >= _MAX_PENDING
+    if full:
+        _resolve(wait=False)
+
+
+def _resolve(wait: bool = True) -> None:
+    with _lock:
+        todo = list(_pending)
+        _pending.clear()
+    keep = []
+    for item in todo:
+        name, labels, value, ready = item
+        if wait or ready is None or ready():
+            observe(name, value(), **labels)
+        else:
+            keep.append(item)
+    del keep[:max(0, len(keep) - _MAX_PENDING // 2)]  # the oldest not ready
+    with _lock:
+        _pending[:0] = keep
+
+
 def histogram(name: str, **labels) -> dict:
     """A copy of one histogram series (empty if never observed)."""
+    _resolve()
     with _lock:
         return dict(_hists.get(_key(name, labels), {}))
 
@@ -167,6 +219,7 @@ def snapshot(prefix: str | None = None) -> dict:
     def num(v):
         return int(v) if float(v).is_integer() else v
 
+    _resolve()
     with _lock:
         return {"counters": {k: num(v) for k, v in sorted(_counters.items()) if keep(k)},
                 "gauges": {k: v for k, v in sorted(_gauges.items()) if keep(k)},
@@ -195,7 +248,25 @@ def add(moves: dict) -> None:
 
 def reset() -> None:
     with _lock:
+        _pending.clear()
         _counters.clear()
         _gauges.clear()
         _hists.clear()
         _events.clear()
+
+
+def enabled() -> bool:
+    """True when the timed series (``comm_collective_ms``) are recorded:
+    ``QUEST_TELEMETRY`` != 0 and not inside :func:`disabled`."""
+    return _enabled
+
+
+@contextlib.contextmanager
+def disabled():
+    """Turn the timed series off for the block."""
+    global _enabled
+    prev, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = prev

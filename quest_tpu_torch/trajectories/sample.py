@@ -168,16 +168,27 @@ def apply_traj_kraus(amps, kraus, *, n: int, targets, seed, site: int, scheduler
 
 
 def _apply_sharded(shards, k, m_ops, n, targets, seed, site, scheduler):
-    """The sharded step: sharded targets swap into local slots (the
-    scheduler's relocation), every shard adds its part of the reduced
+    """The sharded step: sharded targets swap into the lowest local slots
+    that are not targets, every shard adds its part of the reduced
     density on the first shard's device, one draw selects the operator,
     each shard applies it, and the swaps are undone."""
+    from .. import validation as V
     from ..parallel import exchange as X
     from ..parallel.mesh import local_qubit_count
+    from ..parallel.scheduler import active
 
     nl = local_qubit_count(n, shards)
-    shards, swaps, moved = scheduler._relocate(shards, n, nl, targets)
-    local = tuple(moved.get(t, t) for t in targets)
+    # under explicit_mesh the draw's relocation is uncounted (the JAX
+    # package reads the probabilities through GSPMD) and the operator goes
+    # through the scheduler, as there
+    explicit = scheduler is active()
+    if len(targets) > nl:
+        V.validate_matrix_fits_in_node(nl, len(targets), "applyMatrix")
+    free = [p for p in range(nl) if p not in targets]
+    swaps = list(zip([t for t in targets if t >= nl], free))
+    for s, f in swaps:
+        shards = X.dist_swap(shards, n=n, qb1=f, qb2=s)
+    local = tuple(dict(swaps).get(t, t) for t in targets)
     dev = shards[0].device
     r = im = None
     for s in shards:
@@ -187,8 +198,12 @@ def _apply_sharded(shards, k, m_ops, n, targets, seed, site, scheduler):
     p = _probabilities(r, im, m_ops.real, m_ops.imag)
     u = rng.uniform(shot_key(seed, site, dev))
     km = traj_kraus_matrix(p, u, k.real, k.imag, shards[0].dtype)
+    if explicit:
+        for s, f in reversed(swaps):
+            shards = X.dist_swap(shards, n=n, qb1=f, qb2=s)
+        return scheduler.apply_matrix(shards, km, n=n, targets=targets)
     shards = X.dist_apply_local_matrix(shards, km, n=n, targets=local)
+    scheduler.stats["relocation_swaps"] += 2 * len(swaps)
     for s, f in swaps:
-        scheduler.stats["relocation_swaps"] += 1
         shards = X.dist_swap(shards, n=n, qb1=f, qb2=s)
     return shards

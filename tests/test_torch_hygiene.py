@@ -64,7 +64,9 @@ SLICE_NAMES = {
                         "unravel", "ensemble_density", "QuESTRetryError",
                         "checkpoint", "saveQureg", "loadQureg", "verify_snapshot",
                         "writeStateToCSV", "resume_segmented", "QuESTChecksumError",
-                        "QuESTPreemptionError"),
+                        "QuESTPreemptionError", "explicit_mesh", "plan_circuit"),
+    "quest_tpu_torch.parallel": ("active", "explicit_mesh", "plan_circuit",
+                                 "DistributedScheduler"),
     "quest_tpu_torch.engine": ("EnginePool", "pool"),
     "quest_tpu_torch.resilience": ("retry", "QuESTRetryError", "RetryPolicy",
                                    "call_with_retry", "default_policy", "KernelCompileFault",
@@ -91,3 +93,35 @@ def test_trajectories_and_pool_names_exported(module):
             assert name in mod.__all__, f"{name} missing from {module}.__all__"
     if module == "quest_tpu_torch":
         assert callable(mod.Circuit.run_segmented) and callable(ref.Circuit.run_segmented)
+
+
+def test_scheduler_names_exported():
+    """The explicit scheduler's entry points, where the JAX package keeps
+    them (``comm_chunks`` lives in its ``parallel.scheduler``)."""
+    from quest_tpu.parallel import scheduler as jsched
+
+    for name in ("active", "explicit_mesh", "plan_circuit", "comm_chunks",
+                 "DistributedScheduler"):
+        assert hasattr(tq.parallel, name), f"quest_tpu_torch.parallel lacks {name}"
+        assert hasattr(jsched, name)
+    assert tq.explicit_mesh is tq.parallel.explicit_mesh
+    assert tq.plan_circuit is tq.parallel.plan_circuit
+
+
+def test_plan_circuit_on_meta_pulls_in_no_jax():
+    """The planner's meta-tensor path (and the explicit scheduler's run on
+    virtual CPU shards) imports neither JAX nor quest_tpu."""
+    code = ("import sys, json, quest_tpu_torch as tq; "
+            "c = tq.Circuit(12); tq.random_layers(c, 12, 2); "
+            "st = tq.plan_circuit(c, ('cpu',) * 4); "
+            "fz = c.fused(max_qubits=5, dtype='float64', pallas=True, shard_devices=4); "
+            "tq.plan_circuit(fz, ('cpu',) * 4, dtype='float64'); "
+            "env = tq.createQuESTEnv(devices=['cpu'] * 4); q = tq.createQureg(12, env, 2); "
+            "ctx = tq.explicit_mesh(env.devices); ctx.__enter__(); c.run(q); "
+            "assert st['local'] > 0; "
+            "print(json.dumps(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
